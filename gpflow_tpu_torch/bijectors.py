@@ -1,0 +1,118 @@
+"""Parameter transforms (counterpart of ``gpflow_tpu/bijectors.py``).
+
+A bijector maps an unconstrained tensor to its constrained value with
+``forward`` and back with ``inverse``. Bijectors are frozen dataclasses that
+hold no tensors, so a ``Parameter`` moves between devices with ``.to()``
+without touching them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+__all__ = [
+    "Bijector",
+    "Chain",
+    "Identity",
+    "Shift",
+    "Softplus",
+    "TriangularMask",
+    "positive",
+    "triangular",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class Bijector:
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def inverse(self, y: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    @property
+    def name(self) -> str:
+        return type(self).__name__.lower()
+
+
+@dataclasses.dataclass(frozen=True)
+class Identity(Bijector):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def inverse(self, y: torch.Tensor) -> torch.Tensor:
+        return y
+
+
+@dataclasses.dataclass(frozen=True)
+class Softplus(Bijector):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # log(1 + e^x) as the JAX package writes it; torch's softplus returns
+        # x itself above its threshold, which differs in the last digits
+        return torch.logaddexp(x, torch.zeros_like(x))
+
+    def inverse(self, y: torch.Tensor) -> torch.Tensor:
+        # log(e^y - 1) = y + log(-expm1(-y)), stable for large and small y
+        return y + torch.log(-torch.expm1(-y))
+
+
+@dataclasses.dataclass(frozen=True)
+class Shift(Bijector):
+    shift: float = 0.0
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x + self.shift
+
+    def inverse(self, y: torch.Tensor) -> torch.Tensor:
+        return y - self.shift
+
+
+@dataclasses.dataclass(frozen=True)
+class Chain(Bijector):
+    """Applies ``bijectors`` right to left: forward = b[0](b[1](...(x)))."""
+
+    bijectors: Tuple[Bijector, ...]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for b in reversed(self.bijectors):
+            x = b.forward(x)
+        return x
+
+    def inverse(self, y: torch.Tensor) -> torch.Tensor:
+        for b in self.bijectors:
+            y = b.inverse(y)
+        return y
+
+
+@dataclasses.dataclass(frozen=True)
+class TriangularMask(Bijector):
+    """Square matrix <-> its lower triangle (``gpflow_tpu/bijectors.py:288-315``).
+
+    The unconstrained value is the full [..., n, n] matrix and ``forward`` is
+    one ``tril``. The upper triangle gets zero gradient, so it stays at its
+    initial zeros under plain gradient steps (not under weight decay).
+    """
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.tril(x)
+
+    def inverse(self, y: torch.Tensor) -> torch.Tensor:
+        return torch.tril(y)
+
+
+def positive(lower: Optional[float] = None) -> Bijector:
+    """``shift(lower) o softplus``; ``lower`` defaults to
+    ``config.default_positive_minimum()``."""
+    from .config import default_positive_minimum
+
+    shift = lower if lower is not None else default_positive_minimum()
+    if shift != 0.0:
+        return Chain((Shift(float(shift)), Softplus()))
+    return Softplus()
+
+
+def triangular() -> TriangularMask:
+    """The transform of full-covariance ``q_sqrt`` parameters."""
+    return TriangularMask()

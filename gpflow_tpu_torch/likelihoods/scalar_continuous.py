@@ -1,0 +1,48 @@
+"""Continuous scalar likelihoods (counterpart of
+``gpflow_tpu/likelihoods/scalar_continuous.py``; ``Gaussian`` with a
+constant ``variance`` only so far)."""
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import torch
+
+from ..base import MeanAndVariance
+from ..config import default_likelihood_positive_minimum
+from ..utilities.parameter_or_function import (
+    evaluate_parameter_or_function,
+    prepare_parameter_or_function,
+)
+from .base import ScalarLikelihood
+
+__all__ = ["Gaussian"]
+
+
+class Gaussian(ScalarLikelihood):
+    """Gaussian noise with a constant variance, bounded below by
+    ``variance_lower_bound`` (default
+    ``config.default_likelihood_positive_minimum()``, 1e-6)."""
+
+    def __init__(
+        self,
+        variance: Any = None,
+        *,
+        variance_lower_bound: Optional[float] = None,
+    ) -> None:
+        super().__init__()
+        self.variance_lower_bound = (
+            default_likelihood_positive_minimum() if variance_lower_bound is None else variance_lower_bound
+        )
+        self.variance = prepare_parameter_or_function(
+            1.0 if variance is None else variance,
+            lower_bound=self.variance_lower_bound,
+            name="variance",
+        )
+
+    def _variance(self, X: torch.Tensor) -> torch.Tensor:
+        return evaluate_parameter_or_function(self.variance, X)
+
+    def _predict_mean_and_var(
+        self, X: torch.Tensor, Fmu: torch.Tensor, Fvar: torch.Tensor
+    ) -> MeanAndVariance:
+        return Fmu, Fvar + self._variance(X)

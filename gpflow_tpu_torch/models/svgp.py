@@ -1,0 +1,96 @@
+"""Sparse variational GP (counterpart of ``gpflow_tpu/models/svgp.py``;
+construction and prediction so far, the ELBO comes with the training slice).
+"""
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from .. import posteriors
+from ..base import MeanAndVariance, Parameter
+from ..bijectors import positive, triangular
+from ..config import default_float
+from ..functions import MeanFunction
+from ..kernels import Kernel
+from ..likelihoods import Likelihood
+from .model import GPModel
+from .util import inducingpoint_wrapper
+
+__all__ = ["SVGP"]
+
+
+class SVGP(GPModel):
+    """Sparse Variational Gaussian Process (Hensman et al. 2014).
+
+    q(u) = N(q_mu, q_sqrt q_sqrt^T), with q_mu [M, L] and q_sqrt [M, L]
+    (``q_diag``) or lower triangular [L, M, M]."""
+
+    def __init__(
+        self,
+        kernel: Kernel,
+        likelihood: Likelihood,
+        inducing_variable: Any,
+        *,
+        mean_function: Optional[MeanFunction] = None,
+        num_latent_gps: int = 1,
+        q_diag: bool = False,
+        q_mu: Any = None,
+        q_sqrt: Any = None,
+        whiten: bool = True,
+        num_data: Optional[int] = None,
+    ) -> None:
+        super().__init__(kernel, likelihood, mean_function, num_latent_gps)
+        self.num_data = num_data
+        self.whiten = whiten
+        self.inducing_variable = inducingpoint_wrapper(inducing_variable)
+        self._init_variational_parameters(self.inducing_variable.num_inducing, q_mu, q_sqrt, q_diag)
+
+    def _init_variational_parameters(self, num_inducing: int, q_mu: Any, q_sqrt: Any, q_diag: bool) -> None:
+        dtype = default_float()
+        q_mu = np.zeros((num_inducing, self.num_latent_gps)) if q_mu is None else q_mu
+        self.q_mu = Parameter(q_mu, dtype=dtype, name="q_mu")  # [M, L]
+
+        if q_sqrt is None:
+            if q_diag:
+                ones = torch.ones((num_inducing, self.num_latent_gps), dtype=dtype)
+                self.q_sqrt = Parameter(ones, transform=positive(), name="q_sqrt")  # [M, L]
+            else:
+                eye = torch.eye(num_inducing, dtype=dtype).expand(self.num_latent_gps, -1, -1)
+                self.q_sqrt = Parameter(eye, transform=triangular(), name="q_sqrt")  # [L, M, M]
+        else:
+            ndim = len(np.shape(q_sqrt))
+            if q_diag:
+                if ndim != 2:
+                    raise ValueError(f"q_diag needs q_sqrt of shape [M, L], got {np.shape(q_sqrt)}")
+                self.num_latent_gps = np.shape(q_sqrt)[1]
+                self.q_sqrt = Parameter(q_sqrt, transform=positive(), name="q_sqrt")
+            else:
+                if ndim != 3:
+                    raise ValueError(f"full q_sqrt needs shape [L, M, M], got {np.shape(q_sqrt)}")
+                self.num_latent_gps = np.shape(q_sqrt)[0]
+                self.q_sqrt = Parameter(q_sqrt, transform=triangular(), name="q_sqrt")
+
+    def posterior(
+        self,
+        precompute_cache: posteriors.PrecomputeCacheType = posteriors.PrecomputeCacheType.TENSOR,
+    ) -> posteriors.BasePosterior:
+        """The posterior, with its (alpha, Qinv) cache computed unless NOCACHE."""
+        return posteriors.create_posterior(
+            self.kernel,
+            self.inducing_variable,
+            self.q_mu,
+            self.q_sqrt,
+            whiten=self.whiten,
+            mean_function=self.mean_function,
+            precompute_cache=precompute_cache,
+        )
+
+    def predict_f(
+        self, Xnew: torch.Tensor, full_cov: bool = False, full_output_cov: bool = False
+    ) -> MeanAndVariance:
+        """The fused route: Kuu, its Cholesky and Kuf on every call."""
+        return self.posterior(posteriors.PrecomputeCacheType.NOCACHE).fused_predict_f(
+            Xnew, full_cov=full_cov, full_output_cov=full_output_cov
+        )

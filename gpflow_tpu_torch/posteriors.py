@@ -1,0 +1,335 @@
+"""Posteriors with a precomputed prediction cache (counterpart of
+``gpflow_tpu/posteriors.py``; the single-output base case so far).
+
+``BasePosterior`` caches (alpha, Qinv), after which a prediction is matmuls
+only: mean = Kuf^T alpha, var = Kff - Kuf^T Qinv Kuf. The cache stores an
+explicit inverse, so its float32 variance carries an error of about
+cond(Kuu)^2 * eps; the fused route (``fused_predict_f``, Cholesky per call)
+carries about cond(Kuu) * eps.
+
+Predictions on CUDA build Kuu and Kuf with kernel K1, which has no backward
+yet: run them under ``torch.no_grad()``.
+"""
+from __future__ import annotations
+
+import enum
+from abc import ABC, abstractmethod
+from typing import Any, Optional, Tuple, Type, Union
+
+import torch
+
+from . import kernels
+from .base import MeanAndVariance, Module, Parameter
+from .conditionals.util import base_conditional, expand_independent_outputs
+from .config import default_jitter
+from .covariances import Kuf, Kuu
+from .functions import MeanFunction
+from .inducing_variables import InducingPoints, InducingVariables
+from .utilities.multipledispatch import Dispatcher
+
+__all__ = [
+    "AbstractPosterior",
+    "BasePosterior",
+    "FallbackIndependentLatentPosterior",
+    "FullyCorrelatedPosterior",
+    "GPRPosterior",
+    "IndependentPosterior",
+    "IndependentPosteriorMultiOutput",
+    "IndependentPosteriorSingleOutput",
+    "LinearCoregionalizationPosterior",
+    "PrecomputeCacheType",
+    "SGPRPosterior",
+    "VGPPosterior",
+    "create_posterior",
+    "get_posterior_class",
+]
+
+
+def _value(x: Any) -> Optional[torch.Tensor]:
+    return x.value if isinstance(x, Parameter) else x
+
+
+class PrecomputeCacheType(enum.Enum):
+    """TENSOR precomputes the cache into tensors; NOCACHE skips it."""
+
+    TENSOR = "tensor"
+    NOCACHE = "nocache"
+
+
+def _validate_precompute_cache_type(value: Union[None, PrecomputeCacheType, str]) -> PrecomputeCacheType:
+    if value is None:
+        return PrecomputeCacheType.NOCACHE
+    if isinstance(value, PrecomputeCacheType):
+        return value
+    if isinstance(value, str):
+        return PrecomputeCacheType(value.lower())
+    raise ValueError(
+        f"{value} is not a valid PrecomputeCacheType. Valid options: 'tensor', 'nocache' (or None)."
+    )
+
+
+class AbstractPosterior(Module, ABC):
+    """Fused (no cache) and cached prediction."""
+
+    def __init__(
+        self,
+        kernel: kernels.Kernel,
+        X_data: InducingVariables,
+        cache: Optional[Tuple[torch.Tensor, ...]] = None,
+        mean_function: Optional[MeanFunction] = None,
+    ) -> None:
+        super().__init__()
+        self.kernel = kernel
+        self.X_data = X_data
+        self.cache = cache
+        self.mean_function = mean_function
+        self._precompute_cache: Optional[PrecomputeCacheType] = None
+
+    def _add_mean_function(self, Xnew: torch.Tensor, mean: torch.Tensor) -> torch.Tensor:
+        if self.mean_function is None:
+            return mean
+        return mean + self.mean_function(Xnew)
+
+    @abstractmethod
+    def _precompute(self) -> Tuple[torch.Tensor, ...]:
+        """Computes the cache that _conditional_with_precompute consumes."""
+
+    def fused_predict_f(
+        self, Xnew: torch.Tensor, full_cov: bool = False, full_output_cov: bool = False
+    ) -> MeanAndVariance:
+        """Mean and covariance at Xnew, mean function included, without the cache."""
+        mean, cov = self._conditional_fused(Xnew, full_cov=full_cov, full_output_cov=full_output_cov)
+        return self._add_mean_function(Xnew, mean), cov
+
+    @abstractmethod
+    def _conditional_fused(
+        self, Xnew: torch.Tensor, full_cov: bool = False, full_output_cov: bool = False
+    ) -> MeanAndVariance:
+        """Mean and covariance at Xnew, without mean function or cache."""
+
+    def predict_f(
+        self, Xnew: torch.Tensor, full_cov: bool = False, full_output_cov: bool = False
+    ) -> MeanAndVariance:
+        """Mean and covariance at Xnew, mean function included, from the cache."""
+        if self.cache is None:
+            raise ValueError(
+                "Cache has not been precomputed yet. Call update_cache first or use fused_predict_f"
+            )
+        mean, cov = self._conditional_with_precompute(
+            self.cache, Xnew, full_cov=full_cov, full_output_cov=full_output_cov
+        )
+        return self._add_mean_function(Xnew, mean), cov
+
+    @abstractmethod
+    def _conditional_with_precompute(
+        self,
+        cache: Tuple[torch.Tensor, ...],
+        Xnew: torch.Tensor,
+        full_cov: bool = False,
+        full_output_cov: bool = False,
+    ) -> MeanAndVariance:
+        """Mean and covariance at Xnew, without mean function, from the cache."""
+
+    def predict_mean(self, Xnew: torch.Tensor) -> torch.Tensor:
+        """Predictive mean only; the fused route where there is no cache."""
+        if self.cache is None:
+            mean, _ = self.fused_predict_f(Xnew)
+        else:
+            mean, _ = self.predict_f(Xnew)
+        return mean
+
+    def update_cache(self, precompute_cache: Optional[PrecomputeCacheType] = None) -> None:
+        """(Re)computes or clears the cache."""
+        if precompute_cache is None:
+            if self._precompute_cache is None:
+                raise ValueError(
+                    "You must pass precompute_cache explicitly (the cache had not been updated before)."
+                )
+            precompute_cache = self._precompute_cache
+        else:
+            precompute_cache = _validate_precompute_cache_type(precompute_cache)
+            self._precompute_cache = precompute_cache
+
+        if precompute_cache is PrecomputeCacheType.NOCACHE:
+            self.cache = None
+        else:
+            self.cache = self._precompute()
+
+
+class BasePosterior(AbstractPosterior):
+    """q(u) posterior with the (alpha, Qinv) cache."""
+
+    def __init__(
+        self,
+        kernel: kernels.Kernel,
+        inducing_variable: InducingVariables,
+        q_mu: Any,
+        q_sqrt: Any,
+        whiten: bool = True,
+        mean_function: Optional[MeanFunction] = None,
+        *,
+        precompute_cache: Optional[PrecomputeCacheType],
+    ) -> None:
+        super().__init__(kernel, inducing_variable, mean_function=mean_function)
+        self.whiten = whiten
+        self._q_mu = q_mu  # [M, L]
+        self._q_sqrt = q_sqrt  # None, [M, L] (diagonal) or [L, M, M] (lower triangular)
+        if precompute_cache is not None:
+            self.update_cache(precompute_cache)
+
+    @property
+    def q_mu(self) -> torch.Tensor:
+        return _value(self._q_mu)
+
+    @property
+    def q_sqrt(self) -> Optional[torch.Tensor]:
+        return _value(self._q_sqrt)
+
+    def _precompute(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Whitened: alpha = L^-T q_mu, Qinv = L^-T (I - S~) L^-1 with
+        S~ = q_sqrt q_sqrt^T; unwhitened: alpha = Kuu^-1 q_mu and
+        S~ = L^-1 S L^-T. Returns alpha [M, L] and Qinv [L, M, M]."""
+        Kuu_val = Kuu(self.X_data, self.kernel, jitter=default_jitter())  # [M, M]
+        q_mu = self.q_mu
+        L = torch.linalg.cholesky(Kuu_val)
+
+        if self.whiten:
+            alpha = torch.linalg.solve_triangular(L.mT, q_mu, upper=True)
+        else:
+            alpha = torch.linalg.solve_triangular(
+                L.mT, torch.linalg.solve_triangular(L, q_mu, upper=False), upper=True
+            )
+
+        I = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
+        q_sqrt = self.q_sqrt
+        if q_sqrt is None:
+            B = I
+        else:
+            if q_sqrt.ndim == 2:  # diagonal [M, L] -> [L, M, M]
+                q_sqrt_full = torch.diag_embed(q_sqrt.mT)
+            else:
+                q_sqrt_full = q_sqrt
+            if self.whiten:
+                Linv_cov_u_LinvT = torch.matmul(q_sqrt_full, q_sqrt_full.mT)
+            else:
+                Linv_qsqrt = torch.linalg.solve_triangular(L, q_sqrt_full, upper=False)
+                Linv_cov_u_LinvT = torch.matmul(Linv_qsqrt, Linv_qsqrt.mT)
+            B = I - Linv_cov_u_LinvT
+
+        LinvT_B = torch.linalg.solve_triangular(L.mT, B, upper=True)
+        Qinv = torch.linalg.solve_triangular(L.mT, LinvT_B.mT, upper=True)
+
+        num_latent = self.q_mu.shape[-1]
+        Qinv = Qinv.expand((num_latent,) + Qinv.shape[-2:])
+        return alpha, Qinv
+
+
+class IndependentPosterior(BasePosterior):
+    def _post_process_mean_and_cov(
+        self, mean: torch.Tensor, cov: torch.Tensor, full_cov: bool, full_output_cov: bool
+    ) -> MeanAndVariance:
+        return mean, expand_independent_outputs(cov, full_cov, full_output_cov)
+
+    def _conditional_with_precompute(
+        self,
+        cache: Tuple[torch.Tensor, ...],
+        Xnew: torch.Tensor,
+        full_cov: bool = False,
+        full_output_cov: bool = False,
+    ) -> MeanAndVariance:
+        alpha, Qinv = cache  # alpha: [M, L]; Qinv: [L, M, M]
+        Kuf_val = Kuf(self.X_data, self.kernel, Xnew)  # [M, N]
+        Kff = self.kernel(Xnew, full_cov=full_cov)
+
+        mean = torch.matmul(Kuf_val.mT, alpha)  # [N, L]
+        if full_cov:
+            cov = Kff - torch.matmul(Kuf_val.mT, torch.matmul(Qinv, Kuf_val))  # [L, N, N]
+        else:
+            cov = Kff - torch.sum(Kuf_val * torch.matmul(Qinv, Kuf_val), dim=-2)  # [L, N]
+            cov = cov.mT  # [N, L]
+        return self._post_process_mean_and_cov(mean, cov, full_cov, full_output_cov)
+
+    def predict_mean(self, Xnew: torch.Tensor) -> torch.Tensor:
+        """mean = Kuf^T alpha from the cache, skipping the O(M^2 N) Qinv term."""
+        if self.cache is None:
+            return super().predict_mean(Xnew)
+        alpha, _ = self.cache
+        Kuf_val = Kuf(self.X_data, self.kernel, Xnew)  # [M, N]
+        return self._add_mean_function(Xnew, torch.matmul(Kuf_val.mT, alpha))
+
+
+class IndependentPosteriorSingleOutput(IndependentPosterior):
+    def _conditional_fused(
+        self, Xnew: torch.Tensor, full_cov: bool = False, full_output_cov: bool = False
+    ) -> MeanAndVariance:
+        Knn = self.kernel(Xnew, full_cov=full_cov)
+        Kmm = Kuu(self.X_data, self.kernel, jitter=default_jitter())  # [M, M]
+        Kmn = Kuf(self.X_data, self.kernel, Xnew)  # [M, N]
+        fmean, fvar = base_conditional(
+            Kmn, Kmm, Knn, self.q_mu, full_cov=full_cov, q_sqrt=self.q_sqrt, white=self.whiten
+        )
+        return self._post_process_mean_and_cov(fmean, fvar, full_cov, full_output_cov)
+
+
+class _NotPortedPosterior(AbstractPosterior):
+    def __new__(cls, *args: Any, **kwargs: Any) -> "_NotPortedPosterior":
+        raise NotImplementedError(
+            f"{cls.__name__} is not ported to gpflow_tpu_torch yet; see ROADMAP.md"
+        )
+
+
+class GPRPosterior(_NotPortedPosterior):
+    pass
+
+
+class SGPRPosterior(_NotPortedPosterior):
+    pass
+
+
+class VGPPosterior(_NotPortedPosterior):
+    pass
+
+
+class IndependentPosteriorMultiOutput(_NotPortedPosterior):
+    pass
+
+
+class LinearCoregionalizationPosterior(_NotPortedPosterior):
+    pass
+
+
+class FullyCorrelatedPosterior(_NotPortedPosterior):
+    pass
+
+
+class FallbackIndependentLatentPosterior(_NotPortedPosterior):
+    pass
+
+
+get_posterior_class = Dispatcher("get_posterior_class")
+
+
+@get_posterior_class.register(kernels.Kernel, InducingPoints)
+def _get_posterior_base_case(
+    kernel: kernels.Kernel, inducing_variable: InducingVariables
+) -> Type[BasePosterior]:
+    return IndependentPosteriorSingleOutput
+
+
+def create_posterior(
+    kernel: kernels.Kernel,
+    inducing_variable: InducingVariables,
+    q_mu: Any,
+    q_sqrt: Any,
+    whiten: bool,
+    mean_function: Optional[MeanFunction] = None,
+    precompute_cache: Union[PrecomputeCacheType, str, None] = PrecomputeCacheType.TENSOR,
+) -> BasePosterior:
+    """The posterior class for (kernel, inducing variable), built and, unless
+    NOCACHE, with its cache computed."""
+    posterior_class = get_posterior_class(kernel, inducing_variable)
+    precompute_cache = _validate_precompute_cache_type(precompute_cache)
+    return posterior_class(
+        kernel, inducing_variable, q_mu, q_sqrt, whiten, mean_function,
+        precompute_cache=precompute_cache,
+    )

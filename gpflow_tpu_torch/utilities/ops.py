@@ -1,0 +1,28 @@
+"""Tensor helpers (counterpart of ``gpflow_tpu/utilities/ops.py``)."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+__all__ = ["square_distance"]
+
+
+def square_distance(X: torch.Tensor, X2: Optional[torch.Tensor]) -> torch.Tensor:
+    """Squared pairwise distance ||x - x2||^2 by the norm expansion
+    (``gpflow_tpu/utilities/ops.py:84-102``).
+
+    X: [..., N, D], X2: [..., M, D] or None -> [..., N, ..., M] (or
+    [..., N, N]). As in the JAX package, the leading dims of X and X2 cross,
+    and the result is not clamped at zero.
+    """
+    if X2 is None:
+        Xs = torch.sum(torch.square(X), dim=-1, keepdim=True)
+        dist = -2.0 * torch.matmul(X, X.mT)
+        dist += Xs + Xs.mT
+        return dist
+    Xs = torch.sum(torch.square(X), dim=-1)  # [batch..., N]
+    X2s = torch.sum(torch.square(X2), dim=-1)  # [batch2..., M]
+    dist = -2.0 * torch.tensordot(X, X2, dims=([-1], [-1]))  # [batch..., N, batch2..., M]
+    dist += Xs.reshape(Xs.shape + (1,) * X2s.ndim) + X2s
+    return dist
