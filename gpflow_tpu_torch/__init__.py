@@ -1,9 +1,12 @@
 """gpflow_tpu_torch: the PyTorch/CUDA port of gpflow_tpu.
 
 The port imports torch and numpy only. Its modules mirror ``gpflow_tpu``'s
-paths and public names; so far it covers SVGP serving with a
-SquaredExponential kernel (ROADMAP.md lists what is still to port). On a
-CUDA device, covariance matrices come from the hand-written kernel K1
+paths and public names; so far it trains an SVGP (``elbo``,
+``training_loss``, ``parallel.DataParallelTrainer``) with a
+SquaredExponential, RationalQuadratic, Exponential or Matern kernel and a
+Gaussian likelihood, and serves it (ROADMAP.md lists what is still to port).
+On a CUDA device, covariance matrices come from the hand-written kernel K1
+and the gradients of the exponential and Matern families from K2
 (``gpflow_tpu_torch.ops.pallas_distance``).
 
 Parameters live wherever the model is moved with ``.to(device)``; there is
@@ -17,9 +20,12 @@ from . import (
     functions,
     inducing_variables,
     kernels,
+    kullback_leiblers,
     likelihoods,
+    logdensities,
     models,
     ops,
+    parallel,
     posteriors,
     utilities,
 )
@@ -37,9 +43,12 @@ __all__ = [
     "functions",
     "inducing_variables",
     "kernels",
+    "kullback_leiblers",
     "likelihoods",
+    "logdensities",
     "models",
     "ops",
+    "parallel",
     "posteriors",
     "utilities",
 ]

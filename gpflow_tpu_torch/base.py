@@ -3,8 +3,9 @@
 A ``Module`` is a ``torch.nn.Module``. A ``Parameter`` is a small module that
 holds the unconstrained value as a ``torch.nn.Parameter`` together with its
 bijector, and exposes the constrained value as ``.value``. Models therefore
-move between devices and dtypes with ``.to()``, and an optimizer takes
-``model.parameters()`` as for any PyTorch module.
+move between devices and dtypes with ``.to()``. A Parameter that is not
+trainable has ``requires_grad=False``; ``Module.trainable_parameters`` lists
+the trainable ones, whose ``unconstrained`` tensors an optimizer takes.
 """
 from __future__ import annotations
 
@@ -28,6 +29,12 @@ class Module(nn.Module):
     @property
     def name(self) -> str:
         return getattr(self, "_name", None) or type(self).__name__.lower()
+
+    @property
+    def trainable_parameters(self) -> Tuple["Parameter", ...]:
+        """The trainable Parameters under this module, in registration order
+        (``gpflow_tpu/base.py:725-731``)."""
+        return tuple(m for m in self.modules() if isinstance(m, Parameter) and m.trainable)
 
 
 def _to_tensor(value: Any, dtype: Any, device: Optional[torch.device] = None) -> torch.Tensor:
@@ -60,7 +67,9 @@ class Parameter(Module):
 
     Construction and ``assign`` take constrained values, check them (shape,
     NaN/Inf, and the transform's domain through the unconstrained value) and
-    store the unconstrained tensor.
+    store the unconstrained tensor. ``trainable`` (default True, or the
+    source's when ``value`` is a Parameter) is the unconstrained tensor's
+    ``requires_grad``.
     """
 
     def __init__(
@@ -68,15 +77,26 @@ class Parameter(Module):
         value: Any,
         *,
         transform: Optional[Bijector] = None,
+        trainable: Optional[bool] = None,
         dtype: Any = None,
         name: Optional[str] = None,
     ) -> None:
         super().__init__()
+        if trainable is None:
+            trainable = value.trainable if isinstance(value, Parameter) else True
         self.transform = transform if transform is not None else Identity()
         self._name = name or "parameter"
         unconstrained = self.transform.inverse(_to_tensor(value, dtype))
         _validate_finite(unconstrained, self.name)
-        self.unconstrained = nn.Parameter(unconstrained)
+        self.unconstrained = nn.Parameter(unconstrained, requires_grad=bool(trainable))
+
+    @property
+    def trainable(self) -> bool:
+        return self.unconstrained.requires_grad
+
+    @trainable.setter
+    def trainable(self, flag: bool) -> None:
+        self.unconstrained.requires_grad_(bool(flag))
 
     @property
     def value(self) -> torch.Tensor:
@@ -95,7 +115,9 @@ class Parameter(Module):
         return self.unconstrained.device
 
     def numpy(self) -> np.ndarray:
-        return self.value.detach().cpu().numpy()
+        """A copy of the constrained value (never a view of the parameter's
+        storage, which the optimizer updates in place)."""
+        return np.array(self.value.detach().cpu())
 
     def _prepare_assign(self, value: Any) -> torch.Tensor:
         """The unconstrained tensor for a constrained ``value``, checked,
@@ -120,6 +142,6 @@ class Parameter(Module):
 
     def extra_repr(self) -> str:
         return (
-            f"name={self.name!r}, transform={self.transform.name}, shape={tuple(self.shape)}, "
-            f"dtype={self.dtype}"
+            f"name={self.name!r}, transform={self.transform.name}, trainable={self.trainable}, "
+            f"shape={tuple(self.shape)}, dtype={self.dtype}"
         )

@@ -14,7 +14,7 @@ from typing import Iterator, Optional
 import torch
 
 from ..base import MeanAndVariance
-from ..ops.linalg import chol_and_inverse, triangular_inverse
+from ..ops.linalg import chol_and_inverse, cholesky, triangular_inverse
 
 __all__ = [
     "base_conditional",
@@ -73,7 +73,7 @@ def base_conditional(
             Kmn=Kmn, Lm=Lm, Knn=Knn, f=f, full_cov=full_cov, q_sqrt=q_sqrt,
             white=white, Lm_inv=Lm_inv,
         )
-    Lm = torch.linalg.cholesky(Kmm)
+    Lm = cholesky(Kmm)
     return base_conditional_with_lm(
         Kmn=Kmn, Lm=Lm, Knn=Knn, f=f, full_cov=full_cov, q_sqrt=q_sqrt, white=white
     )

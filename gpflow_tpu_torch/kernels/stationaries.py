@@ -1,13 +1,19 @@
-"""Stationary kernels (counterpart of ``gpflow_tpu/kernels/stationaries.py``).
+"""Stationary kernels (counterpart of ``gpflow_tpu/kernels/stationaries.py``;
+the isotropic ones, ``AnisotropicStationary`` and ``Cosine`` are still to
+port).
 
-``SquaredExponential.K`` on a CUDA float32/bfloat16 input goes to kernel K1
+``K`` of SquaredExponential, RationalQuadratic, Exponential and Matern
+1/2, 3/2, 5/2 on a 2-D CUDA float32/bfloat16 input goes to kernel K1, with
+its gradient through K2 or the saved K
 (``gpflow_tpu_torch.ops.pallas_distance``); every other input takes the
 PyTorch path through ``square_distance`` and ``K_r2``. Routing is by exact
-type, so a subclass that overrides ``K_r2`` keeps its own math.
+type, so a subclass that overrides ``K_r``/``K_r2`` keeps its own math.
 """
 from __future__ import annotations
 
 from typing import Any, Optional
+
+import math
 
 import torch
 
@@ -17,7 +23,16 @@ from ..ops.pallas_distance import pallas_available, stationary_kernel_matrix
 from ..utilities.ops import square_distance
 from .base import Kernel
 
-__all__ = ["IsotropicStationary", "SquaredExponential", "Stationary"]
+__all__ = [
+    "Exponential",
+    "IsotropicStationary",
+    "Matern12",
+    "Matern32",
+    "Matern52",
+    "RationalQuadratic",
+    "SquaredExponential",
+    "Stationary",
+]
 
 
 class Stationary(Kernel):
@@ -41,19 +56,23 @@ class Stationary(Kernel):
 
 
 class IsotropicStationary(Stationary):
-    """Kernels of r = ||x - x'||; subclasses implement ``K_r2``."""
+    """Kernels of r = ||x - x'||; subclasses implement ``K_r2`` or ``K_r``
+    (r with its square root clipped at 1e-36, as the JAX package does)."""
 
     def K(self, X: torch.Tensor, X2: Optional[torch.Tensor] = None) -> torch.Tensor:
         family = _PALLAS_EXACT_TYPES.get(type(self))
         if (family is not None and pallas_available(X)
                 and X.ndim == 2 and (X2 is None or X2.ndim == 2)):
             Z = X if X2 is None else X2
+            alpha = self.alpha.value if family == "rq" else None
             return stationary_kernel_matrix(
-                X, Z, self.lengthscales.value, self.variance.value, family
+                X, Z, self.lengthscales.value, self.variance.value, family, alpha=alpha
             )
         return self.K_r2(self.scaled_squared_euclid_dist(X, X2))
 
     def K_r2(self, r2: torch.Tensor) -> torch.Tensor:
+        if hasattr(self, "K_r"):
+            return self.K_r(torch.sqrt(torch.clamp(r2, min=1e-36)))
         raise NotImplementedError
 
     def scaled_squared_euclid_dist(
@@ -69,6 +88,61 @@ class SquaredExponential(IsotropicStationary):
         return self.variance.value * torch.exp(-0.5 * r2)
 
 
-# Kernels whose K matrix K1 computes on the card, keyed by EXACT type. The
-# other families of K1 join with their kernel classes (ROADMAP.md).
-_PALLAS_EXACT_TYPES = {SquaredExponential: "rbf"}
+class RationalQuadratic(IsotropicStationary):
+    """k(r) = sigma^2 (1 + r^2 / (2 alpha))^(-alpha)."""
+
+    def __init__(
+        self,
+        variance: Any = 1.0,
+        lengthscales: Any = 1.0,
+        alpha: Any = 1.0,
+        active_dims: Any = None,
+    ) -> None:
+        super().__init__(variance=variance, lengthscales=lengthscales, active_dims=active_dims)
+        self.alpha = Parameter(alpha, transform=positive(), name="alpha")
+
+    def K_r2(self, r2: torch.Tensor) -> torch.Tensor:
+        alpha = self.alpha.value
+        return self.variance.value * (1 + 0.5 * r2 / alpha) ** (-alpha)
+
+
+class Exponential(IsotropicStationary):
+    """k(r) = sigma^2 exp(-r / 2)."""
+
+    def K_r(self, r: torch.Tensor) -> torch.Tensor:
+        return self.variance.value * torch.exp(-0.5 * r)
+
+
+class Matern12(IsotropicStationary):
+    """k(r) = sigma^2 exp(-r)."""
+
+    def K_r(self, r: torch.Tensor) -> torch.Tensor:
+        return self.variance.value * torch.exp(-r)
+
+
+class Matern32(IsotropicStationary):
+    """k(r) = sigma^2 (1 + sqrt3 r) exp(-sqrt3 r)."""
+
+    def K_r(self, r: torch.Tensor) -> torch.Tensor:
+        sqrt3 = math.sqrt(3.0)
+        return self.variance.value * (1.0 + sqrt3 * r) * torch.exp(-sqrt3 * r)
+
+
+class Matern52(IsotropicStationary):
+    """k(r) = sigma^2 (1 + sqrt5 r + 5/3 r^2) exp(-sqrt5 r)."""
+
+    def K_r(self, r: torch.Tensor) -> torch.Tensor:
+        sqrt5 = math.sqrt(5.0)
+        return self.variance.value * (1.0 + sqrt5 * r + 5.0 / 3.0 * torch.square(r)) * torch.exp(-sqrt5 * r)
+
+
+# Kernels whose K matrix K1 computes on the card, keyed by EXACT type
+# (``gpflow_tpu/kernels/stationaries.py:252-259``).
+_PALLAS_EXACT_TYPES = {
+    SquaredExponential: "rbf",
+    RationalQuadratic: "rq",
+    Exponential: "exponential",
+    Matern12: "matern12",
+    Matern32: "matern32",
+    Matern52: "matern52",
+}

@@ -3,10 +3,12 @@
 constant ``variance`` only so far)."""
 from __future__ import annotations
 
+import math
 from typing import Any, Optional
 
 import torch
 
+from .. import logdensities
 from ..base import MeanAndVariance
 from ..config import default_likelihood_positive_minimum
 from ..utilities.parameter_or_function import (
@@ -46,3 +48,23 @@ class Gaussian(ScalarLikelihood):
         self, X: torch.Tensor, Fmu: torch.Tensor, Fvar: torch.Tensor
     ) -> MeanAndVariance:
         return Fmu, Fvar + self._variance(X)
+
+    def _scalar_log_prob(self, X: torch.Tensor, F: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+        return logdensities.gaussian(Y, F, self._variance(X))
+
+    def _predict_log_density(
+        self, X: torch.Tensor, Fmu: torch.Tensor, Fvar: torch.Tensor, Y: torch.Tensor
+    ) -> torch.Tensor:
+        return torch.sum(logdensities.gaussian(Y, Fmu, Fvar + self._variance(X)), dim=-1)
+
+    def _variational_expectations(
+        self, X: torch.Tensor, Fmu: torch.Tensor, Fvar: torch.Tensor, Y: torch.Tensor
+    ) -> torch.Tensor:
+        """Closed form (``scalar_continuous.py:112-122``)."""
+        variance = self._variance(X)
+        return torch.sum(
+            -0.5 * math.log(2 * math.pi)
+            - 0.5 * torch.log(variance)
+            - 0.5 * ((Y - Fmu) ** 2 + Fvar) / variance,
+            dim=-1,
+        )

@@ -1,5 +1,6 @@
-from .model import GPModel
+from .model import BayesianModel, GPModel
 from .svgp import SVGP
+from .training_mixins import ExternalDataTrainingLossMixin
 from .util import inducingpoint_wrapper
 
-__all__ = ["GPModel", "SVGP", "inducingpoint_wrapper"]
+__all__ = ["BayesianModel", "ExternalDataTrainingLossMixin", "GPModel", "SVGP", "inducingpoint_wrapper"]

@@ -1,21 +1,43 @@
-"""Model base class (counterpart of ``gpflow_tpu/models/model.py``; the
-prediction part of ``GPModel``)."""
+"""Model base classes (counterpart of ``gpflow_tpu/models/model.py``)."""
 from __future__ import annotations
 
 import abc
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
 from ..base import MeanAndVariance, Module
+from ..config import default_float
 from ..functions import MeanFunction, Zero
 from ..kernels import Kernel
 from ..likelihoods import Likelihood
 
-__all__ = ["GPModel"]
+__all__ = ["BayesianModel", "GPModel"]
 
 
-class GPModel(Module, abc.ABC):
+class BayesianModel(Module, abc.ABC):
+    """Base of all models: prior and posterior densities and the objective
+    (``gpflow_tpu/models/model.py:22-49``)."""
+
+    def log_prior_density(self) -> torch.Tensor:
+        """Sum of the log prior densities of the trainable parameters. Priors
+        are not ported yet (ROADMAP.md), so this is a zero of the default
+        float type."""
+        return torch.zeros((), dtype=default_float())
+
+    def log_posterior_density(self, *args: Any, **kwargs: Any) -> torch.Tensor:
+        return self.maximum_log_likelihood_objective(*args, **kwargs) + self.log_prior_density()
+
+    def _training_loss(self, *args: Any, **kwargs: Any) -> torch.Tensor:
+        """-(objective + log prior density): the loss that training minimises."""
+        return -(self.maximum_log_likelihood_objective(*args, **kwargs) + self.log_prior_density())
+
+    @abc.abstractmethod
+    def maximum_log_likelihood_objective(self, *args: Any, **kwargs: Any) -> torch.Tensor:
+        raise NotImplementedError
+
+
+class GPModel(BayesianModel):
     """Base of GP models f ~ GP(m, k), y_i | f_i ~ p(y_i | f_i). Subclasses
     define ``predict_f``; ``predict_y`` pushes it through the likelihood."""
 

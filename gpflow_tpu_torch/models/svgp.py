@@ -1,5 +1,5 @@
-"""Sparse variational GP (counterpart of ``gpflow_tpu/models/svgp.py``;
-construction and prediction so far, the ELBO comes with the training slice).
+"""Sparse variational GP (counterpart of ``gpflow_tpu/models/svgp.py``):
+construction, the ELBO and its training loss, and prediction.
 """
 from __future__ import annotations
 
@@ -8,7 +8,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from .. import posteriors
+from .. import kullback_leiblers, posteriors
 from ..base import MeanAndVariance, Parameter
 from ..bijectors import positive, triangular
 from ..config import default_float
@@ -16,16 +16,18 @@ from ..functions import MeanFunction
 from ..kernels import Kernel
 from ..likelihoods import Likelihood
 from .model import GPModel
+from .training_mixins import ExternalDataTrainingLossMixin, RegressionData
 from .util import inducingpoint_wrapper
 
 __all__ = ["SVGP"]
 
 
-class SVGP(GPModel):
+class SVGP(GPModel, ExternalDataTrainingLossMixin):
     """Sparse Variational Gaussian Process (Hensman et al. 2014).
 
     q(u) = N(q_mu, q_sqrt q_sqrt^T), with q_mu [M, L] and q_sqrt [M, L]
-    (``q_diag``) or lower triangular [L, M, M]."""
+    (``q_diag``) or lower triangular [L, M, M]. ``num_data`` is the size N of
+    the whole data set, which scales a minibatch's ELBO."""
 
     def __init__(
         self,
@@ -71,6 +73,26 @@ class SVGP(GPModel):
                     raise ValueError(f"full q_sqrt needs shape [L, M, M], got {np.shape(q_sqrt)}")
                 self.num_latent_gps = np.shape(q_sqrt)[0]
                 self.q_sqrt = Parameter(q_sqrt, transform=triangular(), name="q_sqrt")
+
+    def prior_kl(self) -> torch.Tensor:
+        return kullback_leiblers.prior_kl(
+            self.inducing_variable, self.kernel, self.q_mu.value, self.q_sqrt.value,
+            whiten=self.whiten,
+        )
+
+    def maximum_log_likelihood_objective(self, data: RegressionData) -> torch.Tensor:
+        return self.elbo(data)
+
+    def elbo(self, data: RegressionData) -> torch.Tensor:
+        """ELBO = num_data / B * sum(variational expectations) - KL on a batch
+        (X [B, D], Y [B, P]), through the fused ``predict_f``
+        (``gpflow_tpu/models/svgp.py:98-122``)."""
+        X, Y = data
+        kl = self.prior_kl()
+        f_mean, f_var = self.predict_f(X, full_cov=False, full_output_cov=False)
+        var_exp = self.likelihood.variational_expectations(X, f_mean, f_var, Y)
+        scale = 1.0 if self.num_data is None else self.num_data / X.shape[0]
+        return torch.sum(var_exp) * scale - kl
 
     def posterior(
         self,

@@ -1,20 +1,23 @@
 """Hand-written kernels and factorization helpers."""
-from .linalg import chol_and_inverse, sym_jitter, triangular_inverse
+from .linalg import chol_and_inverse, cholesky, sym_jitter, triangular_inverse
 from .pallas_distance import (
     PALLAS_FAMILIES,
     launch_counts,
     pallas_available,
     stationary_forward,
     stationary_kernel_matrix,
+    stationary_wgrad,
 )
 
 __all__ = [
     "PALLAS_FAMILIES",
     "chol_and_inverse",
+    "cholesky",
     "launch_counts",
     "pallas_available",
     "stationary_forward",
     "stationary_kernel_matrix",
+    "stationary_wgrad",
     "sym_jitter",
     "triangular_inverse",
 ]

@@ -4,8 +4,9 @@ Each kernel library is compiled with ``nvcc`` from the sources under
 ``gpflow_tpu_torch/csrc/`` into a shared library with a plain C interface and
 loaded with ``ctypes``. The build runs on first use, never at import, into
 ``gpflow_tpu_torch/_build/`` (listed in ``.gitignore``), and is keyed on a
-hash of the sources and the compiler flags: a checkout builds its own
-libraries and reuses them until a source changes.
+hash of the sources, the shared headers (``csrc/*.cuh``) and the compiler
+flags: a checkout builds its own libraries and reuses them until a source
+changes. Libraries may be built from several threads at once.
 """
 from __future__ import annotations
 
@@ -60,7 +61,7 @@ def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
         return lib
     paths = [CSRC_DIR / s for s in sources]
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in paths:
+    for p in paths + sorted(CSRC_DIR.glob("*.cuh")):
         digest.update(p.name.encode())
         digest.update(p.read_bytes())
     target = BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"

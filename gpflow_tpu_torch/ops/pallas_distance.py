@@ -1,29 +1,29 @@
-"""Fused stationary covariance matrices: kernel K1, its plain version, and the
-routing rule (counterpart of ``gpflow_tpu/ops/pallas_distance.py``; the
-module and its public names keep the JAX package's, where K1 is a Pallas
-kernel).
+"""Fused stationary covariance matrices and their gradients: kernels K1 and
+K2, their plain versions, the autograd Functions and the routing rule
+(counterpart of ``gpflow_tpu/ops/pallas_distance.py``; the module and its
+public names keep the JAX package's, where K1 and K2 are Pallas kernels).
 
 ``K[i, j] = variance * h(||xs_i - zs_j||^2)`` for inputs already divided by
-the lengthscales, h one of ``PALLAS_FAMILIES``:
+the lengthscales, h one of ``PALLAS_FAMILIES``. The backward expresses every
+gradient as matmuls against the VJP weight ``W = g * variance * h'(d2)``:
 
-* on a CUDA tensor in float32 or bfloat16, K1 computes it: a CUDA C++
-  kernel for Hopper (``gpflow_tpu_torch/csrc/stationary_k1.cu``), built with
-  nvcc on first use and loaded with ctypes;
-* on a CPU tensor, the plain PyTorch version ``stationary_forward_plain``
-  computes the same function.
+* on a CUDA tensor in float32 or bfloat16, K1 computes K and, for the
+  exponential and Matern families, K2 computes W: CUDA C++ kernels for
+  Hopper (``gpflow_tpu_torch/csrc/stationary_k1.cu``, ``stationary_k2.cu``),
+  built with nvcc on first use and loaded with ctypes;
+* on a CPU tensor, the plain PyTorch versions ``stationary_forward_plain``
+  and ``stationary_wgrad_plain`` compute the same functions;
+* rbf and rq take W from the saved K, with no kernel, on both devices.
 
-float64 never reaches K1 (``pallas_available``), as in the JAX package: the
-kernel computes in float32. A CUDA request that K1 cannot take raises; there
-is no fallback to the plain version on the card.
-
-K1 is forward-only for now: a CUDA request that needs a gradient raises
-NotImplementedError.
+float64 never reaches K1 or K2 (``pallas_available``), as in the JAX
+package: the kernels compute in float32. A CUDA request that a kernel cannot
+take raises; there is no fallback to the plain version on the card.
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -32,27 +32,34 @@ from .cuda_build import load_library
 
 __all__ = [
     "PALLAS_FAMILIES",
+    "WGRAD_FAMILIES",
     "k1_library",
+    "k2_library",
     "launch_counts",
     "pallas_available",
     "stationary_forward",
     "stationary_forward_cuda",
     "stationary_forward_plain",
     "stationary_kernel_matrix",
+    "stationary_wgrad",
+    "stationary_wgrad_cuda",
+    "stationary_wgrad_plain",
 ]
 
 PALLAS_FAMILIES = ("rbf", "exponential", "matern12", "matern32", "matern52", "rq")
-_FAMILY_CODES = {f: i for i, f in enumerate(PALLAS_FAMILIES)}  # as in stationary_k1.cu
+#: Families whose backward needs K2 (``pallas_distance.py:264-271``).
+WGRAD_FAMILIES = ("exponential", "matern12", "matern32", "matern52")
+_FAMILY_CODES = {f: i for i, f in enumerate(PALLAS_FAMILIES)}  # as in stationary_tile.cuh
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-_TILE_N, _TILE_M = 64, 128  # output tile of one K1 block (stationary_k1.cu)
+_TILE_N, _TILE_M = 64, 128  # output tile of one K1 or K2 block (stationary_tile.cuh)
 
 #: Launches of each hand-written kernel in this process; a wrapper adds one
 #: where it launches its kernel and nowhere else.
-launch_counts: Dict[str, int] = {"K1": 0}
+launch_counts: Dict[str, int] = {"K1": 0, "K2": 0}
 
 
 def pallas_available(X: torch.Tensor) -> bool:
-    """True where K1 serves ``X``: a CUDA tensor in float32 or bfloat16
+    """True where K1 and K2 serve ``X``: a CUDA tensor in float32 or bfloat16
     (``gpflow_tpu/ops/pallas_distance.py:57-75``, without its override)."""
     return X.is_cuda and X.dtype in _KERNEL_DTYPES
 
@@ -77,6 +84,39 @@ def _tail_value(family: str, d2: torch.Tensor, alpha: Optional[torch.Tensor] = N
     raise ValueError(f"Unknown stationary family: {family}")
 
 
+def _tail_grad(family: str, d2: torch.Tensor, alpha: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """dh/d(d2), analytic per family (``pallas_distance.py:101-121``). Matern
+    3/2 and 5/2 are smooth at r = 0; the 1/r of exponential and Matern 1/2
+    takes the same 1e-36 clip as h, so at d2 = 0 it is about -5e17."""
+    if family == "rbf":
+        return -0.5 * torch.exp(-0.5 * d2)
+    if family == "rq":
+        return -0.5 * torch.exp(-(alpha + 1.0) * torch.log1p(0.5 * d2 / alpha))
+    r = torch.sqrt(torch.clamp(d2, min=1e-36))
+    if family == "exponential":
+        return -torch.exp(-0.5 * r) / (4.0 * r)
+    if family == "matern12":
+        return -torch.exp(-r) / (2.0 * r)
+    if family == "matern32":
+        s = math.sqrt(3.0)
+        return -1.5 * torch.exp(-s * r)
+    if family == "matern52":
+        s = math.sqrt(5.0)
+        return -(5.0 / 6.0) * (1.0 + s * r) * torch.exp(-s * r)
+    raise ValueError(f"Unknown stationary family: {family}")
+
+
+def _plain_dtype(Xs: torch.Tensor) -> torch.dtype:
+    """float64 computes in float64; float32 and bfloat16 in float32, as the
+    kernels do."""
+    return torch.float64 if Xs.dtype == torch.float64 else torch.float32
+
+
+def _plain_d2(Xs: torch.Tensor, Zs: torch.Tensor) -> torch.Tensor:
+    dtype = _plain_dtype(Xs)
+    return torch.clamp(square_distance(Xs.to(dtype), Zs.to(dtype)), min=0.0)
+
+
 def stationary_forward_plain(
     family: str,
     Xs: torch.Tensor,
@@ -84,13 +124,23 @@ def stationary_forward_plain(
     variance: torch.Tensor,
     alpha: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Plain PyTorch version of K1: ``var * h(max(square_distance(Xs, Zs), 0))``.
-    float32 and bfloat16 inputs compute in float32, as K1 does; float64
-    computes in float64."""
-    dtype = torch.float64 if Xs.dtype == torch.float64 else torch.float32
-    d2 = torch.clamp(square_distance(Xs.to(dtype), Zs.to(dtype)), min=0.0)
+    """Plain PyTorch version of K1: ``var * h(max(square_distance(Xs, Zs), 0))``."""
+    dtype = _plain_dtype(Xs)
     a = None if alpha is None else torch.as_tensor(alpha).to(dtype)
-    return torch.as_tensor(variance).to(dtype) * _tail_value(family, d2, a)
+    return torch.as_tensor(variance).to(dtype) * _tail_value(family, _plain_d2(Xs, Zs), a)
+
+
+def stationary_wgrad_plain(
+    family: str,
+    Xs: torch.Tensor,
+    Zs: torch.Tensor,
+    variance: torch.Tensor,
+    g: torch.Tensor,
+) -> torch.Tensor:
+    """Plain PyTorch version of K2:
+    ``g * (var * h'(max(square_distance(Xs, Zs), 0)))``."""
+    dtype = _plain_dtype(Xs)
+    return g.to(dtype) * (torch.as_tensor(variance).to(dtype) * _tail_grad(family, _plain_d2(Xs, Zs)))
 
 
 def k1_library() -> ctypes.CDLL:
@@ -102,12 +152,41 @@ def k1_library() -> ctypes.CDLL:
     return lib
 
 
+def k2_library() -> ctypes.CDLL:
+    """K2's library, built by nvcc on first use in the process."""
+    lib = load_library("gpflow_k2", ["stationary_k2.cu"])
+    fn = lib.gpflow_k2_stationary_wgrad
+    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
 def _scalar_on(device: torch.device, value: Optional[torch.Tensor], name: str) -> torch.Tensor:
     t = torch.as_tensor(value)
     if t.device != device or t.dtype != torch.float32 or t.numel() != 1:
-        raise ValueError(f"K1 takes {name} as one float32 element on {device}, got "
+        raise ValueError(f"the kernels take {name} as one float32 element on {device}, got "
                          f"{tuple(t.shape)} {t.dtype} on {t.device}")
     return t.contiguous()
+
+
+def _check_inputs(kernel: str, Xs: torch.Tensor, Zs: torch.Tensor) -> None:
+    """Raises unless Xs [N, D] and Zs [M, D] are contiguous CUDA tensors of
+    one kernel dtype on one device, within the grid's limits."""
+    for name, t in (("Xs", Xs), ("Zs", Zs)):
+        if not t.is_cuda:
+            raise ValueError(f"{kernel} takes CUDA tensors; {name} is on {t.device}")
+        if t.dtype not in _KERNEL_DTYPES:
+            raise ValueError(f"{kernel} takes float32 or bfloat16; {name} is {t.dtype}")
+        if t.ndim != 2 or not t.is_contiguous():
+            raise ValueError(f"{kernel} takes contiguous 2-D tensors; {name} has shape "
+                             f"{tuple(t.shape)}, contiguous={t.is_contiguous()}")
+    if Xs.dtype != Zs.dtype or Xs.device != Zs.device or Xs.shape[1] != Zs.shape[1]:
+        raise ValueError(f"{kernel} takes Xs and Zs of one dtype, device and width; got "
+                         f"{Xs.dtype}/{Zs.dtype}, {Xs.device}/{Zs.device}, "
+                         f"{tuple(Xs.shape)}/{tuple(Zs.shape)}")
+    (N, D), M = Xs.shape, Zs.shape[0]
+    if max(N, M, D) >= 2**31 or -(-N // _TILE_N) > 65535:
+        raise ValueError(f"{kernel} grid too large for N={N}, M={M}, D={D}")
 
 
 def stationary_forward_cuda(
@@ -122,34 +201,16 @@ def stationary_forward_cuda(
     Xs: [N, D] and Zs: [M, D], contiguous CUDA tensors of one dtype (float32
     or bfloat16) on one device; variance and alpha: one float32 element each
     on that device (alpha is read by family "rq" only). Returns [N, M]
-    float32. Raises on anything else, and NotImplementedError where autograd
-    would need a gradient."""
+    float32, outside autograd (``stationary_kernel_matrix`` differentiates).
+    Raises on anything else."""
     if family not in _FAMILY_CODES:
         raise ValueError(f"Unknown stationary family: {family}")
     if family == "rq" and alpha is None:
         raise ValueError("family='rq' requires alpha")
-    for name, t in (("Xs", Xs), ("Zs", Zs)):
-        if not t.is_cuda:
-            raise ValueError(f"K1 takes CUDA tensors; {name} is on {t.device}")
-        if t.dtype not in _KERNEL_DTYPES:
-            raise ValueError(f"K1 takes float32 or bfloat16; {name} is {t.dtype}")
-        if t.ndim != 2 or not t.is_contiguous():
-            raise ValueError(f"K1 takes contiguous 2-D tensors; {name} has shape "
-                             f"{tuple(t.shape)}, contiguous={t.is_contiguous()}")
-    if Xs.dtype != Zs.dtype or Xs.device != Zs.device or Xs.shape[1] != Zs.shape[1]:
-        raise ValueError(f"K1 takes Xs and Zs of one dtype, device and width; got "
-                         f"{Xs.dtype}/{Zs.dtype}, {Xs.device}/{Zs.device}, "
-                         f"{tuple(Xs.shape)}/{tuple(Zs.shape)}")
+    _check_inputs("K1", Xs, Zs)
     var = _scalar_on(Xs.device, variance, "variance")
     a = var if alpha is None else _scalar_on(Xs.device, alpha, "alpha")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (Xs, Zs, var, a)):
-        raise NotImplementedError(
-            "K1 has no backward yet: run CUDA predictions under torch.no_grad() "
-            "(the autograd.Function comes with the training slice, ROADMAP.md)"
-        )
     (N, D), M = Xs.shape, Zs.shape[0]
-    if max(N, M, D) >= 2**31 or -(-N // _TILE_N) > 65535:
-        raise ValueError(f"K1 grid too large for N={N}, M={M}, D={D}")
     out = torch.empty((N, M), dtype=torch.float32, device=Xs.device)
     if N == 0 or M == 0:
         return out
@@ -167,6 +228,47 @@ def stationary_forward_cuda(
     return out
 
 
+def stationary_wgrad_cuda(
+    family: str,
+    Xs: torch.Tensor,
+    Zs: torch.Tensor,
+    variance: torch.Tensor,
+    g: torch.Tensor,
+) -> torch.Tensor:
+    """Launches K2 on the current CUDA stream: ``W[i, j] = g[i, j] * var * h'(d2)``.
+
+    family: one of ``WGRAD_FAMILIES``; Xs: [N, D] and Zs: [M, D], contiguous
+    CUDA tensors of one dtype (float32 or bfloat16) on one device; variance:
+    one float32 element on that device; g: [N, M] contiguous float32 on that
+    device. Returns W [N, M] float32. Raises on anything else."""
+    if family not in WGRAD_FAMILIES:
+        raise ValueError(f"K2 serves the families {WGRAD_FAMILIES}, not {family!r} "
+                         "(rbf and rq take W from the saved K)")
+    _check_inputs("K2", Xs, Zs)
+    (N, D), M = Xs.shape, Zs.shape[0]
+    if (g.device != Xs.device or g.dtype != torch.float32 or tuple(g.shape) != (N, M)
+            or not g.is_contiguous()):
+        raise ValueError(f"K2 takes g as a contiguous [{N}, {M}] float32 tensor on {Xs.device}; "
+                         f"got {tuple(g.shape)} {g.dtype} on {g.device}, "
+                         f"contiguous={g.is_contiguous()}")
+    var = _scalar_on(Xs.device, variance, "variance")
+    W = torch.empty((N, M), dtype=torch.float32, device=Xs.device)
+    if N == 0 or M == 0:
+        return W
+    lib = k2_library()
+    with torch.cuda.device(Xs.device):
+        stream = torch.cuda.current_stream(Xs.device).cuda_stream
+        err = lib.gpflow_k2_stationary_wgrad(
+            _FAMILY_CODES[family], int(Xs.dtype == torch.bfloat16),
+            Xs.data_ptr(), Zs.data_ptr(), var.data_ptr(), g.data_ptr(), W.data_ptr(),
+            N, M, D, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"K2 launch failed with CUDA error {err}")
+    launch_counts["K2"] += 1
+    return W
+
+
 def stationary_forward(
     family: str,
     Xs: torch.Tensor,
@@ -180,6 +282,97 @@ def stationary_forward(
     return stationary_forward_plain(family, Xs, Zs, variance, alpha)
 
 
+def stationary_wgrad(
+    family: str,
+    Xs: torch.Tensor,
+    Zs: torch.Tensor,
+    variance: torch.Tensor,
+    g: torch.Tensor,
+) -> torch.Tensor:
+    """K2 on a CUDA tensor, the plain version on a CPU tensor."""
+    if Xs.is_cuda:
+        return stationary_wgrad_cuda(family, Xs, Zs, variance, g.contiguous())
+    return stationary_wgrad_plain(family, Xs, Zs, variance, g)
+
+
+def _stationary_bwd_from_w(
+    needs: Tuple[bool, bool, bool],
+    Xs: torch.Tensor,
+    Zs: torch.Tensor,
+    variance: torch.Tensor,
+    K: torch.Tensor,
+    W: torch.Tensor,
+    g: torch.Tensor,
+) -> Tuple[Optional[torch.Tensor], ...]:
+    """dXs, dZs, dvar from the VJP weight W = g * var * h'(d2)
+    (``pallas_distance.py:237-251``): d(d2)/dXs_i = 2 (Xs_i - Zs_j) per pair
+    contracts to two matmuls, and dK/dvar = K / var. Computed in W's dtype
+    (float32 for bfloat16 inputs) and cast back to each input's; ``needs``
+    skips the gradients autograd does not ask for."""
+    dXs = dZs = dvar = None
+    x, z = Xs.to(W.dtype), Zs.to(W.dtype)
+    if needs[0]:
+        dXs = (2.0 * (W.sum(dim=1, keepdim=True) * x - W @ z)).to(Xs.dtype)
+    if needs[1]:
+        dZs = (2.0 * (W.sum(dim=0).unsqueeze(1) * z - W.mT @ x)).to(Zs.dtype)
+    if needs[2]:
+        dvar = (torch.sum(g * K) / variance.to(K.dtype)).reshape(variance.shape).to(variance.dtype)
+    return dXs, dZs, dvar
+
+
+class _Stationary(torch.autograd.Function):
+    """K = var * h(d2) with its custom VJP, the counterpart of
+    ``_make_stationary(family)`` (``pallas_distance.py:254-274``); the
+    family is the first argument. Forward is K1 (CUDA) or its plain version
+    (CPU). Backward: for rbf W = -g K / 2 from the saved K; for the other
+    families W comes from K2 (CUDA) or its plain version (CPU)."""
+
+    @staticmethod
+    def forward(ctx, family: str, Xs: torch.Tensor, Zs: torch.Tensor, variance: torch.Tensor) -> torch.Tensor:
+        K = stationary_forward(family, Xs, Zs, variance)
+        ctx.family = family
+        ctx.save_for_backward(Xs, Zs, variance, K)
+        return K
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        Xs, Zs, variance, K = ctx.saved_tensors
+        if ctx.family == "rbf":
+            W = -0.5 * (g * K)  # h' = -h / 2
+        else:
+            W = stationary_wgrad(ctx.family, Xs, Zs, variance, g)
+        return (None,) + _stationary_bwd_from_w(ctx.needs_input_grad[1:], Xs, Zs, variance, K, W, g)
+
+
+class _RationalQuadratic(torch.autograd.Function):
+    """The rq counterpart of ``_Stationary`` (``pallas_distance.py:277-303``).
+    Every gradient comes elementwise from the saved K: with u = d2/(2 alpha),
+    1 + u = (K/var)^(-1/alpha), W = -g K / (2 (1 + u)) and
+    dK/dalpha = K (u/(1+u) - log1p(u))."""
+
+    @staticmethod
+    def forward(ctx, Xs: torch.Tensor, Zs: torch.Tensor, variance: torch.Tensor,
+                alpha: torch.Tensor) -> torch.Tensor:
+        K = stationary_forward("rq", Xs, Zs, variance, alpha)
+        ctx.save_for_backward(Xs, Zs, variance, alpha, K)
+        return K
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        Xs, Zs, variance, alpha, K = ctx.saved_tensors
+        a = alpha.to(K.dtype)
+        ratio = torch.clamp(K / variance.to(K.dtype), min=1e-38)
+        one_plus_u = torch.exp(-torch.log(ratio) / a)
+        u = one_plus_u - 1.0
+        W = -0.5 * (g * K) / one_plus_u
+        grads = _stationary_bwd_from_w(ctx.needs_input_grad[:3], Xs, Zs, variance, K, W, g)
+        dalpha = None
+        if ctx.needs_input_grad[3]:
+            dalpha = torch.sum(g * K * (u / one_plus_u - torch.log(one_plus_u)))
+            dalpha = dalpha.reshape(alpha.shape).to(alpha.dtype)
+        return grads + (dalpha,)
+
+
 def stationary_kernel_matrix(
     X: torch.Tensor,
     Z: torch.Tensor,
@@ -189,14 +382,22 @@ def stationary_kernel_matrix(
     alpha: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """K[i, j] = variance * h(||(X_i - Z_j) / lengthscales||^2) for the given
-    isotropic family (``gpflow_tpu/ops/pallas_distance.py:306-325``)."""
+    isotropic family, differentiable with respect to every tensor input
+    (``gpflow_tpu/ops/pallas_distance.py:306-325``). On CUDA the scalars
+    reach the kernels as float32 [1] tensors on the device; their gradients
+    flow back through that reshape and cast."""
     if family not in PALLAS_FAMILIES:
         raise ValueError(f"Unknown stationary family: {family}")
     if family == "rq" and alpha is None:
         raise ValueError("family='rq' requires alpha")
     Xs = (X / lengthscales).contiguous()
     Zs = (Z / lengthscales).contiguous()
-    var = torch.as_tensor(variance).reshape(1).to(torch.float32) if Xs.is_cuda else variance
-    if alpha is not None and Xs.is_cuda:
-        alpha = torch.as_tensor(alpha).reshape(1).to(torch.float32)
-    return stationary_forward(family, Xs, Zs, var, alpha)
+    variance = torch.as_tensor(variance)
+    if Xs.is_cuda:
+        variance = variance.reshape(1).to(torch.float32)
+    if family == "rq":
+        alpha = torch.as_tensor(alpha)
+        if Xs.is_cuda:
+            alpha = alpha.reshape(1).to(torch.float32)
+        return _RationalQuadratic.apply(Xs, Zs, variance, alpha)
+    return _Stationary.apply(family, Xs, Zs, variance)

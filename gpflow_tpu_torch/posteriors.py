@@ -7,8 +7,7 @@ explicit inverse, so its float32 variance carries an error of about
 cond(Kuu)^2 * eps; the fused route (``fused_predict_f``, Cholesky per call)
 carries about cond(Kuu) * eps.
 
-Predictions on CUDA build Kuu and Kuf with kernel K1, which has no backward
-yet: run them under ``torch.no_grad()``.
+On CUDA, Kuu and Kuf come from kernel K1 (``ops/pallas_distance.py``).
 """
 from __future__ import annotations
 
@@ -25,6 +24,7 @@ from .config import default_jitter
 from .covariances import Kuf, Kuu
 from .functions import MeanFunction
 from .inducing_variables import InducingPoints, InducingVariables
+from .ops.linalg import cholesky
 from .utilities.multipledispatch import Dispatcher
 
 __all__ = [
@@ -191,7 +191,7 @@ class BasePosterior(AbstractPosterior):
         S~ = L^-1 S L^-T. Returns alpha [M, L] and Qinv [L, M, M]."""
         Kuu_val = Kuu(self.X_data, self.kernel, jitter=default_jitter())  # [M, M]
         q_mu = self.q_mu
-        L = torch.linalg.cholesky(Kuu_val)
+        L = cholesky(Kuu_val)
 
         if self.whiten:
             alpha = torch.linalg.solve_triangular(L.mT, q_mu, upper=True)

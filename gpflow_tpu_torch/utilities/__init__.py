@@ -1,3 +1,4 @@
+from .misc import set_trainable
 from .multipledispatch import Dispatcher
 from .ops import square_distance
 from .parameter_or_function import evaluate_parameter_or_function, prepare_parameter_or_function
@@ -10,5 +11,6 @@ __all__ = [
     "parameter_dict",
     "prepare_parameter_or_function",
     "read_values",
+    "set_trainable",
     "square_distance",
 ]

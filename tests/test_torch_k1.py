@@ -130,6 +130,7 @@ def _run_python(code: str, env: dict) -> subprocess.CompletedProcess:
 def test_import_leaves_jax_out():
     code = (
         "import sys, gpflow_tpu_torch, gpflow_tpu_torch.models, gpflow_tpu_torch.ops.pallas_distance\n"
+        "import gpflow_tpu_torch.parallel, gpflow_tpu_torch.kullback_leiblers\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'gpflow_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
