@@ -8,14 +8,20 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
 The paths are those of ``bench.py``'s flagship model at full width (SVGP,
 D = 8, M = 2048 inducing points, batches and requests of B = 8192 points,
 float32, Gaussian likelihood, whitened full q_sqrt), with values made from a
-numpy seed: serving (slice 1) and training (slice 2). Phases:
+numpy seed: serving (slice 1) and training (slice 2); and ``bench.py``'s
+exact-GP operating points (GPR at N = 8192 and 16384, D = 8, float32,
+SquaredExponential, noise 0.1; slice 3). Models are built on the card, the
+port's default device; the float64 references ask for the CPU, or for float64
+on the card where the CPU would take minutes. Phases:
 
 1. card: name and power limit; TF32 must be off for matmul and cuDNN;
 2. build: kernels K1 and K2 from the sources in the checkout, one nvcc each,
    started together;
 3. K1 against its plain PyTorch version on the card, six families, float32
    and bfloat16 inputs, at the paths' shapes and at ragged ones;
-4. K2 against its plain version likewise, for its four families;
+4. K2 against its plain version likewise, for its four families; then on an
+   [N, N] block with X = Z (exponential and matern12), where W must be
+   exactly 0 at every coincident pair;
 5. the serving slice (SquaredExponential): ``model.posterior()`` with the
    TENSOR cache, requests through ``predict_f`` and ``predict_mean``, and
    ``model.predict_f`` and ``model.predict_y`` on the solve and INV_SOLVE
@@ -23,22 +29,34 @@ numpy seed: serving (slice 1) and training (slice 2). Phases:
    implies, and one request of each entry point against the same model in
    float64 on the CPU;
 6. the gradients of ``stationary_kernel_matrix`` (rbf from the saved K,
-   matern52 through K2) at the Kuu and Kuf shapes, against plain PyTorch
-   autograd in float64;
+   matern52 through K2) at the Kuu and Kuf shapes, and (rbf, matern12) at
+   the GPR's [N, N] Gram shape, against plain PyTorch autograd in float64;
 7. the training slice: for SquaredExponential and Matern52 on the solve and
    INV_SOLVE routes, ``run_steps_sampled`` on data made as ``bench.py`` makes
    it, with CUDA's sync debug mode set to error; losses finite and falling,
    launch counts exactly as the path implies; then the first three steps of
    Matern52 on INV_SOLVE against the same model in float64 on the CPU;
 8. serving from the trained Matern52 model;
-9. timings with CUDA events: per request, training steps per second for each
-   kernel and route, a ``torch.profiler`` breakdown of one step, and K1 and
-   K2 against their plain versions.
+9. the GPR slice: at N = 8192 and 16384 on the solve and INV_SOLVE routes,
+   ``training_loss()`` and its gradient under sync debug mode "error"
+   against the same model in float64 on the card; a Matern12 GPR at
+   N = 8192 likewise (K2 on the path); 30 iterations of
+   ``Scipy().minimize`` at N = 16384, which must lower the objective; then
+   ``posterior()`` with ``predict_f`` and ``predict_mean``, and the fused
+   ``predict_f`` and ``predict_y``, on 8192 new points against float64;
+   launch counts exactly as each path implies;
+10. timings with CUDA events: per request, training steps per second for each
+   kernel and route, a ``torch.profiler`` breakdown of one step, the GPR
+   objective with and without its gradient, seconds per L-BFGS iteration,
+   GPR requests, the blocked triangular inverse against cuSOLVER, a
+   profiler breakdown of one GPR value-and-gradient, and K1 and K2 against
+   their plain versions.
 
 Every failure raises, and the script then exits non-zero without the result
 line. The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
 """
+import dataclasses
 import json
 import subprocess
 import time
@@ -61,7 +79,10 @@ K1_ATOL_F64 = 1e-5
 # loses about 2^-24 * (|x|^2 + |z|^2) of d2, which the r-based families turn
 # into an error of that over 2r near r = 0: allow 1e-3 * var.
 K1_ATOL_F32 = 1e-3
-K1_SHAPES = [(2048, 2048, 8), (2048, 8192, 8), (1000, 777, 3), (1, 1, 1), (300, 129, 37)]
+# The paths' shapes (Kuu, Kuf, and the GPR's Gram matrix at N = 16384: a
+# 128 x 256 grid of blocks whose [N, M] offsets pass 2^28 and are taken in
+# int64) and ragged ones.
+K1_SHAPES = [(2048, 2048, 8), (2048, 8192, 8), (16384, 16384, 8), (1000, 777, 3), (1, 1, 1), (300, 129, 37)]
 
 # The float32 slice on the card against the same model in float64 on the CPU,
 # both with the float32 jitter 1e-4, as a fraction of the largest float64
@@ -77,9 +98,10 @@ SLICE_RTOL = {"fused": 1e-4, "cached": 1e-3}
 # <= (D + 1) * 2^-24) and h' in float32 (a few ulp), so each entry lies within
 # about 1e-6 of its own value. bfloat16 inputs reach both sides rounded alike.
 K2_RTOL_F64 = 1e-5
-# K2 against the plain version in float32: the plain norm expansion loses
-# about 2^-24 * (|x|^2 + |z|^2) of d2, which h' of the r-based families
-# divides by about 2 d2 near r = 0; as K1's float32 tolerance.
+# K2 against the plain version in float32: both form d2 by direct
+# differences, K2 with fused multiply-adds and the plain version rounding
+# each square, and h' of the r-based families divides d2's rounding by about
+# 2 d2 near r = 0; as K1's float32 tolerance.
 K2_RTOL_F32 = 1e-3
 K2_SHAPES = K1_SHAPES
 
@@ -104,6 +126,24 @@ F64_STEPS = 3
 F64_LOSS_RTOL = 1e-5
 F64_HYPER_ATOL = 1e-4
 F64_ELEMENT_ATOL, F64_ELEMENT_SHARE = 1e-3, 1e-2
+
+# The GPR slice (bench.py:283-360): N training points, D = 8, X uniform on
+# the unit cube, Y = sin(3 X[:, :1]) + 0.1 eps, SquaredExponential with
+# lengthscales 1, noise 0.1, float32, B = 8192 new points per request.
+GPR_NS = (8192, 16384)
+GPR_NOISE = 0.1
+GPR_MAXITER = 30
+GPR_PENALTY = 1e15  # Scipy's nonfinite_penalty: a float32 trial point whose Cholesky fails is rejected
+# float32 against float64 on the card, for the value, each parameter's
+# gradient (relative to its largest float64 entry) and each prediction
+# (relative to the largest float64 mean, and to the prior variance for the
+# variance, of which the predictive variance is a difference): the solves
+# with the float32 Cholesky of K + noise I, and INV_SOLVE's explicit inverse,
+# carry about cond(K + noise I) * eps32. With lengthscales 1 every point of
+# the unit cube is near every other, so lambda_max(K) ~ N E[k] ~ N / 2 and
+# cond ~ 5 N / noise: ~1e5. The script measures cond (an upper bound:
+# lambda_min >= noise) and holds each error to cond * eps32.
+EPS32 = float(np.finfo(np.float32).eps)
 
 
 def log(*args):
@@ -244,6 +284,42 @@ def check_k2():
     return worst
 
 
+def check_k2_coincident(n=8192):
+    """Phase 4, last part: K2 on an [N, N] block with X = Z, as a GPR's Gram
+    matrix has it, for the two families whose h' carries 1/r. Eight rows are
+    repeated, so coincident pairs lie off the diagonal too. W must be
+    exactly 0 at every coincident pair and agree with the plain version
+    elsewhere. Returns the largest absolute error against float64."""
+    from gpflow_tpu_torch.ops import pallas_distance as pd
+
+    rng = np.random.RandomState(SEED + 8)
+    X = rng.rand(n, D).astype(np.float32)
+    X[n // 2:n // 2 + 8] = X[:8]
+    Xs = torch.from_numpy(X).cuda()
+    g = torch.from_numpy(rng.randn(n, n).astype(np.float32)).cuda()
+    var = torch.tensor([1.7], device="cuda")
+    rows = torch.cat([torch.arange(n), torch.arange(8), torch.arange(n // 2, n // 2 + 8)]).cuda()
+    cols = torch.cat([torch.arange(n), torch.arange(n // 2, n // 2 + 8), torch.arange(8)]).cuda()
+    worst = 0.0
+    for family in ("exponential", "matern12"):
+        W = pd.stationary_wgrad_cuda(family, Xs, Xs, var, g)
+        plain64 = pd.stationary_wgrad_plain(family, Xs.double(), Xs.double(), var.double(), g.double())
+        torch.cuda.synchronize()
+        at_pairs = W[rows, cols]
+        top = float(plain64.abs().max())
+        err64 = float((W.double() - plain64).abs().max())
+        log(f"K2 {family:11s} coincident ({n}, {n}, {D}), X = Z: max |W| at the {rows.numel()} coincident "
+            f"pairs {float(at_pairs.abs().max()):.1e} (must be 0); max abs err {err64:.3e} "
+            f"(rel {err64 / top:.3e}, tol {K2_RTOL_F64:.0e}) vs plain f64")
+        if not bool((at_pairs == 0).all()) or not bool((plain64[rows, cols] == 0).all()):
+            raise AssertionError(f"K2 {family}: W is not 0 at coincident points")
+        if not err64 <= K2_RTOL_F64 * top:
+            raise AssertionError(f"K2 {family} disagrees with its plain version at X = Z")
+        worst = max(worst, err64)
+        del W, plain64
+    return worst
+
+
 def check_grads():
     """Phase 6: dX, dZ, dlengthscales and dvariance of
     ``stationary_kernel_matrix`` on the card against plain autograd through
@@ -278,6 +354,46 @@ def check_grads():
                     raise AssertionError(f"gradient {name} of {family} {which} disagrees with plain autograd")
 
 
+def check_gram_grads(n=8192):
+    """Phase 6, last part: dX, dlengthscales and dvariance of
+    ``stationary_kernel_matrix(X, X, ...)`` at a GPR's [N, N] Gram shape
+    (rbf from the saved K, matern12 through K2) against plain autograd in
+    float64 through the clamp formula h(sqrt(max(d2, 1e-36))), with d2 a
+    sum of squared differences, exactly 0 on the diagonal."""
+    from gpflow_tpu_torch.ops import pallas_distance as pd
+
+    rng = np.random.RandomState(SEED + 9)
+    X = rng.rand(n, D)
+    ls = 0.8 + 0.4 * rng.rand(D)
+    g = torch.from_numpy(rng.randn(n, n)).cuda()
+    for family in ("rbf", "matern12"):
+        grads = {}
+        for dtype in (torch.float32, torch.float64):
+            leaves = [torch.tensor(v, dtype=dtype, device="cuda", requires_grad=True) for v in (X, ls, 1.3)]
+            x, l, v = leaves
+            if dtype == torch.float32:
+                K = pd.stationary_kernel_matrix(x, x, l, v, family)
+            else:
+                xs = x / l
+                d2 = torch.zeros((n, n), dtype=dtype, device="cuda")
+                for k in range(D):
+                    d2 = d2 + torch.square(xs[:, k, None] - xs[None, :, k])
+                if family == "rbf":
+                    K = v * torch.exp(-0.5 * d2)
+                else:
+                    K = v * torch.exp(-torch.sqrt(torch.clamp(d2, min=1e-36)))
+            K.backward(g.to(K.dtype))
+            grads[dtype] = {name: t.grad for name, t in zip(("dX", "dls", "dvar"), leaves)}
+            del K
+        for name, want in grads[torch.float64].items():
+            got = grads[torch.float32][name].double()
+            err = float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+            log(f"grad {family} Gram ({n}, {n}, {D}) {name}: max abs err {err:.3e} of the f64 max, "
+                f"tol {GRAD_RTOL:.0e}")
+            if not err <= GRAD_RTOL:
+                raise AssertionError(f"gradient {name} of {family} at the Gram shape disagrees with plain autograd")
+
+
 def make_training_data(seed):
     """X, Y and Z as ``bench.py:121-126`` makes them."""
     rng = np.random.RandomState(seed)
@@ -291,19 +407,17 @@ def make_training_data(seed):
 def training_model(kernel, Z, dtype, device):
     """The flagship SVGP before training: lengthscales 1, noise 0.1,
     ``num_data`` = N, whitened full q_sqrt (identity), q_mu zeros."""
-    from gpflow_tpu_torch import kernels, likelihoods
+    from gpflow_tpu_torch import config, kernels, likelihoods
     from gpflow_tpu_torch.models import SVGP
 
-    from gpflow_tpu_torch import config
-
-    with config.as_context(config.Config(float=dtype)):
+    with config.as_context(dataclasses.replace(config.config(), float=dtype, device=device)):
         model = SVGP(
             kernel=getattr(kernels, kernel)(lengthscales=np.ones(D)),
             likelihood=likelihoods.Gaussian(NOISE),
             inducing_variable=Z,
             num_data=N_DATA,
         )
-    return model.to(device=device, dtype=dtype)
+    return model.to(dtype=dtype)
 
 
 def train(kernel, route, flag, data, Z):
@@ -352,7 +466,7 @@ def compare_f64(X, Y, Z):
     start = read_values(card)
     with inv_solve(True):
         losses32 = DataParallelTrainer(card).run_steps(tuple(torch.from_numpy(a).cuda() for a in batches))
-        with config.as_context(config.Config(float=torch.float64, jitter=1e-4)):
+        with config.as_context(config.Config(float=torch.float64, jitter=1e-4, device="cpu")):
             cpu = training_model("Matern52", Z, torch.float64, "cpu")
             load_jax_values(cpu, {k: v.astype(np.float64) for k, v in start.items()})
             t0 = time.perf_counter()
@@ -446,8 +560,8 @@ def profile_step(trainer, kernel, route, top=8):
         log(f"profile:   {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<3d} {e.key[:110]}")
 
 
-def time_k2(n, m):
-    """Phase 9: K2 against the plain version, matern52, device time, interleaved."""
+def time_k2(n, m, iters=50, family="matern52"):
+    """Phase 10: K2 against the plain version, device time, interleaved."""
     from gpflow_tpu_torch.ops import pallas_distance as pd
 
     rng = np.random.RandomState(SEED + 6)
@@ -458,11 +572,12 @@ def time_k2(n, m):
     fns = {"plain": pd.stationary_wgrad_plain, "k2": pd.stationary_wgrad_cuda}
     got = {"plain": [], "k2": []}
     for which in ("plain", "k2", "k2", "plain"):
-        got[which].append(device_ms(lambda: fns[which]("matern52", Xs, Zs, var, g), 50))
+        got[which].append(device_ms(lambda: fns[which](family, Xs, Zs, var, g), iters))
     k2, plain = min(got["k2"]), min(got["plain"])
     gbs = n * m * 8 / (k2 * 1e-3) / 1e9
-    log(f"time: K2 matern52 ({n}, {m}, {D}): {k2:.4f} ms ({gbs:.0f} GB/s of g read and W written), "
-        f"plain {plain:.4f} ms; runs k2 {got['k2']}, plain {got['plain']}")
+    bound_ms, bound_by = kernel_bound_ms("K2", n, m, D)
+    log(f"time: K2 {family} ({n}, {m}, {D}): {k2:.4f} ms ({gbs:.0f} GB/s of g read and W written), "
+        f"plain {plain:.4f} ms, bound {bound_ms:.4f} ms by {bound_by}; runs k2 {got['k2']}, plain {got['plain']}")
     return k2, plain
 
 
@@ -489,7 +604,7 @@ def build_model(values, dtype):
     from gpflow_tpu_torch.models import SVGP
     from gpflow_tpu_torch.utilities import load_jax_values
 
-    with config.as_context(config.Config(float=dtype)):
+    with config.as_context(dataclasses.replace(config.config(), float=dtype)):
         model = SVGP(
             kernel=kernels.SquaredExponential(lengthscales=np.ones(D)),
             likelihood=likelihoods.Gaussian(1.0),
@@ -550,8 +665,8 @@ def time_requests(model, Xb):
         log(f"time: {key} at B={B}: {ms:.4f} ms per request ({B / ms * 1e3:.0f} points/s)")
 
 
-def time_k1(n, m):
-    """Phase 5: K1 against the plain version, rbf, device time, interleaved."""
+def time_k1(n, m, iters=50):
+    """Phase 10: K1 against the plain version, rbf, device time, interleaved."""
     from gpflow_tpu_torch.ops import pallas_distance as pd
 
     rng = np.random.RandomState(SEED + 2)
@@ -561,12 +676,263 @@ def time_k1(n, m):
     fns = {"plain": pd.stationary_forward_plain, "k1": pd.stationary_forward_cuda}
     got = {"plain": [], "k1": []}
     for which in ("plain", "k1", "k1", "plain"):
-        got[which].append(device_ms(lambda: fns[which]("rbf", Xs, Zs, var), 50))
+        got[which].append(device_ms(lambda: fns[which]("rbf", Xs, Zs, var), iters))
     k1, plain = min(got["k1"]), min(got["plain"])
     gbs = n * m * 4 / (k1 * 1e-3) / 1e9
-    log(f"time: K1 rbf ({n}, {m}, {D}): {k1:.4f} ms ({gbs:.0f} GB/s of output), plain {plain:.4f} ms; "
-        f"runs k1 {got['k1']}, plain {got['plain']}")
+    bound_ms, bound_by = kernel_bound_ms("K1", n, m, D)
+    log(f"time: K1 rbf ({n}, {m}, {D}): {k1:.4f} ms ({gbs:.0f} GB/s of output), plain {plain:.4f} ms, "
+        f"bound {bound_ms:.4f} ms by {bound_by}; runs k1 {got['k1']}, plain {got['plain']}")
     return k1, plain
+
+
+def counted(fn):
+    """``fn()`` with the launch counts set to 0 just before and read just
+    after; returns (result, counts)."""
+    from gpflow_tpu_torch.ops import pallas_distance as pd
+
+    pd.launch_counts.update(K1=0, K2=0)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(pd.launch_counts)
+
+
+def expect_launches(what, counts, expected, launches):
+    log(f"{what}: launches {counts}, expected {expected}")
+    assert counts == expected, f"{what}: launch counts {counts} != {expected}"
+    launches[what] = counts
+
+
+def make_gpr_data():
+    """(X, Y) for each N, drawn in turn from RandomState(1) as
+    ``bench.py:294-299`` draws them, and B new points for the requests."""
+    rng = np.random.RandomState(1)
+    data = {}
+    for n in GPR_NS:
+        X = rng.rand(n, D).astype(np.float32)
+        Y = np.sin(X[:, :1] * 3).astype(np.float32) + 0.1 * rng.randn(n, 1).astype(np.float32)
+        data[n] = (X, Y)
+    Xnew = np.random.RandomState(SEED + 10).rand(B, D).astype(np.float32)
+    return data, Xnew
+
+
+def gpr_model(kernel, data, dtype, values=None):
+    """A GPR on the card in ``dtype``: lengthscales 1, noise 0.1, or the
+    constrained ``values`` of ``read_values``."""
+    from gpflow_tpu_torch import config, kernels
+    from gpflow_tpu_torch.models import GPR
+    from gpflow_tpu_torch.utilities import load_jax_values
+
+    with config.as_context(dataclasses.replace(config.config(), float=dtype)):
+        model = GPR(data, getattr(kernels, kernel)(lengthscales=[1.0] * D), noise_variance=GPR_NOISE)
+    if values is not None:
+        load_jax_values(model, values)
+    return model
+
+
+def gpr_value_and_grad(model, flag):
+    """The training loss and its gradient with respect to every trainable
+    parameter's unconstrained tensor, on the INV_SOLVE route if ``flag``."""
+    from gpflow_tpu_torch.conditionals import inv_solve
+
+    with inv_solve(flag):
+        loss = model.training_loss()
+        grads = torch.autograd.grad(loss, [p.unconstrained for p in model.trainable_variables])
+    return loss.detach(), grads
+
+
+def gram_cond(model64):
+    """An upper bound of cond(K + noise I) of a float64 GPR: lambda_min is at
+    least the noise, and lambda_max(K) comes from 30 power iterations."""
+    with torch.no_grad():
+        K = model64.kernel(model64.data[0])
+        v = torch.ones(K.shape[0], 1, dtype=K.dtype, device=K.device)
+        for _ in range(30):
+            v = K @ v
+            v = v / v.norm()
+        lam = float((v.mT @ (K @ v)).squeeze())
+        noise = float(model64.likelihood.variance.value)
+    return (lam + noise) / noise
+
+
+def check_gpr_objective(kernel, n, data, launches):
+    """Phase 9: the float32 GPR's training loss and gradient on both routes,
+    under sync debug mode "error", against float64 on the card, with exact
+    launch counts. Returns the float32 model."""
+    from gpflow_tpu_torch.utilities import parameter_dict
+
+    m32 = gpr_model(kernel, data, torch.float32)
+    m64 = gpr_model(kernel, data, torch.float64)
+    tol = gram_cond(m64) * EPS32
+    log(f"gpr {kernel} N={n}: cond(K + noise I) <= {tol / EPS32:.4e}; tolerance cond * eps32 = {tol:.3e}")
+    with torch.no_grad():
+        loss, counts = counted(m32.training_loss)
+    expect_launches(f"gpr {kernel} N={n} objective", counts, {"K1": 1, "K2": 0}, launches)
+    paths = {id(p): path for path, p in parameter_dict(m32).items()}
+    names = [paths[id(p)] for p in m32.trainable_variables]
+    for route, flag in TRAIN_ROUTES:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            (loss32, grads32), counts = counted(lambda: gpr_value_and_grad(m32, flag))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        expected = {"K1": 1, "K2": 1 if kernel == "Matern12" else 0}
+        expect_launches(f"gpr {kernel} N={n} {route} value and gradient", counts, expected, launches)
+        loss64, grads64 = gpr_value_and_grad(m64, flag)
+        err = abs(float(loss32) - float(loss64)) / abs(float(loss64))
+        log(f"gpr {kernel} N={n} {route}: loss {float(loss32):.6e} (f64 {float(loss64):.6e}), "
+            f"rel err {err:.3e}, tol {tol:.1e}")
+        assert bool(torch.isfinite(loss32)) and err <= tol, f"GPR loss disagrees with float64 ({route})"
+        for name, got, want in zip(names, grads32, grads64):
+            gerr = float((got.double() - want).abs().max()) / float(want.abs().max())
+            log(f"gpr {kernel} N={n} {route}: gradient {name} {got.double().cpu().numpy().round(4).tolist()} "
+                f"(f64 max |.| {float(want.abs().max()):.4e}), rel err {gerr:.3e}, tol {tol:.1e}")
+            assert bool(torch.isfinite(got).all()) and gerr <= tol, \
+                f"GPR gradient {name} disagrees with float64 ({route})"
+    return m32
+
+
+def train_gpr(model, launches):
+    """Phase 9: ``Scipy().minimize`` of the float32 GPR at N = 16384 on the
+    INV_SOLVE route, GPR_MAXITER iterations; the objective must fall."""
+    from gpflow_tpu_torch.conditionals import inv_solve
+    from gpflow_tpu_torch.optimizers import Scipy
+    from gpflow_tpu_torch.utilities import parameter_dict
+
+    with inv_solve(True):
+        with torch.no_grad():
+            loss0 = float(model.training_loss())
+        t0 = time.perf_counter()
+        res, counts = counted(lambda: Scipy().minimize(
+            model.training_loss_closure(), model.trainable_variables,
+            options={"maxiter": GPR_MAXITER}, nonfinite_penalty=GPR_PENALTY))
+        seconds = time.perf_counter() - t0
+    values = {path: p.numpy().round(4).tolist() for path, p in parameter_dict(model).items()}
+    log(f"gpr lbfgs N={model.data[0].shape[0]}: loss {loss0:.6e} -> {float(res.fun):.6e}; nit {res.nit}, "
+        f"nfev {res.nfev}, non-finite evaluations {res.n_nonfinite_evals}, status {res.status} "
+        f"({res.message}); values {values}")
+    log(f"time: gpr lbfgs N={model.data[0].shape[0]}: {seconds:.3f} s, {seconds / max(res.nit, 1):.4f} s per "
+        f"iteration, {seconds / res.nfev:.4f} s per evaluation")
+    assert np.isfinite(res.fun) and float(res.fun) < loss0, "L-BFGS did not lower the GPR objective"
+    expect_launches(f"gpr lbfgs N={model.data[0].shape[0]}", counts, {"K1": int(res.nfev), "K2": 0}, launches)
+    return res, seconds
+
+
+def serve_gpr(model, Xnew, launches, label):
+    """Phase 9: requests to the GPR through ``posterior()`` and the fused
+    entry points, with exact launch counts, against float64 on the card.
+    The float64 variance must be positive; the float32 one lies within the
+    envelope of it, which at a trained model's conditioning may reach below
+    zero."""
+    from gpflow_tpu_torch.utilities import read_values
+
+    Xb = torch.from_numpy(Xnew).cuda()
+    with torch.no_grad():
+        post, counts = counted(model.posterior)
+        expect_launches(f"gpr {label} posterior", counts, {"K1": 1, "K2": 0}, launches)
+        out = {}
+        for key, fn, k1 in (("cached predict_f", lambda: post.predict_f(Xb), 1),
+                            ("cached predict_mean", lambda: (post.predict_mean(Xb),), 1),
+                            ("fused predict_f", lambda: model.predict_f(Xb), 2),
+                            ("predict_y", lambda: model.predict_y(Xb), 2)):
+            out[key], counts = counted(fn)
+            expect_launches(f"gpr {label} {key} request", counts, {"K1": k1, "K2": 0}, launches)
+        m64 = gpr_model("SquaredExponential", tuple(t.cpu().numpy() for t in model.data), torch.float64,
+                        {k: v.astype(np.float64) for k, v in read_values(model).items()})
+        tol = gram_cond(m64) * EPS32
+        post64 = m64.posterior()
+        want = {"cached predict_f": post64.predict_f(Xb.double()),
+                "cached predict_mean": (post64.predict_mean(Xb.double()),),
+                "fused predict_f": m64.predict_f(Xb.double()), "predict_y": m64.predict_y(Xb.double())}
+        prior = float(m64.kernel.variance.value)
+    log(f"gpr serving {label}: cond(K + noise I) <= {tol / EPS32:.4e}; tolerance cond * eps32 = {tol:.3e}")
+    for key, tensors in out.items():
+        for what, got, w in zip(("mean", "var"), tensors, want[key]):
+            assert got.shape == (B, 1) and bool(torch.isfinite(got).all()), f"gpr {key} {what}"
+            scale = float(w.abs().max()) if what == "mean" else prior
+            err = float((got.double() - w).abs().max()) / scale
+            log(f"gpr serving {label}: {key} {what}: max abs err {err:.3e} of "
+                f"{'the f64 max' if what == 'mean' else 'the prior variance'}, tol {tol:.1e}")
+            assert err <= tol, f"gpr {label} {key} {what} disagrees with float64"
+        if len(tensors) == 2:
+            log(f"gpr serving {label}: {key} var: min {float(tensors[1].min()):.3e} (f64 min "
+                f"{float(want[key][1].min()):.3e})")
+            assert bool((want[key][1] > 0).all()), f"gpr {label} {key}: float64 variance not positive"
+    return post, Xb
+
+
+def time_gpr(models):
+    """Phase 10: the GPR objective alone and with its gradient, per N and
+    route, by CUDA events around back-to-back calls."""
+    from gpflow_tpu_torch.conditionals import inv_solve
+
+    for n, model in models.items():
+        with torch.no_grad():
+            ms = request_ms(model.training_loss, 5, warmup=1)
+        log(f"time: gpr objective N={n}: {ms:.3f} ms")
+        for route, flag in TRAIN_ROUTES:
+            ms = request_ms(lambda: gpr_value_and_grad(model, flag), 5, warmup=1)
+            log(f"time: gpr value and gradient N={n} {route}: {ms:.3f} ms")
+
+
+def profile_gpr(model, route, flag, top=10):
+    """Phase 10: device time of one GPR value-and-gradient by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gpr_value_and_grad(model, flag)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        gpr_value_and_grad(model, flag)
+        end.record()
+        torch.cuda.synchronize()
+    total_ms = start.elapsed_time(end)
+    device = [e for e in prof.key_averages()
+              if str(getattr(e, "device_type", "")).endswith("CUDA") and getattr(e, "self_device_time_total", 0) > 0]
+    if not device:
+        log(f"profile: gpr N={model.data[0].shape[0]} {route}: the profiler recorded no device time")
+        return
+    device.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    busy = sum(e.self_device_time_total for e in device) / 1e3
+    log(f"profile: gpr value and gradient N={model.data[0].shape[0]} {route}: {total_ms:.3f} ms, device busy "
+        f"{busy:.3f} ms ({100 * busy / total_ms:.0f}%), {sum(e.count for e in device)} kernels; largest:")
+    for e in device[:top]:
+        log(f"profile:   {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<3d} {e.key[:110]}")
+
+
+def time_inverse(model):
+    """Phase 10: L^-1 of the GPR's [N, N] Cholesky factor by the blocked
+    recursive doubling (``ops.linalg``) against one cuSOLVER/cuBLAS
+    triangular solve against the identity, interleaved."""
+    from gpflow_tpu_torch.ops import linalg
+    from gpflow_tpu_torch.utilities import add_likelihood_noise_cov
+
+    with torch.no_grad():
+        X = model.data[0]
+        L = linalg.cholesky(add_likelihood_noise_cov(model.kernel(X), model.likelihood, X))
+        eye = torch.eye(L.shape[0], device="cuda")
+        fns = {"blocked": lambda: linalg._blocked_lower_triangular_inverse(L),
+               "solve": lambda: torch.linalg.solve_triangular(L, eye, upper=False)}
+        got = {"blocked": [], "solve": []}
+        for which in ("solve", "blocked", "blocked", "solve"):
+            got[which].append(device_ms(fns[which], 3, warmup=1))
+        err = float((fns["blocked"]() - fns["solve"]()).abs().max() / fns["solve"]().abs().max())
+    n = L.shape[0]
+    log(f"time: triangular inverse N={n}: blocked {min(got['blocked']):.3f} ms "
+        f"({2 * n ** 3 / 3 / (min(got['blocked']) * 1e-3) / 1e12:.1f} TFLOP/s of (2/3) N^3), "
+        f"solve_triangular(L, I) {min(got['solve']):.3f} ms; runs {got}; max rel diff {err:.2e}")
+
+
+def kernel_bound_ms(kernel, n, m, d):
+    """The least time of K1 or K2 at (n, m, d) with float32 inputs: the
+    larger of its bytes (Xs and Zs read once; K1 writes K, K2 reads g and
+    writes W) over 3.35 TB/s and its operations (3 d for d2 and about 8 for
+    the tail and scale, per element) over 67 TFLOP/s of fp32; and which of
+    the two bounds it."""
+    nbytes = 4 * (n + m) * d + (4 if kernel == "K1" else 8) * n * m
+    ops = n * m * (3 * d + 8)
+    by_bytes, by_ops = nbytes / 3.35e12 * 1e3, ops / 67e12 * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
 def main():
@@ -579,12 +945,12 @@ def main():
         log(f"build: {kernel} library ready in {ready_s:.2f} s (nvcc {nvcc_s:.2f} s; 0 means built earlier)")
 
     k1_err = check_k1()
-    k2_err = check_k2()
+    k2_err = max(check_k2(), check_k2_coincident())
 
     config.set_default_float(torch.float32)  # and with it the float32 jitter, 1e-4
     launches = {}  # path -> launch counts of its run
     values, X = make_values(SEED)
-    model = build_model(values, torch.float32).to("cuda")
+    model = build_model(values, torch.float32)
     requests = [torch.from_numpy(X[i * B:(i + 1) * B]).to("cuda") for i in range(N_REQUESTS)]
     with torch.no_grad():
         pd.launch_counts.update(K1=0, K2=0)
@@ -595,11 +961,12 @@ def main():
     expected = {"K1": 1 + 2 * N_REQUESTS + 2 * 2 * 2, "K2": 0}
     log(f"slice: launches {launches['serving']}, expected {expected}")
     assert launches["serving"] == expected, f"serving launch counts {launches['serving']} != {expected}"
-    with config.as_context(config.Config(float=torch.float64, jitter=1e-4)), torch.no_grad():
+    with config.as_context(config.Config(float=torch.float64, jitter=1e-4, device="cpu")), torch.no_grad():
         reference = serve(build_model(values, torch.float64), [torch.from_numpy(X[:B]).double()])
     check_slice(outputs, reference)
 
     check_grads()
+    check_gram_grads()
 
     X, Y, Z = make_training_data(SEED)
     data = (torch.from_numpy(X).cuda(), torch.from_numpy(Y).cuda())
@@ -617,34 +984,72 @@ def main():
         profile_step(trainer, kernel, route)
     with torch.no_grad():
         time_k1(M, M)
-        k1_ms, k1_plain_ms = time_k1(M, B)
+        time_k1(M, B)
         time_k2(M, M)
-        k2_ms, k2_plain_ms = time_k2(M, B)
+        time_k2(M, B)
+    del model, requests, trainers, data
+    torch.cuda.empty_cache()
+
+    gpr_data, Xnew = make_gpr_data()
+    gpr_models = {n: check_gpr_objective("SquaredExponential", n, gpr_data[n], launches) for n in GPR_NS}
+    check_gpr_objective("Matern12", GPR_NS[0], gpr_data[GPR_NS[0]], launches)
+    torch.cuda.empty_cache()
+    time_gpr(gpr_models)
+    for route, flag in TRAIN_ROUTES:
+        profile_gpr(gpr_models[GPR_NS[-1]], route, flag)
+    time_inverse(gpr_models[GPR_NS[-1]])
+    del gpr_models[GPR_NS[0]]
+    torch.cuda.empty_cache()
+    trained = gpr_models[GPR_NS[-1]]
+    serve_gpr(trained, Xnew, launches, "initial")
+    train_gpr(trained, launches)
+    post, Xb = serve_gpr(trained, Xnew, launches, "trained")
+    with torch.no_grad():
+        for key, fn in (("cached predict_f", lambda: post.predict_f(Xb)),
+                        ("cached predict_mean", lambda: post.predict_mean(Xb)),
+                        ("fused predict_f", lambda: trained.predict_f(Xb)),
+                        ("predict_y", lambda: trained.predict_y(Xb))):
+            ms = request_ms(fn, 5, warmup=1)
+            log(f"time: gpr {key} N={GPR_NS[-1]} at B={B}: {ms:.3f} ms per request ({B / ms * 1e3:.0f} points/s)")
+    del post, trained, gpr_models
+    torch.cuda.empty_cache()
+
+    n = GPR_NS[-1]
+    with torch.no_grad():
+        time_k1(GPR_NS[0], GPR_NS[0], iters=20)  # the Gram matrix at N = 8192
+        time_k1(n, B, iters=20)  # Kmn of a request at N = 16384
+        time_k2(GPR_NS[0], GPR_NS[0], iters=20, family="matern12")  # the Matern12 GPR's backward
+        k1_ms, k1_plain_ms = time_k1(n, n, iters=10)
+        k2_ms, k2_plain_ms = time_k2(n, n, iters=10)
 
     total = {k: sum(c[k] for c in launches.values()) for k in ("K1", "K2")}
     log(f"launches by path: {launches}")
-    log(json.dumps({"kernels": [
-        {
-            "name": "K1 stationary covariance (rbf and matern52 on the paths)",
+    assert total["K1"] > 0 and total["K2"] > 0, f"a kernel of the paths never launched: {total}"
+    records = []
+    for kernel, label, family, source, replaces, err, ms, plain_ms in (
+        ("K1", "K1 stationary covariance (rbf, matern52 and matern12 on the paths)", "rbf", "stationary_k1.cu",
+         136, k1_err, k1_ms, k1_plain_ms),
+        ("K2", "K2 stationary VJP weight (matern52 and matern12 on the training paths)", "matern52",
+         "stationary_k2.cu", 142, k2_err, k2_ms, k2_plain_ms),
+    ):
+        bound_ms, bound_by = kernel_bound_ms(kernel, n, n, D)
+        log(f"bound: {kernel} ({n}, {n}, {D}): {bound_ms:.4f} ms by {bound_by}; measured {ms:.4f} ms "
+            f"({100 * bound_ms / ms:.0f}% of the bound's rate)")
+        records.append({
+            "name": f"{label}, timed as {family} at ({n}, {n}, {D})",
             "route": "cuda",
-            "source": "gpflow_tpu_torch/csrc/stationary_k1.cu",
-            "replaces": "gpflow_tpu/ops/pallas_distance.py:136",
-            "launches": total["K1"],
-            "max_abs_err": k1_err,
-            "ms": k1_ms,
-            "plain_ms": k1_plain_ms,
-        },
-        {
-            "name": "K2 stationary VJP weight (matern52 on the training path)",
-            "route": "cuda",
-            "source": "gpflow_tpu_torch/csrc/stationary_k2.cu",
-            "replaces": "gpflow_tpu/ops/pallas_distance.py:142",
-            "launches": total["K2"],
-            "max_abs_err": k2_err,
-            "ms": k2_ms,
-            "plain_ms": k2_plain_ms,
-        },
-    ]}))
+            "source": f"gpflow_tpu_torch/csrc/{source}",
+            "replaces": f"gpflow_tpu/ops/pallas_distance.py:{replaces}",
+            "launches": total[kernel],
+            "max_abs_err": err,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            # no single PyTorch call computes var * h(d2) or g * var * h'(d2)
+            "library_ms": None,
+        })
+    log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": torch.cuda.device_count()}}))
 

@@ -1,16 +1,19 @@
 """gpflow_tpu_torch: the PyTorch/CUDA port of gpflow_tpu.
 
-The port imports torch and numpy only. Its modules mirror ``gpflow_tpu``'s
-paths and public names; so far it trains an SVGP (``elbo``,
-``training_loss``, ``parallel.DataParallelTrainer``) with a
+The port imports torch, numpy and scipy (for ``optimizers.Scipy``) only.
+Its modules mirror ``gpflow_tpu``'s paths and public names; so far it trains
+an SVGP (``elbo``, ``training_loss``, ``parallel.DataParallelTrainer``) and
+fits an exact GPR (``log_marginal_likelihood``, ``optimizers.Scipy``) with a
 SquaredExponential, RationalQuadratic, Exponential or Matern kernel and a
-Gaussian likelihood, and serves it (ROADMAP.md lists what is still to port).
-On a CUDA device, covariance matrices come from the hand-written kernel K1
-and the gradients of the exponential and Matern families from K2
+Gaussian likelihood, and serves both (ROADMAP.md lists what is still to
+port). On a CUDA device, covariance matrices come from the hand-written
+kernel K1 and the gradients of the exponential and Matern families from K2
 (``gpflow_tpu_torch.ops.pallas_distance``).
 
-Parameters live wherever the model is moved with ``.to(device)``; there is
-no global default device. Float32 matmuls run in exact IEEE fp32 (TF32 off).
+Parameters and model data are built on ``config.default_device()``, which is
+``"cuda"`` unless the caller asks for another device
+(``config.set_default_device("cpu")``); importing the package needs no card.
+Float32 matmuls run in exact IEEE fp32 (TF32 off).
 """
 from . import (
     bijectors,
@@ -25,6 +28,7 @@ from . import (
     logdensities,
     models,
     ops,
+    optimizers,
     parallel,
     posteriors,
     utilities,
@@ -48,6 +52,7 @@ __all__ = [
     "logdensities",
     "models",
     "ops",
+    "optimizers",
     "parallel",
     "posteriors",
     "utilities",

@@ -2,10 +2,12 @@
 
 A ``Module`` is a ``torch.nn.Module``. A ``Parameter`` is a small module that
 holds the unconstrained value as a ``torch.nn.Parameter`` together with its
-bijector, and exposes the constrained value as ``.value``. Models therefore
-move between devices and dtypes with ``.to()``. A Parameter that is not
-trainable has ``requires_grad=False``; ``Module.trainable_parameters`` lists
-the trainable ones, whose ``unconstrained`` tensors an optimizer takes.
+bijector, and exposes the constrained value as ``.value``. A Parameter is
+built on ``config.default_device()`` (the card unless the caller asks for
+another device); models move between devices and dtypes with ``.to()``. A
+Parameter that is not trainable has ``requires_grad=False``;
+``Module.trainable_parameters`` lists the trainable ones, whose
+``unconstrained`` tensors an optimizer takes.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import torch
 from torch import nn
 
 from .bijectors import Bijector, Identity
-from .config import as_torch_dtype, default_float
+from .config import as_torch_dtype, default_device, default_float
 
 __all__ = ["MeanAndVariance", "Module", "Parameter"]
 
@@ -35,6 +37,12 @@ class Module(nn.Module):
         """The trainable Parameters under this module, in registration order
         (``gpflow_tpu/base.py:725-731``)."""
         return tuple(m for m in self.modules() if isinstance(m, Parameter) and m.trainable)
+
+    @property
+    def trainable_variables(self) -> Tuple["Parameter", ...]:
+        """Alias of ``trainable_parameters`` (``gpflow_tpu/base.py:729``), the
+        name an optimizer such as ``Scipy`` is handed."""
+        return self.trainable_parameters
 
 
 def _to_tensor(value: Any, dtype: Any, device: Optional[torch.device] = None) -> torch.Tensor:
@@ -86,7 +94,7 @@ class Parameter(Module):
             trainable = value.trainable if isinstance(value, Parameter) else True
         self.transform = transform if transform is not None else Identity()
         self._name = name or "parameter"
-        unconstrained = self.transform.inverse(_to_tensor(value, dtype))
+        unconstrained = self.transform.inverse(_to_tensor(value, dtype, default_device()))
         _validate_finite(unconstrained, self.name)
         self.unconstrained = nn.Parameter(unconstrained, requires_grad=bool(trainable))
 

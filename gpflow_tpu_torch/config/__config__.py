@@ -1,7 +1,11 @@
 """Process-global configuration (counterpart of ``gpflow_tpu/config/__config__.py``).
 
-Holds the default float type (float64, as in the JAX package), the
-dtype-matched Cholesky jitter (1e-6 for float64, 1e-4 otherwise: in float32 a
+Holds the default float type (float64, as in the JAX package), the default
+device (``"cuda"``: parameters and data are built on the card unless the
+caller asks for another device, as in ``set_default_device("cpu")`` or
+``as_context(Config(device="cpu"))``; with no card, building raises torch's
+own error and nothing falls back to the CPU), the dtype-matched Cholesky
+jitter (1e-6 for float64, 1e-4 otherwise: in float32 a
 well-conditioned M ~ 1000 RBF Gram matrix routinely has a minimum eigenvalue
 below -1e-5 after rounding) and the lower bounds of positive parameters.
 
@@ -13,7 +17,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Any, Generator, Optional
+from typing import Any, Generator, Optional, Union
 
 import numpy as np
 import torch
@@ -23,11 +27,13 @@ __all__ = [
     "as_context",
     "as_torch_dtype",
     "config",
+    "default_device",
     "default_float",
     "default_jitter",
     "default_likelihood_positive_minimum",
     "default_positive_minimum",
     "set_config",
+    "set_default_device",
     "set_default_float",
     "set_default_jitter",
     "use_exact_f32_matmul",
@@ -51,12 +57,14 @@ class Config:
     float type, so ``Config(float=torch.float32)`` gets 1e-4."""
 
     float: torch.dtype = torch.float64
+    device: Union[str, torch.device] = "cuda"
     jitter: Optional[float] = None
     positive_minimum: float = 0.0
     likelihood_positive_minimum: float = 1e-6
 
     def __post_init__(self) -> None:
         object.__setattr__(self, "float", as_torch_dtype(self.float))
+        object.__setattr__(self, "device", torch.device(self.device))
         if self.jitter is None:
             object.__setattr__(self, "jitter", _dtype_matched_jitter(self.float))
 
@@ -76,6 +84,12 @@ def set_config(new_config: Config) -> None:
 
 def default_float() -> torch.dtype:
     return config().float
+
+
+def default_device() -> torch.device:
+    """The device on which parameters and data are built (``"cuda"`` unless
+    set otherwise)."""
+    return config().device
 
 
 def default_jitter() -> float:
@@ -101,6 +115,11 @@ def set_default_float(value_type: Any) -> None:
     if not _jitter_explicit and config().jitter == _dtype_matched_jitter(config().float):
         kwargs["jitter"] = _dtype_matched_jitter(dtype)
     set_config(dataclasses.replace(config(), **kwargs))
+
+
+def set_default_device(device: Union[str, torch.device]) -> None:
+    """Sets the device on which parameters and data are built, e.g. "cpu"."""
+    set_config(dataclasses.replace(config(), device=torch.device(device)))
 
 
 def set_default_jitter(value: float) -> None:

@@ -12,7 +12,10 @@
 // saved K without a kernel. Inputs are f32 or bf16 and are upcast on load; g,
 // the arithmetic and the [N, M] output are f32. d2 is rematerialised tile by
 // tile with the routine K1 uses (stationary_tile.cuh), so the backward sees
-// bit for bit the d2 of the forward.
+// bit for bit the d2 of the forward. Where d2 falls under the 1e-36 clip of
+// r (coincident points, such as the diagonal of a Gram matrix K(X, X)), W is
+// 0, the derivative of h(sqrt(max(d2, 1e-36))); the 1/r of exponential and
+// Matern 1/2 would otherwise give about -5e17 there.
 //
 // What bounds it on an H100: at D = 8 an element costs about 3D + 12 flops,
 // against 8 bytes of device-memory traffic (g read, W written) that grow with

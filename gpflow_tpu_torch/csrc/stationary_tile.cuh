@@ -70,23 +70,29 @@ __device__ __forceinline__ float tail_value(float d2, float alpha) {
 }
 
 // dh/d(d2) of pallas_distance.py::_tail_grad for the families whose
-// backward needs it. Exponential and Matern12 carry 1/r, under the same
-// 1e-36 clip: at d2 = 0 they give about -5e17.
+// backward needs it, and 0 wherever d2 falls under the 1e-36 clip: the
+// derivative of h(sqrt(max(d2, 1e-36))), as the JAX package's XLA path
+// differentiates it. Exponential and Matern12 carry 1/r, which would give
+// about -5e17 at coincident points (d2 is exactly 0 there) and turn the input
+// gradient into rounding noise of that size; for Matern32 and Matern52 the
+// zero changes nothing, since their term is multiplied by xs_i - zs_j = 0.
 template <int FAMILY>
 __device__ __forceinline__ float tail_grad(float d2) {
   const float r = sqrtf(fmaxf(d2, 1e-36f));
+  float grad;
   if constexpr (FAMILY == kExponential) {
-    return -expf(-0.5f * r) / (4.0f * r);
+    grad = -expf(-0.5f * r) / (4.0f * r);
   } else if constexpr (FAMILY == kMatern12) {
-    return -expf(-r) / (2.0f * r);
+    grad = -expf(-r) / (2.0f * r);
   } else if constexpr (FAMILY == kMatern32) {
     const float s = 1.7320508075688772f;  // sqrt(3)
-    return -1.5f * expf(-s * r);
+    grad = -1.5f * expf(-s * r);
   } else {
     static_assert(FAMILY == kMatern52, "tail_grad: exponential and Matern families only");
     const float s = 2.23606797749979f;  // sqrt(5)
-    return -(5.0f / 6.0f) * (1.0f + s * r) * expf(-s * r);
+    grad = -(5.0f / 6.0f) * (1.0f + s * r) * expf(-s * r);
   }
+  return d2 < 1e-36f ? 0.0f : grad;
 }
 
 // acc[r][c] = d2 between row row0 + ty + r * kThreadsY of xs and column

@@ -44,6 +44,11 @@ class Gaussian(ScalarLikelihood):
     def _variance(self, X: torch.Tensor) -> torch.Tensor:
         return evaluate_parameter_or_function(self.variance, X)
 
+    def variance_at(self, X: torch.Tensor) -> torch.Tensor:
+        """The noise variance broadcast to [batch..., N, 1]
+        (``scalar_continuous.py:81-89``)."""
+        return self._variance(X).expand(X.shape[:-1] + (1,))
+
     def _predict_mean_and_var(
         self, X: torch.Tensor, Fmu: torch.Tensor, Fvar: torch.Tensor
     ) -> MeanAndVariance:

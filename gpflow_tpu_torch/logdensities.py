@@ -1,14 +1,27 @@
 """Closed-form log densities (counterpart of ``gpflow_tpu/logdensities.py``;
-``gaussian`` only so far, ROADMAP.md lists the rest)."""
+``gaussian`` and ``multivariate_normal`` so far, ROADMAP.md lists the rest)."""
 from __future__ import annotations
 
 import math
 
 import torch
 
-__all__ = ["gaussian"]
+__all__ = ["gaussian", "multivariate_normal"]
 
 
 def gaussian(x: torch.Tensor, mu: torch.Tensor, var: torch.Tensor) -> torch.Tensor:
     """log N(x | mu, var), broadcast elementwise (``logdensities.py:33``)."""
     return -0.5 * (math.log(2.0 * math.pi) + torch.log(var) + torch.square(mu - x) / var)
+
+
+def multivariate_normal(x: torch.Tensor, mu: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
+    """log N(x[:, r] | mu[:, r], L L^T) for each column r, given the lower
+    Cholesky factor L [D, D] (``logdensities.py:141-154``): x [D, R], mu
+    [D, R] or [D, 1]; returns [R]."""
+    d = x - mu
+    alpha = torch.linalg.solve_triangular(L, d, upper=False)  # [D, R]
+    num_dims = x.shape[0]
+    p = -0.5 * torch.sum(torch.square(alpha), dim=0)
+    p = p - 0.5 * num_dims * math.log(2.0 * math.pi)
+    p = p - torch.sum(torch.log(torch.diagonal(L)))
+    return p

@@ -2,15 +2,16 @@
 from __future__ import annotations
 
 import abc
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 import torch
 
 from ..base import MeanAndVariance, Module
-from ..config import default_float
+from ..config import default_device, default_float
 from ..functions import MeanFunction, Zero
 from ..kernels import Kernel
 from ..likelihoods import Likelihood
+from ..utilities.model_utils import assert_params_false
 
 __all__ = ["BayesianModel", "GPModel"]
 
@@ -22,8 +23,11 @@ class BayesianModel(Module, abc.ABC):
     def log_prior_density(self) -> torch.Tensor:
         """Sum of the log prior densities of the trainable parameters. Priors
         are not ported yet (ROADMAP.md), so this is a zero of the default
-        float type."""
-        return torch.zeros((), dtype=default_float())
+        float type, on the device of the model's parameters
+        (``config.default_device()`` for a model without any)."""
+        first = next(self.parameters(), None)
+        device = default_device() if first is None else first.device
+        return torch.zeros((), dtype=default_float(), device=device)
 
     def log_posterior_density(self, *args: Any, **kwargs: Any) -> torch.Tensor:
         return self.maximum_log_likelihood_objective(*args, **kwargs) + self.log_prior_density()
@@ -39,7 +43,8 @@ class BayesianModel(Module, abc.ABC):
 
 class GPModel(BayesianModel):
     """Base of GP models f ~ GP(m, k), y_i | f_i ~ p(y_i | f_i). Subclasses
-    define ``predict_f``; ``predict_y`` pushes it through the likelihood."""
+    define ``predict_f``; ``predict_y`` and ``predict_log_density`` push it
+    through the likelihood."""
 
     def __init__(
         self,
@@ -73,3 +78,13 @@ class GPModel(BayesianModel):
             )
         f_mean, f_var = self.predict_f(Xnew, full_cov=full_cov, full_output_cov=full_output_cov)
         return self.likelihood.predict_mean_and_var(Xnew, f_mean, f_var)
+
+    def predict_log_density(
+        self, data: Tuple[torch.Tensor, torch.Tensor], full_cov: bool = False, full_output_cov: bool = False
+    ) -> torch.Tensor:
+        """log p(Y | X) of held-out data (X [N, D], Y [N, P]) -> [N]
+        (``gpflow_tpu/models/model.py:155-164``)."""
+        assert_params_false(self.predict_log_density, full_cov=full_cov, full_output_cov=full_output_cov)
+        X, Y = data
+        f_mean, f_var = self.predict_f(X, full_cov=full_cov, full_output_cov=full_output_cov)
+        return self.likelihood.predict_log_density(X, f_mean, f_var, Y)

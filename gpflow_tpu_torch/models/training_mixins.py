@@ -1,15 +1,31 @@
-"""Training-loss mixins (counterpart of ``gpflow_tpu/models/training_mixins.py``;
-the external-data one so far, the internal-data one comes with GPR)."""
+"""Training-loss mixins (counterpart of ``gpflow_tpu/models/training_mixins.py``).
+
+``compile=True`` is accepted for the JAX package's signature and changes
+nothing: losses run eagerly. ``torch.compile`` is not put around them because
+the covariance kernels are launched through ctypes, which it cannot trace."""
 from __future__ import annotations
 
 from typing import Callable, Iterator, Tuple, Union
 
 import torch
 
-__all__ = ["ExternalDataTrainingLossMixin"]
+__all__ = ["ExternalDataTrainingLossMixin", "InternalDataTrainingLossMixin"]
 
 RegressionData = Tuple[torch.Tensor, torch.Tensor]
 LossClosure = Callable[[], torch.Tensor]
+
+
+class InternalDataTrainingLossMixin:
+    """For models that keep their data (GPR; ``training_mixins.py:26-42``)."""
+
+    def training_loss(self) -> torch.Tensor:
+        """The loss on the model's own data."""
+        return self._training_loss()
+
+    def training_loss_closure(self, *, compile: bool = True) -> LossClosure:
+        """A zero-argument loss closure: the bound ``training_loss``."""
+        del compile
+        return self.training_loss
 
 
 class ExternalDataTrainingLossMixin:
@@ -27,12 +43,7 @@ class ExternalDataTrainingLossMixin:
         compile: bool = True,
     ) -> LossClosure:
         """A zero-argument loss closure. ``data`` is either a fixed (X, Y)
-        pair or an iterator of minibatches, of which each call takes the next.
-
-        ``compile`` is accepted for the JAX package's signature and changes
-        nothing: the closure runs eagerly either way. ``torch.compile`` is
-        not put around it because the covariance kernels are launched through
-        ctypes, which it cannot trace."""
+        pair or an iterator of minibatches, of which each call takes the next."""
         del compile
         if hasattr(data, "__next__"):
             return lambda: self.training_loss(next(data))

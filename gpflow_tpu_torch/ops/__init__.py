@@ -1,5 +1,5 @@
 """Hand-written kernels and factorization helpers."""
-from .linalg import chol_and_inverse, cholesky, sym_jitter, triangular_inverse
+from .linalg import chol_and_inverse, cholesky, cholesky_mm, mvn_logp, sym_jitter, triangular_inverse
 from .pallas_distance import (
     PALLAS_FAMILIES,
     launch_counts,
@@ -13,7 +13,9 @@ __all__ = [
     "PALLAS_FAMILIES",
     "chol_and_inverse",
     "cholesky",
+    "cholesky_mm",
     "launch_counts",
+    "mvn_logp",
     "pallas_available",
     "stationary_forward",
     "stationary_kernel_matrix",

@@ -85,25 +85,33 @@ def _tail_value(family: str, d2: torch.Tensor, alpha: Optional[torch.Tensor] = N
 
 
 def _tail_grad(family: str, d2: torch.Tensor, alpha: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """dh/d(d2), analytic per family (``pallas_distance.py:101-121``). Matern
-    3/2 and 5/2 are smooth at r = 0; the 1/r of exponential and Matern 1/2
-    takes the same 1e-36 clip as h, so at d2 = 0 it is about -5e17."""
+    """dh/d(d2), analytic per family (``pallas_distance.py:101-121``).
+
+    The r-based families are 0 wherever d2 falls under the 1e-36 clip: that
+    is the derivative of ``h(sqrt(max(d2, 1e-36)))``, which the JAX package's
+    XLA path differentiates (``gpflow_tpu/kernels/stationaries.py:94-95``).
+    Without it the 1/r of exponential and Matern 1/2 gives about -5e17 at
+    coincident points, and the input gradient's ``row . Xs - W Zs`` cancels
+    to rounding noise of that size; Matern 3/2 and 5/2 change nothing there,
+    since their term is multiplied by xs_i - zs_j = 0."""
     if family == "rbf":
         return -0.5 * torch.exp(-0.5 * d2)
     if family == "rq":
         return -0.5 * torch.exp(-(alpha + 1.0) * torch.log1p(0.5 * d2 / alpha))
     r = torch.sqrt(torch.clamp(d2, min=1e-36))
     if family == "exponential":
-        return -torch.exp(-0.5 * r) / (4.0 * r)
-    if family == "matern12":
-        return -torch.exp(-r) / (2.0 * r)
-    if family == "matern32":
+        grad = -torch.exp(-0.5 * r) / (4.0 * r)
+    elif family == "matern12":
+        grad = -torch.exp(-r) / (2.0 * r)
+    elif family == "matern32":
         s = math.sqrt(3.0)
-        return -1.5 * torch.exp(-s * r)
-    if family == "matern52":
+        grad = -1.5 * torch.exp(-s * r)
+    elif family == "matern52":
         s = math.sqrt(5.0)
-        return -(5.0 / 6.0) * (1.0 + s * r) * torch.exp(-s * r)
-    raise ValueError(f"Unknown stationary family: {family}")
+        grad = -(5.0 / 6.0) * (1.0 + s * r) * torch.exp(-s * r)
+    else:
+        raise ValueError(f"Unknown stationary family: {family}")
+    return torch.where(d2 < 1e-36, torch.zeros_like(grad), grad)
 
 
 def _plain_dtype(Xs: torch.Tensor) -> torch.dtype:
@@ -115,6 +123,19 @@ def _plain_dtype(Xs: torch.Tensor) -> torch.dtype:
 def _plain_d2(Xs: torch.Tensor, Zs: torch.Tensor) -> torch.Tensor:
     dtype = _plain_dtype(Xs)
     return torch.clamp(square_distance(Xs.to(dtype), Zs.to(dtype)), min=0.0)
+
+
+def _direct_d2(Xs: torch.Tensor, Zs: torch.Tensor) -> torch.Tensor:
+    """d2 as the kernels form it (``csrc/stationary_tile.cuh``): a sum of
+    squared differences over the dimensions in order, one [N, M] pass per
+    dimension. Exactly 0 at coincident points, where the norm expansion
+    leaves rounding noise that the 1/r families' gradient turns into garbage."""
+    dtype = _plain_dtype(Xs)
+    x, z = Xs.to(dtype), Zs.to(dtype)
+    d2 = torch.zeros((x.shape[0], z.shape[0]), dtype=dtype, device=x.device)
+    for k in range(x.shape[1]):
+        d2 += torch.square(x[:, k, None] - z[None, :, k])
+    return d2
 
 
 def stationary_forward_plain(
@@ -137,10 +158,12 @@ def stationary_wgrad_plain(
     variance: torch.Tensor,
     g: torch.Tensor,
 ) -> torch.Tensor:
-    """Plain PyTorch version of K2:
-    ``g * (var * h'(max(square_distance(Xs, Zs), 0)))``."""
+    """Plain PyTorch version of K2: ``g * (var * h'(d2))`` with d2 formed as
+    K2 forms it (``_direct_d2``), so that both give W = 0 at coincident
+    points; K1's plain version keeps the norm expansion of the JAX package's
+    kernel."""
     dtype = _plain_dtype(Xs)
-    return g.to(dtype) * (torch.as_tensor(variance).to(dtype) * _tail_grad(family, _plain_d2(Xs, Zs)))
+    return g.to(dtype) * (torch.as_tensor(variance).to(dtype) * _tail_grad(family, _direct_d2(Xs, Zs)))
 
 
 def k1_library() -> ctypes.CDLL:
@@ -171,7 +194,9 @@ def _scalar_on(device: torch.device, value: Optional[torch.Tensor], name: str) -
 
 def _check_inputs(kernel: str, Xs: torch.Tensor, Zs: torch.Tensor) -> None:
     """Raises unless Xs [N, D] and Zs [M, D] are contiguous CUDA tensors of
-    one kernel dtype on one device, within the grid's limits."""
+    one kernel dtype on one device, within the grid's limits. N * M itself
+    may pass 2^31: the kernels offset every row of an [N, M] matrix in
+    int64 (``stationary_tile.cuh``, ``stationary_k1.cu``, ``stationary_k2.cu``)."""
     for name, t in (("Xs", Xs), ("Zs", Zs)):
         if not t.is_cuda:
             raise ValueError(f"{kernel} takes CUDA tensors; {name} is on {t.device}")

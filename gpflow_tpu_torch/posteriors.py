@@ -1,13 +1,17 @@
 """Posteriors with a precomputed prediction cache (counterpart of
-``gpflow_tpu/posteriors.py``; the single-output base case so far).
+``gpflow_tpu/posteriors.py``; the single-output base case and the exact-GP
+posterior so far).
 
 ``BasePosterior`` caches (alpha, Qinv), after which a prediction is matmuls
 only: mean = Kuf^T alpha, var = Kff - Kuf^T Qinv Kuf. The cache stores an
 explicit inverse, so its float32 variance carries an error of about
 cond(Kuu)^2 * eps; the fused route (``fused_predict_f``, Cholesky per call)
-carries about cond(Kuu) * eps.
+carries about cond(Kuu) * eps. ``GPRPosterior`` caches (err, Lm, alpha) of
+the training data: a request solves against Lm, and ``predict_mean`` is one
+matvec.
 
-On CUDA, Kuu and Kuf come from kernel K1 (``ops/pallas_distance.py``).
+On CUDA, every covariance matrix comes from kernel K1
+(``ops/pallas_distance.py``).
 """
 from __future__ import annotations
 
@@ -19,12 +23,14 @@ import torch
 
 from . import kernels
 from .base import MeanAndVariance, Module, Parameter
-from .conditionals.util import base_conditional, expand_independent_outputs
+from .conditionals.util import base_conditional, base_conditional_with_lm, expand_independent_outputs
 from .config import default_jitter
 from .covariances import Kuf, Kuu
 from .functions import MeanFunction
 from .inducing_variables import InducingPoints, InducingVariables
+from .likelihoods import Gaussian
 from .ops.linalg import cholesky
+from .utilities.model_utils import add_likelihood_noise_cov, assert_params_false
 from .utilities.multipledispatch import Dispatcher
 
 __all__ = [
@@ -278,8 +284,69 @@ class _NotPortedPosterior(AbstractPosterior):
         )
 
 
-class GPRPosterior(_NotPortedPosterior):
-    pass
+class GPRPosterior(AbstractPosterior):
+    """Exact-GP posterior; cache = (err, Lm, alpha) with Lm the Cholesky
+    factor of K(X, X) + sigma^2 I and alpha = (K + sigma^2 I)^-1 err
+    (``gpflow_tpu/posteriors.py:326-414``)."""
+
+    def __init__(
+        self,
+        kernel: kernels.Kernel,
+        data: Tuple[torch.Tensor, torch.Tensor],
+        likelihood: Gaussian,
+        mean_function: MeanFunction,
+        *,
+        precompute_cache: Optional[PrecomputeCacheType],
+    ) -> None:
+        X, Y = data
+        super().__init__(kernel, X, mean_function=mean_function)
+        self.Y_data = Y
+        self.likelihood = likelihood
+        if precompute_cache is not None:
+            self.update_cache(precompute_cache)
+
+    def _conditional_with_precompute(
+        self,
+        cache: Tuple[torch.Tensor, ...],
+        Xnew: torch.Tensor,
+        full_cov: bool = False,
+        full_output_cov: bool = False,
+    ) -> MeanAndVariance:
+        assert_params_false(self._conditional_with_precompute, full_output_cov=full_output_cov)
+        err, Lm = cache[0], cache[1]
+        Knn = self.kernel(Xnew, full_cov=full_cov)
+        Kmn = self.kernel(self.X_data, Xnew)
+        return base_conditional_with_lm(
+            Kmn=Kmn, Lm=Lm, Knn=Knn, f=err, full_cov=full_cov, q_sqrt=None, white=False
+        )
+
+    def predict_mean(self, Xnew: torch.Tensor) -> torch.Tensor:
+        """mean = Kmn^T alpha with alpha from the cache: the [N, Nnew] Kmn and
+        one matvec, no solve."""
+        if self.cache is None:
+            return super().predict_mean(Xnew)
+        alpha = self.cache[2]
+        Kmn = self.kernel(self.X_data, Xnew)
+        return self._add_mean_function(Xnew, torch.matmul(Kmn.mT, alpha))
+
+    def _precompute_base(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(err, Lm): what the full conditional needs."""
+        err = self.Y_data - self.mean_function(self.X_data)
+        Kmm = self.kernel(self.X_data)
+        Lm = cholesky(add_likelihood_noise_cov(Kmm, self.likelihood, self.X_data))
+        return err, Lm
+
+    def _precompute(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        err, Lm = self._precompute_base()
+        alpha = torch.linalg.solve_triangular(
+            Lm.mT, torch.linalg.solve_triangular(Lm, err, upper=False), upper=True
+        )
+        return err, Lm, alpha
+
+    def _conditional_fused(
+        self, Xnew: torch.Tensor, full_cov: bool = False, full_output_cov: bool = False
+    ) -> MeanAndVariance:
+        return self._conditional_with_precompute(self._precompute_base(), Xnew, full_cov, full_output_cov)
 
 
 class SGPRPosterior(_NotPortedPosterior):

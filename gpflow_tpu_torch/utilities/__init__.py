@@ -1,4 +1,5 @@
 from .misc import set_trainable
+from .model_utils import add_likelihood_noise_cov, add_noise_cov, assert_params_false
 from .multipledispatch import Dispatcher
 from .ops import square_distance
 from .parameter_or_function import evaluate_parameter_or_function, prepare_parameter_or_function
@@ -6,6 +7,9 @@ from .traversal import load_jax_values, parameter_dict, read_values
 
 __all__ = [
     "Dispatcher",
+    "add_likelihood_noise_cov",
+    "add_noise_cov",
+    "assert_params_false",
     "evaluate_parameter_or_function",
     "load_jax_values",
     "parameter_dict",

@@ -5,9 +5,10 @@ VJP and against autodiff of the JAX kernel classes, and the plumbing around
 the CUDA kernel that can be checked without a card. The CUDA kernel itself is
 held against its plain version on the card by chip_smoke.py.
 
-Points are kept apart (Zs shifted by 3) wherever exponential or Matern 1/2
-is differentiated: their h' carries 1/r, whose clip at r = 0 the two
-packages' references treat differently by design."""
+Points are kept apart (Zs shifted by 3) where the port is held against the
+JAX package's Pallas VJP: for exponential and Matern 1/2 that VJP keeps the
+1/r of h' at r = 0, where K2 and the XLA path give 0. Coincident points are
+held against the XLA path, on inputs where its distances are exact."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,9 +22,11 @@ from gpflow_tpu.ops.pallas_distance import (
     _stationary_pallas_forward,
     _stationary_pallas_wgrad,
 )
-from gpflow_tpu_torch import kernels, likelihoods
+from gpflow_tpu_torch import config, kernels, likelihoods
 from gpflow_tpu_torch.models import SVGP
 from gpflow_tpu_torch.ops import pallas_distance as pd
+
+config.set_default_device("cpu")  # the port builds on the card unless asked for the CPU
 
 FAMILIES = pd.PALLAS_FAMILIES
 KUU_FAMILIES = ("rbf", "rq", "matern32", "matern52")
@@ -160,6 +163,47 @@ def test_function_gradients_match_jax_kernel_classes_f64(family, same):
     want = _jax_class_vjp_f64(family, X, Z, ls, var, alpha, g, same)
     got = _port_grads(family, X, Z, ls, var, alpha, g, same)
     for i in (0, 2, 3) + ((4,) if family == "rq" else ()) + (() if same else (1,)):
+        _check(got[i], want[i], rtol=1e-9, atol=1e-9)
+
+
+def _coincident(seed, N, D):
+    """[N, D] points on the grid of multiples of 1/8 with some rows repeated,
+    and power-of-two lengthscales: every distance, and so the norm expansion
+    of the JAX package's XLA path, is exact, with d2 = 0 on the diagonal and
+    at the repeated rows."""
+    rng = np.random.RandomState(seed)
+    X = rng.randint(-12, 13, size=(N, D)) / 8.0
+    X[N // 2:N // 2 + 3] = X[:3]
+    return rng, X, 2.0 ** rng.randint(-1, 2, size=D)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("family", pd.WGRAD_FAMILIES)
+def test_plain_k2_is_zero_at_coincident_points(family, dtype):
+    # W = g var h'(d2) with h' taken as 0 under the 1e-36 clip, as K2 does:
+    # the exponential and Matern 1/2 families' 1/r would give about -5e17
+    rng, X, _ = _coincident(12, 20, 3)
+    g = rng.randn(20, 20).astype(dtype)
+    Xs = torch.from_numpy(X.astype(dtype))
+    W = pd.stationary_wgrad(family, Xs, Xs, torch.tensor(1.3), torch.from_numpy(g)).numpy()
+    same = np.all(X[:, None, :] == X[None, :, :], axis=-1)
+    assert same.sum() == 20 + 6
+    assert np.all(W[same] == 0.0)
+    assert np.all(np.isfinite(W)) and np.all(W[~same] != 0.0)
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_function_gradients_at_coincident_points_match_jax_kernel_classes_f64(family):
+    # the gradient of K(X, X) through the port's Function (plain K1 and K2)
+    # against autodiff of the JAX classes' K(X) on their XLA path, which
+    # differentiates sqrt(max(d2, 1e-36)) and so gives 0 where d2 = 0
+    rng, X, ls = _coincident(13, 16, 3)
+    g = rng.randn(16, 16)
+    var, alpha = np.float64(1.4), np.float64(0.8)
+    want = _jax_class_vjp_f64(family, X, X, ls, var, alpha, g, same=True)
+    got = _port_grads(family, X, X, ls, var, alpha, g, same=True)
+    for i in (0, 2, 3) + ((4,) if family == "rq" else ()):
+        assert np.all(np.isfinite(got[i]))
         _check(got[i], want[i], rtol=1e-9, atol=1e-9)
 
 

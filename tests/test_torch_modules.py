@@ -17,6 +17,8 @@ from gpflow_tpu_torch import posteriors
 from gpflow_tpu_torch.conditionals import util as cond
 from gpflow_tpu_torch.ops import linalg
 
+gt.config.set_default_device("cpu")  # the port builds on the card unless asked for the CPU
+
 RTOL = 1e-10
 
 
@@ -281,7 +283,7 @@ def test_predict_before_cache_raises_and_nocache_uses_fused_route():
     _close(mean, post.predict_mean(X))
 
 
-@pytest.mark.parametrize("name", ["GPRPosterior", "SGPRPosterior", "VGPPosterior",
+@pytest.mark.parametrize("name", ["SGPRPosterior", "VGPPosterior",
                                   "IndependentPosteriorMultiOutput", "FullyCorrelatedPosterior",
                                   "LinearCoregionalizationPosterior", "FallbackIndependentLatentPosterior"])
 def test_unported_posteriors_name_the_roadmap(name):

@@ -16,6 +16,8 @@ from gpflow_tpu_torch.ops import launch_counts
 from gpflow_tpu_torch.utilities import load_jax_values
 from gpflow_tpu_torch.utilities import read_values as port_read_values
 
+config.set_default_device("cpu")  # the port builds on the card unless asked for the CPU
+
 M, N, D, L = 32, 60, 3, 1  # N > M, so the INV_SOLVE route takes effect
 
 
@@ -107,7 +109,7 @@ def test_slice_matches_jax_f32(route):
     # cond(Kuu) of a few hundred, so 2e-3 of the largest entry bounds both.
     values, X = _values(np.float32, seed=1)
     with gpflow_tpu.config.as_context(gpflow_tpu.config.Config(float=np.float32)), \
-            config.as_context(config.Config(float=torch.float32)):
+            config.as_context(config.Config(float=torch.float32, device="cpu")):
         jax_model = _jax_model(values, whiten=True)
         model = _port_of(jax_model, np.float32, whiten=True)
         want = _jax_requests(jax_model, X, route)

@@ -23,7 +23,7 @@ from gpflow_tpu.parallel import DataParallelTrainer as JaxTrainer
 from gpflow_tpu.parallel import make_mesh
 from gpflow_tpu.utilities import parameter_dict as jax_parameter_dict
 from gpflow_tpu.utilities import read_values
-from gpflow_tpu_torch import kernels, kullback_leiblers, likelihoods, logdensities
+from gpflow_tpu_torch import config, kernels, kullback_leiblers, likelihoods, logdensities
 from gpflow_tpu_torch.conditionals import inv_solve
 from gpflow_tpu_torch.conditionals import util as cond
 from gpflow_tpu_torch.models import SVGP
@@ -31,6 +31,8 @@ from gpflow_tpu_torch.ops import linalg
 from gpflow_tpu_torch.parallel import DataParallelTrainer, adam
 from gpflow_tpu_torch.utilities import load_jax_values, parameter_dict, set_trainable
 from gpflow_tpu_torch.utilities import read_values as port_read_values
+
+config.set_default_device("cpu")  # the port builds on the card unless asked for the CPU
 
 RTOL = 1e-10
 
