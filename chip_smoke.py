@@ -10,7 +10,10 @@ D = 8, M = 2048 inducing points, batches and requests of B = 8192 points,
 float32, Gaussian likelihood, whitened full q_sqrt), with values made from a
 numpy seed: serving (slice 1) and training (slice 2); and ``bench.py``'s
 exact-GP operating points (GPR at N = 8192 and 16384, D = 8, float32,
-SquaredExponential, noise 0.1; slice 3). Models are built on the card, the
+SquaredExponential, noise 0.1; slice 3); and its non-conjugate operating point
+(a Bernoulli SVGP with M = 1024, B = 4096, D = 8, N = 32768, float32, 20
+Gauss-Hermite points, natural gradients and Adam; slice 4). Models are built
+on the card, the
 port's default device; the float64 references ask for the CPU, or for float64
 on the card where the CPU would take minutes. Phases:
 
@@ -49,8 +52,23 @@ on the card where the CPU would take minutes. Phases:
    kernel and route, a ``torch.profiler`` breakdown of one step, the GPR
    objective with and without its gradient, seconds per L-BFGS iteration,
    GPR requests, the blocked triangular inverse against cuSOLVER, a
-   profiler breakdown of one GPR value-and-gradient, and K1 and K2 against
-   their plain versions.
+   profiler breakdown of one GPR value-and-gradient;
+11. the non-conjugate slice, its objective, training and minimize loop
+   under sync debug mode "error": the Bernoulli ELBO, its gradient and the
+   quadrature's variational expectations on one batch against float64 on
+   the card;
+   ``run_steps_sampled`` of ``DataParallelTrainer(natgrad_gamma=0.1)``, 250
+   fused steps and 50 sequential ones, losses finite and the ELBO rising,
+   ``natgrad_rejections`` printed, the first three steps of each mode
+   against float64 on the card; 20 fused Matern52 steps (K2 on the path);
+   ``NaturalGradient.minimize`` then one Adam step, five times; requests of
+   4096 new points to the trained classifier (cached ``predict_f``,
+   ``predict_y``, ``predict_log_density``) against float64, probabilities
+   within [1e-3, 1 - 1e-3]; launch counts exactly as each path implies; steps
+   per second of both modes, a profile of one fused step and of its
+   natural-gradient update alone, request latency, and K1 and K2 at the
+   path's shapes;
+12. K1 and K2 against their plain versions at the GPR's shapes.
 
 Every failure raises, and the script then exits non-zero without the result
 line. The line before the last is ``{"kernels": [...]}``; the last is
@@ -144,6 +162,35 @@ GPR_PENALTY = 1e15  # Scipy's nonfinite_penalty: a float32 trial point whose Cho
 # cond ~ 5 N / noise: ~1e5. The script measures cond (an upper bound:
 # lambda_min >= noise) and holds each error to cond * eps32.
 EPS32 = float(np.finfo(np.float32).eps)
+
+# The non-conjugate path (bench.py:222-279): data as bench.py makes it
+# (RandomState(2), D = 8, N = 8 * 4096, X uniform on [0, 4]^8,
+# Y = (sin(X w) + 0.3 eps > 0)), M = 1024 inducing points drawn from X,
+# SquaredExponential with lengthscales 1, Bernoulli (probit, 20 Gauss-Hermite
+# points), whitened full q_sqrt, float32; natural gradients (gamma 0.1) on
+# q(u) and Adam 1e-2 on the kernel and Z, batches of B = 4096; requests of
+# 4096 new points drawn after the data from the same generator.
+NG_M, NG_B, NG_N = 1024, 4096, 8 * 4096
+NG_GAMMA = 0.1
+NG_FUSED_STEPS = 250  # as many as bench.py scans in one call
+NG_SEQ_STEPS, NG_MATERN_STEPS, NG_MINIMIZE_ITERS, NG_F64_STEPS = 50, 20, 5, 3
+NG_TIMED_STEPS = {"fused": 100, "sequential": 50}
+# float32 against float64 on the card (the objective, three steps, the
+# requests), each as a fraction of its largest float64 entry. Whitened, the
+# conditional solves with the float32 Cholesky of Kuu + 1e-4 I, and a
+# natural-gradient step inverts q_sqrt's factor twice and takes three more
+# float32 Choleskys: each carries about cond * eps32, cond the larger of
+# cond(Kuu + 1e-4 I) and cond(S), S = q_sqrt q_sqrt^T, both measured in the
+# run from their eigenvalues in float64. Those errors then pass through
+# float32 sums and contractions over B = 4096 points, whose rounding grows as
+# sqrt(B) eps32 for independent roundings: the tolerance is
+# NG_MULT * cond * eps32 with NG_MULT = sqrt(B) = 64. Each float32 natural-
+# gradient step also adds ``sym_jitter``'s 1e-5 times the mean |diagonal| to
+# three matrices (ops/linalg.py, as the JAX package does; float64 adds none),
+# moving the new q(u) by up to 1e-5 * cond(S) of its largest entry: after
+# k steps the training checks add 3 * k * NG_JITTER * cond(S).
+NG_MULT = 64.0
+NG_JITTER = 1e-5
 
 
 def log(*args):
@@ -529,35 +576,13 @@ def time_training(trainers):
     return got
 
 
-def profile_step(trainer, kernel, route, top=8):
+def profile_step(trainer, kernel, route):
     """Phase 9: device time of one training step by kernel, from
     ``torch.profiler``."""
-    from torch.profiler import ProfilerActivity, profile
-
     from gpflow_tpu_torch.conditionals import inv_solve
 
     with inv_solve(route == "inv_solve"):
-        trainer.run_steps_sampled(1, B)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            trainer.run_steps_sampled(1, B)
-            end.record()
-            torch.cuda.synchronize()
-    step_ms = start.elapsed_time(end)
-    device = [e for e in prof.key_averages()
-              if str(getattr(e, "device_type", "")).endswith("CUDA")
-              and getattr(e, "self_device_time_total", 0) > 0]
-    if not device:
-        log(f"profile: train {kernel} {route}: the profiler recorded no device time")
-        return
-    device.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    busy = sum(e.self_device_time_total for e in device) / 1e3
-    log(f"profile: train {kernel} {route}: one step {step_ms:.3f} ms, device busy {busy:.3f} ms "
-        f"({100 * busy / step_ms:.0f}%), {sum(e.count for e in device)} kernels; largest:")
-    for e in device[:top]:
-        log(f"profile:   {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<3d} {e.key[:110]}")
+        profile_device(lambda: trainer.run_steps_sampled(1, B), f"train {kernel} {route}")
 
 
 def time_k2(n, m, iters=50, family="matern52"):
@@ -874,30 +899,10 @@ def time_gpr(models):
             log(f"time: gpr value and gradient N={n} {route}: {ms:.3f} ms")
 
 
-def profile_gpr(model, route, flag, top=10):
+def profile_gpr(model, route, flag):
     """Phase 10: device time of one GPR value-and-gradient by kernel."""
-    from torch.profiler import ProfilerActivity, profile
-
-    gpr_value_and_grad(model, flag)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        gpr_value_and_grad(model, flag)
-        end.record()
-        torch.cuda.synchronize()
-    total_ms = start.elapsed_time(end)
-    device = [e for e in prof.key_averages()
-              if str(getattr(e, "device_type", "")).endswith("CUDA") and getattr(e, "self_device_time_total", 0) > 0]
-    if not device:
-        log(f"profile: gpr N={model.data[0].shape[0]} {route}: the profiler recorded no device time")
-        return
-    device.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    busy = sum(e.self_device_time_total for e in device) / 1e3
-    log(f"profile: gpr value and gradient N={model.data[0].shape[0]} {route}: {total_ms:.3f} ms, device busy "
-        f"{busy:.3f} ms ({100 * busy / total_ms:.0f}%), {sum(e.count for e in device)} kernels; largest:")
-    for e in device[:top]:
-        log(f"profile:   {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<3d} {e.key[:110]}")
+    profile_device(lambda: gpr_value_and_grad(model, flag),
+                   f"gpr value and gradient N={model.data[0].shape[0]} {route}", top=10)
 
 
 def time_inverse(model):
@@ -921,6 +926,368 @@ def time_inverse(model):
     log(f"time: triangular inverse N={n}: blocked {min(got['blocked']):.3f} ms "
         f"({2 * n ** 3 / 3 / (min(got['blocked']) * 1e-3) / 1e12:.1f} TFLOP/s of (2/3) N^3), "
         f"solve_triangular(L, I) {min(got['solve']):.3f} ms; runs {got}; max rel diff {err:.2e}")
+
+
+def make_ng_data():
+    """X, Y and Z as ``bench.py:233-238`` makes them, then NG_B new points
+    and their labels, drawn after them from the same generator."""
+    rng = np.random.RandomState(2)
+    X = rng.rand(NG_N, D).astype(np.float32) * 4.0
+    w = rng.randn(D, 1).astype(np.float32)
+    Y = (np.sin(X @ w) + 0.3 * rng.randn(NG_N, 1) > 0).astype(np.float32)
+    Z = X[rng.choice(NG_N, NG_M, replace=False)].copy()
+    Xnew = rng.rand(NG_B, D).astype(np.float32) * 4.0
+    Ynew = (np.sin(Xnew @ w) + 0.3 * rng.randn(NG_B, 1) > 0).astype(np.float32)
+    return X, Y, Z, Xnew, Ynew
+
+
+def ng_model(kernel, Z, dtype, values=None):
+    """The Bernoulli SVGP on the card in ``dtype``: lengthscales 1,
+    ``num_data`` = NG_N, whitened full q_sqrt (identity) and q_mu zeros, or
+    the constrained ``values`` of ``read_values``."""
+    from gpflow_tpu_torch import config, kernels, likelihoods
+    from gpflow_tpu_torch.models import SVGP
+    from gpflow_tpu_torch.utilities import load_jax_values
+
+    with config.as_context(dataclasses.replace(config.config(), float=dtype)):
+        model = SVGP(kernel=getattr(kernels, kernel)(lengthscales=np.ones(D)), likelihood=likelihoods.Bernoulli(),
+                     inducing_variable=Z, num_data=NG_N)
+    model = model.to(dtype=dtype)
+    if values is not None:
+        np_dtype = np.float64 if dtype == torch.float64 else np.float32
+        load_jax_values(model, {k: v.astype(np_dtype) for k, v in values.items()})
+    return model
+
+
+def ng_values(Z, seed):
+    """Values of the Bernoulli SVGP away from its start: q_mu ~ N(0, 0.25),
+    q_sqrt with a diagonal in [0.1, 1] and small entries below it."""
+    rng = np.random.RandomState(seed)
+    q_sqrt = np.tril(rng.randn(1, NG_M, NG_M) * (0.1 / np.sqrt(NG_M)), k=-1)
+    q_sqrt[0, np.arange(NG_M), np.arange(NG_M)] = 0.1 + 0.9 * rng.rand(NG_M)
+    return {".inducing_variable.Z": Z, ".kernel.lengthscales": np.ones(D), ".kernel.variance": np.asarray(1.0),
+            ".q_mu": 0.5 * rng.randn(NG_M, 1), ".q_sqrt": q_sqrt}
+
+
+def ng_cond(model64):
+    """cond(Kuu + jitter I) and cond(S), S = q_sqrt q_sqrt^T, of a float64
+    model, from their eigenvalues."""
+    from gpflow_tpu_torch.config import default_jitter
+    from gpflow_tpu_torch.covariances import Kuu
+
+    with torch.no_grad():
+        kuu = torch.linalg.eigvalsh(Kuu(model64.inducing_variable, model64.kernel, jitter=default_jitter()))
+        L = model64.q_sqrt.value[0]
+        s = torch.linalg.eigvalsh(L @ L.mT)
+    return float(kuu[-1] / kuu[0]), float(s[-1] / s[0])
+
+
+def ng_tolerance(what, model64, steps=0):
+    """NG_MULT * cond * eps32 for the larger of the two conditions, plus
+    3 * steps * NG_JITTER * cond(S) after ``steps`` natural-gradient steps."""
+    c_kuu, c_s = ng_cond(model64)
+    rounding, jitter = NG_MULT * max(c_kuu, c_s) * EPS32, 3 * steps * NG_JITTER * c_s
+    log(f"{what}: cond(Kuu + jitter I) {c_kuu:.4e}, cond(S) {c_s:.4e}; tolerance {NG_MULT:.0f} * cond * eps32 "
+        f"= {rounding:.3e}" + (f" + 3 * {steps} * {NG_JITTER:.0e} * cond(S) = {rounding + jitter:.3e}" if steps else ""))
+    return rounding + jitter
+
+
+def rel_err(got, want):
+    """max |got - want| over max |want|, in float64."""
+    want = want.double()
+    return float((got.double() - want).abs().max()) / max(float(want.abs().max()), 1e-300)
+
+
+def ng_check_objective(data, Z, launches):
+    """Phase 11: the float32 ELBO, its gradient with respect to every
+    trainable parameter and the quadrature's variational expectations on one
+    batch, under sync debug mode "error", against the same model in float64
+    on the card."""
+    from gpflow_tpu_torch.utilities import parameter_dict
+
+    X, Y = data
+    idx = torch.from_numpy(np.random.RandomState(SEED + 12).randint(0, NG_N, NG_B)).cuda()
+    values = ng_values(Z, SEED + 12)
+    m32, m64 = ng_model("SquaredExponential", Z, torch.float32, values), \
+        ng_model("SquaredExponential", Z, torch.float64, values)
+    tol = ng_tolerance("natgrad objective", m64)
+
+    def evaluate(model, batch):
+        elbo = model.elbo(batch)
+        grads = torch.autograd.grad(elbo, [p.unconstrained for p in model.trainable_parameters])
+        with torch.no_grad():
+            fmu, fvar = model.predict_f(batch[0])
+            ve = model.likelihood.variational_expectations(batch[0], fmu, fvar, batch[1])
+        return elbo.detach(), grads, ve
+
+    batch = (X.index_select(0, idx), Y.index_select(0, idx))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        (elbo32, grads32, ve32), counts = counted(lambda: evaluate(m32, batch))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    expect_launches("natgrad objective: ELBO, gradient and variational expectations", counts, {"K1": 4, "K2": 0},
+                    launches)
+    elbo64, grads64, ve64 = evaluate(m64, tuple(t.double() for t in batch))
+    err = abs(float(elbo32) - float(elbo64)) / abs(float(elbo64))
+    log(f"natgrad objective: ELBO {float(elbo32):.6e} (f64 {float(elbo64):.6e}), rel err {err:.3e}, tol {tol:.1e}")
+    assert bool(torch.isfinite(elbo32)) and err <= tol, "the Bernoulli ELBO disagrees with float64"
+    names = [path for path, p in parameter_dict(m32).items() if p.trainable]
+    for name, got, want in zip(names, grads32, grads64):
+        gerr = rel_err(got, want)
+        log(f"natgrad objective: gradient {name}: rel err {gerr:.3e} of the f64 max {float(want.abs().max()):.4e}, "
+            f"tol {tol:.1e}")
+        assert bool(torch.isfinite(got).all()) and gerr <= tol, f"the ELBO's gradient {name} disagrees with float64"
+    verr = rel_err(ve32, ve64)
+    log(f"natgrad objective: variational expectations [{ve32.shape[0]}] through "
+        f"{m32.likelihood.quadrature.n_gh} Gauss-Hermite points: rel err {verr:.3e}, tol {tol:.1e}")
+    assert ve32.shape == (NG_B,) and bool(torch.isfinite(ve32).all()) and verr <= tol, \
+        "the variational expectations disagree with float64"
+
+
+def ng_train(kernel, fused, steps, data, Z, launches):
+    """Phase 12: ``run_steps_sampled`` of the natural-gradient trainer under
+    sync debug mode "error"; losses finite and falling, some step accepted,
+    launch counts exact. Returns the trainer."""
+    from gpflow_tpu_torch.parallel import DataParallelTrainer, adam
+
+    mode = "fused" if fused else "sequential"
+    trainer = DataParallelTrainer(ng_model(kernel, Z, torch.float32), adam(1e-2), natgrad_gamma=NG_GAMMA,
+                                  natgrad_fused=fused)
+    trainer.stage_data(data)
+    generator = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        losses, counts = counted(lambda: trainer.run_steps_sampled(steps, NG_B, generator=generator))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    losses = losses.cpu()
+    rejected = trainer.natgrad_rejections
+    last = float(losses[-10:].mean())
+    log(f"natgrad train {kernel} {mode}: {steps} steps at B={NG_B}, loss {float(losses[0]):.6e} -> {last:.6e} "
+        f"(mean of the last 10); natgrad_rejections {rejected} of {steps}")
+    # sequential: the natural-gradient pass and the optimizer's pass each
+    # build Kuu and Kuf; Matern52's backward runs K2 for both, once a step
+    # (the natural-gradient pass differentiates q(u) alone)
+    per_step = {"K1": 2 if fused else 4, "K2": 2 if kernel == "Matern52" else 0}
+    expect_launches(f"natgrad train {kernel} {mode}", counts, {k: v * steps for k, v in per_step.items()}, launches)
+    assert losses.shape == (steps,) and bool(torch.isfinite(losses).all()), f"natgrad {mode}: non-finite loss"
+    assert last < float(losses[0]), f"natgrad {mode}: the ELBO did not rise"
+    assert rejected < steps, f"natgrad {mode}: every natural-gradient step was rejected"
+    return trainer
+
+
+def ng_compare_f64(fused, data, Z):
+    """Phase 12, last part: the first NG_F64_STEPS steps in float32 against
+    float64 on the card, from the same values on the same batches. The loss,
+    q_mu and q_sqrt within the cond-based tolerance; the hyperparameters and
+    Z, which Adam moves, as in the Gaussian training slice."""
+    from gpflow_tpu_torch.parallel import DataParallelTrainer, adam
+    from gpflow_tpu_torch.utilities import read_values
+
+    mode = "fused" if fused else "sequential"
+    X, Y = data
+    idx = torch.from_numpy(np.random.RandomState(SEED + 13).randint(0, NG_N, (NG_F64_STEPS, NG_B))).cuda()
+    batches = (X[idx], Y[idx])
+    models = {dtype: ng_model("SquaredExponential", Z, dtype) for dtype in (torch.float32, torch.float64)}
+    start = read_values(models[torch.float32])
+    losses = {dtype: DataParallelTrainer(m, adam(1e-2), natgrad_gamma=NG_GAMMA, natgrad_fused=fused).run_steps(
+        tuple(t.to(dtype) for t in batches)).double() for dtype, m in models.items()}
+    tol = ng_tolerance(f"natgrad f64 {mode}", models[torch.float64], NG_F64_STEPS)
+    err = float(((losses[torch.float32] - losses[torch.float64]) / losses[torch.float64]).abs().max())
+    log(f"natgrad f64 {mode}: losses card f32 {losses[torch.float32].tolist()} f64 "
+        f"{losses[torch.float64].tolist()}: max rel err {err:.3e}, tol {tol:.1e}")
+    assert err <= tol, f"natgrad {mode}: float32 losses disagree with float64"
+    got, want = read_values(models[torch.float32]), read_values(models[torch.float64])
+    for path in sorted(want):
+        diff = np.abs(got[path].astype(np.float64) - want[path])
+        if path in (".q_mu", ".q_sqrt"):
+            rel = float(diff.max() / np.abs(want[path]).max())
+            log(f"natgrad f64 {mode}: {path}: max abs diff {diff.max():.3e}, rel {rel:.3e}, tol {tol:.1e}")
+            assert rel <= tol, f"natgrad {mode}: {path} disagrees with float64"
+        elif path.startswith(".kernel"):
+            log(f"natgrad f64 {mode}: {path}: max abs diff {diff.max():.3e}, tol {F64_HYPER_ATOL:.0e}")
+            assert diff.max() <= F64_HYPER_ATOL, f"natgrad {mode}: {path} disagrees with float64"
+        else:
+            moved = want[path] != start[path]
+            share = float(np.mean(diff[moved] > F64_ELEMENT_ATOL)) if moved.any() else 0.0
+            log(f"natgrad f64 {mode}: {path}: {int(moved.sum())} elements moved, share off by > "
+                f"{F64_ELEMENT_ATOL:.0e}: {share:.3e} (tol {F64_ELEMENT_SHARE:.0e}); max abs diff {diff.max():.3e}")
+            assert share <= F64_ELEMENT_SHARE, f"natgrad {mode}: {path} disagrees with float64"
+
+
+def ng_minimize(data, Z, launches):
+    """Phase 13: the JAX package's own loop, ``NaturalGradient.minimize`` on
+    (q_mu, q_sqrt) then one Adam step on the rest, each on the next batch of
+    a ``training_loss_closure`` over an iterator, under sync debug mode
+    "error"; the loss on a fixed batch must fall."""
+    from gpflow_tpu_torch.optimizers import NaturalGradient
+
+    X, Y = data
+    model = ng_model("SquaredExponential", Z, torch.float32)
+    hypers = [p.unconstrained for p in model.trainable_parameters if p is not model.q_mu and p is not model.q_sqrt]
+    adam_opt = torch.optim.Adam(hypers, lr=1e-2, betas=(0.9, 0.999), eps=1e-8)
+    natgrad_opt = NaturalGradient(gamma=NG_GAMMA)
+    idx = torch.randint(0, NG_N, (2 * NG_MINIMIZE_ITERS + 1, NG_B), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(SEED + 14))
+    fixed = (X[idx[-1]], Y[idx[-1]])
+    loss_fn = model.training_loss_closure(iter([(X[i], Y[i]) for i in idx[:-1]]))
+
+    def loop():
+        for _ in range(NG_MINIMIZE_ITERS):
+            natgrad_opt.minimize(loss_fn, [(model.q_mu, model.q_sqrt)])
+            for p, g in zip(hypers, torch.autograd.grad(loss_fn(), hypers)):
+                p.grad = g
+            adam_opt.step()
+
+    with torch.no_grad():
+        before = float(model.training_loss(fixed))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, counts = counted(loop)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    with torch.no_grad():
+        after = float(model.training_loss(fixed))
+    log(f"natgrad minimize: {NG_MINIMIZE_ITERS} iterations of NaturalGradient.minimize and one Adam step: loss on a "
+        f"fixed batch {before:.6e} -> {after:.6e}")
+    expect_launches("natgrad minimize + Adam", counts, {"K1": 4 * NG_MINIMIZE_ITERS, "K2": 0}, launches)
+    assert np.isfinite(after) and after < before, "NaturalGradient.minimize did not lower the loss"
+
+
+def ng_serve(model, Xnew, Ynew, launches):
+    """Phase 14: requests of NG_B new points to the trained classifier,
+    cached ``predict_f``, fused ``predict_y`` (the probit closed form) and
+    ``predict_log_density``, with exact launch counts, against float64 on
+    the card. Probabilities lie within the squashed probit's limits, 1e-3
+    and 1 - 1e-3. Returns the posterior and the requests."""
+    from gpflow_tpu_torch.utilities import read_values
+
+    Xb, Yb = torch.from_numpy(Xnew).cuda(), torch.from_numpy(Ynew).cuda()
+    with torch.no_grad():
+        post, counts = counted(model.posterior)
+        expect_launches("natgrad classifier posterior", counts, {"K1": 1, "K2": 0}, launches)
+        out = {}
+        for key, fn, k1 in (("cached predict_f", lambda: post.predict_f(Xb), 1),
+                            ("predict_y", lambda: model.predict_y(Xb), 2),
+                            ("predict_log_density", lambda: (model.predict_log_density((Xb, Yb)),), 2)):
+            out[key], counts = counted(fn)
+            expect_launches(f"natgrad classifier {key} request", counts, {"K1": k1, "K2": 0}, launches)
+        m64 = ng_model("SquaredExponential", np.zeros((NG_M, D)), torch.float64, read_values(model))
+        tol = ng_tolerance("natgrad classifier", m64)
+        want = {"cached predict_f": m64.posterior().predict_f(Xb.double()), "predict_y": m64.predict_y(Xb.double()),
+                "predict_log_density": (m64.predict_log_density((Xb.double(), Yb.double())),)}
+    for key, tensors in out.items():
+        for what, got, w in zip(("mean", "var"), tensors, want[key]):
+            assert got.shape == w.shape and got.dtype == torch.float32 and bool(torch.isfinite(got).all()), \
+                f"natgrad classifier {key} {what}"
+            err = rel_err(got, w)
+            log(f"natgrad classifier: {key} {what if len(tensors) == 2 else ''}: rel err {err:.3e} of the f64 max, "
+                f"tol {tol:.1e}")
+            assert err <= tol, f"natgrad classifier {key} {what} disagrees with float64"
+    p, v = out["predict_y"]
+    fvar = out["cached predict_f"][1]
+    # the squash's limits, 1e-3 and 1 - 1e-3, as float32 evaluates them:
+    # float32's erf reaches -1 and 1 exactly beyond |x| ~ 3.9, and there
+    # inv_probit gives the limit itself
+    from gpflow_tpu_torch.likelihoods import inv_probit
+
+    lo, hi = inv_probit(torch.tensor([-np.inf, np.inf], device="cuda")).tolist()
+    assert 0 < lo and hi < 1 and bool(((p >= lo) & (p <= hi)).all()), \
+        f"a probability outside [{lo}, {hi}], the squashed probit's limits"
+    assert bool((fvar > 0).all()) and bool((v > 0).all()), "natgrad classifier: a variance is not positive"
+    accuracy = float(((p > 0.5).float() == Yb).float().mean())
+    log(f"natgrad classifier: probabilities in [{float(p.min()):.4e}, {float(p.max()):.4e}]; held-out accuracy "
+        f"{accuracy:.4f}, mean log density {float(out['predict_log_density'][0].mean()):.4f}")
+    return post, Xb, Yb
+
+
+def _kernel_category(name):
+    # cuSOLVER's float32 Cholesky runs as getrf_wo_pivot on this card
+    n = name.lower()
+    for key, words in (("K1", ("stationary_k1",)), ("K2", ("stationary_k2",)),
+                       ("cholesky", ("potrf", "getrf", "chol")),
+                       ("triangular", ("trsm", "trtri", "trsv")), ("gemm", ("gemm", "gemv", "syrk"))):
+        if any(w in n for w in words):
+            return key
+    return "small"
+
+
+def profile_device(fn, label, top=8):
+    """Device time of ``fn()`` by kernel category, from ``torch.profiler``;
+    returns {category: ms} and the wall milliseconds by CUDA events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+    total_ms = start.elapsed_time(end)
+    # kernels only: a user annotation such as "Optimizer.step#Adam.step"
+    # carries the device time of the kernels inside it a second time
+    device = [e for e in prof.key_averages()
+              if str(getattr(e, "device_type", "")).endswith("CUDA") and getattr(e, "self_device_time_total", 0) > 0
+              and not getattr(e, "is_user_annotation", False)]
+    if not device:
+        log(f"profile: {label}: the profiler recorded no device time")
+        return {}, total_ms
+    device.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    by = {}
+    for e in device:
+        key = _kernel_category(e.key)
+        ms, count = by.get(key, (0.0, 0))
+        by[key] = (ms + e.self_device_time_total / 1e3, count + e.count)
+    busy = sum(ms for ms, _ in by.values())
+    log(f"profile: {label}: {total_ms:.3f} ms, device busy {busy:.3f} ms ({100 * busy / total_ms:.0f}%), "
+        f"{sum(e.count for e in device)} kernels; by category "
+        + ", ".join(f"{k} {ms:.3f} ms x{c}" for k, (ms, c) in sorted(by.items(), key=lambda kv: -kv[1][0])))
+    for e in device[:top]:
+        log(f"profile:   {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:110]}")
+    return {k: ms for k, (ms, _) in by.items()}, total_ms
+
+
+def ng_timings(trainers, post, model, Xb, Yb):
+    """Phase 15: fused and sequential steps per second by CUDA events around
+    one ``run_steps_sampled`` call, in two rounds of opposite order; a
+    profile of one fused step and of its natural-gradient update alone; the
+    classifier's requests; K1 at the path's shapes."""
+    got = {mode: [] for mode in trainers}
+    for order in (list(trainers), list(reversed(trainers))):
+        for mode in order:
+            steps = NG_TIMED_STEPS[mode]
+            ms = request_ms(lambda: trainers[mode].run_steps_sampled(steps, NG_B), 1, warmup=1)
+            got[mode].append(steps / ms * 1e3)
+    for mode, rates in got.items():
+        log(f"time: natgrad train {mode} at M={NG_M}, B={NG_B}: {max(rates):.2f} steps/s "
+            f"({1e3 / max(rates):.3f} ms per step); rounds {[round(r, 2) for r in rates]}")
+    fused = trainers["fused"]
+    step_by, step_ms = profile_device(lambda: fused.run_steps_sampled(1, NG_B), "natgrad fused step")
+    m = fused.model
+    X, Y = fused._staged_data
+    loss = m._training_loss((X[:NG_B], Y[:NG_B]))
+    vgrads = torch.autograd.grad(loss, [m.q_mu.unconstrained, m.q_sqrt.unconstrained])
+    update_by, _ = profile_device(
+        lambda: fused._natgrad._natgrad_values_with_ok(vgrads[0], vgrads[1], m.q_mu.value, m.q_sqrt.value,
+                                                       m.q_mu.transform, m.q_sqrt.transform,
+                                                       fused._natgrad.xi_transform),
+        "the natural-gradient update alone (conversions, three Choleskys, two triangular inverses, the VJP)")
+    if step_by and update_by:
+        share = sum(update_by.values()) / sum(step_by.values())
+        log(f"profile: the natural-gradient update is {100 * share:.1f}% of a fused step's device time")
+    with torch.no_grad():
+        for key, fn in (("cached predict_f", lambda: post.predict_f(Xb)), ("predict_y", lambda: model.predict_y(Xb)),
+                        ("predict_log_density", lambda: model.predict_log_density((Xb, Yb)))):
+            ms = request_ms(fn, 20)
+            log(f"time: natgrad classifier {key} at B={NG_B}: {ms:.4f} ms per request ({NG_B / ms * 1e3:.0f} points/s)")
+        time_k1(NG_M, NG_M)
+        time_k1(NG_M, NG_B)
+        time_k2(NG_M, NG_M)  # the Matern52 variant's backward
+        time_k2(NG_M, NG_B)
+    return got
 
 
 def kernel_bound_ms(kernel, n, m, d):
@@ -1012,6 +1379,21 @@ def main():
             ms = request_ms(fn, 5, warmup=1)
             log(f"time: gpr {key} N={GPR_NS[-1]} at B={B}: {ms:.3f} ms per request ({B / ms * 1e3:.0f} points/s)")
     del post, trained, gpr_models
+    torch.cuda.empty_cache()
+
+    ng_X, ng_Y, ng_Z, ng_Xnew, ng_Ynew = make_ng_data()
+    ng_data = (torch.from_numpy(ng_X).cuda(), torch.from_numpy(ng_Y).cuda())
+    ng_check_objective(ng_data, ng_Z, launches)
+    ng_trainers = {"fused": ng_train("SquaredExponential", True, NG_FUSED_STEPS, ng_data, ng_Z, launches)}
+    ng_compare_f64(True, ng_data, ng_Z)
+    ng_trainers["sequential"] = ng_train("SquaredExponential", False, NG_SEQ_STEPS, ng_data, ng_Z, launches)
+    ng_compare_f64(False, ng_data, ng_Z)
+    ng_train("Matern52", True, NG_MATERN_STEPS, ng_data, ng_Z, launches)
+    ng_minimize(ng_data, ng_Z, launches)
+    classifier = ng_trainers["fused"].model
+    ng_post, ng_Xb, ng_Yb = ng_serve(classifier, ng_Xnew, ng_Ynew, launches)
+    ng_timings(ng_trainers, ng_post, classifier, ng_Xb, ng_Yb)
+    del ng_trainers, classifier, ng_post, ng_data
     torch.cuda.empty_cache()
 
     n = GPR_NS[-1]

@@ -30,8 +30,9 @@ class Gaussian(ScalarLikelihood):
         variance: Any = None,
         *,
         variance_lower_bound: Optional[float] = None,
+        **kwargs: Any,
     ) -> None:
-        super().__init__()
+        super().__init__(**kwargs)
         self.variance_lower_bound = (
             default_likelihood_positive_minimum() if variance_lower_bound is None else variance_lower_bound
         )
@@ -48,6 +49,12 @@ class Gaussian(ScalarLikelihood):
         """The noise variance broadcast to [batch..., N, 1]
         (``scalar_continuous.py:81-89``)."""
         return self._variance(X).expand(X.shape[:-1] + (1,))
+
+    def _conditional_mean(self, X: torch.Tensor, F: torch.Tensor) -> torch.Tensor:
+        return F
+
+    def _conditional_variance(self, X: torch.Tensor, F: torch.Tensor) -> torch.Tensor:
+        return self._variance(X).expand(F.shape)
 
     def _predict_mean_and_var(
         self, X: torch.Tensor, Fmu: torch.Tensor, Fvar: torch.Tensor

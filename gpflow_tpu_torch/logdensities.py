@@ -1,17 +1,28 @@
 """Closed-form log densities (counterpart of ``gpflow_tpu/logdensities.py``;
-``gaussian`` and ``multivariate_normal`` so far, ROADMAP.md lists the rest)."""
+``gaussian``, ``bernoulli``, ``poisson`` and ``multivariate_normal`` so far,
+ROADMAP.md lists the rest)."""
 from __future__ import annotations
 
 import math
 
 import torch
 
-__all__ = ["gaussian", "multivariate_normal"]
+__all__ = ["bernoulli", "gaussian", "multivariate_normal", "poisson"]
 
 
 def gaussian(x: torch.Tensor, mu: torch.Tensor, var: torch.Tensor) -> torch.Tensor:
     """log N(x | mu, var), broadcast elementwise (``logdensities.py:33``)."""
     return -0.5 * (math.log(2.0 * math.pi) + torch.log(var) + torch.square(mu - x) / var)
+
+
+def bernoulli(x: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """log p where x > 0.5, else log(1 - p) (``logdensities.py:54-55``)."""
+    return torch.log(torch.where(x > 0.5, p, 1.0 - p))
+
+
+def poisson(x: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
+    """log Poisson(x | lam) (``logdensities.py:63-64``)."""
+    return x * torch.log(lam) - lam - torch.lgamma(x + 1.0)
 
 
 def multivariate_normal(x: torch.Tensor, mu: torch.Tensor, L: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,6 @@
-"""Optimizers (counterpart of ``gpflow_tpu/optimizers``; ``Scipy`` so far)."""
+"""Optimizers (counterpart of ``gpflow_tpu/optimizers``; ``Scipy`` and
+``NaturalGradient`` so far)."""
+from .natgrad import NaturalGradient, XiNat, XiSqrtMeanVar, XiTransform
 from .scipy import Scipy
 
-__all__ = ["Scipy"]
+__all__ = ["NaturalGradient", "Scipy", "XiNat", "XiSqrtMeanVar", "XiTransform"]

@@ -3,18 +3,21 @@
 
 A step is one forward and backward pass of the model's
 ``_training_loss(batch)`` and one optimizer step on its trainable
-parameters, which are the model's own tensors and change in place. The
-steps of ``run_steps`` and ``run_steps_sampled`` are queued without waiting
-for the device: no loss or Cholesky failure is read on the host inside them,
-and the losses come back as one device tensor.
+parameters, which are the model's own tensors and change in place. With
+``natgrad_gamma`` the variational parameters (q_mu, q_sqrt) take a
+natural-gradient step instead, and the optimizer handles the rest. The steps
+of ``run_steps`` and ``run_steps_sampled`` are queued without waiting for
+the device: no loss, Cholesky failure or rejected natural-gradient step is
+read on the host inside them, and the losses come back as one device tensor.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Optional, Sequence, Tuple
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
 
-from ..base import Module
+from ..base import Module, Parameter
+from ..optimizers.natgrad import NaturalGradient
 
 __all__ = ["DataParallelTrainer", "OptimizerFactory", "adam"]
 
@@ -43,8 +46,18 @@ class DataParallelTrainer:
     :param optimizer: a callable from the parameters to a
         ``torch.optim.Optimizer``; default ``adam(1e-2)``, the counterpart of
         ``optax.adam(1e-2)``.
-    :param mesh: must be None: the mesh, the natural-gradient modes and the
-        latent axis need more than one device and raise.
+    :param mesh: must be None: the mesh and the latent axis need more than
+        one device and raise.
+    :param natgrad_gamma: if set, the model's q_mu and full-covariance q_sqrt
+        ([L, M, M]) take a natural-gradient step of this size each step
+        (``NaturalGradient`` with ``XiNat``), and the optimizer handles only
+        the other parameters. By default the step is sequential, as GPflow's
+        recipe: the natural-gradient step, then the optimizer's gradient at
+        the new q(u), with a second forward and backward pass; the loss
+        returned is the one of that second pass.
+    :param natgrad_fused: take both gradients from one forward and backward
+        pass at the same point (a simultaneous update); the loss returned is
+        the one before the step. Requires ``natgrad_gamma``.
     """
 
     def __init__(
@@ -59,33 +72,95 @@ class DataParallelTrainer:
     ) -> None:
         if mesh is not None:
             raise _not_ported("a device mesh")
-        if natgrad_gamma is not None or natgrad_fused:
-            raise _not_ported("the natural-gradient step")
         if latent_axis is not None:
             raise _not_ported("a latent mesh axis")
+        if natgrad_fused and natgrad_gamma is None:
+            raise ValueError(
+                "natgrad_fused=True requires natgrad_gamma (there is no "
+                "natural-gradient step to fuse without it)"
+            )
         self.model = model
-        params = [p.unconstrained for p in model.trainable_parameters]
-        if not params:
+        self.natgrad_gamma = natgrad_gamma
+        self.natgrad_fused = natgrad_fused
+        train_params: List[Parameter] = list(model.trainable_parameters)
+        self._vparams: Tuple[Parameter, ...] = ()
+        if natgrad_gamma is not None:
+            q_mu = getattr(model, "q_mu", None)
+            q_sqrt = getattr(model, "q_sqrt", None)
+            if q_mu is None or q_sqrt is None or q_sqrt.value.ndim != 3:
+                raise ValueError(
+                    "natgrad_gamma requires the model to have q_mu and a "
+                    "full-covariance q_sqrt ([L, M, M])"
+                )
+            if not (q_mu.trainable and q_sqrt.trainable):
+                raise ValueError("natgrad_gamma requires q_mu and q_sqrt to be trainable")
+            self._vparams = (q_mu, q_sqrt)
+            train_params = [p for p in train_params if p is not q_mu and p is not q_sqrt]
+            self._natgrad = NaturalGradient(gamma=natgrad_gamma)
+        self._params = [p.unconstrained for p in train_params]
+        if not self._params and not self._vparams:
             raise ValueError("Model has no trainable parameters")
-        self.device = params[0].device
-        self.optimizer = (optimizer if optimizer is not None else adam(1e-2))(params)
+        self.device = (self._params or [p.unconstrained for p in self._vparams])[0].device
+        factory = optimizer if optimizer is not None else adam(1e-2)
+        self.optimizer = factory(self._params) if self._params else None
+        self._rejections = torch.zeros((), dtype=torch.int64, device=self.device)
         self._staged_data: Optional[Tuple[torch.Tensor, ...]] = None
         self._sample_counter = 0
+
+    @property
+    def natgrad_rejections(self) -> int:
+        """The number of natural-gradient steps rejected so far (the step
+        left the negative-definite cone and the state was kept; see
+        ``NaturalGradient._natgrad_values_with_ok``). A count that keeps
+        growing means ``natgrad_gamma`` is too large. The count is kept on
+        the device; reading it waits for the steps queued before."""
+        return int(self._rejections)
 
     def _to_device(self, arrays: Sequence[Any]) -> Tuple[torch.Tensor, ...]:
         """Tensors on the model's device; arrays already there are not copied."""
         return tuple(torch.as_tensor(a).to(self.device) for a in arrays)
 
-    def _train_step(self, batch: Tuple[torch.Tensor, ...]) -> torch.Tensor:
-        self.optimizer.zero_grad(set_to_none=True)
-        loss = self.model._training_loss(batch)
-        loss.backward()
+    def _optimizer_step(self, grads: Sequence[torch.Tensor]) -> None:
+        for p, g in zip(self._params, grads):
+            p.grad = g
         self.optimizer.step()
+
+    def _natgrad_step(self, vgrads: Sequence[torch.Tensor]) -> None:
+        """The natural-gradient step on (q_mu, q_sqrt) from the gradients of
+        their unconstrained tensors; a rejection adds one to the device
+        count."""
+        q_mu, q_sqrt = self._vparams
+        ok = self._natgrad._natgrad_apply_gradients(vgrads[0], vgrads[1], q_mu, q_sqrt)
+        self._rejections += (~ok).to(torch.int64)
+
+    def _train_step(self, batch: Tuple[torch.Tensor, ...]) -> torch.Tensor:
+        if not self._vparams:
+            self.optimizer.zero_grad(set_to_none=True)
+            loss = self.model._training_loss(batch)
+            loss.backward()
+            self.optimizer.step()
+            return loss.detach()
+        vleaves = [p.unconstrained for p in self._vparams]
+        if self.natgrad_fused and self._params:
+            # one forward and backward pass for both gradient sets
+            loss = self.model._training_loss(batch)
+            grads = torch.autograd.grad(loss, vleaves + self._params)
+            self._natgrad_step(grads[:2])
+            self._optimizer_step(grads[2:])
+            return loss.detach()
+        # the natural-gradient step at the current hyperparameters, then
+        # the optimizer's gradient at the new q(u)
+        self._natgrad_step(torch.autograd.grad(self.model._training_loss(batch), vleaves))
+        if not self._params:
+            with torch.no_grad():
+                return self.model._training_loss(batch)
+        loss = self.model._training_loss(batch)
+        self._optimizer_step(torch.autograd.grad(loss, self._params))
         return loss.detach()
 
     def step(self, batch: Tuple[Any, ...]) -> torch.Tensor:
         """One optimization step on (X [B, D], Y [B, P]); returns the loss
-        before the step, on the device."""
+        on the device (see ``natgrad_gamma`` for which loss)."""
         return self._train_step(self._to_device(batch))
 
     def run_steps(self, batches: Tuple[Any, ...]) -> torch.Tensor:

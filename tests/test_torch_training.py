@@ -409,6 +409,16 @@ def test_set_trainable_freezes_parameters():
 @pytest.mark.parametrize("kwargs", [{"mesh": object()}, {"natgrad_gamma": 0.1}, {"natgrad_fused": True},
                                     {"latent_axis": "latent"}])
 def test_trainer_mesh_and_natgrad_raise(kwargs):
+    # the mesh and the latent axis are not ported; natural gradients are:
+    # a gamma builds a trainer, and fusing without one raises the JAX
+    # package's ValueError
     _, pm, _ = _models("SquaredExponential", True, False)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        DataParallelTrainer(pm, **kwargs)
+    if "natgrad_gamma" in kwargs:
+        trainer = DataParallelTrainer(pm, **kwargs)
+        assert trainer.natgrad_gamma == 0.1 and trainer.natgrad_rejections == 0
+    elif "natgrad_fused" in kwargs:
+        with pytest.raises(ValueError, match="requires natgrad_gamma"):
+            DataParallelTrainer(pm, **kwargs)
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            DataParallelTrainer(pm, **kwargs)
