@@ -12,7 +12,9 @@ numpy seed: serving (slice 1) and training (slice 2); and ``bench.py``'s
 exact-GP operating points (GPR at N = 8192 and 16384, D = 8, float32,
 SquaredExponential, noise 0.1; slice 3); and its non-conjugate operating point
 (a Bernoulli SVGP with M = 1024, B = 4096, D = 8, N = 32768, float32, 20
-Gauss-Hermite points, natural gradients and Adam; slice 4). Models are built
+Gauss-Hermite points, natural gradients and Adam; slice 4); and its CGLB
+operating point (SGPR, GPRFITC and the matrix-free CGLB at N = 32768,
+M = 1024, chunk 4096, D = 8, float32; slice 6). Models are built
 on the card, the
 port's default device; the float64 references ask for the CPU, or for float64
 on the card where the CPU would take minutes. Phases:
@@ -68,7 +70,34 @@ on the card where the CPU would take minutes. Phases:
    per second of both modes, a profile of one fused step and of its
    natural-gradient update alone, request latency, and K1 and K2 at the
    path's shapes;
-12. K1 and K2 against their plain versions at the GPR's shapes.
+12. K1 and K2 against their plain versions at the GPR's shapes;
+13. the sparse-regression slice at ``bench.py``'s CGLB operating point
+   (N = 32768, M = 1024, D = 8, float32, SquaredExponential, noise 0.1):
+   the SGPR ELBO, the Titsias upper bound and the GPRFITC objective with
+   their gradients under sync debug mode "error" against float64 on the
+   card, elbo <= upper_bound, 20 ``Scipy`` iterations of the SGPR, and
+   requests of 8192 new points through its ``posterior()`` and fused entry
+   points against float64; each float64 check beside a lower-tier control
+   (K1 fed bfloat16-rounded inputs, TF32 matmuls), which must break one of
+   its limits; the objectives' checks again on two more data sets;
+14. the dense CGLB against the matrix-free one at N = 8192, M = 512, chunk
+   2048 and one fixed v, on three data sets, the value and gradient within
+   N * eps32 (the gradient in Z within a limit set from readings);
+15. the matrix-free CGLB (chunk 4096) at bench width: the objective from
+   v = 0 with its CG iterations; the value and gradient at the float64 CG's
+   v under sync debug mode "error" against float64 and the lower-tier
+   control, for SquaredExponential and Matern52 (K2 on the path), on three
+   data sets; the sandwich bound <= upper_bound before and after training;
+   the peak memory of one value and gradient below N^2 * 4 bytes; five
+   ``Scipy`` iterations with ``nonfinite_penalty``, which must improve on
+   the objective from v = 0; adversarial v = s * 1; requests of 8192 new
+   points (``predict_f``, ``predict_y``, ``predict_log_density``) against
+   float64 from the same v and the lower-tier control; K1 and K2 launch
+   counts exactly as the recorded CG iterations imply;
+16. timings: the CGLB objective from v = 0 and warm-started, ms per CG
+   iteration, seconds per L-BFGS evaluation, the SGPR objective and its
+   value and gradient, a profile of one matrix-free value and gradient,
+   requests, and K1 and K2 at the path's new shapes.
 
 Every failure raises, and the script then exits non-zero without the result
 line. The line before the last is ``{"kernels": [...]}``; the last is
@@ -97,10 +126,12 @@ K1_ATOL_F64 = 1e-5
 # loses about 2^-24 * (|x|^2 + |z|^2) of d2, which the r-based families turn
 # into an error of that over 2r near r = 0: allow 1e-3 * var.
 K1_ATOL_F32 = 1e-3
-# The paths' shapes (Kuu, Kuf, and the GPR's Gram matrix at N = 16384: a
+# The paths' shapes (Kuu, Kuf, the GPR's Gram matrix at N = 16384: a
 # 128 x 256 grid of blocks whose [N, M] offsets pass 2^28 and are taken in
-# int64) and ragged ones.
-K1_SHAPES = [(2048, 2048, 8), (2048, 8192, 8), (16384, 16384, 8), (1000, 777, 3), (1, 1, 1), (300, 129, 37)]
+# int64; the sparse path's matrix-free block, its Kuf and a CGLB request's
+# K(Xnew, X)) and ragged ones.
+K1_SHAPES = [(2048, 2048, 8), (2048, 8192, 8), (16384, 16384, 8), (32768, 4096, 8), (1024, 32768, 8),
+             (8192, 32768, 8), (1000, 777, 3), (1, 1, 1), (300, 129, 37)]
 
 # The float32 slice on the card against the same model in float64 on the CPU,
 # both with the float32 jitter 1e-4, as a fraction of the largest float64
@@ -121,7 +152,7 @@ K2_RTOL_F64 = 1e-5
 # each square, and h' of the r-based families divides d2's rounding by about
 # 2 d2 near r = 0; as K1's float32 tolerance.
 K2_RTOL_F32 = 1e-3
-K2_SHAPES = K1_SHAPES
+K2_SHAPES = [s for s in K1_SHAPES if s != (8192, 32768, 8)]  # a CGLB request has no backward
 
 # Gradients of stationary_kernel_matrix in float32 on the card against plain
 # autograd in float64, as a fraction of the largest float64 entry: dXs and
@@ -192,6 +223,59 @@ NG_TIMED_STEPS = {"fused": 100, "sequential": 50}
 NG_MULT = 64.0
 NG_JITTER = 1e-5
 
+# The sparse-regression path (bench.py:363-417): data as bench.py makes it
+# (RandomState(1), N = 32768, D = 8, X uniform on the unit cube,
+# Y = sin(3 X[:, :1]) + 0.1 eps, float32), Z = the first M = 1024 rows of
+# X[rng.permutation(N)], SquaredExponential with lengthscales 1, noise 0.1;
+# SGPR and GPRFITC, and CGLB in its matrix-free mode with chunk 4096 and its
+# defaults (cg_tolerance 1, at most 100 CG iterations, a restart every 40);
+# requests of B = 8192 new points drawn after Z from the same generator.
+SP_N, SP_M, SP_CHUNK = 32768, 1024, 4096
+SP_NOISE = 0.1
+SP_SGPR_MAXITER, SP_CGLB_MAXITER = 20, 5  # bench.py:405-417 runs CGLB's 5
+SP_PENALTY = 1e15
+SP_PREDICT_CG_TOL = 1e-3  # CGLB.predict_f's default
+SP_OBJ_CALLS = 3  # bench.py:396-403
+SP_ADVERSARIAL = (0.0, 1.0, 1e4, -1e4)  # tests/gpflow_tpu/models/test_cglb.py:95-126
+SP_EXTRA_SEEDS = (2, 3)  # data for the float32-against-float64 checks besides bench.py's RandomState(1)
+# Dense against matrix-free CGLB at (N, M, chunk) of the first row of
+# PERFORMANCE.md:308, at one fixed v, on data made as above from each of
+# SP_SMALL_SEEDS. The two modes form the same float32 products and sum them
+# in another order: each entry of v K is a sum over N terms, and the
+# kernel's gradients sum again over N, each within N * eps32 of the sum of
+# its absolute terms (Higham's gamma_N). The terms share their sign (K > 0),
+# so the value and the kernel's and noise's gradients are held to N * eps32
+# of the largest entry. The gradient in Z carries such differences (in the
+# residual r = y - (K + s2 I) v, which cancels far below K v) through
+# Kuu^-1, cond(Kuu + jitter I) ~ 2e6 here: no rounding bound of use holds
+# it, so its limit is set from readings, a small factor above the largest
+# difference of the seeds (the readings are in PERF.md).
+SP_SMALL = (8192, 512, 2048)
+SP_SMALL_SEEDS = (SEED + 30, SEED + 31, SEED + 32)
+SP_DENSE_MF_Z_RTOL = 1e-2
+# float32 against float64 on the card, from the same values, both with the
+# float32 jitter 1e-4, relative to the largest float64 entry (to the prior
+# variance for a predictive variance). A bound from conditioning is of no
+# use here: cond(B) * eps32 ~ 2e-2 and cond(Kuu + jitter I) * eps32 ~ 0.6
+# (the points lie close), orders above what float32 gives. So each limit is
+# set from readings (in PERF.md), a factor of 2.5 to 8 above the largest
+# error of the sound float32 runs on three data sets (bench.py's and
+# SP_EXTRA_SEEDS') and, but for the gradient in Z, below the error of a
+# lower-tier control: the same float32 model with K1 fed bfloat16-rounded
+# inputs (X, Z and the new points, 2^-9 relative) and its matmuls in TF32.
+# Bf16 inputs alone move the objectives no more than float32's own
+# rounding does on these smooth data (they do move the predictions); TF32
+# moves them by 1e-2 and more. Each check runs the control and fails unless
+# it breaks at least one of the check's limits: the check tells float32
+# from a lower tier.
+SP_RTOL = {
+    "value": 3e-4,
+    "gradient": 3e-3,
+    "gradient Z": 0.2,
+    "mean": 2e-3,
+    "var": 5e-5,
+    "log density": 6e-3,
+}
 
 def log(*args):
     print(*args, flush=True)
@@ -1202,6 +1286,548 @@ def ng_serve(model, Xnew, Ynew, launches):
     return post, Xb, Yb
 
 
+def make_sparse_data(n=SP_N, m=SP_M, seed=1):
+    """(X, Y), Z as ``bench.py:379-384`` makes them, then B new points and
+    their targets, drawn after them from the same generator."""
+    rng = np.random.RandomState(seed)
+    X = rng.rand(n, D).astype(np.float32)
+    Y = np.sin(X[:, :1] * 3).astype(np.float32) + 0.1 * rng.randn(n, 1).astype(np.float32)
+    Z = X[rng.permutation(n)[:m]].copy()
+    Xnew = rng.rand(B, D).astype(np.float32)
+    Ynew = np.sin(Xnew[:, :1] * 3).astype(np.float32) + 0.1 * rng.randn(B, 1).astype(np.float32)
+    return (X, Y), Z, Xnew, Ynew
+
+
+def sparse_model(cls, data, Z, dtype, kernel="SquaredExponential", values=None, **kwargs):
+    """An SGPR, GPRFITC or CGLB on the card in ``dtype``: lengthscales 1,
+    noise 0.1, or the constrained ``values`` of ``read_values`` (those of
+    its own parameters)."""
+    from gpflow_tpu_torch import config, kernels, models
+    from gpflow_tpu_torch.utilities import load_jax_values, parameter_dict
+
+    with config.as_context(dataclasses.replace(config.config(), float=dtype)):
+        model = getattr(models, cls)(data, kernel=getattr(kernels, kernel)(lengthscales=[1.0] * D),
+                                     inducing_variable=Z, noise_variance=SP_NOISE, **kwargs).to(dtype=dtype)
+    if values is not None:
+        paths = parameter_dict(model)
+        load_jax_values(model, {k: v for k, v in values.items() if k in paths})
+    return model
+
+
+def log_conditions(what, model64):
+    """Logs cond(Kuu + jitter I) and cond(B) of a float64 SGPR, GPRFITC or
+    CGLB, from eigenvalues; B is GPRFITC's own I + V nu^-1 V^T."""
+    from gpflow_tpu_torch.config import default_jitter
+    from gpflow_tpu_torch.covariances import Kuu
+
+    with torch.no_grad():
+        kuu = torch.linalg.eigvalsh(Kuu(model64.inducing_variable, model64.kernel, jitter=default_jitter()))
+        if hasattr(model64, "common_terms"):
+            L = model64.common_terms()[3]
+            b = torch.linalg.eigvalsh(L @ L.mT)
+        else:
+            b = torch.linalg.eigvalsh(model64._common_calculation().B)
+    log(f"{what}: cond(Kuu + jitter I) {float(kuu[-1] / kuu[0]):.4e}, cond(B) {float(b[-1] / b[0]):.4e}")
+
+
+def bf16(a):
+    """``a`` (an array or a tensor) rounded to bfloat16 and back to float32:
+    what K1 reads on a path that hands it bf16 inputs (the control's)."""
+    return torch.as_tensor(a).to(torch.bfloat16).to(torch.float32)
+
+
+def run_control(fn):
+    """``fn()`` with TF32 tensor-core matmuls, as a path built for
+    throughput would run them: the control's outputs. The exact-fp32 tier
+    is restored after."""
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        return fn()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def bf16_values(values):
+    """``read_values`` output with the inducing points rounded as ``bf16``."""
+    return {k: bf16(v).numpy() if k == ".inducing_variable.Z" else v for k, v in values.items()}
+
+
+def judge(what, sound, control=None):
+    """``sound`` and ``control``: {output: (error, limit)}. Every sound error
+    must lie within its limit; the control, where given, must break at least
+    one limit (a NaN breaks it)."""
+    broken = []
+    for key, (err, limit) in sound.items():
+        cerr = control[key][0] if control else None
+        log(f"{what}: {key}: rel err {err:.3e}, tol {limit:.1e}"
+            + ("" if cerr is None else f"; lower-tier control {cerr:.3e}"))
+        assert err <= limit, f"{what}: {key} disagrees with float64"
+        if cerr is not None and not cerr <= limit:
+            broken.append(key)
+    if control:
+        log(f"{what}: the lower-tier control breaks {len(broken)} of {len(sound)} limits {broken}")
+        assert broken, f"{what}: the check cannot tell float32 from the lower tier"
+
+
+def sparse_value_and_grad(model, objective):
+    """``objective(model)`` and its gradient with respect to the unconstrained
+    tensor of every trainable parameter but CGLB's v, keyed by path."""
+    from gpflow_tpu_torch.utilities import parameter_dict
+
+    params = {path: p for path, p in parameter_dict(model).items() if p.trainable and path != "._v"}
+    value = objective(model)
+    grads = torch.autograd.grad(value, [p.unconstrained for p in params.values()])
+    return value.detach(), dict(zip(params, grads))
+
+
+def value_and_grad_errors(got, want):
+    """{output: (error, limit)} of a ``sparse_value_and_grad`` result against
+    float64, each relative to the float64 value or largest gradient entry."""
+    (value, grads), (value64, grads64) = got, want
+    out = {"value": (abs(float(value) - float(value64)) / abs(float(value64)), SP_RTOL["value"])}
+    for path, want_g in grads64.items():
+        cls = "gradient Z" if path == ".inducing_variable.Z" else "gradient"
+        out[f"gradient {path}"] = (rel_err(grads[path], want_g), SP_RTOL[cls])
+    return out
+
+
+def sgpr_check(data, Z, launches, tag=""):
+    """Phase 13: the SGPR ELBO, the Titsias upper bound and the GPRFITC
+    objective, each with its gradient, under sync debug mode "error",
+    against the same models in float64 on the card, beside the lower-tier
+    control; elbo <= upper_bound. Returns the float32 SGPR."""
+    X, Y = data
+    objectives = (("SGPR elbo", "SGPR", lambda m: m.training_loss()),
+                  ("SGPR upper_bound", "SGPR", lambda m: -m.upper_bound()),
+                  ("GPRFITC objective", "GPRFITC", lambda m: m.training_loss()))
+    models32, controls = {}, {}
+    for what, cls, objective in objectives:
+        what += tag
+        m32 = models32.setdefault(cls, sparse_model(cls, data, Z, torch.float32))
+        control = controls.setdefault(cls, sparse_model(cls, (bf16(X), Y), bf16(Z), torch.float32))
+        m64 = sparse_model(cls, data, Z, torch.float64)
+        log_conditions(f"sparse {what}", m64)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got, counts = counted(lambda: sparse_value_and_grad(m32, objective))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        # Kuu and Kuf; rbf takes its backward from the saved K
+        expect_launches(f"sparse {what} value and gradient", counts, {"K1": 2, "K2": 0}, launches)
+        want = sparse_value_and_grad(m64, objective)
+        judge(f"sparse {what}", value_and_grad_errors(got, want),
+              value_and_grad_errors(run_control(lambda: sparse_value_and_grad(control, objective)), want))
+    m32 = models32["SGPR"]
+    with torch.no_grad():
+        elbo, upper = float(m32.elbo()), float(m32.upper_bound())
+    log(f"sparse SGPR{tag}: elbo {elbo:.6e} <= upper_bound {upper:.6e}")
+    assert elbo <= upper, "the SGPR ELBO exceeds the Titsias upper bound"
+    return m32
+
+
+def sgpr_train(model, launches):
+    """Phase 13: ``Scipy().minimize`` of the float32 SGPR, SP_SGPR_MAXITER
+    iterations; the objective must fall. Returns the seconds it took."""
+    from gpflow_tpu_torch.optimizers import Scipy
+
+    with torch.no_grad():
+        loss0 = float(model.training_loss())
+    t0 = time.perf_counter()
+    res, counts = counted(lambda: Scipy().minimize(
+        model.training_loss_closure(), model.trainable_variables,
+        options={"maxiter": SP_SGPR_MAXITER}, nonfinite_penalty=SP_PENALTY))
+    seconds = time.perf_counter() - t0
+    log(f"sparse SGPR lbfgs: loss {loss0:.6e} -> {float(res.fun):.6e}; nit {res.nit}, nfev {res.nfev}, "
+        f"non-finite evaluations {res.n_nonfinite_evals}, status {res.status} ({res.message})")
+    log(f"time: sparse SGPR lbfgs: {seconds:.3f} s, {seconds / res.nfev:.4f} s per evaluation")
+    assert np.isfinite(res.fun) and float(res.fun) < loss0, "L-BFGS did not lower the SGPR objective"
+    expect_launches("sparse SGPR lbfgs", counts, {"K1": 2 * int(res.nfev), "K2": 0}, launches)
+    return seconds
+
+
+def request_errors(what, out, want, prior, shifts=None):
+    """{output: (error, limit)} of each output of ``out`` against ``want``
+    (float64), relative to the largest float64 entry (a variance to the
+    prior variance), the limit SP_RTOL's plus ``shifts[key]`` where given.
+    Each output must have the float64 shape; a non-finite one gives a NaN
+    or infinite error, which breaks any limit."""
+    errs = {}
+    for key, tensors in out.items():
+        kinds = ("mean", "var") if len(tensors) == 2 else ("log density" if "log_density" in key else "mean",)
+        for kind, got, w in zip(kinds, tensors, want[key]):
+            assert got.shape == w.shape and got.dtype == torch.float32, f"{what} {key} {kind}"
+            scale = prior if kind == "var" else max(float(w.abs().max()), 1e-300)
+            errs[f"{key} {kind}" if len(tensors) == 2 else key] = (float((got.double() - w).abs().max()) / scale,
+                                     SP_RTOL[kind] + (shifts or {}).get(key, 0.0))
+        if len(tensors) == 2:
+            assert bool((want[key][1] > 0).all()), f"{what} {key}: float64 variance not positive"
+    return errs
+
+
+def sgpr_serve(model, Xnew, launches):
+    """Phase 13: requests of B new points to the trained SGPR through
+    ``posterior()`` (the TENSOR cache) with ``predict_f`` and
+    ``predict_mean``, and the fused ``predict_f`` and ``predict_y``, with
+    exact launch counts, against float64 on the card, beside the lower-tier
+    control. Returns the posterior and the request."""
+    from gpflow_tpu_torch.utilities import read_values
+
+    def requests(m, post, x):
+        return {"cached predict_f": lambda: post.predict_f(x), "cached predict_mean": lambda: (post.predict_mean(x),),
+                "fused predict_f": lambda: m.predict_f(x), "predict_y": lambda: m.predict_y(x)}
+
+    Xb = torch.from_numpy(Xnew).cuda()
+    values = read_values(model)
+    X, Y = model.data
+    with torch.no_grad():
+        post, counts = counted(model.posterior)
+        expect_launches("sparse SGPR posterior", counts, {"K1": 2, "K2": 0}, launches)
+        out = {}
+        for (key, fn), k1 in zip(requests(model, post, Xb).items(), (1, 1, 3, 3)):
+            out[key], counts = counted(fn)
+            expect_launches(f"sparse SGPR {key} request", counts, {"K1": k1, "K2": 0}, launches)
+        m64 = sparse_model("SGPR", model.data, np.zeros((SP_M, D)), torch.float64, values=values)
+        log_conditions("sparse SGPR serving", m64)
+        want = {key: fn() for key, fn in requests(m64, m64.posterior(), Xb.double()).items()}
+        mc = sparse_model("SGPR", (bf16(X), Y), np.zeros((SP_M, D)), torch.float32, values=bf16_values(values))
+        control = run_control(lambda: {key: fn() for key, fn in requests(mc, mc.posterior(), bf16(Xb)).items()})
+        prior = float(m64.kernel.variance.value)
+    judge("sparse SGPR serving", request_errors("sparse SGPR serving", out, want, prior),
+          request_errors("sparse SGPR serving control", control, want, prior))
+    return post, Xb
+
+
+def cg_matvecs(model, iters):
+    """K-matvecs of one CG run of ``iters`` iterations: the initial residual,
+    one per iteration and one more at each restart."""
+    return 1 + iters + iters // model._restart_cg_iters
+
+
+def n_chunks(model):
+    return -(-model.data[0].shape[0] // model._matrix_free_chunk)
+
+
+def cglb_dense_vs_matrix_free(launches):
+    """Phase 14: the dense CGLB against the matrix-free one at (N, M, chunk)
+    = SP_SMALL, float32, at one fixed v (the dense float32 CG's, with
+    ``v_grad_optimization=True``), on the data of each of SP_SMALL_SEEDS:
+    the value and the gradient within N * eps32, the gradient in Z within
+    SP_DENSE_MF_Z_RTOL."""
+    n, m, chunk = SP_SMALL
+    tol = n * EPS32
+    for seed in SP_SMALL_SEEDS:
+        data, Z, _, _ = make_sparse_data(n, m, seed=seed)
+        cg = sparse_model("CGLB", data, Z, torch.float32)
+        with torch.no_grad():
+            cg.training_loss()
+        v = cg.aux_vec.numpy()
+        got = {}
+        for mode, kwargs, k1 in (("dense", {}, 3), ("matrix-free", {"matrix_free_chunk": chunk}, 2 + 2 * (n // chunk))):
+            model = sparse_model("CGLB", data, Z, torch.float32, v_grad_optimization=True, **kwargs)
+            model.aux_vec.assign(v)
+            got[mode], counts = counted(lambda: sparse_value_and_grad(model, lambda mm: mm.training_loss()))
+            # dense: Kuu, Kuf and K(X) once; matrix-free: Kuu, Kuf and each
+            # block forward and again in the backward
+            expect_launches(f"cglb {mode} at N={n}, seed {seed}, value and gradient", counts, {"K1": k1, "K2": 0},
+                            launches)
+        (vd, gd), (vm, gm) = got["dense"], got["matrix-free"]
+        diffs = {"value": (abs(float(vd) - float(vm)) / abs(float(vd)), tol)}
+        for path in gd:
+            diffs[f"gradient {path}"] = (rel_err(gm[path], gd[path]),
+                                         SP_DENSE_MF_Z_RTOL if path == ".inducing_variable.Z" else tol)
+        log(f"cglb dense vs matrix-free N={n}, M={m}, chunk {chunk}, seed {seed}, after {cg.cg_iterations} CG "
+            f"iterations: value {float(vd):.6e} / {float(vm):.6e}")
+        judge(f"cglb dense vs matrix-free, seed {seed}", diffs)
+
+
+def cglb_objective(model, launches, what):
+    """Phase 15: ``training_loss()`` of the matrix-free CGLB with its CG, with
+    exact launch counts; returns the loss and the CG's iterations."""
+    with torch.no_grad():
+        loss, counts = counted(model.training_loss)
+    it = model.cg_iterations
+    # Kuu and Kuf, then every block for each CG matvec and once more for the
+    # bound's K v
+    expected = {"K1": 2 + n_chunks(model) * (cg_matvecs(model, it) + 1), "K2": 0}
+    expect_launches(f"cglb {what}: {it} CG iterations", counts, expected, launches)
+    assert bool(torch.isfinite(loss)), f"cglb {what}: non-finite objective"
+    return float(loss), it
+
+
+def cglb_v64(data, Z):
+    """The float64 matrix-free CGLB's v from v = 0 on the card: the fixed v
+    of ``cglb_fixed_v``."""
+    m64 = sparse_model("CGLB", data, Z, torch.float64, matrix_free_chunk=SP_CHUNK)
+    with torch.no_grad():
+        loss64 = float(m64.training_loss())
+    log(f"cglb objective in float64 from v = 0: {loss64:.6e} after {m64.cg_iterations} CG iterations")
+    return m64.aux_vec.value.detach()
+
+
+def cglb_fixed_v(kernel, data, Z, v64, launches, tag=""):
+    """Phase 15: the matrix-free CGLB's value and gradient in float32 under
+    sync debug mode "error" against float64 on the card, both at v = v64,
+    beside the lower-tier control at the same v."""
+    X, Y = data
+    models = {}
+    for key, dtype, d, z in (("f32", torch.float32, data, Z), ("f64", torch.float64, data, Z),
+                             ("control", torch.float32, (bf16(X), Y), bf16(Z))):
+        models[key] = sparse_model("CGLB", d, z, dtype, kernel=kernel, matrix_free_chunk=SP_CHUNK,
+                                   v_grad_optimization=True)
+        models[key].aux_vec.assign(v64.to(dtype))
+    what = f"cglb {kernel} at a fixed v{tag}"
+    log_conditions(what, models["f64"])
+    objective = lambda m: m.training_loss()  # noqa: E731
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, counts = counted(lambda: sparse_value_and_grad(models["f32"], objective))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    nc = n_chunks(models["f32"])
+    # forward: Kuu, Kuf and each block; backward: each block again, and for
+    # Matern52 K2 for Kuu, Kuf and each rebuilt block
+    expected = {"K1": 2 + 2 * nc, "K2": 2 + nc if kernel == "Matern52" else 0}
+    expect_launches(f"{what}: value and gradient", counts, expected, launches)
+    want = sparse_value_and_grad(models["f64"], objective)
+    judge(what, value_and_grad_errors(got, want),
+          value_and_grad_errors(run_control(lambda: sparse_value_and_grad(models["control"], objective)), want))
+
+
+def cglb_peak_memory(model, launches):
+    """Phase 15: the peak device memory of one matrix-free value and
+    gradient (its CG included) above what was allocated before, which must
+    stay below N^2 * 4 bytes: no [N, N] matrix is formed."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _, counts = counted(lambda: sparse_value_and_grad(model, lambda m: m.training_loss()))
+    peak = torch.cuda.max_memory_allocated() - base
+    it = model.cg_iterations
+    expected = {"K1": 2 + n_chunks(model) * (cg_matvecs(model, it) + 2), "K2": 0}
+    expect_launches(f"cglb value and gradient ({it} CG iterations)", counts, expected, launches)
+    limit = SP_N ** 2 * 4
+    log(f"cglb value and gradient: peak memory {peak / 2 ** 30:.3f} GiB above the {base / 2 ** 30:.3f} GiB "
+        f"allocated before ({torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB in all); limit N^2 * 4 bytes "
+        f"= {limit / 2 ** 30:.0f} GiB")
+    assert peak < limit, "the matrix-free value and gradient used the memory of an [N, N] matrix"
+
+
+def cglb_sandwich(model, data, Z, what):
+    """Phase 15: -training_loss() <= upper_bound() of the CGLB, with the ELBO
+    of an SGPR at the same values printed beside it."""
+    from gpflow_tpu_torch.utilities import read_values
+
+    with torch.no_grad():
+        bound, upper = -float(model.training_loss()), float(model.upper_bound())
+        elbo = float(sparse_model("SGPR", data, Z, torch.float32, values=read_values(model)).elbo())
+    log(f"cglb sandwich {what}: CGLB bound {bound:.6e} <= upper_bound {upper:.6e}; SGPR ELBO {elbo:.6e} "
+        f"({model.cg_iterations} CG iterations)")
+    assert np.isfinite(bound) and bound <= upper, f"cglb {what}: the bound exceeds the Titsias upper bound"
+
+
+def cglb_train(model, loss0, launches):
+    """Phase 15: ``Scipy().minimize`` of the matrix-free CGLB, SP_CGLB_MAXITER
+    iterations with ``nonfinite_penalty``, as ``bench.py:405-417`` runs it;
+    it must improve on the objective from v = 0. Returns the seconds per
+    evaluation and the CG iterations of each evaluation."""
+    from gpflow_tpu_torch.optimizers import Scipy
+
+    iters = []
+
+    def closure():
+        loss = model.training_loss()
+        iters.append(model.cg_iterations)
+        return loss
+
+    t0 = time.perf_counter()
+    res, counts = counted(lambda: Scipy().minimize(closure, model.trainable_variables,
+                                                   options={"maxiter": SP_CGLB_MAXITER},
+                                                   nonfinite_penalty=SP_PENALTY))
+    seconds = time.perf_counter() - t0
+    log(f"cglb lbfgs: loss {loss0:.6e} (from v = 0) -> {float(res.fun):.6e}; nit {res.nit}, nfev {res.nfev}, "
+        f"non-finite evaluations {res.n_nonfinite_evals}, status {res.status} ({res.message}); CG iterations "
+        f"per evaluation {iters}")
+    log(f"time: cglb lbfgs: {seconds:.3f} s, {seconds / res.nfev:.4f} s per evaluation (cglb_mf_lbfgs_s_per_eval_n32k)")
+    assert np.isfinite(res.fun) and float(res.fun) < loss0, "CGLB L-BFGS failed to improve the bound"
+    nc = n_chunks(model)
+    expected = {"K1": sum(2 + nc * (cg_matvecs(model, it) + 2) for it in iters), "K2": 0}
+    expect_launches("cglb lbfgs", counts, expected, launches)
+    return seconds / res.nfev, iters
+
+
+def cglb_adversarial(data, Z, launches):
+    """Phase 15: in float32 at bench width, v = s * 1 for each s of
+    SP_ADVERSARIAL gives a finite bound <= upper_bound (the one-sided clamps
+    of ``quad_term``), and a huge v a very loose one."""
+    model = sparse_model("CGLB", data, Z, torch.float32, matrix_free_chunk=SP_CHUNK, v_grad_optimization=True)
+    with torch.no_grad():
+        upper = float(model.upper_bound())
+        bounds = []
+        for s in SP_ADVERSARIAL:
+            model.aux_vec.assign(torch.full_like(model.aux_vec.value, s))
+            bound, counts = counted(lambda: -model.training_loss())
+            expect_launches(f"cglb adversarial v = {s:g}", counts, {"K1": 2 + n_chunks(model), "K2": 0}, launches)
+            bounds.append(float(bound))
+    log(f"cglb adversarial v = s * 1 for s in {SP_ADVERSARIAL}: bounds {bounds} <= upper_bound {upper:.6e}")
+    assert all(np.isfinite(b) and b <= upper + 1e-6 * abs(upper) for b in bounds), \
+        "an adversarial v inflated the CGLB bound"
+    assert bounds[2] < -1e3 and bounds[3] < -1e3, "a huge v did not loosen the bound"
+
+
+def cglb_serve(model, Xnew, Ynew, launches):
+    """Phase 15: requests of B new points to the trained matrix-free CGLB,
+    ``predict_f``, ``predict_y`` and ``predict_log_density``, against the
+    same model in float64 from the same v: exactly at that v
+    (``cg_tolerance=None``), beside the lower-tier control, and after the CG
+    to ``cg_tolerance=1e-3``, where each side's CG may stop at another
+    iteration: there each limit adds twice the float64 move of the output
+    between the two. Launch counts exact. Returns the requests."""
+    from gpflow_tpu_torch.utilities import read_values
+
+    def requests(m, x, y, cg_tol):
+        return {"predict_f": lambda: m.predict_f(x, cg_tolerance=cg_tol),
+                "predict_y": lambda: m.predict_y(x, cg_tolerance=cg_tol),
+                "predict_log_density": lambda: (m.predict_log_density((x, y), cg_tolerance=cg_tol),)}
+
+    Xb, Yb = torch.from_numpy(Xnew).cuda(), torch.from_numpy(Ynew).cuda()
+    nc = n_chunks(model)
+    values = read_values(model)
+    X, Y = model.data
+    m64 = sparse_model("CGLB", model.data, np.zeros((SP_M, D)), torch.float64, values=values,
+                       matrix_free_chunk=SP_CHUNK)
+    mc = sparse_model("CGLB", (bf16(X), Y), np.zeros((SP_M, D)), torch.float32, values=bf16_values(values),
+                      matrix_free_chunk=SP_CHUNK)
+    log_conditions("cglb serving", m64)
+    with torch.no_grad():
+        prior = float(m64.kernel.variance.value)
+        outs, wants = {}, {}
+        for cg_tol in (None, SP_PREDICT_CG_TOL):
+            out = {}
+            for key, fn in requests(model, Xb, Yb, cg_tol).items():
+                out[key], counts = counted(fn)
+                it = 0 if cg_tol is None else model.cg_iterations
+                # K(Xnew, X), Kuu, Kuf, K(Z, Xnew), the CG's matvecs and the residual's
+                k1 = 4 + nc * ((0 if cg_tol is None else cg_matvecs(model, it)) + 1)
+                expect_launches(f"cglb {key} request (cg_tolerance {cg_tol}, {it} CG iterations)", counts,
+                                {"K1": k1, "K2": 0}, launches)
+            outs[cg_tol] = out
+            wants[cg_tol] = {key: fn() for key, fn in requests(m64, Xb.double(), Yb.double(), cg_tol).items()}
+        control = run_control(lambda: {key: fn() for key, fn in requests(mc, bf16(Xb), Yb, None).items()})
+    judge("cglb serving at the same v", request_errors("cglb serving", outs[None], wants[None], prior),
+          request_errors("cglb serving control", control, wants[None], prior))
+    shifts = {key: 2 * max(rel_err(a, b) for a, b in zip(wants[SP_PREDICT_CG_TOL][key], wants[None][key]))
+              for key in wants[None]}
+    log(f"cglb serving: twice the float64 outputs' move from the CG to {SP_PREDICT_CG_TOL:g}: {shifts}")
+    judge(f"cglb serving after the CG to {SP_PREDICT_CG_TOL:g}",
+          request_errors("cglb serving", outs[SP_PREDICT_CG_TOL], wants[SP_PREDICT_CG_TOL], prior, shifts))
+    mean, var = outs[SP_PREDICT_CG_TOL]["predict_f"]
+    assert bool((var > 0).all()), "cglb serving: a predictive variance is not positive"
+    rmse = float(torch.sqrt(torch.mean(torch.square(mean - Yb))))
+    log(f"cglb serving: held-out RMSE {rmse:.4f}, mean log density "
+        f"{float(outs[SP_PREDICT_CG_TOL]['predict_log_density'][0].mean()):.4f}")
+    return Xb, Yb
+
+
+def sparse_timings(sgpr, cglb, Xb, Yb):
+    """Phase 16: the CGLB objective from v = 0 (cglb_mf_obj_ms_n32k, as
+    ``bench.py:396-403`` times it: under ``jit`` there v stays at its
+    start) and warm-started, ms per CG iteration, the SGPR objective and
+    its value and gradient, CGLB requests, a profile of one matrix-free
+    value and gradient, and K1 and K2 at the path's new shapes."""
+    from gpflow_tpu_torch.models import NystromPreconditioner, cglb_conjugate_gradient
+
+    zeros = torch.zeros_like(cglb.aux_vec.value)
+    with torch.no_grad():
+        ms, iters = [], []
+        cglb.aux_vec.assign(zeros)
+        cglb.training_loss()  # warm-up, as bench.py's compiling call
+        for _ in range(SP_OBJ_CALLS):
+            cglb.aux_vec.assign(zeros)
+            ms.append(request_ms(cglb.training_loss, 1, warmup=0))
+            iters.append(cglb.cg_iterations)
+        log(f"time: cglb objective from v = 0 at N={SP_N}, M={SP_M}, chunk {SP_CHUNK}: {np.mean(ms):.3f} ms "
+            f"(cglb_mf_obj_ms_n32k; calls {ms}, CG iterations {iters})")
+        warm = request_ms(cglb.training_loss, SP_OBJ_CALLS, warmup=1)
+        log(f"time: cglb objective warm-started: {warm:.3f} ms ({cglb.cg_iterations} CG iterations)")
+        x, y = cglb.data
+        common = cglb._common_calculation()
+        precond = NystromPreconditioner(common.A, common.LB, cglb.likelihood.variance.value)
+        mv = cglb._kmat_operator()
+        steps = 20
+        cg_ms = {k: request_ms(lambda: cglb_conjugate_gradient(mv, y.mT, zeros, precond, 0.0, k, 40), 3, warmup=1)
+                 for k in (0, steps)}
+        per_iter = (cg_ms[steps] - cg_ms[0]) / steps
+        log(f"time: cglb CG: {per_iter:.4f} ms per iteration ({steps} iterations {cg_ms[steps]:.3f} ms, "
+            f"0 iterations {cg_ms[0]:.3f} ms)")
+        cg_by, _ = profile_device(lambda: cglb_conjugate_gradient(mv, y.mT, zeros, precond, 0.0, steps, 40),
+                                  f"cglb CG, {steps} iterations from v = 0")
+        if cg_by:
+            log(f"profile: K1 is {100 * cg_by.get('K1', 0.0) / sum(cg_by.values()):.1f}% of the CG's device time; "
+                f"per iteration K1 {cg_by.get('K1', 0.0) / steps:.4f} ms, gemm/gemv "
+                f"{cg_by.get('gemm', 0.0) / steps:.4f} ms, all {sum(cg_by.values()) / steps:.4f} ms")
+        log(f"time: sparse SGPR objective: {request_ms(sgpr.training_loss, 10):.4f} ms")
+        post = sgpr.posterior()
+        for key, fn in (("cached predict_f", lambda: post.predict_f(Xb)),
+                        ("cached predict_mean", lambda: post.predict_mean(Xb)),
+                        ("fused predict_f", lambda: sgpr.predict_f(Xb)), ("predict_y", lambda: sgpr.predict_y(Xb))):
+            log(f"time: sparse SGPR {key} at B={B}: {request_ms(fn, 10):.4f} ms per request")
+    log(f"time: sparse SGPR value and gradient: "
+        f"{request_ms(lambda: sparse_value_and_grad(sgpr, lambda m: m.training_loss()), 10):.4f} ms")
+    log(f"time: cglb value and gradient: "
+        f"{request_ms(lambda: sparse_value_and_grad(cglb, lambda m: m.training_loss()), 3):.3f} ms "
+        f"({cglb.cg_iterations} CG iterations)")
+    by, _ = profile_device(lambda: sparse_value_and_grad(cglb, lambda m: m.training_loss()),
+                           f"cglb matrix-free value and gradient ({cglb.cg_iterations} CG iterations)", top=10)
+    if by:
+        log(f"profile: K1 is {100 * by.get('K1', 0.0) / sum(by.values()):.1f}% of the matrix-free value and "
+            f"gradient's device time")
+    with torch.no_grad():
+        for key, fn in (("predict_f", lambda: cglb.predict_f(Xb)), ("predict_y", lambda: cglb.predict_y(Xb)),
+                        ("predict_log_density", lambda: cglb.predict_log_density((Xb, Yb)))):
+            log(f"time: cglb {key} at B={B}: {request_ms(fn, 3):.3f} ms per request ({cglb.cg_iterations} CG "
+                f"iterations)")
+        time_k1(SP_N, SP_CHUNK, iters=20)  # a matrix-free block
+        time_k1(SP_M, SP_N, iters=20)  # Kuf
+        time_k1(B, SP_N, iters=20)  # K(Xnew, X) of a CGLB request
+        time_k2(SP_N, SP_CHUNK, iters=20)  # a rebuilt block's backward, Matern52
+
+
+def sparse_phases(launches):
+    """Phases 13-16."""
+    data, Z, Xnew, Ynew = make_sparse_data()
+    sgpr = sgpr_check(data, Z, launches)
+    sgpr_train(sgpr, launches)
+    sgpr_serve(sgpr, Xnew, launches)
+
+    cglb_dense_vs_matrix_free(launches)
+
+    cglb = sparse_model("CGLB", data, Z, torch.float32, matrix_free_chunk=SP_CHUNK)
+    loss0, it0 = cglb_objective(cglb, launches, "objective from v = 0")
+    log(f"cglb objective from v = 0: {loss0:.6e} after {it0} CG iterations")
+    v64 = cglb_v64(data, Z)
+    for kernel in ("SquaredExponential", "Matern52"):
+        cglb_fixed_v(kernel, data, Z, v64, launches)
+    # the float32-against-float64 checks again on data drawn as bench.py
+    # draws them from other seeds: the spread the limits must hold
+    for seed in SP_EXTRA_SEEDS:
+        d, z, _, _ = make_sparse_data(seed=seed)
+        sgpr_check(d, z, launches, tag=f", data seed {seed}")
+        v = cglb_v64(d, z)
+        for kernel in ("SquaredExponential", "Matern52"):
+            cglb_fixed_v(kernel, d, z, v, launches, tag=f", data seed {seed}")
+        del d, z, v
+        torch.cuda.empty_cache()
+    cglb_sandwich(cglb, data, Z, "before training")
+    cglb_peak_memory(cglb, launches)
+    cglb_train(cglb, loss0, launches)
+    cglb_sandwich(cglb, data, Z, "after training")
+    cglb_adversarial(data, Z, launches)
+    Xb, Yb = cglb_serve(cglb, Xnew, Ynew, launches)
+    torch.cuda.empty_cache()
+    sparse_timings(sgpr, cglb, Xb, Yb)
+
+
 def _kernel_category(name):
     # cuSOLVER's float32 Cholesky runs as getrf_wo_pivot on this card
     n = name.lower()
@@ -1394,6 +2020,9 @@ def main():
     ng_post, ng_Xb, ng_Yb = ng_serve(classifier, ng_Xnew, ng_Ynew, launches)
     ng_timings(ng_trainers, ng_post, classifier, ng_Xb, ng_Yb)
     del ng_trainers, classifier, ng_post, ng_data
+    torch.cuda.empty_cache()
+
+    sparse_phases(launches)
     torch.cuda.empty_cache()
 
     n = GPR_NS[-1]

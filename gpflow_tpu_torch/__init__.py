@@ -2,11 +2,11 @@
 
 The port imports torch, numpy and scipy (for ``optimizers.Scipy``) only.
 Its modules mirror ``gpflow_tpu``'s paths and public names; so far it trains
-an SVGP (``elbo``, ``training_loss``, ``parallel.DataParallelTrainer``) and
-fits an exact GPR (``log_marginal_likelihood``, ``optimizers.Scipy``) with a
-SquaredExponential, RationalQuadratic, Exponential or Matern kernel and a
-Gaussian likelihood, and serves both (ROADMAP.md lists what is still to
-port). On a CUDA device, covariance matrices come from the hand-written
+an SVGP (``elbo``, ``training_loss``, ``parallel.DataParallelTrainer``, with
+natural gradients for the non-conjugate likelihoods) and fits an exact GPR
+(``log_marginal_likelihood``, ``optimizers.Scipy``) and the sparse SGPR,
+GPRFITC and CGLB with a SquaredExponential, RationalQuadratic, Exponential or
+Matern kernel, and serves them (ROADMAP.md lists what is still to port). On a CUDA device, covariance matrices come from the hand-written
 kernel K1 and the gradients of the exponential and Matern families from K2
 (``gpflow_tpu_torch.ops.pallas_distance``).
 

@@ -1,18 +1,28 @@
+from .cglb import CGLB, NystromPreconditioner, cglb_conjugate_gradient
 from .gpr import GPR, GPR_deprecated, GPR_with_posterior
 from .model import BayesianModel, GPModel
+from .sgpr import GPRFITC, SGPR, SGPR_deprecated, SGPR_with_posterior, SGPRBase_deprecated
 from .svgp import SVGP
 from .training_mixins import ExternalDataTrainingLossMixin, InternalDataTrainingLossMixin
 from .util import data_input_to_tensor, inducingpoint_wrapper
 
 __all__ = [
     "BayesianModel",
+    "CGLB",
     "ExternalDataTrainingLossMixin",
     "GPModel",
+    "GPRFITC",
     "GPR",
     "GPR_deprecated",
     "GPR_with_posterior",
     "InternalDataTrainingLossMixin",
+    "NystromPreconditioner",
+    "SGPR",
+    "SGPRBase_deprecated",
+    "SGPR_deprecated",
+    "SGPR_with_posterior",
     "SVGP",
+    "cglb_conjugate_gradient",
     "data_input_to_tensor",
     "inducingpoint_wrapper",
 ]

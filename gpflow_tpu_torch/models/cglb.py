@@ -1,0 +1,320 @@
+"""CGLB: the conjugate-gradient lower bound on the GP marginal likelihood
+(Artemev et al. 2021; counterpart of ``gpflow_tpu/models/cglb.py``).
+
+The quadratic term is bounded through an auxiliary vector v [R, N] that a
+preconditioned conjugate gradient (CG) moves towards (K + sigma^2 I)^-1 y.
+The CG runs under ``torch.no_grad`` and returns a detached v, as the JAX
+package's ``lax.while_loop`` under ``stop_gradient`` does, so no autograd
+graph is kept across its iterations. Its loop is driven from the host: the
+stopping test reads 0.5 max(r^T Q^-1 r) once per iteration (one
+synchronisation against one K-matvec of device work), and the restart test
+is the host's counter. The iteration count of the last CG run is kept in
+``CGLB.cg_iterations``.
+
+In the matrix-free mode (``matrix_free_chunk``) no [N, N] matrix is formed:
+every K-matvec builds K(X, X_chunk) one [N, chunk] block at a time (kernel
+K1 on a CUDA device) and contracts it at once; under autograd each block is
+checkpointed (``torch.utils.checkpoint``, as ``jax.checkpoint`` in the JAX
+package), so the backward builds it again (K1 once more, and K2 for the
+exponential and Matern kernels) instead of keeping it. The last chunk is
+sliced short where the JAX package pads X with zero rows.
+
+Deviation (ROADMAP.md, Queue 3): every evaluation of the objective with a
+non-trainable v writes the CG's v back into ``aux_vec`` as the warm start of
+the next one, on the device and under ``no_grad``, keeping the old v where
+the new one is not finite. The JAX package writes it only when it runs
+eagerly, not under ``jit``.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Optional, Tuple, Union
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from ..base import MeanAndVariance, Parameter
+from ..config import default_device, default_float
+from ..kernels import Kernel
+from ..posteriors import sgpr_conditional
+from ..utilities.model_utils import add_noise_cov, assert_params_false
+from .sgpr import SGPR_deprecated as SGPR
+from .training_mixins import RegressionData
+
+__all__ = ["CGLB", "NystromPreconditioner", "cglb_conjugate_gradient"]
+
+KOperator = Union[torch.Tensor, Callable[[torch.Tensor], torch.Tensor]]
+
+
+def _block_matvec(kernel: Kernel, x: torch.Tensor, xc: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return v @ kernel.K(x, xc)  # [R, chunk]
+
+
+class CGLB(SGPR):
+    """SGPR with a tighter, Jensen-corrected log-determinant bound and a
+    CG-estimated quadratic term (``gpflow_tpu/models/cglb.py:30-263``)."""
+
+    def __init__(
+        self,
+        data: RegressionData,
+        *args: Any,
+        cg_tolerance: float = 1.0,
+        max_cg_iters: int = 100,
+        restart_cg_iters: int = 40,
+        v_grad_optimization: bool = False,
+        matrix_free_chunk: Optional[int] = None,
+        **kwargs: Any,
+    ) -> None:
+        """:param matrix_free_chunk: if set, never form the [N, N] kernel
+        matrix: every K-matvec is computed in [N, chunk] blocks, each built
+        again in the backward, so memory is O(N * chunk).
+        :param v_grad_optimization: make v a trainable parameter instead of
+        the CG's output."""
+        super().__init__(data, *args, **kwargs)
+        self._matrix_free_chunk = matrix_free_chunk
+        n, b = self.data[1].shape
+        self._v = Parameter(
+            torch.zeros((b, n), dtype=default_float(), device=default_device()),
+            trainable=v_grad_optimization,
+            name="v",
+        )
+        self._cg_tolerance = cg_tolerance
+        self._max_cg_iters = max_cg_iters
+        self._restart_cg_iters = restart_cg_iters
+        #: CG iterations of the last CG run (None before the first)
+        self.cg_iterations: Optional[int] = None
+
+    @property
+    def aux_vec(self) -> Parameter:
+        """The auxiliary vector v [R, N]."""
+        return self._v
+
+    def _kmat_operator(self) -> KOperator:
+        """K + sigma^2 I: the dense [N, N] matrix in the default mode, a
+        matvec v [R, N] -> v (K + sigma^2 I) in the matrix-free mode."""
+        x, _ = self.data
+        sigma_sq = self.likelihood.variance.value
+        if self._matrix_free_chunk is None:
+            return add_noise_cov(self.kernel.K(x), sigma_sq)
+
+        chunk = self._matrix_free_chunk
+        kernel = self.kernel
+
+        def mv(v: torch.Tensor) -> torch.Tensor:
+            parts = []
+            for start in range(0, x.shape[0], chunk):
+                # the backward builds the block again instead of keeping it:
+                # kept, the blocks would add up to the [N, N] matrix (under
+                # no_grad the checkpoint saves nothing and just calls)
+                parts.append(checkpoint(_block_matvec, kernel, x, x[start:start + chunk], v,
+                                        use_reentrant=False, preserve_rng_state=False))
+            return torch.cat(parts, dim=-1) + sigma_sq * v
+
+        return mv
+
+    def logdet_term(self, common: SGPR.CommonTensors) -> torch.Tensor:
+        """log|K + s2 I| <= log|Q + s2 I| + N log(1 + tr(K - Q) / (s2 N))
+        (``cglb.py:98-114``)."""
+        LB = common.LB
+        AAT = common.AAT
+        x, y = self.data
+        num_data, output_dim = (float(s) for s in y.shape)
+        sigma_sq = self.likelihood.variance.value
+
+        kdiag = self.kernel(x, full_cov=False)
+        trace = torch.sum(kdiag) / sigma_sq - torch.sum(torch.diagonal(AAT))
+        logdet_b = torch.sum(torch.log(torch.diagonal(LB)))
+        logsigma_sq = num_data * torch.log(sigma_sq)
+        logtrace = num_data * torch.log(1 + trace / num_data)
+        return -output_dim * (logdet_b + 0.5 * logsigma_sq + 0.5 * logtrace)
+
+    def quad_term(self, common: SGPR.CommonTensors) -> torch.Tensor:
+        """The bound -0.5 (v . (r + 0.5 K v) + 0.5 r^T Q^-1 r) on
+        -0.5 y^T (K + s2 I)^-1 y through the auxiliary vector v
+        (``cglb.py:116-169``)."""
+        x, y = self.data
+        err = y - self.mean_function(x)
+        sigma_sq = self.likelihood.variance.value
+        K = self._kmat_operator()
+
+        preconditioner = NystromPreconditioner(common.A, common.LB, sigma_sq)
+        err_t = err.mT
+
+        v_init = self.aux_vec
+        if not v_init.trainable:
+            v, self.cg_iterations = _cglb_conjugate_gradient(
+                K, err_t, v_init.value, preconditioner, self._cg_tolerance, self._max_cg_iters, self._restart_cg_iters
+            )
+        else:
+            v = v_init.value
+
+        Kv = K(v) if callable(K) else v @ K
+        r = err_t - Kv
+        _, error_bound_cols = preconditioner(r)  # [R]
+        # The PSD quadratic forms are clamped one-sided, exactly as the JAX
+        # package does (cglb.py:147-164): for a huge-norm v, float32 can round
+        # the kernel part of v^T (K + s2 I) v, whose true value is >= 0, below
+        # zero and inflate the "lower bound" above the evidence. Clamping it at
+        # 0 and adding the exact s2 ||v||^2, and clamping r^T Q^-1 r >= 0, only
+        # ever lowers the bound; in float64 both clamps change nothing.
+        sq = sigma_sq.to(v.dtype)
+        v_norm_sq = torch.sum(torch.square(v), dim=-1)  # [R]
+        vKv_kernel = torch.clamp(torch.sum(v * Kv, dim=-1) - sq * v_norm_sq, min=0.0)
+        lb = torch.sum(v * err_t) - 0.5 * torch.sum(vKv_kernel + sq * v_norm_sq)
+        ub = lb + 0.5 * torch.sum(torch.clamp(error_bound_cols, min=0.0))
+
+        if not v_init.trainable:
+            with torch.no_grad():
+                # the warm start of the next CG run; a non-finite v (a NaN
+                # trial point of L-BFGS) keeps the old one, with no host sync
+                v_init._set_unconstrained(torch.where(torch.isfinite(v).all(), v, v_init.unconstrained))
+
+        return -ub
+
+    def predict_f(
+        self,
+        Xnew: torch.Tensor,
+        full_cov: bool = False,
+        full_output_cov: bool = False,
+        cg_tolerance: Optional[float] = 1e-3,
+    ) -> MeanAndVariance:
+        """m(Xnew) = K(Xnew, X) v + Q(Xnew, X) Q^-1 r with r = y - (K + s2 I) v,
+        and the SGPR variance (``cglb.py:171-232``). With ``cg_tolerance`` set,
+        the CG first runs from ``aux_vec`` to that tolerance; v is not written
+        back."""
+        assert_params_false(self.predict_f, full_output_cov=full_output_cov)
+
+        x, y = self.data
+        err = y - self.mean_function(x)
+        ksf = self.kernel(Xnew, x)
+        sigma_sq = self.likelihood.variance.value
+        sigma = torch.sqrt(sigma_sq)
+
+        kmat = self._kmat_operator()
+
+        common = self._common_calculation()
+        A, LB, L = common.A, common.LB, common.L
+
+        v = self.aux_vec.value
+        if cg_tolerance is not None:
+            preconditioner = NystromPreconditioner(A, LB, sigma_sq)
+            v, self.cg_iterations = _cglb_conjugate_gradient(
+                kmat, err.mT, v, preconditioner, cg_tolerance, self._max_cg_iters, self._restart_cg_iters
+            )
+
+        cg_mean = ksf @ v.mT
+        res = err - (kmat(v).mT if callable(kmat) else kmat @ v.mT)
+
+        c = torch.linalg.solve_triangular(LB, A @ res, upper=False) / sigma
+        sgpr_mean, var = sgpr_conditional(self.kernel, self.inducing_variable, self.num_latent_gps, L, LB, c, Xnew,
+                                          full_cov)
+
+        mean = sgpr_mean + cg_mean + self.mean_function(Xnew)
+        return mean, var
+
+    def predict_y(
+        self,
+        Xnew: torch.Tensor,
+        full_cov: bool = False,
+        full_output_cov: bool = False,
+        cg_tolerance: Optional[float] = 1e-3,
+    ) -> MeanAndVariance:
+        assert_params_false(self.predict_y, full_cov=full_cov, full_output_cov=full_output_cov)
+        f_mean, f_var = self.predict_f(
+            Xnew, full_cov=full_cov, full_output_cov=full_output_cov, cg_tolerance=cg_tolerance
+        )
+        return self.likelihood.predict_mean_and_var(Xnew, f_mean, f_var)
+
+    def predict_log_density(
+        self,
+        data: RegressionData,
+        full_cov: bool = False,
+        full_output_cov: bool = False,
+        cg_tolerance: Optional[float] = 1e-3,
+    ) -> torch.Tensor:
+        assert_params_false(self.predict_log_density, full_cov=full_cov, full_output_cov=full_output_cov)
+        x, y = data
+        f_mean, f_var = self.predict_f(
+            x, full_cov=full_cov, full_output_cov=full_output_cov, cg_tolerance=cg_tolerance
+        )
+        return self.likelihood.predict_log_density(x, f_mean, f_var, y)
+
+
+class NystromPreconditioner:
+    """Q^-1 = (Q_ff + s2 I)^-1 applied through A = s^-1 L^-1 Kuf [M, N] and
+    LB (``cglb.py:266-303``)."""
+
+    def __init__(self, A: torch.Tensor, LB: torch.Tensor, sigma_sq: torch.Tensor) -> None:
+        self.A = A
+        self.LB = LB
+        self.sigma_sq = sigma_sq
+
+    def __call__(self, v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """For v [R, N]: v^T Q^-1 as rows [R, N], and each column's quadratic
+        v_r^T Q^-1 v_r [R]. Per column, as in the JAX package, so that the CG
+        takes its own step size for each right-hand side."""
+        sigma_sq = self.sigma_sq
+        A = self.A
+        LB = self.LB
+
+        vt = v.mT
+        Av = A @ vt
+        LBinvAv = torch.linalg.solve_triangular(LB, Av, upper=False)
+        LBinvtLBinvAv = torch.linalg.solve_triangular(LB.mT, LBinvAv, upper=True)
+
+        rv = vt - A.mT @ LBinvtLBinvAv
+        vtrv = torch.sum(rv * vt, dim=0)  # [R]
+        return rv.mT / sigma_sq, vtrv / sigma_sq
+
+
+def _cglb_conjugate_gradient(
+    K: KOperator,
+    b: torch.Tensor,
+    initial: torch.Tensor,
+    preconditioner: NystromPreconditioner,
+    cg_tolerance: float,
+    max_steps: int,
+    restart_cg_step: int,
+) -> Tuple[torch.Tensor, int]:
+    """``cglb_conjugate_gradient`` and its iteration count."""
+    mv = K if callable(K) else (lambda p: p @ K)
+    with torch.no_grad():
+        v = initial.detach().clone()
+        r = b - mv(v)
+        z, rz = preconditioner(r)
+        p = z
+        i = 0
+        # run until EVERY column's residual quadratic is below the tolerance;
+        # a NaN compares False and stops the loop, as in the JAX package
+        while i < max_steps and 0.5 * float(torch.max(rz)) > cg_tolerance:
+            Ap = mv(p)
+            denom = torch.sum(p * Ap, dim=-1)  # [R]
+            # per-column step size [R, 1]; a converged column (p ~ 0, denom
+            # ~ 0) takes a zero step instead of 0/0
+            gamma = torch.where(denom > 0, rz / denom, torch.zeros_like(denom))[..., None]
+            v = v + gamma * p
+            restart = i % restart_cg_step == restart_cg_step - 1
+            r = b - mv(v) if restart else r - gamma * Ap
+            z, new_rz = preconditioner(r)
+            beta = torch.where(rz > 0, new_rz / rz, torch.zeros_like(rz))[..., None]  # [R, 1]
+            p = z if restart else z + p * beta
+            rz = new_rz
+            i += 1
+    return v, i
+
+
+def cglb_conjugate_gradient(
+    K: KOperator,
+    b: torch.Tensor,
+    initial: torch.Tensor,
+    preconditioner: NystromPreconditioner,
+    cg_tolerance: float,
+    max_steps: int,
+    restart_cg_step: int,
+) -> torch.Tensor:
+    """Preconditioned CG with periodic restarts for (K + s2 I) v^T = b^T,
+    stopping when 0.5 r^T Q^-1 r <= cg_tolerance in every column or after
+    ``max_steps`` iterations (``cglb.py:306-371``). ``K`` is the dense [N, N]
+    matrix or a matvec (the matrix-free mode); b and initial are [R, N].
+    Runs under ``no_grad`` and returns a detached v [R, N]."""
+    v, _ = _cglb_conjugate_gradient(K, b, initial, preconditioner, cg_tolerance, max_steps, restart_cg_step)
+    return v

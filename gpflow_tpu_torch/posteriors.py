@@ -1,6 +1,6 @@
 """Posteriors with a precomputed prediction cache (counterpart of
-``gpflow_tpu/posteriors.py``; the single-output base case and the exact-GP
-posterior so far).
+``gpflow_tpu/posteriors.py``; the single-output base case, the exact-GP
+and the SGPR posteriors so far).
 
 ``BasePosterior`` caches (alpha, Qinv), after which a prediction is matmuls
 only: mean = Kuf^T alpha, var = Kff - Kuf^T Qinv Kuf. The cache stores an
@@ -8,7 +8,9 @@ explicit inverse, so its float32 variance carries an error of about
 cond(Kuu)^2 * eps; the fused route (``fused_predict_f``, Cholesky per call)
 carries about cond(Kuu) * eps. ``GPRPosterior`` caches (err, Lm, alpha) of
 the training data: a request solves against Lm, and ``predict_mean`` is one
-matvec.
+matvec. ``SGPRPosterior`` caches (L, LB, c, alpha) of the sparse regression:
+a request solves against the two [M, M] factors, and ``predict_mean`` is
+K(Z, Xnew) and one matvec.
 
 On CUDA, every covariance matrix comes from kernel K1
 (``ops/pallas_distance.py``).
@@ -349,8 +351,108 @@ class GPRPosterior(AbstractPosterior):
         return self._conditional_with_precompute(self._precompute_base(), Xnew, full_cov, full_output_cov)
 
 
-class SGPRPosterior(_NotPortedPosterior):
-    pass
+def sgpr_conditional(
+    kernel: kernels.Kernel,
+    inducing_variable: InducingPoints,
+    num_latent_gps: int,
+    L: torch.Tensor,
+    LB: torch.Tensor,
+    c: torch.Tensor,
+    Xnew: torch.Tensor,
+    full_cov: bool = False,
+) -> MeanAndVariance:
+    """The SGPR conditional at Xnew from L = chol(Kuu), LB and c (see
+    ``SGPRPosterior``), without the mean function: the one ``SGPRPosterior``,
+    the fused ``SGPR_deprecated.predict_f`` and ``CGLB.predict_f`` share."""
+    Kus = Kuf(inducing_variable, kernel, Xnew)
+    tmp1 = torch.linalg.solve_triangular(L, Kus, upper=False)
+    tmp2 = torch.linalg.solve_triangular(LB, tmp1, upper=False)
+    mean = torch.matmul(tmp2.mT, c)
+    if full_cov:
+        var = kernel(Xnew) + torch.matmul(tmp2.mT, tmp2) - torch.matmul(tmp1.mT, tmp1)
+        var = var[None, ...].expand((num_latent_gps,) + var.shape)
+    else:
+        var = kernel(Xnew, full_cov=False) + torch.sum(torch.square(tmp2), 0) - torch.sum(torch.square(tmp1), 0)
+        var = var[:, None].expand(var.shape + (num_latent_gps,))
+    return mean, var
+
+
+class SGPRPosterior(AbstractPosterior):
+    """SGPR posterior; cache = (L, LB, c, alpha) with L = chol(Kuu),
+    LB = chol(I + A A^T) for A = L^-1 Kuf / sigma, c = LB^-1 A err / sigma
+    and alpha = L^-T LB^-T c (``gpflow_tpu/posteriors.py:417-538``)."""
+
+    def __init__(
+        self,
+        kernel: kernels.Kernel,
+        data: Tuple[torch.Tensor, torch.Tensor],
+        inducing_variable: InducingPoints,
+        likelihood: Gaussian,
+        num_latent_gps: int,
+        mean_function: MeanFunction,
+        *,
+        precompute_cache: Optional[PrecomputeCacheType],
+    ) -> None:
+        X, Y = data
+        super().__init__(kernel, X, mean_function=mean_function)
+        self.Y_data = Y
+        self.likelihood = likelihood
+        self.inducing_variable = inducing_variable
+        self.num_latent_gps = num_latent_gps
+        if precompute_cache is not None:
+            self.update_cache(precompute_cache)
+
+    def _conditional_with_precompute(
+        self,
+        cache: Tuple[torch.Tensor, ...],
+        Xnew: torch.Tensor,
+        full_cov: bool = False,
+        full_output_cov: bool = False,
+    ) -> MeanAndVariance:
+        assert_params_false(self._conditional_with_precompute, full_output_cov=full_output_cov)
+        return sgpr_conditional(self.kernel, self.inducing_variable, self.num_latent_gps, cache[0], cache[1],
+                                cache[2], Xnew, full_cov)
+
+    def _precompute_base(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(L, LB, c): what the full conditional needs."""
+        err = self.Y_data - self.mean_function(self.X_data)
+
+        kuf = Kuf(self.inducing_variable, self.kernel, self.X_data)
+        kuu = Kuu(self.inducing_variable, self.kernel, jitter=default_jitter())
+
+        sigma_sq = self.likelihood.variance_at(self.X_data).squeeze(-1)
+        sigma = torch.sqrt(sigma_sq)
+
+        L = cholesky(kuu)
+        A = torch.linalg.solve_triangular(L, kuf / sigma, upper=False)
+        B = torch.matmul(A, A.mT) + torch.eye(A.shape[0], dtype=A.dtype, device=A.device)
+        LB = cholesky(B)
+        Aerr = torch.matmul(A, err / sigma[..., None])
+        c = torch.linalg.solve_triangular(LB, Aerr, upper=False)
+        return L, LB, c
+
+    def _precompute(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+        L, LB, c = self._precompute_base()
+        # alpha for one-matvec mean-only serving, computed here and not on
+        # the fused (NOCACHE) route
+        alpha = torch.linalg.solve_triangular(
+            L.mT, torch.linalg.solve_triangular(LB.mT, c, upper=True), upper=True
+        )
+        return L, LB, c, alpha
+
+    def predict_mean(self, Xnew: torch.Tensor) -> torch.Tensor:
+        """mean = Kus^T alpha with alpha from the cache: the [M, M] solves act
+        on the [M, P] vector c, not on the [M, Nnew] Kus."""
+        if self.cache is None:
+            return super().predict_mean(Xnew)
+        alpha = self.cache[3]
+        Kus = Kuf(self.inducing_variable, self.kernel, Xnew)
+        return self._add_mean_function(Xnew, torch.matmul(Kus.mT, alpha))
+
+    def _conditional_fused(
+        self, Xnew: torch.Tensor, full_cov: bool = False, full_output_cov: bool = False
+    ) -> MeanAndVariance:
+        return self._conditional_with_precompute(self._precompute_base(), Xnew, full_cov, full_output_cov)
 
 
 class VGPPosterior(_NotPortedPosterior):

@@ -1,4 +1,4 @@
-from .misc import set_trainable
+from .misc import set_trainable, to_default_float
 from .model_utils import add_likelihood_noise_cov, add_noise_cov, assert_params_false
 from .multipledispatch import Dispatcher
 from .ops import square_distance
@@ -17,4 +17,5 @@ __all__ = [
     "read_values",
     "set_trainable",
     "square_distance",
+    "to_default_float",
 ]

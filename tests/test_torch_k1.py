@@ -137,6 +137,9 @@ def test_import_leaves_jax_out():
         "from gpflow_tpu_torch.optimizers import Scipy\n"
         "import gpflow_tpu_torch.quadrature, gpflow_tpu_torch.likelihoods.scalar_discrete\n"
         "import gpflow_tpu_torch.optimizers.natgrad\n"
+        "from gpflow_tpu_torch.models import CGLB, GPRFITC, SGPR, cglb_conjugate_gradient\n"
+        "from gpflow_tpu_torch.posteriors import SGPRPosterior\n"
+        "from gpflow_tpu_torch.utilities import to_default_float\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'gpflow_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
