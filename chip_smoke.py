@@ -23,10 +23,12 @@ on the card where the CPU would take minutes. Phases:
 2. build: kernels K1 and K2 from the sources in the checkout, one nvcc each,
    started together;
 3. K1 against its plain PyTorch version on the card, six families, float32
-   and bfloat16 inputs, at the paths' shapes and at ragged ones;
-4. K2 against its plain version likewise, for its four families; then on an
-   [N, N] block with X = Z (exponential and matern12), where W must be
-   exactly 0 at every coincident pair;
+   and bfloat16 inputs, at the paths' shapes and at ragged ones, each with
+   its launch plan logged; both the TMA and the edge path must have run;
+4. K2 against its plain version likewise, for its four families, and with a
+   g that starts 4 bytes off alignment; then on an [N, N] block with X = Z
+   (exponential and matern12), where W must be exactly 0 at every
+   coincident pair;
 5. the serving slice (SquaredExponential): ``model.posterior()`` with the
    TENSOR cache, requests through ``predict_f`` and ``predict_mean``, and
    ``model.predict_f`` and ``model.predict_y`` on the solve and INV_SOLVE
@@ -97,7 +99,8 @@ on the card where the CPU would take minutes. Phases:
 16. timings: the CGLB objective from v = 0 and warm-started, ms per CG
    iteration, seconds per L-BFGS evaluation, the SGPR objective and its
    value and gradient, a profile of one matrix-free value and gradient,
-   requests, and K1 and K2 at the path's new shapes.
+   requests, and K1 and K2 at the path's new shapes; then K1 and K2 at the
+   GPR's shapes and K1 at (1, 1, 8), the launch floor.
 
 Every failure raises, and the script then exits non-zero without the result
 line. The line before the last is ``{"kernels": [...]}``; the last is
@@ -126,12 +129,18 @@ K1_ATOL_F64 = 1e-5
 # loses about 2^-24 * (|x|^2 + |z|^2) of d2, which the r-based families turn
 # into an error of that over 2r near r = 0: allow 1e-3 * var.
 K1_ATOL_F32 = 1e-3
-# The paths' shapes (Kuu, Kuf, the GPR's Gram matrix at N = 16384: a
-# 128 x 256 grid of blocks whose [N, M] offsets pass 2^28 and are taken in
-# int64; the sparse path's matrix-free block, its Kuf and a CGLB request's
-# K(Xnew, X)) and ragged ones.
-K1_SHAPES = [(2048, 2048, 8), (2048, 8192, 8), (16384, 16384, 8), (32768, 4096, 8), (1024, 32768, 8),
-             (8192, 32768, 8), (1000, 777, 3), (1, 1, 1), (300, 129, 37)]
+# The paths' shapes (Kuu, Kuf, the GPR's Gram matrix at N = 16384, whose
+# [N, M] offsets pass 2^28 and are taken in int64; the natural-gradient
+# path's Kuu and Kuf; the sparse path's matrix-free block, its Kuf and a
+# CGLB request's K(Xnew, X)), all on the TMA path, and shapes that reach the
+# other branches of the launch plan (pallas_distance._launch_plan): M % 4 of
+# 1, 2 and 3 with a ragged N (the edge path), a ragged N and M with M % 4 ==
+# 0 (the TMA path clipping both edges), fewer tiles than SMs, D = 16 (two
+# chunks of dimensions, four-element loads) and D of 1, 3 and 37 (one
+# element per load).
+K1_SHAPES = [(2048, 2048, 8), (2048, 8192, 8), (16384, 16384, 8), (1024, 1024, 8), (1024, 4096, 8),
+             (32768, 4096, 8), (1024, 32768, 8), (8192, 32768, 8), (1000, 777, 3), (517, 1030, 8),
+             (1999, 2051, 8), (1000, 1004, 8), (64, 128, 8), (300, 260, 16), (1, 1, 1), (300, 129, 37)]
 
 # The float32 slice on the card against the same model in float64 on the CPU,
 # both with the float32 jitter 1e-4, as a fraction of the largest float64
@@ -153,6 +162,9 @@ K2_RTOL_F64 = 1e-5
 # 2 d2 near r = 0; as K1's float32 tolerance.
 K2_RTOL_F32 = 1e-3
 K2_SHAPES = [s for s in K1_SHAPES if s != (8192, 32768, 8)]  # a CGLB request has no backward
+# K2 also takes g as a contiguous view 4 bytes into its storage at this
+# shape, which the TMA path cannot load: the edge path at a path's shape.
+K2_OFFSET_G_SHAPE = (2048, 2048, 8)
 
 # Gradients of stationary_kernel_matrix in float32 on the card against plain
 # autograd in float64, as a fraction of the largest float64 entry: dXs and
@@ -346,6 +358,26 @@ def device_ms(fn, iters, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def plan_seen(kernel, seen):
+    """Logs the launch plan of ``kernel``'s last launch and adds its
+    (tma, vec) to ``seen``."""
+    from gpflow_tpu_torch.ops import pallas_distance as pd
+
+    plan = pd.launch_plans[kernel]
+    seen.add((plan.tma, plan.vec))
+    return (f"plan: {plan.tile_rows}-row tiles, {plan.tiles} tiles, grid {plan.grid}, "
+            f"{'TMA' if plan.tma else 'edge'} path, {'vector' if plan.vec else 'scalar'} staging")
+
+
+def expect_both_paths(kernel, seen):
+    """Fails unless ``kernel`` ran on the TMA and on the edge path, and staged
+    with vector and with scalar loads."""
+    log(f"{kernel} checks ran (tma, vec) = {sorted(seen)}")
+    for i, what in ((0, "TMA and edge paths"), (1, "vector and scalar staging")):
+        if {key[i] for key in seen} != {True, False}:
+            raise AssertionError(f"{kernel} checks did not run both its {what}: {sorted(seen)}")
+
+
 def check_k1():
     """Phase 3: K1 against the plain version, every family, f32 and bf16."""
     from gpflow_tpu_torch.ops import pallas_distance as pd
@@ -354,6 +386,7 @@ def check_k1():
     var = torch.tensor([1.7], device="cuda")
     alpha = torch.tensor([1.3], device="cuda")
     worst = 0.0
+    seen = set()
     for n, m, d in K1_SHAPES:
         scale = 4.0 if d == 8 else 1.0  # the slice's inputs at D = 8, unit cube else
         Xs = torch.from_numpy((rng.rand(n, d) * scale).astype(np.float32)).cuda()
@@ -362,6 +395,7 @@ def check_k1():
             for dtype in (torch.float32, torch.bfloat16):
                 x, z = Xs.to(dtype), Zs.to(dtype)
                 K = pd.stationary_forward_cuda(family, x, z, var, alpha)
+                plan = plan_seen("K1", seen)
                 plain32 = pd.stationary_forward_plain(family, x, z, var, alpha)
                 plain64 = pd.stationary_forward_plain(family, x.double(), z.double(), var.double(), alpha.double())
                 torch.cuda.synchronize()
@@ -371,11 +405,20 @@ def check_k1():
                 rel64 = err64 / max(float(plain64.abs().max()), 1e-30)
                 log(f"K1 {family:11s} {str(dtype):14s} ({n}, {m}, {d}): max abs err {err64:.3e} "
                     f"(rel {rel64:.3e}) vs plain f64, tol {K1_ATOL_F64 * 1.7:.1e}; "
-                    f"{err32:.3e} vs plain f32, tol {K1_ATOL_F32 * 1.7:.1e}")
+                    f"{err32:.3e} vs plain f32, tol {K1_ATOL_F32 * 1.7:.1e}; {plan}")
                 if not err64 <= K1_ATOL_F64 * 1.7 or not err32 <= K1_ATOL_F32 * 1.7:
                     raise AssertionError(f"K1 disagrees with its plain version: {family} {dtype} {(n, m, d)}")
                 worst = max(worst, err64)
+    expect_both_paths("K1", seen)
     return worst
+
+
+def offset_view(t):
+    """A contiguous copy of ``t`` that starts 4 bytes into its storage."""
+    storage = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = storage[1:].view(t.shape)
+    view.copy_(t)
+    return view
 
 
 def check_k2():
@@ -389,16 +432,23 @@ def check_k2():
     rng = np.random.RandomState(SEED + 4)
     var = torch.tensor([1.7], device="cuda")
     worst = 0.0
-    for n, m, d in K2_SHAPES:
+    seen = set()
+    for (n, m, d), offset in [(s, False) for s in K2_SHAPES] + [(K2_OFFSET_G_SHAPE, True)]:
         scale = 4.0 if d == 8 else 1.0
         Xs = torch.from_numpy((rng.rand(n, d) * scale).astype(np.float32)).cuda()
         Zs = torch.from_numpy((rng.rand(m, d) * scale).astype(np.float32)).cuda()
         g = torch.from_numpy(rng.randn(n, m).astype(np.float32)).cuda()
+        if offset:
+            g = offset_view(g)
+            assert g.is_contiguous() and g.data_ptr() % 16 == 4
         for family in pd.WGRAD_FAMILIES:
             z0 = Zs + 1.1 * scale if family in ("exponential", "matern12") else Zs
             for dtype in (torch.float32, torch.bfloat16):
                 x, z = Xs.to(dtype), z0.to(dtype)
                 W = pd.stationary_wgrad_cuda(family, x, z, var, g)
+                plan = plan_seen("K2", seen)
+                if offset and pd.launch_plans["K2"].tma:
+                    raise AssertionError("K2 took the TMA path for a g 4 bytes off its alignment")
                 plain32 = pd.stationary_wgrad_plain(family, x, z, var, g)
                 plain64 = pd.stationary_wgrad_plain(family, x.double(), z.double(), var.double(), g.double())
                 torch.cuda.synchronize()
@@ -406,12 +456,13 @@ def check_k2():
                 top = max(float(plain64.abs().max()), 1e-30)
                 err64 = float((W.double() - plain64).abs().max())
                 err32 = float((W - plain32).abs().max())
-                log(f"K2 {family:11s} {str(dtype):14s} ({n}, {m}, {d}): max abs err {err64:.3e} "
-                    f"(rel {err64 / top:.3e}, tol {K2_RTOL_F64:.0e}) vs plain f64; "
-                    f"rel {err32 / top:.3e} (tol {K2_RTOL_F32:.0e}) vs plain f32")
+                log(f"K2 {family:11s} {str(dtype):14s} ({n}, {m}, {d}){' g 4 bytes off' if offset else ''}: "
+                    f"max abs err {err64:.3e} (rel {err64 / top:.3e}, tol {K2_RTOL_F64:.0e}) vs plain f64; "
+                    f"rel {err32 / top:.3e} (tol {K2_RTOL_F32:.0e}) vs plain f32; {plan}")
                 if not err64 <= K2_RTOL_F64 * top or not err32 <= K2_RTOL_F32 * top:
                     raise AssertionError(f"K2 disagrees with its plain version: {family} {dtype} {(n, m, d)}")
                 worst = max(worst, err64)
+    expect_both_paths("K2", seen)
     return worst
 
 
@@ -2032,6 +2083,7 @@ def main():
         time_k2(GPR_NS[0], GPR_NS[0], iters=20, family="matern12")  # the Matern12 GPR's backward
         k1_ms, k1_plain_ms = time_k1(n, n, iters=10)
         k2_ms, k2_plain_ms = time_k2(n, n, iters=10)
+        time_k1(1, 1)  # the launch floor: one tile, one block
 
     total = {k: sum(c[k] for c in launches.values()) for k in ("K1", "K2")}
     log(f"launches by path: {launches}")

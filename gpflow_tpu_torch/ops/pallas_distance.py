@@ -10,7 +10,8 @@ gradient as matmuls against the VJP weight ``W = g * variance * h'(d2)``:
 * on a CUDA tensor in float32 or bfloat16, K1 computes K and, for the
   exponential and Matern families, K2 computes W: CUDA C++ kernels for
   Hopper (``gpflow_tpu_torch/csrc/stationary_k1.cu``, ``stationary_k2.cu``),
-  built with nvcc on first use and loaded with ctypes;
+  built with nvcc on first use and loaded with ctypes, each launched as
+  ``_launch_plan`` decides from the shapes and addresses alone;
 * on a CPU tensor, the plain PyTorch versions ``stationary_forward_plain``
   and ``stationary_wgrad_plain`` compute the same functions;
 * rbf and rq take W from the saved K, with no kernel, on both devices.
@@ -22,8 +23,9 @@ take raises; there is no fallback to the plain version on the card.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -33,9 +35,11 @@ from .cuda_build import load_library
 __all__ = [
     "PALLAS_FAMILIES",
     "WGRAD_FAMILIES",
+    "LaunchPlan",
     "k1_library",
     "k2_library",
     "launch_counts",
+    "launch_plans",
     "pallas_available",
     "stationary_forward",
     "stationary_forward_cuda",
@@ -51,11 +55,71 @@ PALLAS_FAMILIES = ("rbf", "exponential", "matern12", "matern32", "matern52", "rq
 WGRAD_FAMILIES = ("exponential", "matern12", "matern32", "matern52")
 _FAMILY_CODES = {f: i for i, f in enumerate(PALLAS_FAMILIES)}  # as in stationary_tile.cuh
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-_TILE_N, _TILE_M = 64, 128  # output tile of one K1 or K2 block (stationary_tile.cuh)
+#: Tile heights K1 and K2 are compiled for, tallest first (``kernel_for`` in
+#: ``csrc/stationary_k1.cu`` and ``stationary_k2.cu``); every tile is
+#: ``_TILE_COLS`` wide.
+_TILE_ROWS = (64, 32, 16)
+_TILE_COLS = 128
+#: The tallest tile that still gives every SM this many tiles is taken.
+_TILES_PER_SM = 4
 
 #: Launches of each hand-written kernel in this process; a wrapper adds one
 #: where it launches its kernel and nowhere else.
 launch_counts: Dict[str, int] = {"K1": 0, "K2": 0}
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """How one launch of K1 or K2 covers its [N, M] output (``_launch_plan``)."""
+
+    tile_rows: int  # tile height, one of _TILE_ROWS; a tile is _TILE_COLS wide
+    tiles: int  # ceil(N / tile_rows) * ceil(M / _TILE_COLS)
+    grid: int  # persistent blocks: block b takes row-major tiles b, b + grid, ...
+    tma: bool  # the output (and K2's g) by bulk tensor copies; else masked 4-byte accesses
+    vec: bool  # Xs and Zs staged four dimensions per load; else one element per load
+
+
+#: The plan of each kernel's last launch in this process.
+launch_plans: Dict[str, Optional[LaunchPlan]] = {"K1": None, "K2": None}
+
+
+def _launch_plan(
+    kernel: str,
+    N: int,
+    M: int,
+    D: int,
+    out_ptr: int,
+    g_ptr: Optional[int],
+    sms: int,
+    ctas_per_sm: Callable[[int, bool], int],
+    xs_ptr: int,
+    zs_ptr: int,
+    in_itemsize: int,
+) -> LaunchPlan:
+    """The launch of ``kernel`` ("K1" or "K2") on Xs [N, D] and Zs [M, D]
+    (``in_itemsize`` bytes an element), from shapes and addresses alone:
+
+    * the tile height: the tallest of ``_TILE_ROWS`` that gives at least
+      ``_TILES_PER_SM`` tiles per SM, else the shortest, so that a small
+      shape still spreads over the card;
+    * ``tma``: a bulk tensor copy needs rows of a multiple of 16 bytes
+      (M % 4 == 0) and 16-byte aligned bases, the output's (``out_ptr``)
+      and, for K2, g's (``g_ptr``);
+    * ``vec``: loading four dimensions at once needs D % 4 == 0 and Xs and Zs
+      aligned to four elements;
+    * the grid: ``min(tiles, sms * ctas_per_sm(tile_rows, tma))``, the blocks
+      the card keeps resident, ``ctas_per_sm`` giving those of one SM for
+      that instantiation."""
+    tiles_m = -(-M // _TILE_COLS)
+    rows = next((r for r in _TILE_ROWS if -(-N // r) * tiles_m >= _TILES_PER_SM * sms), _TILE_ROWS[-1])
+    tiles = -(-N // rows) * tiles_m
+    io_ptrs = (out_ptr,) if kernel == "K1" else (out_ptr, g_ptr)
+    tma = M % 4 == 0 and all(p % 16 == 0 for p in io_ptrs)
+    vec = D % 4 == 0 and xs_ptr % (4 * in_itemsize) == 0 and zs_ptr % (4 * in_itemsize) == 0
+    resident = ctas_per_sm(rows, tma)
+    if sms < 1 or resident < 1:
+        raise RuntimeError(f"{kernel}: the card keeps {resident} blocks resident on each of its {sms} SMs")
+    return LaunchPlan(tile_rows=rows, tiles=tiles, grid=min(tiles, sms * resident), tma=tma, vec=vec)
 
 
 def pallas_available(X: torch.Tensor) -> bool:
@@ -166,22 +230,71 @@ def stationary_wgrad_plain(
     return g.to(dtype) * (torch.as_tensor(variance).to(dtype) * _tail_grad(family, _direct_d2(Xs, Zs)))
 
 
+def _bind(lib: ctypes.CDLL, prefix: str, launch: str) -> ctypes.CDLL:
+    """Sets the ctypes signatures of a kernel library's two entry points:
+    ``<prefix>_<launch>(family, input_is_bf16, 5 pointers, n, m, d,
+    tile_rows, grid, tma, vec, stream)`` and ``<prefix>_occupancy(family,
+    input_is_bf16, tile_rows, tma, int *sms, int *ctas_per_sm)``."""
+    fn = getattr(lib, f"{prefix}_{launch}")
+    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    occ = getattr(lib, f"{prefix}_occupancy")
+    occ.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2
+    occ.restype = ctypes.c_int
+    return lib
+
+
 def k1_library() -> ctypes.CDLL:
     """K1's library, built by nvcc on first use in the process."""
-    lib = load_library("gpflow_k1", ["stationary_k1.cu"])
-    fn = lib.gpflow_k1_stationary_forward
-    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib
+    return _bind(load_library("gpflow_k1", ["stationary_k1.cu"]), "gpflow_k1", "stationary_forward")
 
 
 def k2_library() -> ctypes.CDLL:
     """K2's library, built by nvcc on first use in the process."""
-    lib = load_library("gpflow_k2", ["stationary_k2.cu"])
-    fn = lib.gpflow_k2_stationary_wgrad
-    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib
+    return _bind(load_library("gpflow_k2", ["stationary_k2.cu"]), "gpflow_k2", "stationary_wgrad")
+
+
+_occupancies: Dict[Tuple[str, int, str, bool, int, bool], Tuple[int, int]] = {}
+
+
+def _occupancy(kernel: str, lib: ctypes.CDLL, family: str, bf16: bool, device: torch.device,
+               tile_rows: int, tma: bool) -> Tuple[int, int]:
+    """(SMs, resident blocks per SM) of one instantiation of K1 or K2 on
+    ``device`` (the current device), queried once and cached."""
+    key = (kernel, device.index, family, bf16, tile_rows, tma)
+    if key not in _occupancies:
+        sms, ctas = ctypes.c_int(0), ctypes.c_int(0)
+        query = lib.gpflow_k1_occupancy if kernel == "K1" else lib.gpflow_k2_occupancy
+        err = query(_FAMILY_CODES[family], int(bf16), tile_rows, int(tma), ctypes.byref(sms), ctypes.byref(ctas))
+        if err != 0:
+            raise RuntimeError(f"{kernel} occupancy query failed with CUDA error {err}")
+        _occupancies[key] = (sms.value, ctas.value)
+    return _occupancies[key]
+
+
+def _plan_for(kernel: str, lib: ctypes.CDLL, family: str, Xs: torch.Tensor, Zs: torch.Tensor,
+              out: torch.Tensor, g: Optional[torch.Tensor] = None) -> LaunchPlan:
+    """``_launch_plan`` for these tensors, with the card's SMs and each
+    instantiation's resident blocks."""
+    bf16 = Xs.dtype == torch.bfloat16
+
+    def occupancy(rows: int, tma: bool) -> Tuple[int, int]:
+        return _occupancy(kernel, lib, family, bf16, Xs.device, rows, tma)
+
+    (N, D), M = Xs.shape, Zs.shape[0]
+    return _launch_plan(kernel, N, M, D, out.data_ptr(), None if g is None else g.data_ptr(),
+                        occupancy(_TILE_ROWS[0], True)[0], lambda rows, tma: occupancy(rows, tma)[1],
+                        Xs.data_ptr(), Zs.data_ptr(), Xs.element_size())
+
+
+def _check_launch(kernel: str, err: int) -> None:
+    """Raises unless an entry point returned 0; a negative code is a tensor
+    map that ``cuTensorMapEncodeTiled`` refused (``kTensorMapError`` in
+    ``csrc/stationary_tile.cuh``)."""
+    if err < 0:
+        raise RuntimeError(f"{kernel} launch failed: cuTensorMapEncodeTiled gave CUresult {-1 - err}")
+    if err != 0:
+        raise RuntimeError(f"{kernel} launch failed with CUDA error {err}")
 
 
 def _scalar_on(device: torch.device, value: Optional[torch.Tensor], name: str) -> torch.Tensor:
@@ -194,9 +307,10 @@ def _scalar_on(device: torch.device, value: Optional[torch.Tensor], name: str) -
 
 def _check_inputs(kernel: str, Xs: torch.Tensor, Zs: torch.Tensor) -> None:
     """Raises unless Xs [N, D] and Zs [M, D] are contiguous CUDA tensors of
-    one kernel dtype on one device, within the grid's limits. N * M itself
-    may pass 2^31: the kernels offset every row of an [N, M] matrix in
-    int64 (``stationary_tile.cuh``, ``stationary_k1.cu``, ``stationary_k2.cu``)."""
+    one kernel dtype on one device, with N, M and D in int32. The grid is
+    persistent and one-dimensional, so N and M have no other limit; N * M
+    itself may pass 2^31: the kernels index tiles and offset every row of an
+    [N, M] matrix in int64 (``csrc/stationary_tile.cuh``)."""
     for name, t in (("Xs", Xs), ("Zs", Zs)):
         if not t.is_cuda:
             raise ValueError(f"{kernel} takes CUDA tensors; {name} is on {t.device}")
@@ -210,8 +324,8 @@ def _check_inputs(kernel: str, Xs: torch.Tensor, Zs: torch.Tensor) -> None:
                          f"{Xs.dtype}/{Zs.dtype}, {Xs.device}/{Zs.device}, "
                          f"{tuple(Xs.shape)}/{tuple(Zs.shape)}")
     (N, D), M = Xs.shape, Zs.shape[0]
-    if max(N, M, D) >= 2**31 or -(-N // _TILE_N) > 65535:
-        raise ValueError(f"{kernel} grid too large for N={N}, M={M}, D={D}")
+    if max(N, M, D) >= 2**31:
+        raise ValueError(f"{kernel} takes N, M and D below 2^31; got N={N}, M={M}, D={D}")
 
 
 def stationary_forward_cuda(
@@ -241,15 +355,16 @@ def stationary_forward_cuda(
         return out
     lib = k1_library()
     with torch.cuda.device(Xs.device):
+        plan = _plan_for("K1", lib, family, Xs, Zs, out)
         stream = torch.cuda.current_stream(Xs.device).cuda_stream
         err = lib.gpflow_k1_stationary_forward(
             _FAMILY_CODES[family], int(Xs.dtype == torch.bfloat16),
             Xs.data_ptr(), Zs.data_ptr(), var.data_ptr(), a.data_ptr(), out.data_ptr(),
-            N, M, D, stream,
+            N, M, D, plan.tile_rows, plan.grid, int(plan.tma), int(plan.vec), stream,
         )
-    if err != 0:
-        raise RuntimeError(f"K1 launch failed with CUDA error {err}")
+    _check_launch("K1", err)
     launch_counts["K1"] += 1
+    launch_plans["K1"] = plan
     return out
 
 
@@ -282,15 +397,16 @@ def stationary_wgrad_cuda(
         return W
     lib = k2_library()
     with torch.cuda.device(Xs.device):
+        plan = _plan_for("K2", lib, family, Xs, Zs, W, g)
         stream = torch.cuda.current_stream(Xs.device).cuda_stream
         err = lib.gpflow_k2_stationary_wgrad(
             _FAMILY_CODES[family], int(Xs.dtype == torch.bfloat16),
             Xs.data_ptr(), Zs.data_ptr(), var.data_ptr(), g.data_ptr(), W.data_ptr(),
-            N, M, D, stream,
+            N, M, D, plan.tile_rows, plan.grid, int(plan.tma), int(plan.vec), stream,
         )
-    if err != 0:
-        raise RuntimeError(f"K2 launch failed with CUDA error {err}")
+    _check_launch("K2", err)
     launch_counts["K2"] += 1
+    launch_plans["K2"] = plan
     return W
 
 

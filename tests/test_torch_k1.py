@@ -2,7 +2,9 @@
 package's Pallas kernel (interpret mode), and the plumbing around the CUDA
 kernel that can be checked without a card. The CUDA kernel itself is held
 against the plain version on the card by chip_smoke.py."""
+import ctypes
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -19,6 +21,8 @@ from gpflow_tpu_torch import config, kernels, likelihoods
 from gpflow_tpu_torch.models import SVGP
 from gpflow_tpu_torch.ops import cuda_build
 from gpflow_tpu_torch.ops import pallas_distance as pd
+
+from chip_smoke import K1_SHAPES
 
 config.set_default_device("cpu")  # the port builds on the card unless asked for the CPU
 
@@ -161,3 +165,116 @@ def test_module_imports_and_runs_plain_path_without_nvcc():
     proc = _run_python(code, env)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+# Launch plans on an H100 (132 SMs) with resident blocks per SM of the order
+# the kernels get (more for short tiles and for the edge path, which keeps no
+# tile buffers): the plan's rules, the card's numbers stand-ins.
+SMS = 132
+
+
+def _resident(rows, tma):
+    return {64: 3, 32: 5, 16: 8}[rows] + (0 if tma else 1)
+
+
+def _plan(kernel, N, M, D, out_ptr=256, g_ptr=512, xs_ptr=1024, zs_ptr=2048, itemsize=4):
+    return pd._launch_plan(kernel, N, M, D, out_ptr, g_ptr, SMS, _resident, xs_ptr, zs_ptr, itemsize)
+
+
+def _tile_origins(plan, M, block):
+    """(row, column) of the first output of each tile that ``block`` computes:
+    row-major tiles from ``block`` on with stride ``plan.grid``, the kernels'
+    walk (``TileGrid`` in ``csrc/stationary_tile.cuh``)."""
+    tiles_m = -(-M // pd._TILE_COLS)
+    return [(t // tiles_m * plan.tile_rows, t % tiles_m * pd._TILE_COLS) for t in range(block, plan.tiles, plan.grid)]
+
+
+def check_plan_covers(plan, N, M):
+    """The grid fits the card and the tiles, and the blocks' walks cover the
+    [N, M] output with tiles exactly once."""
+    assert 1 <= plan.grid <= min(plan.tiles, SMS * _resident(plan.tile_rows, plan.tma))
+    assert plan.tile_rows in pd._TILE_ROWS
+    origins = [o for block in range(plan.grid) for o in _tile_origins(plan, M, block)]
+    assert len(origins) == len(set(origins)) == plan.tiles
+    rows = sorted({r for r, _ in origins})
+    cols = sorted({c for _, c in origins})
+    assert rows == list(range(0, N, plan.tile_rows)) and cols == list(range(0, M, pd._TILE_COLS))
+    assert len(rows) * len(cols) == plan.tiles
+
+
+EDGE_SHAPES = [(1000, 777, 8), (517, 1030, 8), (1999, 2051, 8), (64, 128, 8), (3, 4, 8), (70000, 5, 2)]
+
+
+@pytest.mark.parametrize("N,M,D", K1_SHAPES + EDGE_SHAPES)
+def test_k1_launch_plan_covers_every_shape(N, M, D):
+    plan = _plan("K1", N, M, D)
+    check_plan_covers(plan, N, M)
+    assert plan.tma == (M % 4 == 0)
+    assert plan.vec == (D % 4 == 0)
+    # a misaligned output (a view 4 bytes in) leaves the TMA path, misaligned
+    # inputs the vector loads; the tiles stay the same
+    off = _plan("K1", N, M, D, out_ptr=260, xs_ptr=1028)
+    assert not off.tma and not off.vec and off.tile_rows == plan.tile_rows
+    assert _plan("K1", N, M, D, zs_ptr=2056).vec is False
+    # bfloat16 inputs need four-element (8-byte) alignment only
+    assert _plan("K1", N, M, D, xs_ptr=1032, zs_ptr=2056, itemsize=2).vec == (D % 4 == 0)
+
+
+def test_k1_launch_plan_spreads_the_smallest_path_shape():
+    # the natural-gradient Kuu, the smallest shape a path launches
+    plan = _plan("K1", 1024, 1024, 8)
+    assert plan.tiles >= 2 * SMS and plan.grid >= SMS
+    # a shape with tiles to spare keeps the tallest tile, and the grid stays
+    # within what the card keeps resident
+    big = _plan("K1", 32768, 4096, 8)
+    assert big.tile_rows == pd._TILE_ROWS[0] and big.grid == SMS * _resident(big.tile_rows, True)
+    # a grid of blocks as wide as the data: more row strips than the 65535 a
+    # two-dimensional grid allowed
+    tall = _plan("K1", 64 * 70000, 128, 8)
+    assert tall.tiles == 70000 and tall.grid == SMS * _resident(tall.tile_rows, True)
+
+
+def test_launch_plan_raises_without_resident_blocks():
+    with pytest.raises(RuntimeError, match="resident"):
+        pd._launch_plan("K1", 8, 8, 8, 256, None, SMS, lambda rows, tma: 0, 256, 256, 4)
+
+
+def _c_params(source, fn):
+    text = (REPO / "gpflow_tpu_torch" / "csrc" / source).read_text()
+    match = re.search(rf'extern "C" int {fn}\(([^)]*)\)', text)
+    assert match, fn
+    return [p.strip() for p in match.group(1).split(",")]
+
+
+def _ctype(param):
+    if param.startswith("int*") or param.startswith("int *"):
+        return ctypes.POINTER(ctypes.c_int)
+    if "*" in param:
+        return ctypes.c_void_p
+    assert param.startswith("int "), param
+    return ctypes.c_int
+
+
+@pytest.mark.parametrize("kernel,source,launch", [("gpflow_k1", "stationary_k1.cu", "stationary_forward"),
+                                                  ("gpflow_k2", "stationary_k2.cu", "stationary_wgrad")])
+def test_ctypes_signatures_match_the_c_entry_points(kernel, source, launch):
+    class Lib:
+        pass
+
+    lib = Lib()
+    for name in (f"{kernel}_{launch}", f"{kernel}_occupancy"):
+        setattr(lib, name, type("Fn", (), {})())
+    pd._bind(lib, kernel, launch)
+    for name in (f"{kernel}_{launch}", f"{kernel}_occupancy"):
+        fn = getattr(lib, name)
+        assert fn.argtypes == [_ctype(p) for p in _c_params(source, name)], name
+        assert fn.restype is ctypes.c_int
+
+
+@pytest.mark.parametrize("source", ["stationary_k1.cu", "stationary_k2.cu"])
+def test_tile_heights_match_the_cuda_sources(source):
+    # the tile heights each library dispatches on (kernel_for's cases), tallest first
+    text = (REPO / "gpflow_tpu_torch" / "csrc" / source).read_text()
+    assert tuple(int(r) for r in re.findall(r"case (\d+): \*smem", text)) == pd._TILE_ROWS
+    header = (REPO / "gpflow_tpu_torch" / "csrc" / "stationary_tile.cuh").read_text()
+    assert "kTileM = kThreadsX * kColsPerThread" in header and pd._TILE_COLS == 32 * 4

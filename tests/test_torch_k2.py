@@ -26,6 +26,9 @@ from gpflow_tpu_torch import config, kernels, likelihoods
 from gpflow_tpu_torch.models import SVGP
 from gpflow_tpu_torch.ops import pallas_distance as pd
 
+from chip_smoke import K2_OFFSET_G_SHAPE, K2_SHAPES
+from tests.test_torch_k1 import EDGE_SHAPES, SMS, _resident, check_plan_covers
+
 config.set_default_device("cpu")  # the port builds on the card unless asked for the CPU
 
 FAMILIES = pd.PALLAS_FAMILIES
@@ -272,3 +275,25 @@ def test_k2_cuda_wrapper_raises_on_cpu_tensors_and_other_families():
         with pytest.raises(ValueError, match="K2 serves the families"):
             pd.stationary_wgrad_cuda(family, X, X, torch.tensor([1.0]), g)
     assert pd.launch_counts["K2"] == 0
+
+
+@pytest.mark.parametrize("N,M,D", K2_SHAPES + EDGE_SHAPES)
+def test_k2_launch_plan_covers_every_shape(N, M, D):
+    def plan(g_ptr=512, out_ptr=256):
+        return pd._launch_plan("K2", N, M, D, out_ptr, g_ptr, SMS, _resident, 1024, 2048, 4)
+
+    aligned = plan()
+    check_plan_covers(aligned, N, M)
+    assert aligned.tma == (M % 4 == 0) and aligned.vec == (D % 4 == 0)
+    # g as a contiguous view 4 bytes into its storage (chip_smoke.offset_view),
+    # or a W off alignment: the edge path, with the same tiles
+    for off in (plan(g_ptr=516), plan(out_ptr=260)):
+        assert not off.tma and off.tile_rows == aligned.tile_rows and off.grid <= aligned.tiles
+        check_plan_covers(off, N, M)
+
+
+def test_k2_offset_g_shape_is_a_tma_shape_when_aligned():
+    # the offset-g check on the card exercises the edge path at a shape that
+    # would otherwise take the TMA path
+    N, M, D = K2_OFFSET_G_SHAPE
+    assert pd._launch_plan("K2", N, M, D, 256, 512, SMS, _resident, 1024, 2048, 4).tma
