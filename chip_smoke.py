@@ -14,7 +14,10 @@ SquaredExponential, noise 0.1; slice 3); and its non-conjugate operating point
 (a Bernoulli SVGP with M = 1024, B = 4096, D = 8, N = 32768, float32, 20
 Gauss-Hermite points, natural gradients and Adam; slice 4); and its CGLB
 operating point (SGPR, GPRFITC and the matrix-free CGLB at N = 32768,
-M = 1024, chunk 4096, D = 8, float32; slice 6). Models are built
+M = 1024, chunk 4096, D = 8, float32; slice 6); and VGP and
+VGPOpperArchambeau at N = 4096, D = 8, float32, on the natural-gradient
+operating point's classification data and the GPR generator's regression
+data (slice 7; ``bench.py`` has no VGP operating point). Models are built
 on the card, the
 port's default device; the float64 references ask for the CPU, or for float64
 on the card where the CPU would take minutes. Phases:
@@ -100,7 +103,24 @@ on the card where the CPU would take minutes. Phases:
    iteration, seconds per L-BFGS evaluation, the SGPR objective and its
    value and gradient, a profile of one matrix-free value and gradient,
    requests, and K1 and K2 at the path's new shapes; then K1 and K2 at the
-   GPR's shapes and K1 at (1, 1, 8), the launch floor.
+   GPR's shapes and K1 at (1, 1, 8), the launch floor;
+17. the VGP slice at N = 4096: (a) one ``NaturalGradient(gamma=1)`` step on
+   a Gaussian VGP in float64 on the card reaches the GPR's log marginal
+   likelihood (rtol 1e-7) and its requests (1e-6), then the same step in
+   float32 against float64; (b) the classifier (SquaredExponential +
+   Linear, Bernoulli, Constant mean): ELBO and gradient under sync debug
+   mode "error" against float64, a Periodic VGP's objective (no K1), 20
+   ``Scipy`` iterations of ``training_loss_closure``, which must lower the
+   objective, and requests of 4096 new points (``posterior()`` and
+   ``predict_f``, fused ``predict_f``, ``predict_y``,
+   ``predict_log_density``) on both routes against float64, probabilities
+   in [0, 1]; (c) a Matern52 VGP's value and gradient (K2 on the path);
+   (d) VGPOpperArchambeau's value, gradient and ``predict_f``; each
+   float32 check beside the lower-tier control, which must break one of its
+   limits; (e) ``SVGP_deprecated`` against ``SVGP`` at the flagship width;
+   (f) K1 and K2 launch counts exactly as each path implies; (g) timings:
+   the value and gradient of both models, L-BFGS, requests, a profile of
+   one VGP value and gradient, K1 and K2 at (4096, 4096, 8).
 
 Every failure raises, and the script then exits non-zero without the result
 line. The line before the last is ``{"kernels": [...]}``; the last is
@@ -132,7 +152,8 @@ K1_ATOL_F32 = 1e-3
 # The paths' shapes (Kuu, Kuf, the GPR's Gram matrix at N = 16384, whose
 # [N, M] offsets pass 2^28 and are taken in int64; the natural-gradient
 # path's Kuu and Kuf; the sparse path's matrix-free block, its Kuf and a
-# CGLB request's K(Xnew, X)), all on the TMA path, and shapes that reach the
+# CGLB request's K(Xnew, X); the VGP path's K(X) and K(X, Xnew) at
+# N = 4096), all on the TMA path, and shapes that reach the
 # other branches of the launch plan (pallas_distance._launch_plan): M % 4 of
 # 1, 2 and 3 with a ragged N (the edge path), a ragged N and M with M % 4 ==
 # 0 (the TMA path clipping both edges), fewer tiles than SMs, D = 16 (two
@@ -140,7 +161,8 @@ K1_ATOL_F32 = 1e-3
 # element per load).
 K1_SHAPES = [(2048, 2048, 8), (2048, 8192, 8), (16384, 16384, 8), (1024, 1024, 8), (1024, 4096, 8),
              (32768, 4096, 8), (1024, 32768, 8), (8192, 32768, 8), (1000, 777, 3), (517, 1030, 8),
-             (1999, 2051, 8), (1000, 1004, 8), (64, 128, 8), (300, 260, 16), (1, 1, 1), (300, 129, 37)]
+             (1999, 2051, 8), (1000, 1004, 8), (64, 128, 8), (300, 260, 16), (1, 1, 1), (300, 129, 37),
+             (4096, 4096, 8)]
 
 # The float32 slice on the card against the same model in float64 on the CPU,
 # both with the float32 jitter 1e-4, as a fraction of the largest float64
@@ -288,6 +310,52 @@ SP_RTOL = {
     "var": 5e-5,
     "log density": 6e-3,
 }
+
+# The VGP path (slice 7; bench.py has no VGP operating point, PERF.md §4):
+# VGP and VGPOpperArchambeau at N = 4096 training points, D = 8, float32,
+# whitened full q_sqrt [1, N, N]. The classifier is the natural-gradient
+# operating point's data (bench.py:232-236: X on [0, 4]^8, Bernoulli
+# labels), its first N rows and the next N as requests, with
+# SquaredExponential(lengthscales 1) + Linear() and a Constant mean; the
+# regression set is the GPR generator's formula (bench.py:294-299) at
+# n = N with a Gaussian likelihood of variance 0.1.
+VGP_N = 4096
+VGP_NOISE = 0.1
+VGP_MAXITER = 20
+VGP_TIMED_ROUNDS = 3
+# One natural-gradient step of gamma = 1 takes the VGP to the GPR: in
+# float64, with the JAX package's test jitter, the ELBO within 1e-7 of the
+# GPR's log marginal likelihood and the requests within 1e-6 (that test's
+# tolerances, tests/integration/test_method_equivalence.py:107-118).
+VGP_IDENTITY_JITTER = 1e-10
+VGP_IDENTITY_RTOL, VGP_IDENTITY_ATOL = 1e-7, 1e-6
+# float32 against float64 on the card, from the same values, both with the
+# float32 jitter 1e-4, relative to the largest float64 entry (the value to
+# itself). cond(K + 1e-4 I) is 3.7e6 for the classifier and 2.2e7 for the
+# regression data (printed), so cond * eps32 bounds nothing of use: each
+# limit is set from readings on three sets of values or data (PERF.md §6,
+# VGP table), 2-10 times the largest error of the sound float32 runs; each check's
+# lower-tier control (K1 fed bfloat16-rounded inputs, TF32 matmuls) must
+# break at least one of its limits. A gradient's limit is "gradient" for the
+# kernel and the mean function, "gradient q" for the variational
+# parameters, or the parameter's own where one is given:
+# VGPOpperArchambeau's lambda carries 1.7e-3 of float32 error (its
+# f_var = 1 / lambda^2 - sum(tmp^2) cancels), above what the control adds
+# to alpha.
+VGP_EXTRA_SEEDS = (2, 3)  # regression data as RandomState(seed), and variational values from these seeds
+VGP_RTOL = {
+    "identity": {"value": 6e-4, "mean": 5e-3, "var": 2e-3},
+    "classifier": {"value": 5e-5, "gradient": 8e-3, "gradient q": 6e-4},
+    "requests": {"mean": 3e-3, "var": 3e-3, "log density": 3e-3},
+    "Matern52": {"value": 1e-6, "gradient": 2e-4, "gradient q": 1e-5},
+    "VGPOpperArchambeau": {"value": 1e-4, "gradient": 2e-3, "gradient q": 2e-4, "gradient .q_lambda": 4e-3},
+    "VGPOpperArchambeau request": {"mean": 2e-5, "var": 3e-3},
+}
+# SVGP_deprecated and SVGP run the same float32 operations in the same order
+# (conditionals.conditional builds the posterior the fused route builds):
+# they agree within a few roundings.
+SVGP_ROUNDOFF = 1e-6
+
 
 def log(*args):
     print(*args, flush=True)
@@ -1879,6 +1947,403 @@ def sparse_phases(launches):
     sparse_timings(sgpr, cglb, Xb, Yb)
 
 
+def make_vgp_regression(seed):
+    """The GPR generator's formula (``bench.py:294-299``) at n = VGP_N from
+    RandomState(``seed``), with VGP_N new points drawn after it."""
+    rng = np.random.RandomState(seed)
+    X = rng.rand(VGP_N, D).astype(np.float32)
+    Y = np.sin(X[:, :1] * 3).astype(np.float32) + 0.1 * rng.randn(VGP_N, 1).astype(np.float32)
+    return (X, Y), rng.rand(VGP_N, D).astype(np.float32)
+
+
+def make_vgp_data():
+    """Phase 17's data: the classification set, the first VGP_N rows of the
+    natural-gradient operating point's X and Y (``bench.py:232-236``) and
+    the next VGP_N rows as requests; and the regression set from
+    RandomState(1), as ``bench.py`` seeds the GPR's."""
+    X, Y, _, _, _ = make_ng_data()
+    cls = (X[:VGP_N], Y[:VGP_N]), (X[VGP_N:2 * VGP_N], Y[VGP_N:2 * VGP_N])
+    return cls, make_vgp_regression(1)
+
+
+def vgp_model(data, dtype, cls="VGP", kernel="SE + Linear", values=None):
+    """The Bernoulli classifier of phase 17 on the card in ``dtype``, a
+    ``cls`` (VGP or VGPOpperArchambeau) with a Constant mean function and
+    ``kernel`` (lengthscales 1), or the constrained ``values`` of
+    ``read_values``."""
+    from gpflow_tpu_torch import config, functions, kernels, likelihoods, models
+    from gpflow_tpu_torch.utilities import load_jax_values
+
+    with config.as_context(dataclasses.replace(config.config(), float=dtype)):
+        k = {"SE + Linear": lambda: kernels.SquaredExponential(lengthscales=np.ones(D)) + kernels.Linear(),
+             "Matern52": lambda: kernels.Matern52(lengthscales=np.ones(D)),
+             "Periodic": lambda: kernels.Periodic(kernels.SquaredExponential(lengthscales=np.ones(D)))}[kernel]()
+        model = getattr(models, cls)(data, k, likelihoods.Bernoulli(), mean_function=functions.Constant())
+    model = model.to(dtype=dtype)
+    if values is not None:
+        np_dtype = np.float64 if dtype == torch.float64 else np.float32
+        load_jax_values(model, {p: np.asarray(v).astype(np_dtype) for p, v in values.items()})
+    return model
+
+
+def vgp_values(model, seed):
+    """``read_values`` of ``model`` with its variational parameters moved
+    off their start: q_mu ~ N(0, 0.25) and q_sqrt with a diagonal in
+    [0.1, 1] and small entries below it (VGP), or alpha ~ N(0, 1e-6) and
+    lambda in [0.5, 1.5] (VGPOpperArchambeau; K alpha stays of order 1
+    where the Linear term's entries are ~30); and c = 0.2."""
+    from gpflow_tpu_torch.utilities import read_values
+
+    values = read_values(model)
+    rng = np.random.RandomState(seed)
+    n = VGP_N
+    if ".q_alpha" in values:
+        values[".q_alpha"] = 1e-3 * rng.randn(n, 1)
+        values[".q_lambda"] = 0.5 + rng.rand(n, 1)
+    else:
+        q_sqrt = np.tril(rng.randn(1, n, n).astype(np.float32) * np.float32(0.1 / np.sqrt(n)), k=-1)
+        q_sqrt[0, np.arange(n), np.arange(n)] = 0.1 + 0.9 * rng.rand(n)
+        values[".q_mu"] = 0.5 * rng.randn(n, 1)
+        values[".q_sqrt"] = q_sqrt
+    values[".mean_function.c"] = np.array([0.2])
+    return values
+
+
+def vgp_cond(model64):
+    """cond(K(X) + jitter I) of a float64 model, from its eigenvalues."""
+    from gpflow_tpu_torch.config import default_jitter
+
+    with torch.no_grad():
+        K = model64.kernel(model64.data[0])
+        eig = torch.linalg.eigvalsh(K + default_jitter() * torch.eye(K.shape[0], dtype=K.dtype, device=K.device))
+    return float(eig[-1] / eig[0])
+
+
+def vgp_errors(got, want, limits):
+    """{output: (error, limit)} of ``sparse_value_and_grad`` results (value,
+    {path: gradient}) against float64: the value relative to itself, each
+    gradient to its largest float64 entry, under its parameter's own limit
+    where ``limits`` has one."""
+    (value, grads), (value64, grads64) = got, want
+    out = {"value": (abs(float(value) - float(value64)) / abs(float(value64)), limits["value"])}
+    for path, want_g in grads64.items():
+        key = f"gradient {path}"
+        if key not in limits:
+            key = "gradient q" if path in (".q_mu", ".q_sqrt", ".q_alpha", ".q_lambda") else "gradient"
+        out[f"gradient {path}"] = (rel_err(grads[path], want_g), limits[key])
+    return out
+
+
+def vgp_value_and_grad(model):
+    return sparse_value_and_grad(model, lambda m: m.training_loss())
+
+
+def vgp_checked_value_and_grad(what, m32, m64, control, launches, expected, limits):
+    """The float32 model's training loss and gradient under sync debug mode
+    "error", with exact launch counts, against float64 and the lower-tier
+    control (``judge``)."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, counts = counted(lambda: vgp_value_and_grad(m32))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    expect_launches(f"vgp {what} value and gradient", counts, expected, launches)
+    want = vgp_value_and_grad(m64)
+    judge(f"vgp {what}", vgp_errors(got, want, limits),
+          vgp_errors(run_control(lambda: vgp_value_and_grad(control)), want, limits))
+    return got
+
+
+def vgp_identity(reg, launches, tag="", exact=True):
+    """Phase 17a: one ``NaturalGradient(gamma=1)`` step on the whitened VGP
+    with a Gaussian likelihood reaches the exact posterior. In float64 on the
+    card, with the jitter 1e-10 of the JAX package's own test
+    (``tests/integration/test_method_equivalence.py:17-26, 107-118``; at the
+    default 1e-6 the jitter alone moves the ELBO by about N / (2 noise) *
+    1e-6 = 2e-2 of ~4e3), the ELBO equals the GPR's log marginal likelihood
+    within VGP_IDENTITY_RTOL and the requests agree within VGP_IDENTITY_ATOL.
+    Then the same step in float32 (K1 on the path, the float32 jitter
+    1e-4) against float64 with that jitter, beside the lower-tier control."""
+    from gpflow_tpu_torch import config, kernels, likelihoods
+    from gpflow_tpu_torch.models import GPR, VGP
+    from gpflow_tpu_torch.optimizers import NaturalGradient
+
+    (X, Y), Xnew = reg
+    Xb = torch.from_numpy(Xnew).cuda()
+
+    def build(data, dtype):
+        with config.as_context(dataclasses.replace(config.config(), float=dtype)):
+            return VGP(data, kernels.SquaredExponential(), likelihoods.Gaussian(VGP_NOISE)).to(dtype=dtype)
+
+    def step(model, jitter=1e-4):
+        """One step, then the ELBO and a fused request, all at ``jitter``."""
+        with config.as_context(dataclasses.replace(config.config(), jitter=jitter)):
+            NaturalGradient(gamma=1.0).minimize(model.training_loss, [(model.q_mu, model.q_sqrt)])
+            with torch.no_grad():
+                return model.elbo(), model.predict_f(Xb.to(model.q_mu.dtype))
+
+    if exact:
+        identity = build((X, Y), torch.float64)
+        with config.as_context(dataclasses.replace(config.config(), float=torch.float64)):
+            gpr = GPR((X, Y), kernels.SquaredExponential(), noise_variance=VGP_NOISE)
+        elbo, (mean, var) = step(identity, VGP_IDENTITY_JITTER)
+        with torch.no_grad():
+            lml = gpr.log_marginal_likelihood()
+            gmean, gvar = gpr.predict_f(Xb.double())
+        rel = abs(float(elbo) - float(lml)) / abs(float(lml))
+        merr, verr = float((mean - gmean).abs().max()), float((var - gvar).abs().max())
+        log(f"vgp identity float64 N={VGP_N}, jitter {VGP_IDENTITY_JITTER:.0e}: ELBO after one natural-gradient "
+            f"step {float(elbo):.10e}, GPR log marginal likelihood {float(lml):.10e}, rel diff {rel:.3e} (tol "
+            f"{VGP_IDENTITY_RTOL:.0e}); predict_f at {VGP_N} new points: mean max abs diff {merr:.3e}, var "
+            f"{verr:.3e} (tol {VGP_IDENTITY_ATOL:.0e})")
+        assert rel <= VGP_IDENTITY_RTOL, "the VGP's ELBO after one natural-gradient step is not the GPR's LML"
+        assert merr <= VGP_IDENTITY_ATOL and verr <= VGP_IDENTITY_ATOL, "the VGP's predictions are not the GPR's"
+        del identity, gpr
+    m32, m64 = build((X, Y), torch.float32), build((X, Y), torch.float64)
+    control = build((bf16(X).numpy(), Y), torch.float32)
+    log(f"vgp identity{tag}: cond(K + 1e-4 I) {vgp_cond(m64):.4e}")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        (elbo32, (mean32, var32)), counts = counted(lambda: step(m32))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    # the step's loss: K(X); the ELBO: K(X); the fused request: K(X) and K(X, Xnew)
+    expect_launches(f"vgp identity{tag} float32 step, ELBO and request", counts, {"K1": 4, "K2": 0}, launches)
+    elbo64, (mean64, var64) = step(m64)
+    elboc, (meanc, varc) = run_control(lambda: step(control))
+
+    limits = VGP_RTOL["identity"]
+
+    def errors(e, m, v):
+        return {"value": (abs(float(e) - float(elbo64)) / abs(float(elbo64)), limits["value"]),
+                "mean": (rel_err(m, mean64), limits["mean"]), "var": (rel_err(v, var64), limits["var"])}
+
+    judge(f"vgp identity{tag} float32", errors(elbo32, mean32, var32), errors(elboc, meanc, varc))
+
+
+def vgp_requests(model, Xb, Yb, launches, label):
+    """Requests of VGP_N new points through ``posterior()`` (TENSOR cache)
+    with ``predict_f``, the fused ``predict_f``, ``predict_y`` and
+    ``predict_log_density``, with exact launch counts."""
+    with torch.no_grad():
+        post, counts = counted(model.posterior)
+        if launches is not None:
+            expect_launches(f"{label} posterior", counts, {"K1": 1, "K2": 0}, launches)
+        out = {}
+        for key, fn, k1 in (("cached predict_f", lambda: post.predict_f(Xb), 1),
+                            ("fused predict_f", lambda: model.predict_f(Xb), 2),
+                            ("predict_y", lambda: model.predict_y(Xb), 2),
+                            ("predict_log_density", lambda: (model.predict_log_density((Xb, Yb)),), 2)):
+            out[key], counts = counted(fn)
+            if launches is not None:
+                expect_launches(f"{label} {key} request", counts, {"K1": k1, "K2": 0}, launches)
+    return out, post
+
+
+def vgp_request_errors(out, want, limits):
+    """{output: (error, limit)}: each output relative to its largest float64
+    entry; a non-finite one gives a NaN error, which breaks any limit."""
+    errs = {}
+    for key, tensors in out.items():
+        kinds = ("mean", "var") if len(tensors) == 2 else ("log density",)
+        for kind, got, w in zip(kinds, tensors, want[key]):
+            assert got.shape == w.shape, f"{key} {kind}: shape {tuple(got.shape)} != {tuple(w.shape)}"
+            errs[f"{key} {kind}"] = (rel_err(got, w), limits[kind])
+    return errs
+
+
+def vgp_serve_check(what, m32, m64, ctl, Xb, Yb, launches, routes, limits, control=True):
+    """Requests of VGP_N points to ``m32`` on each of ``routes`` against the
+    same values in float64, beside the lower-tier control ``ctl`` (fed
+    bfloat16-rounded points) where ``control``; probabilities within
+    [0, 1], predictive variances positive. Returns the last route's
+    outputs and posterior."""
+    from gpflow_tpu_torch.conditionals import inv_solve
+
+    with torch.no_grad():
+        want, _ = vgp_requests(m64, Xb.double(), Yb.double(), None, "")
+    for route, flag in routes:
+        with inv_solve(flag):
+            out, post = vgp_requests(m32, Xb, Yb, launches, f"{what} {route}")
+            cout = run_control(lambda: vgp_requests(ctl, bf16(Xb), Yb, None, "")[0]) if control else None
+        judge(f"{what} {route} requests", vgp_request_errors(out, want, limits),
+              vgp_request_errors(cout, want, limits) if control else None)
+        p, v = out["predict_y"]
+        assert bool(((p >= 0) & (p <= 1)).all()) and bool((v >= 0).all()), f"{what}: a probability outside [0, 1]"
+        assert bool((out["cached predict_f"][1] > 0).all()), f"{what}: a predictive variance is not positive"
+    accuracy = float(((p > 0.5).float() == Yb).float().mean())
+    log(f"{what}: probabilities in [{float(p.min()):.4e}, {float(p.max()):.4e}]; held-out accuracy {accuracy:.4f}, "
+        f"mean log density {float(out['predict_log_density'][0].mean()):.4f}")
+    return out, post
+
+
+def vgp_checks(cls_data, launches, seed, routes, tag=""):
+    """Phase 17b-d on one set of values (``seed``): the classifier VGP
+    (SquaredExponential + Linear, Bernoulli, Constant mean) with its
+    variational parameters off their start, its ELBO and gradient against
+    float64 and its requests on ``routes``; a Matern52 VGP's value and
+    gradient (K2 on the path); VGPOpperArchambeau's value, gradient and
+    ``predict_f``; each beside the lower-tier control. Returns the float32
+    classifier and VGPOpperArchambeau, and the data's requests."""
+    (X, Y), (Xnew, Ynew) = cls_data
+    ctl_data = (bf16(X).numpy(), Y)
+    Xb, Yb = torch.from_numpy(Xnew).cuda(), torch.from_numpy(Ynew).cuda()
+    values = vgp_values(vgp_model((X, Y), torch.float32), seed)
+    m32 = vgp_model((X, Y), torch.float32, values=values)
+    m64 = vgp_model((X, Y), torch.float64, values=values)
+    ctl = vgp_model(ctl_data, torch.float32, values=values)
+    log(f"vgp classifier{tag}: cond(K + jitter I) {vgp_cond(m64):.4e} (float64, jitter 1e-4)")
+    vgp_checked_value_and_grad(f"classifier{tag}", m32, m64, ctl, launches, {"K1": 1, "K2": 0},
+                               VGP_RTOL["classifier"])  # the Linear term is a matmul
+    vgp_serve_check(f"vgp classifier{tag}", m32, m64, ctl, Xb, Yb, launches, routes, VGP_RTOL["requests"])
+    del m64, ctl
+
+    mvals = {p: v for p, v in values.items() if not p.startswith(".kernel")}
+    mvals.update({".kernel.variance": np.asarray(1.0), ".kernel.lengthscales": np.ones(D)})
+    mat = {dtype: vgp_model((X, Y), dtype, kernel="Matern52", values=mvals) for dtype in (torch.float32, torch.float64)}
+    vgp_checked_value_and_grad(f"Matern52{tag}", mat[torch.float32], mat[torch.float64],
+                               vgp_model(ctl_data, torch.float32, kernel="Matern52", values=mvals), launches,
+                               {"K1": 1, "K2": 1}, VGP_RTOL["Matern52"])
+    del mat
+
+    ovals = vgp_values(vgp_model((X, Y), torch.float32, cls="VGPOpperArchambeau"), seed + 1)
+    oa = {dtype: vgp_model((X, Y), dtype, cls="VGPOpperArchambeau", values=ovals)
+          for dtype in (torch.float32, torch.float64)}
+    octl = vgp_model(ctl_data, torch.float32, cls="VGPOpperArchambeau", values=ovals)
+    vgp_checked_value_and_grad(f"VGPOpperArchambeau{tag}", oa[torch.float32], oa[torch.float64], octl, launches,
+                               {"K1": 1, "K2": 0}, VGP_RTOL["VGPOpperArchambeau"])
+    with torch.no_grad():
+        got, counts = counted(lambda: {"predict_f": oa[torch.float32].predict_f(Xb)})
+        expect_launches(f"vgp VGPOpperArchambeau{tag} predict_f request", counts, {"K1": 2, "K2": 0}, launches)
+        want = {"predict_f": oa[torch.float64].predict_f(Xb.double())}
+        cout = run_control(lambda: {"predict_f": octl.predict_f(bf16(Xb))})
+    limits = VGP_RTOL["VGPOpperArchambeau request"]
+    judge(f"vgp VGPOpperArchambeau{tag} request", vgp_request_errors(got, want, limits),
+          vgp_request_errors(cout, want, limits))
+    return m32, oa[torch.float32], (Xb, Yb)
+
+
+def vgp_train(m32, data, requests, launches):
+    """Phase 17b, training: VGP_MAXITER iterations of ``Scipy().minimize``
+    on ``models.training_loss_closure``, which must lower the objective;
+    then the trained classifier's requests against float64 (no control:
+    20 iterations leave its predictions close to its mean function's, which
+    bfloat16 points cannot move). Returns what the timings need."""
+    from gpflow_tpu_torch.models import training_loss_closure
+    from gpflow_tpu_torch.optimizers import Scipy
+    from gpflow_tpu_torch.utilities import read_values
+
+    with torch.no_grad():
+        loss0 = float(m32.training_loss())
+    t0 = time.perf_counter()
+    res, counts = counted(lambda: Scipy().minimize(training_loss_closure(m32, data), m32.trainable_variables,
+                                                   options={"maxiter": VGP_MAXITER}, nonfinite_penalty=GPR_PENALTY))
+    seconds = time.perf_counter() - t0
+    n_vars = sum(p.unconstrained.numel() for p in m32.trainable_variables if p is not m32.q_sqrt) \
+        + VGP_N * (VGP_N + 1) // 2
+    values = {path: v.round(4).tolist() for path, v in read_values(m32).items() if not path.startswith(".q")}
+    log(f"vgp classifier lbfgs: {n_vars} variables, loss {loss0:.6e} -> {float(res.fun):.6e}; nit {res.nit}, "
+        f"nfev {res.nfev}, non-finite evaluations {res.n_nonfinite_evals}, status {res.status} ({res.message}); "
+        f"values {values}")
+    log(f"time: vgp classifier lbfgs N={VGP_N}: {seconds:.3f} s, {seconds / max(res.nit, 1):.4f} s per iteration, "
+        f"{seconds / res.nfev:.4f} s per evaluation")
+    assert np.isfinite(res.fun) and float(res.fun) < loss0, "L-BFGS did not lower the VGP objective"
+    expect_launches("vgp classifier lbfgs", counts, {"K1": int(res.nfev), "K2": 0}, launches)
+    m64 = vgp_model(data, torch.float64, values=read_values(m32))
+    _, post = vgp_serve_check("vgp trained classifier", m32, m64, None, *requests, launches, TRAIN_ROUTES[:1],
+                              VGP_RTOL["requests"], control=False)
+    return post, seconds / res.nfev
+
+
+def svgp_deprecated_check(launches):
+    """Phase 17e: ``SVGP_deprecated`` (``conditionals.conditional``) against
+    ``SVGP`` (the posterior's fused route) at the flagship width (M = 2048,
+    B = 8192, D = 8; phase 5's values, batch and Gaussian likelihood with
+    ``num_data`` = N): ELBO, gradient and ``predict_f`` within
+    SVGP_ROUNDOFF, the launch counts as each route implies."""
+    from gpflow_tpu_torch import config, kernels, likelihoods, models
+    from gpflow_tpu_torch.utilities import load_jax_values
+
+    values, X = make_values(SEED)
+    rng = np.random.RandomState(SEED + 19)
+    Xb = torch.from_numpy(X[:B]).cuda()
+    Yb = torch.from_numpy(np.sin(X[:B] @ rng.randn(D, 1)).astype(np.float32)).cuda()
+    out = {}
+    for cls in ("SVGP_deprecated", "SVGP"):
+        with config.as_context(dataclasses.replace(config.config(), float=torch.float32)):
+            m = getattr(models, cls)(kernels.SquaredExponential(lengthscales=np.ones(D)), likelihoods.Gaussian(1.0),
+                                     np.zeros((M, D)), num_data=N_DATA).to(torch.float32)
+        load_jax_values(m, values)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            (elbo, grads), counts = counted(lambda: sparse_value_and_grad(m, lambda mm: mm.elbo((Xb, Yb))))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        expect_launches(f"{cls} ELBO and gradient", counts, {"K1": 2, "K2": 0}, launches)  # Kuu and Kuf
+        with torch.no_grad():
+            pred, counts = counted(lambda: m.predict_f(Xb))
+        expect_launches(f"{cls} predict_f", counts, {"K1": 2, "K2": 0}, launches)
+        out[cls] = (elbo, grads, pred)
+    (e0, g0, p0), (e1, g1, p1) = out["SVGP_deprecated"], out["SVGP"]
+    errs = {"ELBO": abs(float(e0) - float(e1)) / abs(float(e1))}
+    errs.update({f"gradient {path}": rel_err(g0[path], g1[path]) for path in g1})
+    errs.update({f"predict_f {k}": rel_err(a, b) for k, a, b in zip(("mean", "var"), p0, p1)})
+    for key, err in errs.items():
+        log(f"SVGP_deprecated against SVGP: {key}: rel diff {err:.3e}, tol {SVGP_ROUNDOFF:.1e}")
+        assert err <= SVGP_ROUNDOFF, f"SVGP_deprecated and SVGP disagree: {key}"
+
+
+def vgp_timings(model, opper, post, Xb, Yb, lbfgs_eval_s):
+    """Phase 17g: the VGP's and VGPOpperArchambeau's value and gradient by
+    CUDA events, several rounds with their spread; seconds per L-BFGS
+    evaluation; request latency; a profiler breakdown of one VGP value and
+    gradient; K1 and K2 at the path's shape."""
+    for label, m in (("VGP", model), ("VGPOpperArchambeau", opper)):
+        rounds = [device_ms(lambda: vgp_value_and_grad(m), 5, warmup=1) for _ in range(VGP_TIMED_ROUNDS)]
+        host = [request_ms(lambda: vgp_value_and_grad(m), 5, warmup=1) for _ in range(2)]
+        log(f"time: vgp {label} value and gradient N={VGP_N}: device {min(rounds):.3f} ms (rounds "
+            f"{[round(r, 3) for r in rounds]}, spread {max(rounds) - min(rounds):.3f} ms); back to back with the "
+            f"host {min(host):.3f} ms (rounds {[round(r, 3) for r in host]})")
+    log(f"time: vgp classifier lbfgs: {lbfgs_eval_s:.4f} s per evaluation")
+    with torch.no_grad():
+        for key, fn in (("posterior()", model.posterior), ("cached predict_f", lambda: post.predict_f(Xb)),
+                        ("fused predict_f", lambda: model.predict_f(Xb)), ("predict_y", lambda: model.predict_y(Xb)),
+                        ("predict_log_density", lambda: model.predict_log_density((Xb, Yb)))):
+            rounds = [request_ms(fn, 5, warmup=1) for _ in range(VGP_TIMED_ROUNDS)]
+            log(f"time: vgp {key} at B={VGP_N}: {min(rounds):.3f} ms per request (rounds "
+                f"{[round(r, 3) for r in rounds]})")
+    profile_device(lambda: vgp_value_and_grad(model), f"vgp value and gradient N={VGP_N}", top=12)
+    with torch.no_grad():
+        time_k1(VGP_N, VGP_N, iters=20)
+        time_k2(VGP_N, VGP_N, iters=20)
+
+
+def vgp_phases(launches):
+    """Phase 17."""
+    cls_data, reg = make_vgp_data()
+    vgp_identity(reg, launches)
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        periodic = vgp_model(cls_data[0], torch.float32, kernel="Periodic")
+        loss, counts = counted(periodic.training_loss)
+    assert bool(torch.isfinite(loss)), "the Periodic VGP's objective is not finite"
+    expect_launches("vgp Periodic objective", counts, {"K1": 0, "K2": 0}, launches)
+    del periodic
+    model, opper, requests = vgp_checks(cls_data, launches, SEED + 17, TRAIN_ROUTES)
+    torch.cuda.empty_cache()
+    # the float32-against-float64 checks again on other values and other
+    # regression data: the spread the limits must hold
+    for seed in VGP_EXTRA_SEEDS:
+        vgp_identity(make_vgp_regression(seed), launches, tag=f", data seed {seed}", exact=False)
+        vgp_checks(cls_data, launches, seed, TRAIN_ROUTES[:1], tag=f", values seed {seed}")
+        torch.cuda.empty_cache()
+    post, lbfgs_eval_s = vgp_train(model, cls_data[0], requests, launches)
+    torch.cuda.empty_cache()
+    svgp_deprecated_check(launches)
+    torch.cuda.empty_cache()
+    vgp_timings(model, opper, post, *requests, lbfgs_eval_s)
+
+
 def _kernel_category(name):
     # cuSOLVER's float32 Cholesky runs as getrf_wo_pivot on this card
     n = name.lower()
@@ -2074,6 +2539,9 @@ def main():
     torch.cuda.empty_cache()
 
     sparse_phases(launches)
+    torch.cuda.empty_cache()
+
+    vgp_phases(launches)
     torch.cuda.empty_cache()
 
     n = GPR_NS[-1]

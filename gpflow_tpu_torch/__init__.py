@@ -4,9 +4,12 @@ The port imports torch, numpy and scipy (for ``optimizers.Scipy``) only.
 Its modules mirror ``gpflow_tpu``'s paths and public names; so far it trains
 an SVGP (``elbo``, ``training_loss``, ``parallel.DataParallelTrainer``, with
 natural gradients for the non-conjugate likelihoods) and fits an exact GPR
-(``log_marginal_likelihood``, ``optimizers.Scipy``) and the sparse SGPR,
-GPRFITC and CGLB with a SquaredExponential, RationalQuadratic, Exponential or
-Matern kernel, and serves them (ROADMAP.md lists what is still to port). On a CUDA device, covariance matrices come from the hand-written
+(``log_marginal_likelihood``, ``optimizers.Scipy``), the sparse SGPR,
+GPRFITC and CGLB, and the VGP and VGPOpperArchambeau through the
+single-output ``conditionals.conditional``, with stationary, Linear, static
+and Periodic kernels, their sums and products, and mean functions, and
+serves them (ROADMAP.md lists what is still to port). Shape contracts
+(``utilities.check_shapes``) are off unless switched on. On a CUDA device, covariance matrices come from the hand-written
 kernel K1 and the gradients of the exponential and Matern families from K2
 (``gpflow_tpu_torch.ops.pallas_distance``).
 
@@ -26,6 +29,7 @@ from . import (
     kullback_leiblers,
     likelihoods,
     logdensities,
+    mean_functions,
     models,
     ops,
     optimizers,
@@ -50,6 +54,7 @@ __all__ = [
     "kullback_leiblers",
     "likelihoods",
     "logdensities",
+    "mean_functions",
     "models",
     "ops",
     "optimizers",

@@ -1,3 +1,5 @@
+from . import conditionals as _conditionals_impl  # registers the single-output conditionals
+from .dispatch import conditional, sample_conditional
 from .util import (
     base_conditional,
     base_conditional_with_lm,
@@ -9,7 +11,9 @@ from .util import (
 __all__ = [
     "base_conditional",
     "base_conditional_with_lm",
+    "conditional",
     "expand_independent_outputs",
     "inv_solve",
+    "sample_conditional",
     "set_inv_solve",
 ]

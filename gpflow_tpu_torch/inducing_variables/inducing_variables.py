@@ -3,7 +3,7 @@
 from __future__ import annotations
 
 import abc
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 from ..base import Module, Parameter
 
@@ -32,6 +32,16 @@ class InducingPointsBase(InducingVariables):
     @property
     def num_inducing(self) -> int:
         return self.Z.shape[0]
+
+    @property
+    def shape(self) -> Optional[Tuple[int, ...]]:
+        """[M, D, 1], the shape that contracts such as
+        ``"inducing_variable: [M, D, maybe_R...]"`` read
+        (``inducing_variables.py:53-58``)."""
+        shape = self.Z.shape
+        if not shape:
+            return None
+        return tuple(shape) + (1,)
 
 
 class InducingPoints(InducingPointsBase):

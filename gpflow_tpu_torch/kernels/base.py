@@ -1,20 +1,32 @@
-"""Kernel base class (counterpart of ``gpflow_tpu/kernels/base.py``).
+"""Kernel base classes (counterpart of ``gpflow_tpu/kernels/base.py``).
 
 ``kernel(X, X2)`` gives K(X, X2) [..., N, ..., M], ``kernel(X)`` gives K(X, X)
 and ``kernel(X, full_cov=False)`` its diagonal [..., N]; inputs are first
-cut to ``active_dims``.
+cut to ``active_dims``. ``k1 + k2`` and ``k1 * k2`` build a ``Sum`` and a
+``Product``, whose terms are an ``nn.ModuleList`` (so every term's
+parameters are the model's); nested sums and products of one type flatten.
 """
 from __future__ import annotations
 
 import abc
-from typing import Optional, Sequence, Tuple, Union
+from functools import reduce
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..base import Module, Parameter
+from ..utilities.shapes import check_shapes
 
-__all__ = ["ActiveDims", "Kernel"]
+__all__ = [
+    "ActiveDims",
+    "Combination",
+    "Kernel",
+    "Product",
+    "ReducingCombination",
+    "Sum",
+]
 
 ActiveDims = Union[slice, Sequence[int]]
 NormalizedActiveDims = Union[slice, Tuple[int, ...]]
@@ -41,6 +53,23 @@ class Kernel(Module, metaclass=abc.ABCMeta):
     def active_dims(self) -> NormalizedActiveDims:
         return self._active_dims
 
+    @active_dims.setter
+    def active_dims(self, value: ActiveDims) -> None:
+        self._active_dims = self._normalize_active_dims(value)
+
+    def on_separate_dims(self, other: "Kernel") -> bool:
+        """True if the two kernels act on provably disjoint dimensions
+        (conservative for slices; ``base.py:62-67``)."""
+        if isinstance(self.active_dims, slice) or isinstance(other.active_dims, slice):
+            return False
+        return not bool(set(self.active_dims) & set(other.active_dims))
+
+    @check_shapes(
+        "X: [batch..., N, D]",
+        "X2: [batch2..., N2, D]",
+        "return[0]: [batch..., N, I]",
+        "return[1]: [batch2..., N2, I]",
+    )
     def slice(
         self, X: torch.Tensor, X2: Optional[torch.Tensor] = None
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -52,6 +81,9 @@ class Kernel(Module, metaclass=abc.ABCMeta):
             X2 = X2[..., index]
         return X, X2
 
+    @check_shapes(
+        "ard_parameter: [any...]",
+    )
     def _validate_ard_active_dims(self, ard_parameter: Parameter) -> None:
         if isinstance(self.active_dims, slice):
             return
@@ -63,13 +95,30 @@ class Kernel(Module, metaclass=abc.ABCMeta):
             )
 
     @abc.abstractmethod
+    @check_shapes(
+        "X: [batch..., N, D]",
+        "X2: [batch2..., N2, D]",
+        "return: [batch..., N, batch2..., N2] if X2 is not None",
+        "return: [batch..., N, N] if X2 is None",
+    )
     def K(self, X: torch.Tensor, X2: Optional[torch.Tensor] = None) -> torch.Tensor:
         raise NotImplementedError
 
     @abc.abstractmethod
+    @check_shapes(
+        "X: [batch..., N, D]",
+        "return: [batch..., N]",
+    )
     def K_diag(self, X: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 
+    @check_shapes(
+        "X: [batch..., N, D]",
+        "X2: [batch2..., N2, D]",
+        "return: [batch..., N, batch2..., N2] if full_cov and (X2 is not None)",
+        "return: [batch..., N, N] if full_cov and (X2 is None)",
+        "return: [batch..., N] if not full_cov",
+    )
     def forward(
         self,
         X: torch.Tensor,
@@ -85,3 +134,82 @@ class Kernel(Module, metaclass=abc.ABCMeta):
         if not full_cov:
             return self.K_diag(X)
         return self.K(X, X2)
+
+    def __add__(self, other: "Kernel") -> "Kernel":
+        return Sum([self, other])
+
+    def __mul__(self, other: "Kernel") -> "Kernel":
+        return Product([self, other])
+
+
+class Combination(Kernel):
+    """Combines a list of kernels, held in the ``nn.ModuleList``
+    ``kernels``; a nested combination of the same type is flattened into it
+    (``base.py:162-194``)."""
+
+    def __init__(self, kernels: Sequence[Kernel], name: Optional[str] = None) -> None:
+        super().__init__(name=name)
+        if not all(isinstance(k, Kernel) for k in kernels):
+            raise TypeError("can only combine Kernel instances")
+        self._set_kernels(kernels)
+
+    def _set_kernels(self, kernels: Sequence[Kernel]) -> None:
+        kernels_list: List[Kernel] = []
+        for k in kernels:
+            if isinstance(k, self.__class__):
+                kernels_list.extend(k.kernels)
+            else:
+                kernels_list.append(k)
+        self.kernels = nn.ModuleList(kernels_list)
+
+    @property
+    def on_separate_dimensions(self) -> bool:
+        """True if no two terms share an active dimension (False whenever a
+        term's active dimensions are a slice)."""
+        if any(isinstance(k.active_dims, slice) for k in self.kernels):
+            return False
+        dimlist = [set(k.active_dims) for k in self.kernels]
+        for i, dims_i in enumerate(dimlist):
+            for dims_j in dimlist[i + 1:]:
+                if dims_i & dims_j:
+                    return False
+        return True
+
+
+class ReducingCombination(Combination):
+    """Reduces its terms' outputs. Like the JAX package it overrides
+    ``forward`` with no inherited contract: a Sum or Product may combine
+    kernels whose outputs have other shapes than the single-output one."""
+
+    def forward(
+        self,
+        X: torch.Tensor,
+        X2: Optional[torch.Tensor] = None,
+        *,
+        full_cov: bool = True,
+        presliced: bool = False,
+    ) -> torch.Tensor:
+        return self._reduce([k(X, X2, full_cov=full_cov, presliced=presliced) for k in self.kernels])
+
+    def K(self, X: torch.Tensor, X2: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self._reduce([k.K(X, X2) for k in self.kernels])
+
+    def K_diag(self, X: torch.Tensor) -> torch.Tensor:
+        return self._reduce([k.K_diag(X) for k in self.kernels])
+
+    @property
+    @abc.abstractmethod
+    def _reduce(self) -> Callable[[Sequence[torch.Tensor]], torch.Tensor]:
+        pass
+
+
+class Sum(ReducingCombination):
+    @property
+    def _reduce(self) -> Callable[[Sequence[torch.Tensor]], torch.Tensor]:
+        return lambda ks: reduce(torch.add, ks)
+
+
+class Product(ReducingCombination):
+    @property
+    def _reduce(self) -> Callable[[Sequence[torch.Tensor]], torch.Tensor]:
+        return lambda ks: reduce(torch.multiply, ks)

@@ -12,6 +12,7 @@ from ..functions import MeanFunction, Zero
 from ..kernels import Kernel
 from ..likelihoods import Likelihood
 from ..utilities.model_utils import assert_params_false
+from ..utilities.shapes import check_shapes
 
 __all__ = ["BayesianModel", "GPModel"]
 
@@ -60,6 +61,22 @@ class GPModel(BayesianModel):
         self.mean_function = Zero() if mean_function is None else mean_function
         self.kernel = kernel
         self.likelihood = likelihood
+
+    @staticmethod
+    @check_shapes(
+        "data[0]: [batch..., N, D]",
+        "data[1]: [batch..., N, P]",
+    )
+    def calc_num_latent_gps_from_data(data: Any, kernel: Kernel, likelihood: Likelihood) -> int:
+        """One latent GP per column of Y (``gpflow_tpu/models/model.py:72-82``;
+        the multi-output kernels and the switched likelihood, which change
+        that count there, are not ported yet)."""
+        _, Y = data
+        return GPModel.calc_num_latent_gps(kernel, likelihood, Y.shape[-1])
+
+    @staticmethod
+    def calc_num_latent_gps(kernel: Kernel, likelihood: Likelihood, output_dim: int) -> int:
+        return output_dim
 
     @abc.abstractmethod
     def predict_f(

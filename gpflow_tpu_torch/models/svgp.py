@@ -1,5 +1,7 @@
-"""Sparse variational GP (counterpart of ``gpflow_tpu/models/svgp.py``):
-construction, the ELBO and its training loss, and prediction.
+"""Sparse variational GP (counterpart of ``gpflow_tpu/models/svgp.py``), in
+the JAX package's three layers: ``SVGP_deprecated`` (prediction through
+``conditionals.conditional``) -> ``SVGP_with_posterior`` (the cached
+posterior, and the fused route through it) -> ``SVGP``.
 """
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ import torch
 from .. import kullback_leiblers, posteriors
 from ..base import MeanAndVariance, Parameter
 from ..bijectors import positive, triangular
+from ..conditionals import conditional
 from ..config import default_float
 from ..functions import MeanFunction
 from ..kernels import Kernel
@@ -18,17 +21,23 @@ from ..likelihoods import Likelihood
 from .model import GPModel
 from .training_mixins import ExternalDataTrainingLossMixin, RegressionData
 from .util import inducingpoint_wrapper
+from ..utilities.shapes import check_shapes, inherit_check_shapes
 
-__all__ = ["SVGP"]
+__all__ = ["SVGP", "SVGP_deprecated", "SVGP_with_posterior"]
 
 
-class SVGP(GPModel, ExternalDataTrainingLossMixin):
-    """Sparse Variational Gaussian Process (Hensman et al. 2014).
+class SVGP_deprecated(GPModel, ExternalDataTrainingLossMixin):
+    """SVGP with the uncollapsed ELBO (``gpflow_tpu/models/svgp.py:33-138``).
 
     q(u) = N(q_mu, q_sqrt q_sqrt^T), with q_mu [M, L] and q_sqrt [M, L]
     (``q_diag``) or lower triangular [L, M, M]. ``num_data`` is the size N of
     the whole data set, which scales a minibatch's ELBO."""
 
+    @check_shapes(
+        "q_mu: [M, P]",
+        "q_sqrt: [M, P] if q_diag",
+        "q_sqrt: [P, M, M] if (not q_diag)",
+    )
     def __init__(
         self,
         kernel: Kernel,
@@ -49,6 +58,11 @@ class SVGP(GPModel, ExternalDataTrainingLossMixin):
         self.inducing_variable = inducingpoint_wrapper(inducing_variable)
         self._init_variational_parameters(self.inducing_variable.num_inducing, q_mu, q_sqrt, q_diag)
 
+    @check_shapes(
+        "q_mu: [M, P]",
+        "q_sqrt: [M, P] if q_diag",
+        "q_sqrt: [P, M, M] if (not q_diag)",
+    )
     def _init_variational_parameters(self, num_inducing: int, q_mu: Any, q_sqrt: Any, q_diag: bool) -> None:
         dtype = default_float()
         q_mu = np.zeros((num_inducing, self.num_latent_gps)) if q_mu is None else q_mu
@@ -74,25 +88,50 @@ class SVGP(GPModel, ExternalDataTrainingLossMixin):
                 self.num_latent_gps = np.shape(q_sqrt)[0]
                 self.q_sqrt = Parameter(q_sqrt, transform=triangular(), name="q_sqrt")
 
+    @check_shapes("return: []")
     def prior_kl(self) -> torch.Tensor:
         return kullback_leiblers.prior_kl(
             self.inducing_variable, self.kernel, self.q_mu.value, self.q_sqrt.value,
             whiten=self.whiten,
         )
 
+    @check_shapes("return: []")
     def maximum_log_likelihood_objective(self, data: RegressionData) -> torch.Tensor:
         return self.elbo(data)
 
+    @check_shapes("return: []")
     def elbo(self, data: RegressionData) -> torch.Tensor:
         """ELBO = num_data / B * sum(variational expectations) - KL on a batch
-        (X [B, D], Y [B, P]), through the fused ``predict_f``
-        (``gpflow_tpu/models/svgp.py:98-122``)."""
+        (X [B, D], Y [B, P]), through ``predict_f``
+        (``gpflow_tpu/models/svgp.py:109-122``)."""
         X, Y = data
         kl = self.prior_kl()
         f_mean, f_var = self.predict_f(X, full_cov=False, full_output_cov=False)
         var_exp = self.likelihood.variational_expectations(X, f_mean, f_var, Y)
         scale = 1.0 if self.num_data is None else self.num_data / X.shape[0]
         return torch.sum(var_exp) * scale - kl
+
+    @inherit_check_shapes
+    def predict_f(
+        self, Xnew: torch.Tensor, full_cov: bool = False, full_output_cov: bool = False
+    ) -> MeanAndVariance:
+        """Through ``conditionals.conditional``: Kuu, its Cholesky and Kuf on
+        every call."""
+        mu, var = conditional(
+            Xnew,
+            self.inducing_variable,
+            self.kernel,
+            self.q_mu.value,
+            q_sqrt=self.q_sqrt.value,
+            full_cov=full_cov,
+            white=self.whiten,
+            full_output_cov=full_output_cov,
+        )
+        return mu + self.mean_function(Xnew), var
+
+
+class SVGP_with_posterior(SVGP_deprecated):
+    """Adds cached-posterior prediction (``gpflow_tpu/models/svgp.py:141-164``)."""
 
     def posterior(
         self,
@@ -109,6 +148,7 @@ class SVGP(GPModel, ExternalDataTrainingLossMixin):
             precompute_cache=precompute_cache,
         )
 
+    @inherit_check_shapes
     def predict_f(
         self, Xnew: torch.Tensor, full_cov: bool = False, full_output_cov: bool = False
     ) -> MeanAndVariance:
@@ -116,3 +156,7 @@ class SVGP(GPModel, ExternalDataTrainingLossMixin):
         return self.posterior(posteriors.PrecomputeCacheType.NOCACHE).fused_predict_f(
             Xnew, full_cov=full_cov, full_output_cov=full_output_cov
         )
+
+
+class SVGP(SVGP_with_posterior):
+    """Sparse Variational Gaussian Process (Hensman et al. 2014)."""

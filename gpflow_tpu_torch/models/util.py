@@ -1,16 +1,24 @@
 """Model helpers (counterpart of ``gpflow_tpu/models/util.py``)."""
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Callable, Iterator, Union
 
 import numpy as np
 import torch
 
-from ..base import Parameter
+from ..base import Module, Parameter
 from ..config import default_device, default_float
 from ..inducing_variables import InducingPoints, InducingVariables
+from ..utilities.shapes import check_shapes
+from .training_mixins import InternalDataTrainingLossMixin, RegressionData
 
-__all__ = ["data_input_to_tensor", "inducingpoint_wrapper"]
+__all__ = [
+    "data_input_to_tensor",
+    "inducingpoint_wrapper",
+    "maximum_log_likelihood_objective",
+    "training_loss",
+    "training_loss_closure",
+]
 
 
 def inducingpoint_wrapper(inducing_variable: Any) -> InducingVariables:
@@ -34,3 +42,46 @@ def data_input_to_tensor(structure: Any) -> Any:
     t = structure.detach() if isinstance(structure, torch.Tensor) else torch.as_tensor(np.asarray(structure))
     dtype = default_float() if t.is_floating_point() else t.dtype
     return t.to(device=default_device(), dtype=dtype)
+
+
+@check_shapes(
+    "data[0]: [N, D]",
+    "data[1]: [N, P]",
+    "return: []",
+)
+def maximum_log_likelihood_objective(model: Module, data: RegressionData) -> torch.Tensor:
+    """The model's objective: on its own data for a model that keeps it (the
+    ``data`` argument is then not read), else on ``data``
+    (``gpflow_tpu/models/util.py:62-67``)."""
+    if isinstance(model, InternalDataTrainingLossMixin):
+        return model.maximum_log_likelihood_objective()
+    return model.maximum_log_likelihood_objective(data)
+
+
+@check_shapes(
+    "data[0]: [N, D]",
+    "data[1]: [N, P]",
+    "return: []",
+)
+def training_loss(model: Module, data: RegressionData) -> torch.Tensor:
+    """The model's training loss, on its own data or on ``data``
+    (``gpflow_tpu/models/util.py:70-79``)."""
+    if isinstance(model, InternalDataTrainingLossMixin):
+        return model.training_loss()
+    return model.training_loss(data)
+
+
+@check_shapes(
+    "data[0]: [N, D]",
+    "data[1]: [N, P]",
+)
+def training_loss_closure(
+    model: Module,
+    data: Union[RegressionData, Iterator[RegressionData]],
+    **closure_kwargs: Any,
+) -> Callable[[], torch.Tensor]:
+    """A zero-argument loss closure for ``Scipy().minimize``, on the model's
+    own data or on ``data`` (``gpflow_tpu/models/util.py:82-93``)."""
+    if isinstance(model, InternalDataTrainingLossMixin):
+        return model.training_loss_closure(**closure_kwargs)
+    return model.training_loss_closure(data, **closure_kwargs)

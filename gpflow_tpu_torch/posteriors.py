@@ -1,6 +1,6 @@
 """Posteriors with a precomputed prediction cache (counterpart of
-``gpflow_tpu/posteriors.py``; the single-output base case, the exact-GP
-and the SGPR posteriors so far).
+``gpflow_tpu/posteriors.py``; the single-output base case, the exact-GP,
+the SGPR and the VGP posteriors so far).
 
 ``BasePosterior`` caches (alpha, Qinv), after which a prediction is matmuls
 only: mean = Kuf^T alpha, var = Kff - Kuf^T Qinv Kuf. The cache stores an
@@ -10,7 +10,8 @@ carries about cond(Kuu) * eps. ``GPRPosterior`` caches (err, Lm, alpha) of
 the training data: a request solves against Lm, and ``predict_mean`` is one
 matvec. ``SGPRPosterior`` caches (L, LB, c, alpha) of the sparse regression:
 a request solves against the two [M, M] factors, and ``predict_mean`` is
-K(Z, Xnew) and one matvec.
+K(Z, Xnew) and one matvec. ``VGPPosterior`` caches Lm = chol(K(X) +
+jitter I) of the data: a request builds K(X, Xnew) and solves against Lm.
 
 On CUDA, every covariance matrix comes from kernel K1
 (``ops/pallas_distance.py``).
@@ -34,6 +35,7 @@ from .likelihoods import Gaussian
 from .ops.linalg import cholesky
 from .utilities.model_utils import add_likelihood_noise_cov, assert_params_false
 from .utilities.multipledispatch import Dispatcher
+from .utilities.shapes import check_shapes, inherit_check_shapes
 
 __all__ = [
     "AbstractPosterior",
@@ -58,9 +60,12 @@ def _value(x: Any) -> Optional[torch.Tensor]:
 
 
 class PrecomputeCacheType(enum.Enum):
-    """TENSOR precomputes the cache into tensors; NOCACHE skips it."""
+    """TENSOR precomputes the cache into tensors; VARIABLE is accepted for the
+    JAX package's API and behaves as TENSOR (``posteriors.py:105-113``);
+    NOCACHE skips it."""
 
     TENSOR = "tensor"
+    VARIABLE = "variable"
     NOCACHE = "nocache"
 
 
@@ -72,13 +77,16 @@ def _validate_precompute_cache_type(value: Union[None, PrecomputeCacheType, str]
     if isinstance(value, str):
         return PrecomputeCacheType(value.lower())
     raise ValueError(
-        f"{value} is not a valid PrecomputeCacheType. Valid options: 'tensor', 'nocache' (or None)."
+        f"{value} is not a valid PrecomputeCacheType. Valid options: 'tensor', 'variable', 'nocache' (or None)."
     )
 
 
 class AbstractPosterior(Module, ABC):
     """Fused (no cache) and cached prediction."""
 
+    @check_shapes(
+        "X_data: [N, D] | [M, D, broadcast P]",
+    )
     def __init__(
         self,
         kernel: kernels.Kernel,
@@ -93,6 +101,11 @@ class AbstractPosterior(Module, ABC):
         self.mean_function = mean_function
         self._precompute_cache: Optional[PrecomputeCacheType] = None
 
+    @check_shapes(
+        "Xnew: [batch..., D]",
+        "mean: [batch..., Q]",
+        "return: [batch..., Q]",
+    )
     def _add_mean_function(self, Xnew: torch.Tensor, mean: torch.Tensor) -> torch.Tensor:
         if self.mean_function is None:
             return mean
@@ -102,6 +115,14 @@ class AbstractPosterior(Module, ABC):
     def _precompute(self) -> Tuple[torch.Tensor, ...]:
         """Computes the cache that _conditional_with_precompute consumes."""
 
+    @check_shapes(
+        "Xnew: [batch..., N, D]",
+        "return[0]: [batch..., N, P]",
+        "return[1]: [batch..., N, P] if (not full_cov) and (not full_output_cov)",
+        "return[1]: [batch..., P, N, N] if full_cov and (not full_output_cov)",
+        "return[1]: [batch..., N, P, P] if (not full_cov) and full_output_cov",
+        "return[1]: [batch..., N, P, N, P] if full_cov and full_output_cov",
+    )
     def fused_predict_f(
         self, Xnew: torch.Tensor, full_cov: bool = False, full_output_cov: bool = False
     ) -> MeanAndVariance:
@@ -110,11 +131,27 @@ class AbstractPosterior(Module, ABC):
         return self._add_mean_function(Xnew, mean), cov
 
     @abstractmethod
+    @check_shapes(
+        "Xnew: [batch..., N, D]",
+        "return[0]: [batch..., N, P]",
+        "return[1]: [batch..., N, P] if (not full_cov) and (not full_output_cov)",
+        "return[1]: [batch..., P, N, N] if full_cov and (not full_output_cov)",
+        "return[1]: [batch..., N, P, P] if (not full_cov) and full_output_cov",
+        "return[1]: [batch..., N, P, N, P] if full_cov and full_output_cov",
+    )
     def _conditional_fused(
         self, Xnew: torch.Tensor, full_cov: bool = False, full_output_cov: bool = False
     ) -> MeanAndVariance:
         """Mean and covariance at Xnew, without mean function or cache."""
 
+    @check_shapes(
+        "Xnew: [batch..., N, D]",
+        "return[0]: [batch..., N, P]",
+        "return[1]: [batch..., N, P] if (not full_cov) and (not full_output_cov)",
+        "return[1]: [batch..., P, N, N] if full_cov and (not full_output_cov)",
+        "return[1]: [batch..., N, P, P] if (not full_cov) and full_output_cov",
+        "return[1]: [batch..., N, P, N, P] if full_cov and full_output_cov",
+    )
     def predict_f(
         self, Xnew: torch.Tensor, full_cov: bool = False, full_output_cov: bool = False
     ) -> MeanAndVariance:
@@ -129,6 +166,14 @@ class AbstractPosterior(Module, ABC):
         return self._add_mean_function(Xnew, mean), cov
 
     @abstractmethod
+    @check_shapes(
+        "Xnew: [batch..., N, D]",
+        "return[0]: [batch..., N, P]",
+        "return[1]: [batch..., N, P] if (not full_cov) and (not full_output_cov)",
+        "return[1]: [batch..., P, N, N] if full_cov and (not full_output_cov)",
+        "return[1]: [batch..., N, P, P] if (not full_cov) and full_output_cov",
+        "return[1]: [batch..., N, P, N, P] if full_cov and full_output_cov",
+    )
     def _conditional_with_precompute(
         self,
         cache: Tuple[torch.Tensor, ...],
@@ -160,7 +205,7 @@ class AbstractPosterior(Module, ABC):
 
         if precompute_cache is PrecomputeCacheType.NOCACHE:
             self.cache = None
-        else:
+        else:  # TENSOR and VARIABLE both precompute into tensors
             self.cache = self._precompute()
 
 
@@ -455,8 +500,70 @@ class SGPRPosterior(AbstractPosterior):
         return self._conditional_with_precompute(self._precompute_base(), Xnew, full_cov, full_output_cov)
 
 
-class VGPPosterior(_NotPortedPosterior):
-    pass
+class VGPPosterior(AbstractPosterior):
+    """VGP posterior over function values at the data X; cache = (Lm,), the
+    Cholesky factor of K(X) + jitter I (``gpflow_tpu/posteriors.py:541-607``).
+    A request solves against Lm through ``base_conditional_with_lm``."""
+
+    @check_shapes(
+        "X: [N, D]",
+        "q_mu: [N, P]",
+        "q_sqrt: [N, P] | [P, N, N]",
+    )
+    def __init__(
+        self,
+        kernel: kernels.Kernel,
+        X: torch.Tensor,
+        q_mu: Any,
+        q_sqrt: Any,
+        mean_function: Optional[MeanFunction] = None,
+        white: bool = True,
+        *,
+        precompute_cache: Optional[PrecomputeCacheType],
+    ) -> None:
+        super().__init__(kernel, X, mean_function=mean_function)
+        self.q_mu = q_mu
+        self.q_sqrt = q_sqrt
+        self.white = white
+        if precompute_cache is not None:
+            self.update_cache(precompute_cache)
+
+    @inherit_check_shapes
+    def _conditional_with_precompute(
+        self,
+        cache: Tuple[torch.Tensor, ...],
+        Xnew: torch.Tensor,
+        full_cov: bool = False,
+        full_output_cov: bool = False,
+    ) -> MeanAndVariance:
+        assert_params_false(self._conditional_with_precompute, full_output_cov=full_output_cov)
+        (Lm,) = cache
+        Kmn = self.kernel(self.X_data, Xnew)
+        Knn = self.kernel(Xnew, full_cov=full_cov)
+        return base_conditional_with_lm(
+            Kmn=Kmn,
+            Lm=Lm,
+            Knn=Knn,
+            f=_value(self.q_mu),
+            full_cov=full_cov,
+            q_sqrt=_value(self.q_sqrt),
+            white=self.white,
+        )
+
+    @check_shapes(
+        "return[0]: [M, M]",
+    )
+    def _precompute(self) -> Tuple[torch.Tensor]:
+        Kmm = self.kernel(self.X_data)
+        M = Kmm.shape[-1]
+        Lm = cholesky(Kmm + default_jitter() * torch.eye(M, dtype=Kmm.dtype, device=Kmm.device))
+        return (Lm,)
+
+    @inherit_check_shapes
+    def _conditional_fused(
+        self, Xnew: torch.Tensor, full_cov: bool = False, full_output_cov: bool = False
+    ) -> MeanAndVariance:
+        return self._conditional_with_precompute(self._precompute(), Xnew, full_cov, full_output_cov)
 
 
 class IndependentPosteriorMultiOutput(_NotPortedPosterior):

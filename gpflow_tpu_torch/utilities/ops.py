@@ -5,7 +5,7 @@ from typing import Optional
 
 import torch
 
-__all__ = ["square_distance"]
+__all__ = ["difference_matrix", "square_distance"]
 
 
 def square_distance(X: torch.Tensor, X2: Optional[torch.Tensor]) -> torch.Tensor:
@@ -26,3 +26,16 @@ def square_distance(X: torch.Tensor, X2: Optional[torch.Tensor]) -> torch.Tensor
     dist = -2.0 * torch.tensordot(X, X2, dims=([-1], [-1]))  # [batch..., N, batch2..., M]
     dist += Xs.reshape(Xs.shape + (1,) * X2s.ndim) + X2s
     return dist
+
+
+def difference_matrix(X: torch.Tensor, X2: Optional[torch.Tensor]) -> torch.Tensor:
+    """Pairwise differences X[..., n, :] - X2[..., m, :]
+    (``gpflow_tpu/utilities/ops.py:111-124``): [batch..., N, D] and
+    [batch2..., M, D] give [batch..., N, batch2..., M, D], the leading dims
+    crossing as in ``square_distance``; with X2 None, [batch..., N, N, D]."""
+    if X2 is None:
+        return X[..., :, None, :] - X[..., None, :, :]
+    Xf = X.reshape(-1, X.shape[-1])
+    X2f = X2.reshape(-1, X2.shape[-1])
+    diff = Xf[:, None, :] - X2f[None, :, :]
+    return diff.reshape(X.shape[:-1] + X2.shape[:-1] + (X.shape[-1],))

@@ -2,6 +2,7 @@
 ``gpflow_tpu/utilities/traversal.py``)."""
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Mapping
 
 import numpy as np
@@ -12,10 +13,21 @@ from ..base import Parameter
 __all__ = ["load_jax_values", "parameter_dict", "read_values"]
 
 
+_LIST_INDEX = re.compile(r"\.(\d+)(?=\.|$)")
+
+
+def _jax_path(name: str) -> str:
+    """``named_modules``' ``kernel.kernels.0.variance`` as the JAX package
+    writes it, ``.kernel.kernels[0].variance``: an all-digit segment is an
+    ``nn.ModuleList`` index (``traversal.py:67-70``)."""
+    return _LIST_INDEX.sub(r"[\1]", f".{name}")
+
+
 def parameter_dict(m: nn.Module) -> Dict[str, Parameter]:
-    """Maps paths such as ``.kernel.lengthscales`` to the module's Parameters,
-    in the JAX package's path format (``traversal.py:89-93``)."""
-    return {f".{name}": p for name, p in m.named_modules() if isinstance(p, Parameter)}
+    """Maps paths such as ``.kernel.lengthscales`` or
+    ``.kernel.kernels[0].variance`` to the module's Parameters, in the JAX
+    package's path format (``traversal.py:89-93``)."""
+    return {_jax_path(name): p for name, p in m.named_modules() if isinstance(p, Parameter)}
 
 
 def read_values(m: nn.Module) -> Dict[str, np.ndarray]:

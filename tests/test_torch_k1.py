@@ -144,6 +144,13 @@ def test_import_leaves_jax_out():
         "from gpflow_tpu_torch.models import CGLB, GPRFITC, SGPR, cglb_conjugate_gradient\n"
         "from gpflow_tpu_torch.posteriors import SGPRPosterior\n"
         "from gpflow_tpu_torch.utilities import to_default_float\n"
+        "import gpflow_tpu_torch.utilities.shapes, gpflow_tpu_torch.utilities.parameter_or_function\n"
+        "import gpflow_tpu_torch.functions, gpflow_tpu_torch.mean_functions\n"
+        "import gpflow_tpu_torch.kernels.linears, gpflow_tpu_torch.kernels.statics, gpflow_tpu_torch.kernels.periodic\n"
+        "import gpflow_tpu_torch.conditionals.dispatch, gpflow_tpu_torch.conditionals.conditionals\n"
+        "from gpflow_tpu_torch.models import VGP, VGPOpperArchambeau, SVGP_deprecated, training_loss_closure\n"
+        "from gpflow_tpu_torch.models.vgp import update_vgp_data\n"
+        "from gpflow_tpu_torch.posteriors import VGPPosterior\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'gpflow_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"

@@ -287,8 +287,9 @@ def test_predict_before_cache_raises_and_nocache_uses_fused_route():
                                   "IndependentPosteriorMultiOutput", "FullyCorrelatedPosterior",
                                   "LinearCoregionalizationPosterior", "FallbackIndependentLatentPosterior"])
 def test_unported_posteriors_name_the_roadmap(name):
-    if name == "SGPRPosterior":  # ported with SGPR; tests/test_torch_sgpr.py holds it to the JAX package
-        assert not issubclass(posteriors.SGPRPosterior, posteriors._NotPortedPosterior)
+    if name in ("SGPRPosterior", "VGPPosterior"):  # ported with SGPR and VGP; tests/test_torch_sgpr.py
+        # and tests/test_torch_vgp.py hold them to the JAX package
+        assert not issubclass(getattr(posteriors, name), posteriors._NotPortedPosterior)
         return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         getattr(posteriors, name)(None, None, None, None, precompute_cache=None)
