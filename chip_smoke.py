@@ -17,8 +17,11 @@ operating point (SGPR, GPRFITC and the matrix-free CGLB at N = 32768,
 M = 1024, chunk 4096, D = 8, float32; slice 6); and VGP and
 VGPOpperArchambeau at N = 4096, D = 8, float32, on the natural-gradient
 operating point's classification data and the GPR generator's regression
-data (slice 7; ``bench.py`` has no VGP operating point). Models are built
-on the card, the
+data (slice 7; ``bench.py`` has no VGP operating point); and the
+multiclass SVGP of the JAX harness (``benchmark/models.py:80-108``) with
+MultiClass (RobustMax) and Softmax over C = 10 latent GPs at M = 1024,
+B = 4096, N = 32768, D = 64 on synthetic data (slice 8; ``bench.py`` has no
+multiclass operating point). Models are built on the card, the
 port's default device; the float64 references ask for the CPU, or for float64
 on the card where the CPU would take minutes. Phases:
 
@@ -120,12 +123,32 @@ on the card where the CPU would take minutes. Phases:
    limits; (e) ``SVGP_deprecated`` against ``SVGP`` at the flagship width;
    (f) K1 and K2 launch counts exactly as each path implies; (g) timings:
    the value and gradient of both models, L-BFGS, requests, a profile of
-   one VGP value and gradient, K1 and K2 at (4096, 4096, 8).
+   one VGP value and gradient, K1 and K2 at (4096, 4096, 8);
+18. the multiclass slice: (a) the MultiClass ELBO and gradient at B = 4096
+   under sync debug mode "error" against float64 on the card, on three sets
+   of values, and Softmax's with fixed draws, each beside the lower-tier
+   control; (b) ``run_steps_sampled``, 20 Adam steps each for MultiClass and
+   Softmax and 20 fused natural-gradient steps for MultiClass, under sync
+   debug mode "error", losses finite and falling; (c) 5 ``Scipy`` iterations
+   of ``training_loss_closure`` over N = 32768, which must lower the
+   objective; (d) requests of 4096 held-out points (``posterior()`` and
+   ``predict_f``, fused ``predict_f``, ``predict_y``,
+   ``predict_log_density``) on both routes against float64, Softmax with
+   fixed draws, class probabilities in [0, 1] (Softmax's summing to 1),
+   accuracy above chance; (e) StudentT, Exponential, Gamma, Beta,
+   ``SwitchedLikelihood``, ``GaussianMC`` and the heteroskedastic two-latent
+   SVGP at the natural-gradient point, value and gradient against float64;
+   (f) K1 against its plain version at (1024, 1024, 64), (1024, 4096, 64),
+   (1024, 32768, 64) and (1024, 4096, 13), launch counts exactly as each
+   path implies; (g) timings: value and gradient, steps per second, L-BFGS,
+   requests, a profile of one MultiClass value and gradient, K1 at the four
+   shapes.
 
 Every failure raises, and the script then exits non-zero without the result
 line. The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
 """
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -355,6 +378,57 @@ VGP_RTOL = {
 # (conditionals.conditional builds the posterior the fused route builds):
 # they agree within a few roundings.
 SVGP_ROUNDOFF = 1e-6
+
+# The multiclass path (slice 8; bench.py has no multiclass point, PERF.md
+# §4): the JAX harness's svgp_multiclass and svgp_softmax
+# (benchmark/models.py:80-108), an SVGP whose C latent GPs share one
+# SquaredExponential with ARD lengthscales, with MultiClass (RobustMax, 20
+# Gauss-Hermite points) or Softmax (100 Monte-Carlo draws), at digits' width
+# and class count (D = 64, C = 10; benchmark/datasets.py:306-323) and
+# bench.py's non-conjugate operating point (M = 1024, B = 4096, N = 32768;
+# bench.py:222-279), float32, whitened full q_sqrt [C, M, M]. The data are
+# synthetic, from a seed (digits comes from sklearn): X ~ N(0, 1) in 64
+# dimensions, N training points and MC_B held-out ones, labels
+# argmax_c (X W)[:, c] + 0.5 noise for a seeded W [64, 10], Z the first M
+# rows of a seeded permutation of X (benchmark/models.py:23-25). The
+# lengthscales are sqrt(D) = 8, not the harness's 1, which suit digits
+# scaled to [0, 1]: N(0, 1) points in 64 dimensions lie ~11 unit
+# lengthscales apart, where Kuu is the identity to float32's resolution; at
+# 8 an average pair has k = exp(-1).
+MC_N, MC_M, MC_B, MC_D, MC_C = 32768, 1024, 4096, 64, 10
+MC_STEPS = 20  # Adam steps for each likelihood, and fused natural-gradient steps for MultiClass
+# RobustMax's expected log likelihood grows with the latent GPs' variances
+# (it is not log-concave), so a natural-gradient step from q(u) = p(u) can
+# leave the negative-definite cone: with NG_GAMMA = 0.1 the step's size grows
+# with N, and the Bernoulli point's gamma is rejected here in both packages
+# (the phase logs one such step). The multiclass steps take a gamma small
+# against the N / B-scaled gradient.
+MC_NG_GAMMA = 5e-4
+MC_LBFGS_ITERS = 5  # benchmark/run.py:73-101 runs Scipy().minimize on training_loss_closure
+MC_TIMED_ROUNDS = 3
+MC_VALUE_SEEDS = (SEED + 18, SEED + 19, SEED + 20)  # variational values for the float64 checks
+# The MultiClass and Softmax ELBO and gradient in float32 on the card
+# against float64 on the card, from the same values (off their start) on
+# the same batch, both with the float32 jitter 1e-4; Softmax with the same
+# draws. Relative to the largest float64 entry, the value to itself. Each
+# limit is set from readings on the three sets of values (PERF.md §6, multiclass table),
+# 5-8 times the largest error of the sound float32 runs, and each check runs
+# the lower-tier control (K1 fed bfloat16-rounded X and Z, TF32 matmuls),
+# which must break at least one of its limits. MultiClass's slope in the
+# kernel variance is a cancellation, 1e-2 to 3e-1 beside gradients of 1e2
+# to 1e3 in the other parameters, and float32 leaves ~5e-3 of it: its limit
+# is relative to that small slope. The requests (phase 18d) come from the
+# trained models, the two likelihoods on both routes, against float64
+# beside the same control.
+MC_RTOL = {"value": 1e-6, "gradient": 5e-5, "gradient q": 5e-5, "gradient .kernel.variance": 0.6,
+           "requests": {"mean": 1e-4, "var": 1e-3, "log density": 3e-5}}
+# A Softmax class probability is a mean over 100 draws of a softmax row,
+# which sums to 1 within C * eps32 in float32: the sums within 8 * C * eps32.
+MC_PROB_SUM_ATOL = 8 * MC_C * float(np.finfo(np.float32).eps)
+# K1 at the path's shapes at D = 64 (Kuu, Kuf of a batch or a request, Kuf
+# of the whole data in an L-BFGS evaluation) and at wine's width, D = 13,
+# where D % 4 != 0 takes the scalar staging.
+MC_K1_SHAPES = [(MC_M, MC_M, MC_D), (MC_M, MC_B, MC_D), (MC_M, MC_N, MC_D), (MC_M, MC_B, 13)]
 
 
 def log(*args):
@@ -893,13 +967,19 @@ def time_requests(model, Xb):
         log(f"time: {key} at B={B}: {ms:.4f} ms per request ({B / ms * 1e3:.0f} points/s)")
 
 
-def time_k1(n, m, iters=50):
-    """Phase 10: K1 against the plain version, rbf, device time, interleaved."""
+def time_k1(n, m, iters=50, d=D):
+    """Phase 10: K1 against the plain version, rbf, device time, interleaved.
+    At d = D the inputs are uniform on [0, 4]^8 as the flagship's; at another
+    width N(0, 1 / d) per dimension, as N(0, 1) data over lengthscales
+    sqrt(d) reach K1 (phase 18)."""
     from gpflow_tpu_torch.ops import pallas_distance as pd
 
     rng = np.random.RandomState(SEED + 2)
-    Xs = torch.from_numpy((rng.rand(n, D) * 4).astype(np.float32)).cuda()
-    Zs = torch.from_numpy((rng.rand(m, D) * 4).astype(np.float32)).cuda()
+    if d == D:
+        Xs, Zs = (rng.rand(n, d) * 4).astype(np.float32), (rng.rand(m, d) * 4).astype(np.float32)
+    else:
+        Xs, Zs = ((rng.randn(k, d) / np.sqrt(d)).astype(np.float32) for k in (n, m))
+    Xs, Zs = torch.from_numpy(Xs).cuda(), torch.from_numpy(Zs).cuda()
     var = torch.tensor([1.0], device="cuda")
     fns = {"plain": pd.stationary_forward_plain, "k1": pd.stationary_forward_cuda}
     got = {"plain": [], "k1": []}
@@ -907,9 +987,10 @@ def time_k1(n, m, iters=50):
         got[which].append(device_ms(lambda: fns[which]("rbf", Xs, Zs, var), iters))
     k1, plain = min(got["k1"]), min(got["plain"])
     gbs = n * m * 4 / (k1 * 1e-3) / 1e9
-    bound_ms, bound_by = kernel_bound_ms("K1", n, m, D)
-    log(f"time: K1 rbf ({n}, {m}, {D}): {k1:.4f} ms ({gbs:.0f} GB/s of output), plain {plain:.4f} ms, "
-        f"bound {bound_ms:.4f} ms by {bound_by}; runs k1 {got['k1']}, plain {got['plain']}")
+    bound_ms, bound_by = kernel_bound_ms("K1", n, m, d)
+    log(f"time: K1 rbf ({n}, {m}, {d}): {k1:.4f} ms ({gbs:.0f} GB/s of output), plain {plain:.4f} ms, "
+        f"bound {bound_ms:.4f} ms by {bound_by} ({100 * bound_ms / k1:.0f}% of the bound's rate); "
+        f"runs k1 {got['k1']}, plain {got['plain']}")
     return k1, plain
 
 
@@ -1173,16 +1254,16 @@ def ng_values(Z, seed):
 
 
 def ng_cond(model64):
-    """cond(Kuu + jitter I) and cond(S), S = q_sqrt q_sqrt^T, of a float64
-    model, from their eigenvalues."""
+    """cond(Kuu + jitter I) and cond(S), S = q_sqrt q_sqrt^T (the largest
+    over the latent GPs), of a float64 model, from their eigenvalues."""
     from gpflow_tpu_torch.config import default_jitter
     from gpflow_tpu_torch.covariances import Kuu
 
     with torch.no_grad():
         kuu = torch.linalg.eigvalsh(Kuu(model64.inducing_variable, model64.kernel, jitter=default_jitter()))
-        L = model64.q_sqrt.value[0]
+        L = model64.q_sqrt.value  # [L, M, M]: the largest cond(S) over the latent GPs
         s = torch.linalg.eigvalsh(L @ L.mT)
-    return float(kuu[-1] / kuu[0]), float(s[-1] / s[0])
+    return float(kuu[-1] / kuu[0]), float((s[:, -1] / s[:, 0]).max())
 
 
 def ng_tolerance(what, model64, steps=0):
@@ -1474,15 +1555,18 @@ def bf16_values(values):
 def judge(what, sound, control=None):
     """``sound`` and ``control``: {output: (error, limit)}. Every sound error
     must lie within its limit; the control, where given, must break at least
-    one limit (a NaN breaks it)."""
-    broken = []
+    one limit (a NaN breaks it). Every reading is logged before a failure
+    is raised."""
+    broken, failed = [], []
     for key, (err, limit) in sound.items():
         cerr = control[key][0] if control else None
         log(f"{what}: {key}: rel err {err:.3e}, tol {limit:.1e}"
             + ("" if cerr is None else f"; lower-tier control {cerr:.3e}"))
-        assert err <= limit, f"{what}: {key} disagrees with float64"
+        if not err <= limit:
+            failed.append(key)
         if cerr is not None and not cerr <= limit:
             broken.append(key)
+    assert not failed, f"{what}: {failed} disagree with float64"
     if control:
         log(f"{what}: the lower-tier control breaks {len(broken)} of {len(sound)} limits {broken}")
         assert broken, f"{what}: the check cannot tell float32 from the lower tier"
@@ -2344,6 +2428,400 @@ def vgp_phases(launches):
     vgp_timings(model, opper, post, *requests, lbfgs_eval_s)
 
 
+def make_mc_data():
+    """Phase 18's data: ((X, Y) of MC_N training points, (Xnew, Ynew) of
+    MC_B held-out points, Z), from RandomState(SEED + 18)."""
+    rng = np.random.RandomState(SEED + 18)
+    X = rng.randn(MC_N + MC_B, MC_D).astype(np.float32)
+    W = rng.randn(MC_D, MC_C).astype(np.float32)
+    scores = X @ W + 0.5 * rng.randn(MC_N + MC_B, MC_C).astype(np.float32)
+    Y = np.argmax(scores, axis=1)[:, None].astype(np.float32)
+    Z = X[rng.permutation(MC_N)[:MC_M]].copy()
+    return (X[:MC_N], Y[:MC_N]), (X[MC_N:], Y[MC_N:]), Z
+
+
+def mc_model(lik, Z, dtype, values=None):
+    """The multiclass SVGP of phase 18 on the card in ``dtype`` with ``lik``
+    ("MultiClass" or "Softmax", its draws seeded with SEED), lengthscales
+    sqrt(D), ``num_data`` = MC_N, q_mu zeros and q_sqrt identities, or the
+    constrained ``values`` of ``read_values``."""
+    from gpflow_tpu_torch import config, kernels, likelihoods
+    from gpflow_tpu_torch.models import SVGP
+    from gpflow_tpu_torch.utilities import load_jax_values
+
+    with config.as_context(dataclasses.replace(config.config(), float=dtype)):
+        likelihood = likelihoods.MultiClass(MC_C) if lik == "MultiClass" else likelihoods.Softmax(MC_C, seed=SEED)
+        model = SVGP(kernels.SquaredExponential(lengthscales=np.full(MC_D, np.sqrt(MC_D))), likelihood, Z,
+                     num_latent_gps=MC_C, num_data=MC_N)
+    model = model.to(dtype=dtype)
+    if values is not None:
+        np_dtype = np.float64 if dtype == torch.float64 else np.float32
+        load_jax_values(model, {k: np.asarray(v).astype(np_dtype) for k, v in values.items()})
+    return model
+
+
+def latent_values(model, seed, latents):
+    """``read_values`` of ``model`` with q(u) of its ``latents`` GPs moved off
+    its start: q_mu ~ N(0, 0.25), q_sqrt with a diagonal in [0.1, 1] and
+    small entries below it."""
+    from gpflow_tpu_torch.utilities import read_values
+
+    values = read_values(model)
+    m = values[".q_mu"].shape[0]
+    rng = np.random.RandomState(seed)
+    q_sqrt = np.tril(rng.randn(latents, m, m).astype(np.float32) * np.float32(0.1 / np.sqrt(m)), k=-1)
+    q_sqrt[:, np.arange(m), np.arange(m)] = 0.1 + 0.9 * rng.rand(latents, m)
+    values[".q_mu"] = 0.5 * rng.randn(m, latents)
+    values[".q_sqrt"] = q_sqrt
+    return values
+
+
+@contextlib.contextmanager
+def fixed_draws(model, draws):
+    """The model's entry points with its Monte-Carlo likelihood's draws set
+    to ``draws`` [S, N, latents] (cast to each call's type), so that float32
+    and float64 see the same draws; nothing changes for other likelihoods."""
+    lik = model.likelihood
+    if not hasattr(lik, "_mc_quadrature"):
+        yield
+        return
+    inner = lik._mc_quadrature
+
+    def pinned(funcs, Fmu, Fvar, logspace=False, epsilon=None, **Ys):
+        return inner(funcs, Fmu, Fvar, logspace, draws.to(Fmu.dtype), **Ys)
+
+    lik._mc_quadrature = pinned
+    try:
+        yield
+    finally:
+        del lik._mc_quadrature
+
+
+def mc_draws(n, seed, latents=None):
+    """Standard normals [100, n, latents (default MC_C)] on the card, in
+    float64."""
+    return torch.randn(100, n, latents or MC_C, dtype=torch.float64, device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(seed))
+
+
+def mc_check_objective(data, Z, launches):
+    """Phase 18a: the MultiClass ELBO and its gradient at B = MC_B under
+    sync debug mode "error", against float64 on the card and beside the
+    lower-tier control, on three sets of values; then Softmax's with fixed
+    draws on the first."""
+    X, Y = data
+    idx = np.random.RandomState(SEED + 18).randint(0, MC_N, MC_B)
+    batch = (torch.from_numpy(X[idx]).cuda(), torch.from_numpy(Y[idx]).cuda())
+    ctl_batch = (bf16(batch[0]).cuda(), batch[1])
+    eps = mc_draws(MC_B, SEED + 18)
+    for lik, seeds in (("MultiClass", MC_VALUE_SEEDS), ("Softmax", MC_VALUE_SEEDS[:1])):
+        for seed in seeds:
+            values = latent_values(mc_model(lik, Z, torch.float32), seed, MC_C)
+            m32, m64 = mc_model(lik, Z, torch.float32, values), mc_model(lik, Z, torch.float64, values)
+            ctl = mc_model(lik, Z, torch.float32, bf16_values(values))
+            what = f"multiclass {lik} objective, values seed {seed}"
+            c_kuu, c_s = ng_cond(m64)
+            log(f"{what}: cond(Kuu + jitter I) {c_kuu:.4e}, cond(S) {c_s:.4e} (float64, jitter 1e-4)")
+
+            def value_and_grad(model, b):
+                with fixed_draws(model, eps):
+                    return sparse_value_and_grad(model, lambda m: m.training_loss(b))
+
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got, counts = counted(lambda: value_and_grad(m32, batch))
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            expect_launches(f"{what}: ELBO and gradient", counts, {"K1": 2, "K2": 0}, launches)  # Kuu, Kuf
+            assert bool(torch.isfinite(got[0])), f"{what}: the ELBO is not finite"
+            want = value_and_grad(m64, tuple(t.double() for t in batch))
+            log(f"{what}: ELBO {float(want[0]):.6e}; largest float64 gradient entries "
+                + ", ".join(f"{k} {float(g.abs().max()):.3e}" for k, g in want[1].items()))
+            judge(what, vgp_errors(got, want, MC_RTOL),
+                  vgp_errors(run_control(lambda: value_and_grad(ctl, ctl_batch)), want, MC_RTOL))
+            del m32, m64, ctl
+    torch.cuda.empty_cache()
+
+
+def mc_train(lik, gamma, data, Z, launches, steps=MC_STEPS):
+    """Phase 18b: ``steps`` steps of ``run_steps_sampled`` under sync debug
+    mode "error", Adam 1e-2 on every parameter (``gamma`` None) or fused
+    natural gradients of size ``gamma`` on q(u) and Adam on the rest;
+    losses finite and falling, launch counts exact. Returns the trainer."""
+    from gpflow_tpu_torch.parallel import DataParallelTrainer, adam
+
+    natgrad = gamma is not None
+    mode = f"natgrad fused gamma {gamma}" if natgrad else "adam"
+    trainer = DataParallelTrainer(mc_model(lik, Z, torch.float32), adam(1e-2), natgrad_gamma=gamma,
+                                  natgrad_fused=natgrad)
+    trainer.stage_data(data)
+    generator = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        losses, counts = counted(lambda: trainer.run_steps_sampled(steps, MC_B, generator=generator))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    losses = losses.cpu()
+    rejected = trainer.natgrad_rejections if natgrad else 0
+    log(f"multiclass train {lik} {mode}: {steps} steps at B={MC_B}, losses {[round(float(v), 1) for v in losses]}"
+        + (f"; natgrad_rejections {rejected} of {steps}" if natgrad else ""))
+    expect_launches(f"multiclass train {lik} {mode}", counts, {"K1": 2 * steps, "K2": 0}, launches)
+    assert losses.shape == (steps,) and bool(torch.isfinite(losses).all()), f"{lik} {mode}: non-finite loss"
+    if steps > 1:
+        last = float(losses[-5:].mean())
+        log(f"multiclass train {lik} {mode}: loss {float(losses[0]):.6e} -> {last:.6e} (mean of the last 5)")
+        assert last < float(losses[0]), f"{lik} {mode}: the loss did not fall"
+        assert rejected < steps, f"{lik} {mode}: every natural-gradient step was rejected"
+    return trainer
+
+
+def mc_lbfgs(model, data, launches):
+    """Phase 18c: MC_LBFGS_ITERS iterations of ``Scipy().minimize`` on
+    ``training_loss_closure`` over the whole data, the harness's route
+    (benchmark/run.py:73-101); the objective must fall. Returns seconds per
+    evaluation."""
+    from gpflow_tpu_torch.models import training_loss_closure
+    from gpflow_tpu_torch.optimizers import Scipy
+
+    X, Y = (torch.from_numpy(a).cuda() for a in data)
+    with torch.no_grad():
+        loss0 = float(model.training_loss((X, Y)))
+    t0 = time.perf_counter()
+    res, counts = counted(lambda: Scipy().minimize(training_loss_closure(model, (X, Y)), model.trainable_variables,
+                                                   options={"maxiter": MC_LBFGS_ITERS}, nonfinite_penalty=GPR_PENALTY))
+    seconds = time.perf_counter() - t0
+    n_vars = sum(p.unconstrained.numel() for p in model.trainable_variables if p is not model.q_sqrt) \
+        + MC_C * MC_M * (MC_M + 1) // 2
+    log(f"multiclass lbfgs: {n_vars} variables over N={MC_N}, loss {loss0:.6e} -> {float(res.fun):.6e}; nit "
+        f"{res.nit}, nfev {res.nfev}, non-finite evaluations {res.n_nonfinite_evals}, status {res.status} "
+        f"({res.message})")
+    log(f"time: multiclass lbfgs N={MC_N}: {seconds:.3f} s, {seconds / max(res.nit, 1):.4f} s per iteration, "
+        f"{seconds / res.nfev:.4f} s per evaluation")
+    assert np.isfinite(res.fun) and float(res.fun) < loss0, "L-BFGS did not lower the multiclass objective"
+    expect_launches("multiclass lbfgs", counts, {"K1": 2 * int(res.nfev), "K2": 0}, launches)  # Kuu, Kuf a time
+    return seconds / res.nfev
+
+
+def mc_requests(model, Xb, Yb, launches, label):
+    """Requests of MC_B points through ``posterior()`` (TENSOR cache) with
+    ``predict_f``, the fused ``predict_f``, ``predict_y`` and
+    ``predict_log_density``, with exact launch counts where ``launches``."""
+    with torch.no_grad():
+        post, counts = counted(model.posterior)
+        if launches is not None:
+            expect_launches(f"{label} posterior", counts, {"K1": 1, "K2": 0}, launches)
+        out = {}
+        for key, fn, k1 in (("cached predict_f", lambda: post.predict_f(Xb), 1),
+                            ("fused predict_f", lambda: model.predict_f(Xb), 2),
+                            ("predict_y", lambda: model.predict_y(Xb), 2),
+                            ("predict_log_density", lambda: (model.predict_log_density((Xb, Yb)),), 2)):
+            out[key], counts = counted(fn)
+            if launches is not None:
+                expect_launches(f"{label} {key} request", counts, {"K1": k1, "K2": 0}, launches)
+    return out, post
+
+
+def mc_serve(model, lik, requests, launches):
+    """Phase 18d: requests of MC_B held-out points on the solve and
+    INV_SOLVE routes against the same values in float64 on the card
+    (Softmax with fixed draws), beside the lower-tier control (the same
+    values with Z and the points rounded to bfloat16, TF32 matmuls); class
+    probabilities in [0, 1], Softmax's summing to 1 within MC_PROB_SUM_ATOL
+    (RobustMax's need not: each class's probability is its own
+    Gauss-Hermite sum); held-out accuracy above chance. Returns the last
+    route's posterior."""
+    from gpflow_tpu_torch.conditionals import inv_solve
+    from gpflow_tpu_torch.utilities import read_values
+
+    Xb, Yb = (torch.from_numpy(a).cuda() for a in requests)
+    eps = mc_draws(MC_B, SEED + 22)
+    values = read_values(model)
+    m64 = mc_model(lik, np.zeros((MC_M, MC_D)), torch.float64, values)
+    ctl = mc_model(lik, np.zeros((MC_M, MC_D)), torch.float32, bf16_values(values))
+    c_kuu, c_s = ng_cond(m64)
+    log(f"multiclass {lik} requests: cond(Kuu + jitter I) {c_kuu:.4e}, cond(S) {c_s:.4e} (float64, jitter 1e-4)")
+    with fixed_draws(m64, eps):
+        want, _ = mc_requests(m64, Xb.double(), Yb.double(), None, "")
+    for route, flag in TRAIN_ROUTES:
+        with inv_solve(flag), fixed_draws(model, eps):
+            out, post = mc_requests(model, Xb, Yb, launches, f"multiclass {lik} {route}")
+        with inv_solve(flag), fixed_draws(ctl, eps):
+            cout = run_control(lambda: mc_requests(ctl, bf16(Xb), Yb, None, "")[0])
+        for key, tensors in out.items():
+            assert all(bool(torch.isfinite(t).all()) for t in tensors), f"{lik} {route} {key}: not finite"
+        judge(f"multiclass {lik} {route} requests", vgp_request_errors(out, want, MC_RTOL["requests"]),
+              vgp_request_errors(cout, want, MC_RTOL["requests"]))
+        p = out["predict_y"][0]
+        assert p.shape == (MC_B, MC_C) and bool(((p >= 0) & (p <= 1)).all()), f"{lik}: a probability outside [0, 1]"
+        assert bool((out["cached predict_f"][1] > 0).all()), f"{lik}: a predictive variance is not positive"
+        sums = p.double().sum(-1)
+        log(f"multiclass {lik} {route}: class probabilities in [{float(p.min()):.4e}, {float(p.max()):.4e}], "
+            f"their sums in [{float(sums.min()):.6f}, {float(sums.max()):.6f}]")
+        if lik == "Softmax":
+            assert float((sums - 1).abs().max()) <= MC_PROB_SUM_ATOL, "Softmax probabilities do not sum to 1"
+    accuracy = float((p.argmax(-1) == Yb[:, 0].long()).float().mean())
+    log(f"multiclass {lik}: held-out accuracy {accuracy:.4f} over {MC_B} points (chance {1 / MC_C:.2f}), "
+        f"mean log density {float(out['predict_log_density'][0].mean()):.4f}")
+    assert accuracy > 1.0 / MC_C, f"multiclass {lik}: held-out accuracy at or below chance"
+    return post
+
+
+def mc_scalar_checks(launches):
+    """Phase 18e: one value and gradient of an SVGP with each of the other
+    new likelihoods on the natural-gradient operating point's X and Z
+    (M = 1024, B = 4096, D = 8), float32 under sync debug mode "error"
+    against float64 on the card, within 64 * cond * eps32; Y drawn in each
+    likelihood's support, GaussianMC with fixed draws."""
+    from gpflow_tpu_torch import config, kernels, likelihoods
+    from gpflow_tpu_torch.models import SVGP
+    from gpflow_tpu_torch.utilities import load_jax_values
+
+    X, _, Z, _, _ = make_ng_data()
+    rng = np.random.RandomState(SEED + 23)
+    Xb = X[:NG_B]
+    f = np.sin(Xb @ rng.randn(D, 1)).astype(np.float32)
+    noise = rng.randn(NG_B, 1).astype(np.float32)
+    cases = {
+        "StudentT": (lambda: likelihoods.StudentT(scale=0.5, df=4.0), 1, f + 0.3 * noise),
+        "Exponential": (likelihoods.Exponential, 1, np.exp(f) * rng.exponential(size=(NG_B, 1))),
+        "Gamma": (lambda: likelihoods.Gamma(shape=2.0), 1, np.exp(f) * rng.gamma(2.0, size=(NG_B, 1))),
+        "Beta": (lambda: likelihoods.Beta(scale=5.0), 1, np.clip(0.5 + 0.4 * f + 0.05 * noise, 0.01, 0.99)),
+        "SwitchedLikelihood([Gaussian, StudentT])": (
+            lambda: likelihoods.SwitchedLikelihood([likelihoods.Gaussian(0.1), likelihoods.StudentT(scale=0.5)]), 1,
+            np.concatenate([f + 0.3 * noise, rng.randint(0, 2, (NG_B, 1))], axis=1)),
+        "GaussianMC": (lambda: likelihoods.GaussianMC(0.1), 1, f + 0.3 * noise),
+        "HeteroskedasticTFPConditional": (likelihoods.HeteroskedasticTFPConditional, 2,
+                                          f + np.exp(0.5 * f) * 0.3 * noise),
+    }
+    Xt = torch.from_numpy(Xb).cuda()
+    for name, (make, latents, Y) in cases.items():
+        Yt = torch.from_numpy(np.asarray(Y, np.float32)).cuda()
+        eps = mc_draws(NG_B, SEED + 24, latents)
+        models = {}
+        for dtype in (torch.float32, torch.float64):
+            with config.as_context(dataclasses.replace(config.config(), float=dtype)):
+                models[dtype] = SVGP(kernels.SquaredExponential(lengthscales=np.ones(D)), make(), Z,
+                                     num_latent_gps=latents, num_data=NG_N).to(dtype=dtype)
+        values = latent_values(models[torch.float32], SEED + 24, latents)
+        for dtype, m in models.items():
+            load_jax_values(m, {k: np.asarray(v).astype(np.float64 if dtype == torch.float64 else np.float32)
+                                for k, v in values.items()})
+
+        def value_and_grad(model, Xv, Yv):
+            with fixed_draws(model, eps):
+                return sparse_value_and_grad(model, lambda m: m.training_loss((Xv, Yv)))
+
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got, counts = counted(lambda: value_and_grad(models[torch.float32], Xt, Yt))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        expect_launches(f"multiclass slice {name}: ELBO and gradient", counts, {"K1": 2, "K2": 0}, launches)
+        want = value_and_grad(models[torch.float64], Xt.double(), Yt.double())
+        tol = ng_tolerance(f"multiclass slice {name}", models[torch.float64])
+        errs = vgp_errors(got, want, {"value": tol, "gradient": tol, "gradient q": tol})
+        for key, (err, limit) in errs.items():
+            log(f"multiclass slice {name}: {key}: rel err {err:.3e}, tol {limit:.1e}")
+            assert err <= limit, f"{name}: {key} disagrees with float64"
+        del models
+
+
+def mc_check_k1(launches):
+    """Phase 18f: K1 against its plain version at the path's shapes, rbf,
+    float32 inputs N(0, 1 / d) per dimension (N(0, 1) data over lengthscales
+    sqrt(d)), each with its launch plan; the D = 64 shapes stage with
+    vector loads, D = 13 with scalar ones. Returns the largest absolute
+    error against float64."""
+    from gpflow_tpu_torch.ops import pallas_distance as pd
+
+    rng = np.random.RandomState(SEED + 25)
+    var = torch.tensor([1.0], device="cuda")
+    worst = 0.0
+    for n, m, d in MC_K1_SHAPES:
+        Xs = torch.from_numpy((rng.randn(n, d) / np.sqrt(d)).astype(np.float32)).cuda()
+        Zs = torch.from_numpy((rng.randn(m, d) / np.sqrt(d)).astype(np.float32)).cuda()
+        seen = set()
+        K = pd.stationary_forward_cuda("rbf", Xs, Zs, var)
+        plan = plan_seen("K1", seen)
+        plain32 = pd.stationary_forward_plain("rbf", Xs, Zs, var)
+        plain64 = pd.stationary_forward_plain("rbf", Xs.double(), Zs.double(), var.double())
+        torch.cuda.synchronize()
+        assert K.shape == (n, m) and K.dtype == torch.float32
+        err64 = float((K.double() - plain64).abs().max())
+        err32 = float((K - plain32).abs().max())
+        log(f"K1 rbf ({n}, {m}, {d}): max abs err {err64:.3e} vs plain f64, tol {K1_ATOL_F64:.1e}; {err32:.3e} vs "
+            f"plain f32, tol {K1_ATOL_F32:.1e}; K in [{float(K.min()):.3e}, {float(K.max()):.3e}]; {plan}")
+        assert err64 <= K1_ATOL_F64 and err32 <= K1_ATOL_F32, f"K1 disagrees with its plain version at {(n, m, d)}"
+        assert seen == {(True, d % 4 == 0)}, f"K1 at {(n, m, d)} took plan {seen}"
+        worst = max(worst, err64)
+    return worst
+
+
+def mc_value_and_grad(model, batch):
+    return sparse_value_and_grad(model, lambda m: m.training_loss(batch))
+
+
+def mc_timings(models, trainers, lbfgs_eval_s, posts, requests):
+    """Phase 18g: the MultiClass and Softmax value and gradient by CUDA
+    events, several rounds with their spread; Adam and natural-gradient
+    steps per second, rounds with their spread; seconds per L-BFGS
+    evaluation; request latency; a profiler breakdown of one MultiClass
+    value and gradient; K1 at the path's shapes."""
+    X, Y = trainers["MultiClass adam"]._staged_data
+    batch = (X[:MC_B], Y[:MC_B])
+    for lik, model in models.items():
+        rounds = [device_ms(lambda: mc_value_and_grad(model, batch), 5, warmup=1) for _ in range(MC_TIMED_ROUNDS)]
+        host = [request_ms(lambda: mc_value_and_grad(model, batch), 5, warmup=1) for _ in range(2)]
+        log(f"time: multiclass {lik} value and gradient M={MC_M}, B={MC_B}, C={MC_C}: device {min(rounds):.3f} ms "
+            f"(rounds {[round(r, 3) for r in rounds]}, spread {max(rounds) - min(rounds):.3f} ms); back to back "
+            f"with the host {min(host):.3f} ms (rounds {[round(r, 3) for r in host]})")
+    for key, trainer in trainers.items():
+        rates = [MC_STEPS / request_ms(lambda: trainer.run_steps_sampled(MC_STEPS, MC_B), 1, warmup=int(i == 0))
+                 * 1e3 for i in range(MC_TIMED_ROUNDS)]
+        log(f"time: multiclass train {key} at B={MC_B}: {max(rates):.2f} steps/s ({1e3 / max(rates):.3f} ms per "
+            f"step); rounds {[round(r, 2) for r in rates]}, spread {max(rates) - min(rates):.2f} steps/s")
+    log(f"time: multiclass lbfgs: {lbfgs_eval_s:.4f} s per evaluation")
+    Xb, Yb = (torch.from_numpy(a).cuda() for a in requests)
+    with torch.no_grad():
+        for lik, model in models.items():
+            post = posts[lik]
+            for key, fn in (("posterior()", model.posterior), ("cached predict_f", lambda: post.predict_f(Xb)),
+                            ("fused predict_f", lambda: model.predict_f(Xb)),
+                            ("predict_y", lambda: model.predict_y(Xb)),
+                            ("predict_log_density", lambda: model.predict_log_density((Xb, Yb)))):
+                rounds = [request_ms(fn, 5, warmup=1) for _ in range(MC_TIMED_ROUNDS)]
+                log(f"time: multiclass {lik} {key} at B={MC_B}: {min(rounds):.3f} ms per request (rounds "
+                    f"{[round(r, 3) for r in rounds]})")
+    profile_device(lambda: mc_value_and_grad(models["MultiClass"], batch),
+                   f"multiclass MultiClass value and gradient M={MC_M}, B={MC_B}, C={MC_C}", top=12)
+    with torch.no_grad():
+        for n, m, d in MC_K1_SHAPES:
+            time_k1(n, m, iters=20, d=d)
+
+
+def mc_phases(launches):
+    """Phase 18."""
+    data, requests, Z = make_mc_data()
+    mc_check_objective(data, Z, launches)
+    staged = (torch.from_numpy(data[0]).cuda(), torch.from_numpy(data[1]).cuda())
+    trainers = {"MultiClass adam": mc_train("MultiClass", None, staged, Z, launches),
+                "Softmax adam": mc_train("Softmax", None, staged, Z, launches),
+                "MultiClass natgrad fused": mc_train("MultiClass", MC_NG_GAMMA, staged, Z, launches)}
+    mc_train("MultiClass", NG_GAMMA, staged, Z, launches, steps=1)  # the Bernoulli point's gamma: logged
+    torch.cuda.empty_cache()
+    classifier = trainers["MultiClass natgrad fused"].model
+    lbfgs_eval_s = mc_lbfgs(classifier, data, launches)
+    torch.cuda.empty_cache()
+    models = {"MultiClass": classifier, "Softmax": trainers["Softmax adam"].model}
+    posts = {lik: mc_serve(model, lik, requests, launches) for lik, model in models.items()}
+    torch.cuda.empty_cache()
+    mc_scalar_checks(launches)
+    torch.cuda.empty_cache()
+    k1_err = mc_check_k1(launches)
+    mc_timings(models, trainers, lbfgs_eval_s, posts, requests)
+    return k1_err
+
+
 def _kernel_category(name):
     # cuSOLVER's float32 Cholesky runs as getrf_wo_pivot on this card
     n = name.lower()
@@ -2542,6 +3020,9 @@ def main():
     torch.cuda.empty_cache()
 
     vgp_phases(launches)
+    torch.cuda.empty_cache()
+
+    k1_err = max(k1_err, mc_phases(launches))
     torch.cuda.empty_cache()
 
     n = GPR_NS[-1]

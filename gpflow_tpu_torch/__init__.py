@@ -8,7 +8,8 @@ natural gradients for the non-conjugate likelihoods) and fits an exact GPR
 GPRFITC and CGLB, and the VGP and VGPOpperArchambeau through the
 single-output ``conditionals.conditional``, with stationary, Linear, static
 and Periodic kernels, their sums and products, and mean functions, and
-serves them (ROADMAP.md lists what is still to port). Shape contracts
+multiclass SVGPs (``MultiClass``, ``Softmax``) over several latent GPs with
+the rest of the JAX package's likelihoods, and serves them (ROADMAP.md lists what is still to port). Shape contracts
 (``utilities.check_shapes``) are off unless switched on. On a CUDA device, covariance matrices come from the hand-written
 kernel K1 and the gradients of the exponential and Matern families from K2
 (``gpflow_tpu_torch.ops.pallas_distance``).

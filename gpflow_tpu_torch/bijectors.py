@@ -15,8 +15,10 @@ import torch
 __all__ = [
     "Bijector",
     "Chain",
+    "Exp",
     "Identity",
     "Shift",
+    "Sigmoid",
     "Softplus",
     "TriangularMask",
     "positive",
@@ -47,6 +49,17 @@ class Identity(Bijector):
 
 
 @dataclasses.dataclass(frozen=True)
+class Exp(Bijector):
+    """``gpflow_tpu/bijectors.py:87-103``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.exp(x)
+
+    def inverse(self, y: torch.Tensor) -> torch.Tensor:
+        return torch.log(y)
+
+
+@dataclasses.dataclass(frozen=True)
 class Softplus(Bijector):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # log(1 + e^x) as the JAX package writes it; torch's softplus returns
@@ -67,6 +80,21 @@ class Shift(Bijector):
 
     def inverse(self, y: torch.Tensor) -> torch.Tensor:
         return y - self.shift
+
+
+@dataclasses.dataclass(frozen=True)
+class Sigmoid(Bijector):
+    """Maps R onto (low, high) (``gpflow_tpu/bijectors.py:155-185``)."""
+
+    low: float = 0.0
+    high: float = 1.0
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.low + (self.high - self.low) * torch.sigmoid(x)
+
+    def inverse(self, y: torch.Tensor) -> torch.Tensor:
+        z = (y - self.low) / (self.high - self.low)
+        return torch.log(z) - torch.log1p(-z)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,15 +130,23 @@ class TriangularMask(Bijector):
         return torch.tril(y)
 
 
-def positive(lower: Optional[float] = None) -> Bijector:
-    """``shift(lower) o softplus``; ``lower`` defaults to
-    ``config.default_positive_minimum()``."""
+def positive(lower: Optional[float] = None, base: Optional[str] = None) -> Bijector:
+    """``shift(lower) o softplus``, or ``shift(lower) o exp`` with
+    ``base="exp"`` (``gpflow_tpu/bijectors.py:317-338``); ``lower`` defaults
+    to ``config.default_positive_minimum()``."""
     from .config import default_positive_minimum
 
+    name = "softplus" if base is None else base.lower()
+    if name == "softplus":
+        bijector: Bijector = Softplus()
+    elif name == "exp":
+        bijector = Exp()
+    else:
+        raise ValueError(f"Unknown positive bijector {name!r}")
     shift = lower if lower is not None else default_positive_minimum()
     if shift != 0.0:
-        return Chain((Shift(float(shift)), Softplus()))
-    return Softplus()
+        return Chain((Shift(float(shift)), bijector))
+    return bijector
 
 
 def triangular() -> TriangularMask:

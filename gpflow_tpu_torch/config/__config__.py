@@ -1,6 +1,7 @@
 """Process-global configuration (counterpart of ``gpflow_tpu/config/__config__.py``).
 
 Holds the default float type (float64, as in the JAX package), the default
+integer type (int64, the type of class labels and indices), the default
 device (``"cuda"``: parameters and data are built on the card unless the
 caller asks for another device, as in ``set_default_device("cpu")`` or
 ``as_context(Config(device="cpu"))``; with no card, building raises torch's
@@ -29,6 +30,7 @@ __all__ = [
     "config",
     "default_device",
     "default_float",
+    "default_int",
     "default_jitter",
     "default_likelihood_positive_minimum",
     "default_positive_minimum",
@@ -57,6 +59,7 @@ class Config:
     float type, so ``Config(float=torch.float32)`` gets 1e-4."""
 
     float: torch.dtype = torch.float64
+    int: torch.dtype = torch.int64
     device: Union[str, torch.device] = "cuda"
     jitter: Optional[float] = None
     positive_minimum: float = 0.0
@@ -64,6 +67,7 @@ class Config:
 
     def __post_init__(self) -> None:
         object.__setattr__(self, "float", as_torch_dtype(self.float))
+        object.__setattr__(self, "int", as_torch_dtype(self.int))
         object.__setattr__(self, "device", torch.device(self.device))
         if self.jitter is None:
             object.__setattr__(self, "jitter", _dtype_matched_jitter(self.float))
@@ -84,6 +88,11 @@ def set_config(new_config: Config) -> None:
 
 def default_float() -> torch.dtype:
     return config().float
+
+
+def default_int() -> torch.dtype:
+    """The integer type of class labels and indices (``__config__.py:166``)."""
+    return config().int
 
 
 def default_device() -> torch.device:

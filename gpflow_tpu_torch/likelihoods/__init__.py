@@ -1,16 +1,43 @@
-from .base import DEFAULT_NUM_GAUSS_HERMITE_POINTS, Likelihood, QuadratureLikelihood, ScalarLikelihood
-from .scalar_continuous import Gaussian
+from .base import (
+    DEFAULT_NUM_GAUSS_HERMITE_POINTS,
+    Likelihood,
+    MonteCarloLikelihood,
+    QuadratureLikelihood,
+    ScalarLikelihood,
+    SwitchedLikelihood,
+)
+from .misc import GaussianMC
+from .multiclass import MultiClass, RobustMax, Softmax
+from .multilatent import (
+    HeteroskedasticTFPConditional,
+    MultiLatentLikelihood,
+    MultiLatentTFPConditional,
+)
+from .scalar_continuous import Beta, Exponential, Gamma, Gaussian, StudentT
 from .scalar_discrete import Bernoulli, Ordinal, Poisson
 from .utils import inv_probit
 
 __all__ = [
     "Bernoulli",
+    "Beta",
     "DEFAULT_NUM_GAUSS_HERMITE_POINTS",
+    "Exponential",
+    "Gamma",
     "Gaussian",
+    "GaussianMC",
+    "HeteroskedasticTFPConditional",
     "Likelihood",
+    "MonteCarloLikelihood",
+    "MultiClass",
+    "MultiLatentLikelihood",
+    "MultiLatentTFPConditional",
     "Ordinal",
     "Poisson",
     "QuadratureLikelihood",
+    "RobustMax",
     "ScalarLikelihood",
+    "Softmax",
+    "StudentT",
+    "SwitchedLikelihood",
     "inv_probit",
 ]

@@ -10,7 +10,7 @@ from ..base import MeanAndVariance, Module
 from ..config import default_device, default_float
 from ..functions import MeanFunction, Zero
 from ..kernels import Kernel
-from ..likelihoods import Likelihood
+from ..likelihoods import Likelihood, SwitchedLikelihood
 from ..utilities.model_utils import assert_params_false
 from ..utilities.shapes import check_shapes
 
@@ -68,14 +68,21 @@ class GPModel(BayesianModel):
         "data[1]: [batch..., N, P]",
     )
     def calc_num_latent_gps_from_data(data: Any, kernel: Kernel, likelihood: Likelihood) -> int:
-        """One latent GP per column of Y (``gpflow_tpu/models/model.py:72-82``;
-        the multi-output kernels and the switched likelihood, which change
-        that count there, are not ported yet)."""
+        """One latent GP per column of Y, but for the index column of a
+        ``SwitchedLikelihood`` (``gpflow_tpu/models/model.py:72-82``; the
+        multi-output kernels, which set their own count there, are not
+        ported yet)."""
         _, Y = data
         return GPModel.calc_num_latent_gps(kernel, likelihood, Y.shape[-1])
 
     @staticmethod
     def calc_num_latent_gps(kernel: Kernel, likelihood: Likelihood, output_dim: int) -> int:
+        """P, or P - 1 for a ``SwitchedLikelihood``, whose last column of Y
+        is the index (``gpflow_tpu/models/model.py:84-95``)."""
+        if isinstance(likelihood, SwitchedLikelihood):
+            if output_dim < 2:
+                raise ValueError("SwitchedLikelihood needs Y with an index column and at least one output")
+            return output_dim - 1
         return output_dim
 
     @abc.abstractmethod

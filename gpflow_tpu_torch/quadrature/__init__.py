@@ -1,6 +1,6 @@
-"""Quadrature (counterpart of ``gpflow_tpu/quadrature``; the deprecated
-functions of ``deprecated.py`` wait, ROADMAP.md)."""
+"""Quadrature (counterpart of ``gpflow_tpu/quadrature``)."""
 from .base import GaussianQuadrature
+from .deprecated import hermgauss, mvhermgauss, mvnquad, ndiag_mc, ndiagquad
 from .gauss_hermite import (
     NDiagGHQuadrature,
     gh_points_and_weights,
@@ -14,8 +14,13 @@ __all__ = [
     "GaussianQuadrature",
     "NDiagGHQuadrature",
     "gh_points_and_weights",
+    "hermgauss",
     "list_to_flat_grid",
+    "mvhermgauss",
+    "mvnquad",
     "ndgh_points_and_weights",
+    "ndiag_mc",
+    "ndiagquad",
     "repeat_as_list",
     "reshape_Z_dZ",
 ]

@@ -3,7 +3,7 @@
 numpy's ``hermgauss``, once, at construction."""
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -12,6 +12,8 @@ from ..config import default_device
 from .base import GaussianQuadrature
 
 __all__ = [
+    "DeviceGrid",
+    "canonical_device",
     "NDiagGHQuadrature",
     "gh_points_and_weights",
     "list_to_flat_grid",
@@ -55,43 +57,55 @@ def ndgh_points_and_weights(dim: int, n_gh: int) -> Tuple[np.ndarray, np.ndarray
     return reshape_Z_dZ(repeat_as_list(z, dim), repeat_as_list(dz, dim))
 
 
-class NDiagGHQuadrature(GaussianQuadrature):
-    """Gauss-Hermite quadrature for diagonal Gaussians of dimension ``dim``
-    (``gauss_hermite.py:92-127``).
+def canonical_device(device: Union[str, torch.device]) -> torch.device:
+    """``device`` as a cache key: a bare "cuda" names the current card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
 
-    The grid is placed on ``config.default_device()`` in float64 when the
-    quadrature is built, and cast on the device to the type of each use,
-    once: a training step makes no host-to-device copy of it."""
+
+class DeviceGrid:
+    """Host arrays of a quadrature grid, placed on ``config.default_device()``
+    in float64 when the grid is built and cast on the device to the type of
+    each use, once: a training step makes no host-to-device copy of them."""
+
+    def __init__(self, *arrays: np.ndarray) -> None:
+        self._arrays = arrays
+        self._grids: Dict[Tuple[torch.device, torch.dtype], Tuple[torch.Tensor, ...]] = {}
+        self.grid(default_device(), torch.float64)
+
+    def grid(self, device: torch.device, dtype: torch.dtype) -> Tuple[torch.Tensor, ...]:
+        """The arrays on ``device`` in ``dtype``: cast from a float64 copy
+        already on that device where there is one, else copied from the
+        host."""
+        device = canonical_device(device)
+        key = (device, dtype)
+        if key not in self._grids:
+            source = self._grids.get((device, torch.float64))
+            if source is None:
+                source = tuple(torch.as_tensor(a, dtype=torch.float64, device=device) for a in self._arrays)
+                self._grids[(device, torch.float64)] = source
+            self._grids[key] = tuple(t.to(dtype) for t in source)
+        return self._grids[key]
+
+
+class NDiagGHQuadrature(GaussianQuadrature, DeviceGrid):
+    """Gauss-Hermite quadrature for diagonal Gaussians of dimension ``dim``
+    (``gauss_hermite.py:92-127``), its grid a ``DeviceGrid``."""
 
     def __init__(self, dim: int, n_gh: int) -> None:
         self.dim = dim
         self.n_gh = n_gh
         self.n_gh_total = n_gh ** dim
         self.Z, self.dZ = ndgh_points_and_weights(dim, n_gh)
-        self._grids: Dict[Tuple[torch.device, torch.dtype], Tuple[torch.Tensor, torch.Tensor]] = {}
-        self._grid(default_device(), torch.float64)
-
-    def _grid(self, device: torch.device, dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(Z, dZ) on ``device`` in ``dtype``: cast from a float64 copy
-        already on that device where there is one, else copied from the
-        host."""
-        device = torch.device(device)
-        if device.type == "cuda" and device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
-        key = (device, dtype)
-        if key not in self._grids:
-            source = self._grids.get((device, torch.float64))
-            if source is None:
-                source = tuple(torch.as_tensor(a, dtype=torch.float64, device=device) for a in (self.Z, self.dZ))
-                self._grids[(device, torch.float64)] = source
-            self._grids[key] = tuple(t.to(dtype) for t in source)
-        return self._grids[key]
+        DeviceGrid.__init__(self, self.Z, self.dZ)
 
     def _build_X_W(self, mean: torch.Tensor, var: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """mean, var [b1, ..., bN, dim] -> X [n_gh_total, b1, ..., bN, dim]
         and W [n_gh_total, 1, ..., 1]."""
         batch_ndim = mean.ndim - 1
-        Z, dZ = self._grid(mean.device, mean.dtype)
+        Z, dZ = self.grid(mean.device, mean.dtype)
         Z = Z.reshape((self.n_gh_total,) + (1,) * batch_ndim + (self.dim,))
         W = dZ.reshape((self.n_gh_total,) + (1,) * batch_ndim + (1,))
         # A variance that rounding left at or below zero is clamped to zero,
