@@ -21,7 +21,9 @@ data (slice 7; ``bench.py`` has no VGP operating point); and the
 multiclass SVGP of the JAX harness (``benchmark/models.py:80-108``) with
 MultiClass (RobustMax) and Softmax over C = 10 latent GPs at M = 1024,
 B = 4096, N = 32768, D = 64 on synthetic data (slice 8; ``bench.py`` has no
-multiclass operating point). Models are built on the card, the
+multiclass operating point); and the multioutput SVGP at SARCOS's shapes
+(N = 44484, D = 21, P = 7) with M = 1024, B = 4096 (slice 9; ``bench.py``
+has no multioutput operating point). Models are built on the card, the
 port's default device; the float64 references ask for the CPU, or for float64
 on the card where the CPU would take minutes. Phases:
 
@@ -142,7 +144,35 @@ on the card where the CPU would take minutes. Phases:
    (1024, 32768, 64) and (1024, 4096, 13), launch counts exactly as each
    path implies; (g) timings: value and gradient, steps per second, L-BFGS,
    requests, a profile of one MultiClass value and gradient, K1 at the four
-   shapes.
+   shapes;
+19. the multioutput slice at SARCOS's shapes (N = 44484, 4449 held out,
+   D = 21, P = 7; synthetic data from a seed) with M = 1024, B = 4096: (a)
+   the main model, a LinearCoregionalization of L = 4 latent GPs (two
+   SquaredExponential, two Matern52) on separate inducing points, its ELBO
+   and gradient under sync debug mode "error" against float64 on the card
+   on three sets of values, beside the lower-tier control, and once more on
+   the INV_SOLVE route (the batched [L, M, M] inverse and its backward);
+   (b) likewise
+   SharedIndependent and SeparateIndependent over the 7 outputs; (c) the
+   main model on the fallback route (the interdomain Kuf [M, L, B, P]),
+   also equal to (a) from the same values; (d) the fully correlated route
+   at M = 256, B = 1024, whitened and not (the [MP, MP] prior KL), against
+   float64; (e) ``run_steps_sampled`` over the 44484 rows, 20 Adam steps
+   each for (a) and the shared model and 20 fused natural-gradient steps
+   (gamma 0.1) for (a), under sync debug mode "error", losses finite and
+   falling; (f) requests of the 4449 held-out points to the trained (a)
+   (``posterior()`` with ``predict_f`` and ``predict_mean``, fused
+   ``predict_f`` with and without the full output covariance, whose
+   diagonal must be the marginal variance, ``predict_y``,
+   ``predict_log_density``) on both routes against float64 beside the
+   control; (g) an SVGP
+   with SquaredExponential * Coregion(7, rank 2) on 4096 stacked rows
+   [x, output index] under a SwitchedLikelihood of 7 Gaussians, against
+   float64 beside the control; (h) K1 and K2 against their plain versions
+   at the D = 21 shapes, TMA and edge paths, and launch counts exactly as
+   each path implies; (i) timings: each route's value and gradient, steps
+   per second, requests, a profile of one value and gradient of (a), K1 and
+   K2 at the D = 21 shapes.
 
 Every failure raises, and the script then exits non-zero without the result
 line. The line before the last is ``{"kernels": [...]}``; the last is
@@ -429,6 +459,71 @@ MC_PROB_SUM_ATOL = 8 * MC_C * float(np.finfo(np.float32).eps)
 # of the whole data in an L-BFGS evaluation) and at wine's width, D = 13,
 # where D % 4 != 0 takes the scalar staging.
 MC_K1_SHAPES = [(MC_M, MC_M, MC_D), (MC_M, MC_B, MC_D), (MC_M, MC_N, MC_D), (MC_M, MC_B, 13)]
+
+# The multioutput path (slice 9; bench.py has no multioutput point, PERF.md
+# §4): SARCOS robot-arm inverse dynamics (Rasmussen and Williams, GPML,
+# 2006, §2.5; 44484 training and 4449 test points, 21 inputs, 7 joint
+# torques), the standard public multi-output regression set, at bench.py's
+# non-conjugate operating point (M = 1024, B = 4096, float32, whitened full
+# q_sqrt; bench.py:222-279). SARCOS is not in the repository and nothing is
+# downloaded, so the data are synthetic at its shapes, from a seed: X ~
+# N(0, 1) in 21 dimensions, Y = sin(X A) B^T + 0.1 noise for seeded A
+# [21, 4] (entries N(0, 1 / 21), so that X A ~ N(0, 1)) and B [7, 4]; the Z
+# of each latent GP the first M rows of its own seeded permutation of X;
+# ARD lengthscales sqrt(21) times a factor per latent GP, as phase 18 took
+# sqrt(64) for N(0, 1) data. The main model is a LinearCoregionalization of
+# L = 4 latent GPs (two SquaredExponential, two Matern52) mixed by a seeded
+# W [7, 4] into P = 7 outputs, on SeparateIndependentInducingVariables, with
+# a Gaussian likelihood.
+MO_N, MO_NEW, MO_D, MO_P, MO_L = 44484, 4449, 21, 7, 4
+MO_M, MO_B = 1024, 4096
+MO_LATENTS = (("SquaredExponential", 1.0), ("SquaredExponential", 0.75), ("Matern52", 1.0), ("Matern52", 0.75))
+MO_NOISE = 0.1
+# The fully correlated route (InducingPoints with SharedIndependent over the
+# 7 outputs) works on Kuu [M, 7, M, 7] as one [7M, 7M] matrix: its cost grows
+# as (MP)^3, and the JAX package offers it as the generic route, not the one
+# users scale. It runs at M = 256 and B = 1024: a [1792, 1792] Kuu.
+MO_FC_M, MO_FC_B = 256, 1024
+MO_STEPS = 20  # Adam steps for the main model and the shared one, and fused natural-gradient steps
+MO_NG_GAMMA = 0.1  # the Bernoulli point's gamma: a Gaussian likelihood is log-concave
+MO_TIMED_ROUNDS = 3
+MO_VALUE_SEEDS = (SEED + 40, SEED + 41, SEED + 42)  # variational values for the float64 checks
+# Each route's ELBO and gradient in float32 on the card against float64 on
+# the card, from the same values (off their start) on the same batch, both
+# with the float32 jitter 1e-4. Relative to the largest float64 entry, the
+# value to itself. The limits are set from readings on the three sets of
+# values of every route (PERF.md §6, multioutput), 2-5 times the largest error of
+# the sound float32 runs: value 4.5e-7 (Coregion's; the other routes'
+# 2.5e-7), gradients 1.3e-4 (the fallback
+# route's lengthscales and Z, cond(Kuu + 1e-4 I) 9.3e4), q 4.2e-5 (the
+# unwhitened fully correlated route); requests from the trained model: mean
+# 8.5e-5, variance 1.9e-4 (the cached route's explicit inverse), the full
+# output covariance 2.1e-6, log density 6.6e-5. The main model on INV_SOLVE
+# reads value 6.6e-7, gradients 9.0e-5, q 3.6e-5. Each check of routes (a),
+# (b), (c) and (g), and the requests on both routes, run the lower-tier
+# control (K1 fed bfloat16-rounded X and Z, TF32 matmuls), which must break
+# at least one limit; the least, over the checks, of its largest error in
+# each class: value 2.5e-5, gradients 2.9e-3, q 1.2e-3, mean 6.1e-3,
+# variance 3.6e-2, covariance 3.8e-3, log density 3.2e-3.
+MO_RTOL = {"value": 1e-6, "gradient": 6e-4, "gradient q": 2e-4,
+           "requests": {"mean": 4e-4, "var": 1e-3, "cov": 1e-5, "log density": 3e-4}}
+# The fallback route computes the main model's ELBO and gradient through the
+# interdomain Kuf [M, L, B, P]: in float32 it must equal the main route's
+# within these limits (two float32 runs, each within MO_RTOL of float64).
+MO_SAME_RTOL = {key: 2 * MO_RTOL[key] for key in ("value", "gradient", "gradient q")}
+# A request's full output covariance [N, 7, 7] must hold the marginal
+# variance on its diagonal: the two mix the same latent variances with W in
+# another order, so they agree to a few float32 roundings of the largest
+# variance.
+MO_DIAG_RTOL = 16 * float(np.finfo(np.float32).eps)
+# K1 at the path's shapes at D = 21 (Kuu, Kuf of a batch, Kuf of a request,
+# and the fully correlated route's Kuu and Kuf at M = 256, B = 1024) and K2
+# at Kuu and Kuf of a batch; D % 4 != 0 takes the scalar staging, a
+# request's 4449 columns the edge path, and K2 at the request shape (off the
+# path: requests take no gradient) shows K2's edge path at D = 21.
+MO_K1_SHAPES = [(MO_M, MO_M, MO_D), (MO_M, MO_B, MO_D), (MO_M, MO_NEW, MO_D),
+                (MO_FC_M, MO_FC_M, MO_D), (MO_FC_M, MO_FC_B, MO_D)]
+MO_K2_SHAPES = [(MO_M, MO_M, MO_D), (MO_M, MO_B, MO_D), (MO_M, MO_NEW, MO_D)]
 
 
 def log(*args):
@@ -862,13 +957,18 @@ def profile_step(trainer, kernel, route):
         profile_device(lambda: trainer.run_steps_sampled(1, B), f"train {kernel} {route}")
 
 
-def time_k2(n, m, iters=50, family="matern52"):
-    """Phase 10: K2 against the plain version, device time, interleaved."""
+def time_k2(n, m, iters=50, family="matern52", d=D):
+    """Phase 10: K2 against the plain version, device time, interleaved. At
+    d = D the inputs are uniform on [0, 4]^8; at another width N(0, 1 / d)
+    per dimension, as in ``time_k1`` (phase 19)."""
     from gpflow_tpu_torch.ops import pallas_distance as pd
 
     rng = np.random.RandomState(SEED + 6)
-    Xs = torch.from_numpy((rng.rand(n, D) * 4).astype(np.float32)).cuda()
-    Zs = torch.from_numpy((rng.rand(m, D) * 4).astype(np.float32)).cuda()
+    if d == D:
+        Xs, Zs = (rng.rand(n, d) * 4).astype(np.float32), (rng.rand(m, d) * 4).astype(np.float32)
+    else:
+        Xs, Zs = ((rng.randn(k, d) / np.sqrt(d)).astype(np.float32) for k in (n, m))
+    Xs, Zs = torch.from_numpy(Xs).cuda(), torch.from_numpy(Zs).cuda()
     g = torch.from_numpy(rng.randn(n, m).astype(np.float32)).cuda()
     var = torch.tensor([1.0], device="cuda")
     fns = {"plain": pd.stationary_wgrad_plain, "k2": pd.stationary_wgrad_cuda}
@@ -877,9 +977,10 @@ def time_k2(n, m, iters=50, family="matern52"):
         got[which].append(device_ms(lambda: fns[which](family, Xs, Zs, var, g), iters))
     k2, plain = min(got["k2"]), min(got["plain"])
     gbs = n * m * 8 / (k2 * 1e-3) / 1e9
-    bound_ms, bound_by = kernel_bound_ms("K2", n, m, D)
-    log(f"time: K2 {family} ({n}, {m}, {D}): {k2:.4f} ms ({gbs:.0f} GB/s of g read and W written), "
-        f"plain {plain:.4f} ms, bound {bound_ms:.4f} ms by {bound_by}; runs k2 {got['k2']}, plain {got['plain']}")
+    bound_ms, bound_by = kernel_bound_ms("K2", n, m, d)
+    log(f"time: K2 {family} ({n}, {m}, {d}): {k2:.4f} ms ({gbs:.0f} GB/s of g read and W written), "
+        f"plain {plain:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} ({100 * bound_ms / k2:.0f}% of the bound's rate); "
+        f"runs k2 {got['k2']}, plain {got['plain']}")
     return k2, plain
 
 
@@ -1548,8 +1649,9 @@ def run_control(fn):
 
 
 def bf16_values(values):
-    """``read_values`` output with the inducing points rounded as ``bf16``."""
-    return {k: bf16(v).numpy() if k == ".inducing_variable.Z" else v for k, v in values.items()}
+    """``read_values`` output with every set of inducing points rounded as
+    ``bf16``."""
+    return {k: bf16(v).numpy() if k.endswith(".Z") else v for k, v in values.items()}
 
 
 def judge(what, sound, control=None):
@@ -2822,6 +2924,455 @@ def mc_phases(launches):
     return k1_err
 
 
+def make_mo_data():
+    """Phase 19's data: ((X, Y) of MO_N training points, (Xnew, Ynew) of
+    MO_NEW held-out points, the Z of each of MO_P latent GPs, W [P, L]),
+    from RandomState(SEED + 40)."""
+    rng = np.random.RandomState(SEED + 40)
+    X = rng.randn(MO_N + MO_NEW, MO_D).astype(np.float32)
+    A = (rng.randn(MO_D, 4) / np.sqrt(MO_D)).astype(np.float32)
+    Bm = rng.randn(MO_P, 4).astype(np.float32)
+    Y = (np.sin(X @ A) @ Bm.T + MO_NOISE * rng.randn(MO_N + MO_NEW, MO_P)).astype(np.float32)
+    Zs = [X[rng.permutation(MO_N)[:MO_M]].copy() for _ in range(MO_P)]
+    W = rng.randn(MO_P, MO_L).astype(np.float32)
+    return (X[:MO_N], Y[:MO_N]), (X[MO_N:], Y[MO_N:]), Zs, W
+
+
+def mo_model(route, Zs, W, dtype, values=None, whiten=True):
+    """An SVGP of phase 19 on the card in ``dtype``, ``num_data`` = MO_N,
+    q_mu zeros and q_sqrt identities, or the constrained ``values`` of
+    ``read_values``. Routes: "lmc" (the main model), "lmc fallback" (the
+    same on FallbackSeparateIndependentInducingVariables), "shared"
+    (SharedIndependent SquaredExponential on shared inducing points),
+    "separate" (SeparateIndependent, one kernel and one Z per output) and
+    "fully correlated" (InducingPoints, M = MO_FC_M, q(u) over the flattened
+    [M * P] vector)."""
+    from gpflow_tpu_torch import config, kernels, likelihoods
+    from gpflow_tpu_torch.inducing_variables import (
+        FallbackSeparateIndependentInducingVariables,
+        InducingPoints,
+        SeparateIndependentInducingVariables,
+        SharedIndependentInducingVariables,
+    )
+    from gpflow_tpu_torch.models import SVGP
+    from gpflow_tpu_torch.utilities import load_jax_values
+
+    def latent(name, factor=1.0):
+        return getattr(kernels, name)(lengthscales=np.full(MO_D, factor * np.sqrt(MO_D)))
+
+    with config.as_context(dataclasses.replace(config.config(), float=dtype)):
+        q_mu = q_sqrt = None
+        if route in ("lmc", "lmc fallback"):
+            kernel = kernels.LinearCoregionalization([latent(n, f) for n, f in MO_LATENTS], W=W)
+            cls = SeparateIndependentInducingVariables if route == "lmc" else FallbackSeparateIndependentInducingVariables
+            iv = cls([InducingPoints(Zs[i]) for i in range(MO_L)])
+        elif route == "shared":
+            kernel = kernels.SharedIndependent(latent("SquaredExponential"), MO_P)
+            iv = SharedIndependentInducingVariables(InducingPoints(Zs[0]))
+        elif route == "separate":
+            kernel = kernels.SeparateIndependent([latent(*MO_LATENTS[p % MO_L]) for p in range(MO_P)])
+            iv = SeparateIndependentInducingVariables([InducingPoints(Zs[p]) for p in range(MO_P)])
+        else:
+            kernel = kernels.SharedIndependent(latent("SquaredExponential"), MO_P)
+            iv = InducingPoints(Zs[0][:MO_FC_M])
+            q_mu, q_sqrt = np.zeros((MO_FC_M * MO_P, 1)), np.eye(MO_FC_M * MO_P)[None]
+        model = SVGP(kernel, likelihoods.Gaussian(MO_NOISE), iv, num_latent_gps=kernel.num_latent_gps,
+                     q_mu=q_mu, q_sqrt=q_sqrt, whiten=whiten, num_data=MO_N)
+    model = model.to(dtype=dtype)
+    if values is not None:
+        np_dtype = np.float64 if dtype == torch.float64 else np.float32
+        load_jax_values(model, {k: np.asarray(v).astype(np_dtype) for k, v in values.items()})
+    return model
+
+
+def mo_launches(route, whiten=True):
+    """K1 and K2 launches of one ELBO and gradient on ``route``: K1 for Kuu
+    and Kuf of each latent kernel (and Kuu again for an unwhitened KL), K2
+    in the backward of each Matern52's."""
+    if route in ("lmc", "lmc fallback"):
+        names = [n for n, _ in MO_LATENTS]
+    elif route == "separate":
+        names = [MO_LATENTS[p % MO_L][0] for p in range(MO_P)]
+    else:
+        names = ["SquaredExponential"]
+    return {"K1": (2 if whiten else 3) * len(names), "K2": 2 * names.count("Matern52")}
+
+
+def mo_value_and_grad(model, batch):
+    return sparse_value_and_grad(model, lambda m: m.training_loss(batch))
+
+
+def mo_cond(model64):
+    """cond(Kuu + jitter I) (the largest over the latent GPs; the fully
+    correlated one as [MP, MP]) and cond(S) of a float64 model."""
+    from gpflow_tpu_torch.config import default_jitter
+    from gpflow_tpu_torch.covariances import Kuu
+
+    with torch.no_grad():
+        kuu = Kuu(model64.inducing_variable, model64.kernel, jitter=default_jitter())
+        if kuu.ndim == 4:
+            kuu = kuu.reshape(kuu.shape[0] * kuu.shape[1], -1)
+        e = torch.linalg.eigvalsh(kuu)
+        L = model64.q_sqrt.value
+        s = torch.linalg.eigvalsh(L @ L.mT)
+    return float((e[..., -1] / e[..., 0]).max()), float((s[:, -1] / s[:, 0]).max())
+
+
+def mo_batch(data, size):
+    X, Y = data
+    idx = np.random.RandomState(SEED + 40).randint(0, MO_N, size)
+    return torch.from_numpy(X[idx]).cuda(), torch.from_numpy(Y[idx]).cuda()
+
+
+def mo_check(what, build, values_of, batch, expected, launches, seeds=MO_VALUE_SEEDS, control=True, inv=False):
+    """Phase 19a-d and g: the ELBO and its gradient of ``build(dtype,
+    values)`` on ``batch`` under sync debug mode "error", against float64 on
+    the card on the solve route, on the values ``values_of(seed)`` of each
+    of ``seeds``, beside the lower-tier control where ``control``; launch
+    counts exactly ``expected``. The float32 model and its control run on
+    the INV_SOLVE route where ``inv``. Returns {seed: (values, float32
+    result, float64 result)}."""
+    from gpflow_tpu_torch.conditionals import inv_solve
+
+    ctl_batch = (bf16(batch[0]).cuda(), batch[1])
+    out = {}
+    for seed in seeds:
+        values = values_of(seed)
+        m32, m64 = build(torch.float32, values), build(torch.float64, values)
+        label = f"{what}, values seed {seed}"
+        c_kuu, c_s = mo_cond(m64)
+        log(f"{label}: cond(Kuu + jitter I) {c_kuu:.4e}, cond(S) {c_s:.4e} (float64, jitter 1e-4)")
+        with inv_solve(inv):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got, counts = counted(lambda: mo_value_and_grad(m32, batch))
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        expect_launches(f"{label}: ELBO and gradient", counts, expected, launches)
+        assert bool(torch.isfinite(got[0])), f"{label}: the ELBO is not finite"
+        with inv_solve(False):
+            want = mo_value_and_grad(m64, tuple(t.double() for t in batch))
+        log(f"{label}: ELBO {float(want[0]):.6e}; largest float64 gradient entries "
+            + ", ".join(f"{k} {float(g.abs().max()):.3e}" for k, g in want[1].items()))
+        ctl_errs = None
+        if control:
+            ctl = build(torch.float32, bf16_values(values))
+            with inv_solve(inv):
+                ctl_errs = vgp_errors(run_control(lambda: mo_value_and_grad(ctl, ctl_batch)), want, MO_RTOL)
+            del ctl
+        judge(label, vgp_errors(got, want, MO_RTOL), ctl_errs)
+        out[seed] = (values, got, want)
+        del m32, m64
+        torch.cuda.empty_cache()
+    return out
+
+
+def mo_check_route(route, data, Zs, W, launches, whiten=True, batch_size=MO_B, **kwargs):
+    """``mo_check`` of the SVGP ``mo_model(route, ...)`` on a batch of
+    ``batch_size`` training rows, from its start with q(u) moved off it."""
+    def build(dtype, values):
+        return mo_model(route, Zs, W, dtype, values, whiten)
+
+    def values_of(seed):
+        start = build(torch.float32, None)
+        return latent_values(start, seed, start.q_mu.shape[1])
+
+    what = (f"multioutput {route}{'' if whiten else ' unwhitened'} objective"
+            f"{' on INV_SOLVE' if kwargs.get('inv') else ''} at B={batch_size}")
+    return mo_check(what, build, values_of, mo_batch(data, batch_size), mo_launches(route, whiten), launches,
+                    **kwargs)
+
+
+def mo_same_model(main, fallback):
+    """Phase 19c: the fallback route computes the main model's ELBO and
+    gradient from the same values: float64 against float64 to round-off,
+    float32 against float32 within MO_SAME_RTOL."""
+    for seed, (_, got_a, want_a) in main.items():
+        _, got_c, want_c = fallback[seed]
+        errs = vgp_errors(want_c, want_a, {"value": 1e-9, "gradient": 1e-9, "gradient q": 1e-9})
+        errs.update({f"float32 {k}": v for k, v in vgp_errors(got_c, got_a, MO_SAME_RTOL).items()})
+        judge(f"multioutput fallback route against the main route, values seed {seed}", errs)
+
+
+def mo_train(route, gamma, staged, Zs, W, launches, steps=MO_STEPS):
+    """Phase 19e: ``steps`` steps of ``run_steps_sampled`` over the staged
+    MO_N rows under sync debug mode "error", Adam 1e-2 on every parameter
+    (``gamma`` None) or fused natural gradients of size ``gamma`` on q(u)
+    and Adam on the rest; losses finite and falling, launch counts exact.
+    Returns the trainer."""
+    from gpflow_tpu_torch.parallel import DataParallelTrainer, adam
+
+    natgrad = gamma is not None
+    mode = f"natgrad fused gamma {gamma}" if natgrad else "adam"
+    trainer = DataParallelTrainer(mo_model(route, Zs, W, torch.float32), adam(1e-2), natgrad_gamma=gamma,
+                                  natgrad_fused=natgrad)
+    trainer.stage_data(staged)
+    generator = torch.Generator(device="cuda").manual_seed(SEED + 44)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        losses, counts = counted(lambda: trainer.run_steps_sampled(steps, MO_B, generator=generator))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    losses = losses.cpu()
+    rejected = trainer.natgrad_rejections if natgrad else 0
+    log(f"multioutput train {route} {mode}: {steps} steps at B={MO_B}, losses {[round(float(v), 1) for v in losses]}"
+        + (f"; natgrad_rejections {rejected} of {steps}" if natgrad else ""))
+    per_step = mo_launches(route)
+    expect_launches(f"multioutput train {route} {mode}", counts, {k: steps * v for k, v in per_step.items()},
+                    launches)
+    assert losses.shape == (steps,) and bool(torch.isfinite(losses).all()), f"{route} {mode}: non-finite loss"
+    last = float(losses[-5:].mean())
+    log(f"multioutput train {route} {mode}: loss {float(losses[0]):.6e} -> {last:.6e} (mean of the last 5)")
+    assert last < float(losses[0]), f"{route} {mode}: the loss did not fall"
+    assert rejected < steps, f"{route} {mode}: every natural-gradient step was rejected"
+    return trainer
+
+
+MO_REQUEST_KINDS = {"cached predict_mean": ("mean",), "predict_log_density": ("log density",),
+                    "fused predict_f full_output_cov": ("mean", "cov")}
+
+
+def mo_requests(model, Xb, Yb, launches, label):
+    """Requests of MO_NEW points to the main model through ``posterior()``
+    (TENSOR cache) with ``predict_f`` and ``predict_mean``, the fused
+    ``predict_f`` with and without the full output covariance,
+    ``predict_y`` and ``predict_log_density``, with exact launch counts
+    where ``launches``: a cache builds Kuu of each latent GP, a cached
+    request its Kuf, a fused request both."""
+    with torch.no_grad():
+        post, counts = counted(model.posterior)
+        if launches is not None:
+            expect_launches(f"{label} posterior", counts, {"K1": MO_L, "K2": 0}, launches)
+        out = {}
+        for key, fn, k1 in (("cached predict_f", lambda: post.predict_f(Xb), MO_L),
+                            ("cached predict_mean", lambda: (post.predict_mean(Xb),), MO_L),
+                            ("fused predict_f", lambda: model.predict_f(Xb), 2 * MO_L),
+                            ("fused predict_f full_output_cov", lambda: model.predict_f(Xb, full_output_cov=True),
+                             2 * MO_L),
+                            ("predict_y", lambda: model.predict_y(Xb), 2 * MO_L),
+                            ("predict_log_density", lambda: (model.predict_log_density((Xb, Yb)),), 2 * MO_L)):
+            out[key], counts = counted(fn)
+            if launches is not None:
+                expect_launches(f"{label} {key} request", counts, {"K1": k1, "K2": 0}, launches)
+    return out, post
+
+
+def mo_request_errors(out, want):
+    """{output: (error, limit)}, each output relative to its largest float64
+    entry (a non-finite one gives NaN, which breaks any limit)."""
+    errs = {}
+    for key, tensors in out.items():
+        for kind, got, w in zip(MO_REQUEST_KINDS.get(key, ("mean", "var")), tensors, want[key]):
+            assert got.shape == w.shape, f"{key} {kind}: shape {tuple(got.shape)} != {tuple(w.shape)}"
+            errs[f"{key} {kind}"] = (rel_err(got, w), MO_RTOL["requests"][kind])
+    return errs
+
+
+def mo_serve(model, requests, launches):
+    """Phase 19f: requests of MO_NEW held-out points to the trained main
+    model on the solve and INV_SOLVE routes against its values in float64
+    on the card, beside the lower-tier control (the same values with Z and
+    the points rounded to bfloat16, TF32 matmuls); variances positive; the
+    full output covariance [N, 7, 7] holds the marginal variance on its
+    diagonal. Returns the last route's posterior."""
+    from gpflow_tpu_torch.conditionals import inv_solve
+    from gpflow_tpu_torch.utilities import read_values
+
+    Xb, Yb = (torch.from_numpy(a).cuda() for a in requests)
+    placeholders = ([np.zeros((MO_M, MO_D))] * MO_P, np.zeros((MO_P, MO_L)))
+    values = read_values(model)
+    m64 = mo_model("lmc", *placeholders, torch.float64, values)
+    ctl = mo_model("lmc", *placeholders, torch.float32, bf16_values(values))
+    want, _ = mo_requests(m64, Xb.double(), Yb.double(), None, "")
+    for route, flag in TRAIN_ROUTES:
+        with inv_solve(flag):
+            out, post = mo_requests(model, Xb, Yb, launches, f"multioutput lmc {route}")
+            cout = run_control(lambda: mo_requests(ctl, bf16(Xb), Yb, None, "")[0])
+        for key, tensors in out.items():
+            assert all(bool(torch.isfinite(t).all()) for t in tensors), f"lmc {route} {key}: not finite"
+        judge(f"multioutput lmc {route} requests", mo_request_errors(out, want), mo_request_errors(cout, want))
+        mean, var = out["fused predict_f"]
+        cov = out["fused predict_f full_output_cov"][1]
+        assert mean.shape == var.shape == (MO_NEW, MO_P) and cov.shape == (MO_NEW, MO_P, MO_P)
+        assert bool((var > 0).all()) and bool((out["cached predict_f"][1] > 0).all()), "a variance is not positive"
+        err = rel_err(torch.diagonal(cov, dim1=-2, dim2=-1), var)
+        log(f"multioutput lmc {route}: full output covariance's diagonal against the marginal variance: rel err "
+            f"{err:.3e}, tol {MO_DIAG_RTOL:.1e}")
+        assert err <= MO_DIAG_RTOL, "the full output covariance's diagonal is not the marginal variance"
+    rmse = float(torch.sqrt(torch.mean((out["predict_y"][0] - Yb) ** 2)))
+    log(f"multioutput lmc: held-out RMSE {rmse:.4f} over {MO_NEW} points and {MO_P} outputs (Y's std "
+        f"{float(Yb.std()):.4f}), mean log density {float(out['predict_log_density'][0].mean()):.4f}")
+    return post
+
+
+def coregion_data(data):
+    """Phase 19g's data: MO_B rows [x, output index] drawn from the training
+    set with their outputs' Y and index, and MO_M such rows as Z."""
+    X, Y = data
+    rng = np.random.RandomState(SEED + 45)
+    n, p = rng.randint(0, MO_N, MO_B), rng.randint(0, MO_P, MO_B)
+    Xs = np.hstack([X[n], p[:, None]]).astype(np.float32)
+    Ys = np.stack([Y[n, p], p], axis=1).astype(np.float32)
+    Z = np.hstack([X[rng.permutation(MO_N)[:MO_M]], rng.randint(0, MO_P, (MO_M, 1))]).astype(np.float32)
+    return (Xs, Ys), Z
+
+
+def coregion_model(Z, dtype, values=None):
+    """SquaredExponential on the 21 inputs times Coregion(7, rank 2) on the
+    index column, a SwitchedLikelihood of 7 Gaussians, one latent GP."""
+    from gpflow_tpu_torch import config, kernels, likelihoods
+    from gpflow_tpu_torch.models import SVGP
+    from gpflow_tpu_torch.utilities import load_jax_values
+
+    with config.as_context(dataclasses.replace(config.config(), float=dtype)):
+        kernel = (kernels.SquaredExponential(lengthscales=np.full(MO_D, np.sqrt(MO_D)), active_dims=list(range(MO_D)))
+                  * kernels.Coregion(MO_P, rank=2, active_dims=[MO_D]))
+        likelihood = likelihoods.SwitchedLikelihood([likelihoods.Gaussian(MO_NOISE) for _ in range(MO_P)])
+        model = SVGP(kernel, likelihood, Z, num_latent_gps=1, num_data=MO_N * MO_P)
+    model = model.to(dtype=dtype)
+    if values is not None:
+        np_dtype = np.float64 if dtype == torch.float64 else np.float32
+        load_jax_values(model, {k: np.asarray(v).astype(np_dtype) for k, v in values.items()})
+    return model
+
+
+def mo_coregion(data, launches):
+    """Phase 19g: ``mo_check`` of the Coregion SVGP on MO_B stacked rows,
+    on three sets of values (q(u), and Coregion's W and kappa, off their
+    start); the SquaredExponential factor reaches K1 (Kuu and Kuf)."""
+    (Xs, Ys), Z = coregion_data(data)
+
+    def values_of(seed):
+        values = latent_values(coregion_model(Z, torch.float32), seed, 1)
+        rng = np.random.RandomState(seed)
+        values[".kernel.kernels[1].W"] = 0.5 * rng.randn(MO_P, 2)
+        values[".kernel.kernels[1].kappa"] = 0.5 + rng.rand(MO_P)
+        return values
+
+    batch = (torch.from_numpy(Xs).cuda(), torch.from_numpy(Ys).cuda())
+    mo_check(f"multioutput coregion objective at B={MO_B}", lambda dtype, values: coregion_model(Z, dtype, values),
+             values_of, batch, {"K1": 2, "K2": 0}, launches)
+
+
+def mo_check_kernels():
+    """Phase 19h: K1 (rbf and matern52) and K2 (matern52) against their
+    plain versions at the D = 21 shapes, inputs N(0, 1 / d) per dimension,
+    each with its launch plan; both kernels must run their TMA and their
+    edge path, with scalar staging. Returns {kernel: largest absolute
+    error against float64}."""
+    from gpflow_tpu_torch.ops import pallas_distance as pd
+
+    rng = np.random.RandomState(SEED + 46)
+    var = torch.tensor([1.0], device="cuda")
+    worst = {"K1": 0.0, "K2": 0.0}
+    for kernel, shapes, families in (("K1", MO_K1_SHAPES, ("rbf", "matern52")), ("K2", MO_K2_SHAPES, ("matern52",))):
+        seen = set()
+        for n, m, d in shapes:
+            Xs, Zs = (torch.from_numpy((rng.randn(k, d) / np.sqrt(d)).astype(np.float32)).cuda() for k in (n, m))
+            g = torch.from_numpy(rng.randn(n, m).astype(np.float32)).cuda()
+            for family in families:
+                if kernel == "K1":
+                    out = pd.stationary_forward_cuda(family, Xs, Zs, var)
+                    plan = plan_seen(kernel, seen)
+                    plain32 = pd.stationary_forward_plain(family, Xs, Zs, var)
+                    plain64 = pd.stationary_forward_plain(family, Xs.double(), Zs.double(), var.double())
+                    tol64, tol32 = K1_ATOL_F64, K1_ATOL_F32
+                else:
+                    out = pd.stationary_wgrad_cuda(family, Xs, Zs, var, g)
+                    plan = plan_seen(kernel, seen)
+                    plain32 = pd.stationary_wgrad_plain(family, Xs, Zs, var, g)
+                    plain64 = pd.stationary_wgrad_plain(family, Xs.double(), Zs.double(), var.double(), g.double())
+                    top = max(float(plain64.abs().max()), 1e-30)
+                    tol64, tol32 = K2_RTOL_F64 * top, K2_RTOL_F32 * top
+                torch.cuda.synchronize()
+                assert out.shape == (n, m) and out.dtype == torch.float32
+                err64, err32 = float((out.double() - plain64).abs().max()), float((out - plain32).abs().max())
+                log(f"{kernel} {family} ({n}, {m}, {d}): max abs err {err64:.3e} vs plain f64, tol {tol64:.1e}; "
+                    f"{err32:.3e} vs plain f32, tol {tol32:.1e}; {plan}")
+                assert err64 <= tol64 and err32 <= tol32, f"{kernel} {family} disagrees with its plain version at " \
+                                                          f"{(n, m, d)}"
+                worst[kernel] = max(worst[kernel], err64)
+        log(f"{kernel} at D = {MO_D} ran (tma, vec) = {sorted(seen)}")
+        assert seen == {(True, False), (False, False)}, f"{kernel} at D = {MO_D} did not run both its TMA and edge paths"
+    return worst
+
+
+def mo_timings(route_values, data, Zs, W, trainers, post, model, requests):
+    """Phase 19i: each route's value and gradient by CUDA events, rounds
+    with their spread; Adam and natural-gradient steps per second; request
+    latency; a profiler breakdown of one value and gradient of the main
+    model on both routes; K1 and K2 at the D = 21 shapes."""
+    from gpflow_tpu_torch.conditionals import inv_solve
+
+    for route, values in route_values.items():
+        size = MO_FC_B if route == "fully correlated" else MO_B
+        batch = mo_batch(data, size)
+        m32 = mo_model(route, Zs, W, torch.float32, values)
+        rounds = [device_ms(lambda: mo_value_and_grad(m32, batch), 5, warmup=1) for _ in range(MO_TIMED_ROUNDS)]
+        log(f"time: multioutput {route} value and gradient at B={size}: device {min(rounds):.3f} ms (rounds "
+            f"{[round(r, 3) for r in rounds]}, spread {max(rounds) - min(rounds):.3f} ms)")
+        if route == "lmc":
+            what = f"multioutput lmc value and gradient M={MO_M}, B={MO_B}, L={MO_L}, P={MO_P}"
+            profile_device(lambda: mo_value_and_grad(m32, batch), what, top=12)
+            with inv_solve(True):
+                rounds = [device_ms(lambda: mo_value_and_grad(m32, batch), 5, warmup=1)
+                          for _ in range(MO_TIMED_ROUNDS)]
+                log(f"time: multioutput lmc value and gradient on INV_SOLVE at B={size}: device {min(rounds):.3f} ms "
+                    f"(rounds {[round(r, 3) for r in rounds]})")
+                profile_device(lambda: mo_value_and_grad(m32, batch), f"{what}, INV_SOLVE", top=8)
+        del m32
+        torch.cuda.empty_cache()
+    for key, trainer in trainers.items():
+        rates = [MO_STEPS / request_ms(lambda: trainer.run_steps_sampled(MO_STEPS, MO_B), 1, warmup=int(i == 0))
+                 * 1e3 for i in range(MO_TIMED_ROUNDS)]
+        log(f"time: multioutput train {key} at B={MO_B}: {max(rates):.2f} steps/s ({1e3 / max(rates):.3f} ms per "
+            f"step); rounds {[round(r, 2) for r in rates]}, spread {max(rates) - min(rates):.2f} steps/s")
+    Xb, Yb = (torch.from_numpy(a).cuda() for a in requests)
+    with torch.no_grad():
+        for key, fn in (("posterior()", model.posterior), ("cached predict_f", lambda: post.predict_f(Xb)),
+                        ("cached predict_mean", lambda: post.predict_mean(Xb)),
+                        ("fused predict_f", lambda: model.predict_f(Xb)),
+                        ("fused predict_f full_output_cov", lambda: model.predict_f(Xb, full_output_cov=True)),
+                        ("predict_y", lambda: model.predict_y(Xb)),
+                        ("predict_log_density", lambda: model.predict_log_density((Xb, Yb)))):
+            rounds = [request_ms(fn, 5, warmup=1) for _ in range(MO_TIMED_ROUNDS)]
+            log(f"time: multioutput lmc {key} at B={MO_NEW}: {min(rounds):.3f} ms per request (rounds "
+                f"{[round(r, 3) for r in rounds]})")
+        for n, m, d in MO_K1_SHAPES:
+            time_k1(n, m, iters=20, d=d)
+        for n, m, d in MO_K2_SHAPES[:2]:
+            time_k2(n, m, iters=20, d=d)
+
+
+def mo_phases(launches):
+    """Phase 19. Returns {kernel: largest absolute error of its checks}."""
+    data, requests, Zs, W = make_mo_data()
+    checks = {route: mo_check_route(route, data, Zs, W, launches)
+              for route in ("lmc", "shared", "separate", "lmc fallback")}
+    mo_same_model(checks["lmc"], checks["lmc fallback"])
+    seed = MO_VALUE_SEEDS[0]
+    mo_check_route("lmc", data, Zs, W, launches, seeds=(seed,), inv=True)
+    fc = mo_check_route("fully correlated", data, Zs, W, launches, batch_size=MO_FC_B, seeds=(seed,), control=False)
+    mo_check_route("fully correlated", data, Zs, W, launches, whiten=False, batch_size=MO_FC_B, seeds=(seed,),
+                   control=False)
+    route_values = {route: out[seed][0] for route, out in checks.items()}
+    route_values["fully correlated"] = fc[seed][0]
+    del checks, fc
+    torch.cuda.empty_cache()
+    staged = (torch.from_numpy(data[0]).cuda(), torch.from_numpy(data[1]).cuda())
+    trainers = {"lmc adam": mo_train("lmc", None, staged, Zs, W, launches),
+                "shared adam": mo_train("shared", None, staged, Zs, W, launches),
+                "lmc natgrad fused": mo_train("lmc", MO_NG_GAMMA, staged, Zs, W, launches)}
+    model = trainers["lmc natgrad fused"].model
+    post = mo_serve(model, requests, launches)
+    torch.cuda.empty_cache()
+    mo_coregion(data, launches)
+    torch.cuda.empty_cache()
+    errs = mo_check_kernels()
+    mo_timings(route_values, data, Zs, W, trainers, post, model, requests)
+    return errs
+
+
 def _kernel_category(name):
     # cuSOLVER's float32 Cholesky runs as getrf_wo_pivot on this card
     n = name.lower()
@@ -3023,6 +3574,10 @@ def main():
     torch.cuda.empty_cache()
 
     k1_err = max(k1_err, mc_phases(launches))
+    torch.cuda.empty_cache()
+
+    mo_err = mo_phases(launches)
+    k1_err, k2_err = max(k1_err, mo_err["K1"]), max(k2_err, mo_err["K2"])
     torch.cuda.empty_cache()
 
     n = GPR_NS[-1]

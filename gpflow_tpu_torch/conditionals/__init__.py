@@ -1,4 +1,5 @@
 from . import conditionals as _conditionals_impl  # registers the single-output conditionals
+from . import multioutput  # registers the multioutput conditionals
 from .dispatch import conditional, sample_conditional
 from .util import (
     base_conditional,
@@ -14,6 +15,7 @@ __all__ = [
     "conditional",
     "expand_independent_outputs",
     "inv_solve",
+    "multioutput",
     "sample_conditional",
     "set_inv_solve",
 ]

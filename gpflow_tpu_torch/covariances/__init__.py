@@ -1,4 +1,5 @@
-from . import kufs, kuus  # noqa: F401  (registrations)
+from . import kufs, kuus
+from . import multioutput
 from .dispatch import Kuf, Kuu
 
-__all__ = ["Kuf", "Kuu"]
+__all__ = ["Kuf", "Kuu", "kufs", "kuus", "multioutput"]

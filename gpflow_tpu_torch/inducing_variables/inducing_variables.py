@@ -5,9 +5,13 @@ from __future__ import annotations
 import abc
 from typing import Any, Optional, Tuple
 
-from ..base import Module, Parameter
+import torch
 
-__all__ = ["InducingPoints", "InducingPointsBase", "InducingVariables"]
+from ..base import Module, Parameter
+from ..bijectors import positive
+from ..utilities.shapes import check_shapes
+
+__all__ = ["InducingPoints", "InducingPointsBase", "InducingVariables", "Multiscale"]
 
 
 class InducingVariables(Module, abc.ABC):
@@ -17,6 +21,14 @@ class InducingVariables(Module, abc.ABC):
     @abc.abstractmethod
     def num_inducing(self) -> int:
         raise NotImplementedError
+
+    def __len__(self) -> int:
+        return self.num_inducing
+
+    @property
+    @abc.abstractmethod
+    def shape(self) -> Optional[Tuple[int, ...]]:
+        """Some variation of [M, D, P] (P = 1 for a single output)."""
 
 
 class InducingPointsBase(InducingVariables):
@@ -46,3 +58,20 @@ class InducingPointsBase(InducingVariables):
 
 class InducingPoints(InducingPointsBase):
     """Real-space inducing points."""
+
+
+class Multiscale(InducingPointsBase):
+    """Multi-scale inducing variables (Walder et al., NIPS 2009;
+    ``inducing_variables.py:65-79``): centres Z [M, D] and positive widths
+    ``scales`` [M, D]."""
+
+    @check_shapes("Z: [M, D]", "scales: [M, D]")
+    def __init__(self, Z: Any, scales: Any) -> None:
+        super().__init__(Z)
+        self.scales = Parameter(scales, transform=positive(), name="scales")
+
+    @staticmethod
+    @check_shapes("A: [N, D]", "B: [M, D]", "sc: [bcast..., M, D]", "return: [N, M]")
+    def _cust_square_dist(A: torch.Tensor, B: torch.Tensor, sc: torch.Tensor) -> torch.Tensor:
+        """Squared distance with per-point length scales: [N, M]."""
+        return torch.sum(torch.square((A[:, None, :] - B[None, :, :]) / sc), 2)

@@ -1,5 +1,13 @@
 from .base import ActiveDims, Combination, Kernel, Product, ReducingCombination, Sum
 from .linears import Linear, Polynomial
+from .misc import ArcCosine, Coregion
+from .multioutput import (
+    IndependentLatent,
+    LinearCoregionalization,
+    MultioutputKernel,
+    SeparateIndependent,
+    SharedIndependent,
+)
 from .periodic import Periodic
 from .statics import Bias, Constant, Static, White
 from .stationaries import (
@@ -21,23 +29,30 @@ RBF = SquaredExponential
 __all__ = [
     "ActiveDims",
     "AnisotropicStationary",
+    "ArcCosine",
     "Bias",
     "Combination",
     "Constant",
+    "Coregion",
     "Cosine",
     "Exponential",
+    "IndependentLatent",
     "IsotropicStationary",
     "Kernel",
     "Linear",
+    "LinearCoregionalization",
     "Matern12",
     "Matern32",
     "Matern52",
+    "MultioutputKernel",
     "Periodic",
     "Polynomial",
     "Product",
     "RBF",
     "RationalQuadratic",
     "ReducingCombination",
+    "SeparateIndependent",
+    "SharedIndependent",
     "SquaredExponential",
     "Static",
     "Stationary",

@@ -32,6 +32,23 @@ ActiveDims = Union[slice, Sequence[int]]
 NormalizedActiveDims = Union[slice, Tuple[int, ...]]
 
 
+def _columns(X: torch.Tensor, dims: NormalizedActiveDims) -> torch.Tensor:
+    """X[..., dims] without a Python list as the index, which torch would
+    copy to X's device and so synchronise the host with a CUDA device: a
+    view where the dims are evenly spaced and ascending, else a stack of
+    column views."""
+    if isinstance(dims, slice):
+        return X[..., dims]
+    if not dims:
+        return X[..., 0:0]
+    step = dims[1] - dims[0] if len(dims) > 1 else 1
+    if step > 0 and min(dims) >= 0 and all(b - a == step for a, b in zip(dims, dims[1:])):
+        if dims[-1] >= X.shape[-1]:
+            raise IndexError(f"active dim {dims[-1]} is out of bounds for inputs with {X.shape[-1]} columns")
+        return X[..., dims[0]:dims[-1] + 1:step]
+    return torch.stack([X[..., d] for d in dims], dim=-1)
+
+
 class Kernel(Module, metaclass=abc.ABCMeta):
     """The basic kernel class; manages active dimensions."""
 
@@ -74,11 +91,9 @@ class Kernel(Module, metaclass=abc.ABCMeta):
         self, X: torch.Tensor, X2: Optional[torch.Tensor] = None
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """Selects the ``active_dims`` columns of X and X2."""
-        dims = self.active_dims
-        index = dims if isinstance(dims, slice) else list(dims)
-        X = X[..., index]
+        X = _columns(X, self.active_dims)
         if X2 is not None:
-            X2 = X2[..., index]
+            X2 = _columns(X2, self.active_dims)
         return X, X2
 
     @check_shapes(

@@ -25,15 +25,16 @@ def _prior_kl_default(
     q_sqrt: torch.Tensor,
     whiten: bool = False,
 ) -> torch.Tensor:
-    """Whitened: KL to N(0, I); else KL to N(0, Kuu) (``kullback_leiblers.py:20-50``)."""
+    """Whitened: KL to N(0, I); else KL to N(0, Kuu) (``kullback_leiblers.py:21-51``)."""
     if whiten:
         return gauss_kl(q_mu, q_sqrt, None)
     K = Kuu(inducing_variable, kernel, jitter=default_jitter())  # [L, M, M] or [M, M]
     if K.ndim == 4:
-        raise NotImplementedError(
-            "prior_kl with a fully correlated [M, P, M, P] Kuu needs the multioutput "
-            "kernels, which are not ported yet; see ROADMAP.md"
-        )
+        # the fully correlated route (InducingPoints and a multioutput
+        # kernel): q_mu and q_sqrt are over the row-major flattened [MP]
+        # vector, so the prior is N(0, Kuu as [MP, MP]) (``:42-51``)
+        MP = K.shape[0] * K.shape[1]
+        K = K.reshape(MP, MP)
     return gauss_kl(q_mu, q_sqrt, K)
 
 

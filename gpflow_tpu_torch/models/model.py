@@ -9,7 +9,7 @@ import torch
 from ..base import MeanAndVariance, Module
 from ..config import default_device, default_float
 from ..functions import MeanFunction, Zero
-from ..kernels import Kernel
+from ..kernels import Kernel, MultioutputKernel
 from ..likelihoods import Likelihood, SwitchedLikelihood
 from ..utilities.model_utils import assert_params_false
 from ..utilities.shapes import check_shapes
@@ -68,17 +68,18 @@ class GPModel(BayesianModel):
         "data[1]: [batch..., N, P]",
     )
     def calc_num_latent_gps_from_data(data: Any, kernel: Kernel, likelihood: Likelihood) -> int:
-        """One latent GP per column of Y, but for the index column of a
-        ``SwitchedLikelihood`` (``gpflow_tpu/models/model.py:72-82``; the
-        multi-output kernels, which set their own count there, are not
-        ported yet)."""
+        """The latent GPs for Y's columns (``gpflow_tpu/models/model.py:72-82``):
+        see ``calc_num_latent_gps``."""
         _, Y = data
         return GPModel.calc_num_latent_gps(kernel, likelihood, Y.shape[-1])
 
     @staticmethod
     def calc_num_latent_gps(kernel: Kernel, likelihood: Likelihood, output_dim: int) -> int:
-        """P, or P - 1 for a ``SwitchedLikelihood``, whose last column of Y
-        is the index (``gpflow_tpu/models/model.py:84-95``)."""
+        """A multioutput kernel's own ``num_latent_gps``; else P, or P - 1 for
+        a ``SwitchedLikelihood``, whose last column of Y is the index
+        (``gpflow_tpu/models/model.py:84-95``)."""
+        if isinstance(kernel, MultioutputKernel):
+            return kernel.num_latent_gps
         if isinstance(likelihood, SwitchedLikelihood):
             if output_dim < 2:
                 raise ValueError("SwitchedLikelihood needs Y with an index column and at least one output")

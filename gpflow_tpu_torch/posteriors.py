@@ -13,8 +13,17 @@ a request solves against the two [M, M] factors, and ``predict_mean`` is
 K(Z, Xnew) and one matvec. ``VGPPosterior`` caches Lm = chol(K(X) +
 jitter I) of the data: a request builds K(X, Xnew) and solves against Lm.
 
-On CUDA, every covariance matrix comes from kernel K1
-(``ops/pallas_distance.py``).
+The multioutput posteriors keep the same (alpha, Qinv) cache, per latent
+GP where Kuu is [L, M, M] (alpha [L, M, 1]) and over the flattened [MP]
+vector where it is the fully correlated [M, P, M, P].
+``IndependentPosteriorMultiOutput`` conditions each output (or latent GP)
+on its own Kuu and Kuf, ``LinearCoregionalizationPosterior`` then mixes the
+latent GPs with W, ``FullyCorrelatedPosterior`` conditions all outputs
+jointly, and ``FallbackIndependentLatentPosterior`` goes through the
+interdomain Kuf [M, L, N, P].
+
+On CUDA, every covariance matrix of a stationary kernel comes from kernel
+K1 (``ops/pallas_distance.py``).
 """
 from __future__ import annotations
 
@@ -26,11 +35,26 @@ import torch
 
 from . import kernels
 from .base import MeanAndVariance, Module, Parameter
-from .conditionals.util import base_conditional, base_conditional_with_lm, expand_independent_outputs
+from .conditionals.util import (
+    base_conditional,
+    base_conditional_with_lm,
+    expand_independent_outputs,
+    fully_correlated_conditional,
+    independent_interdomain_conditional,
+    mix_latent_gp,
+    separate_independent_conditional_implementation,
+)
 from .config import default_jitter
 from .covariances import Kuf, Kuu
 from .functions import MeanFunction
-from .inducing_variables import InducingPoints, InducingVariables
+from .inducing_variables import (
+    FallbackSeparateIndependentInducingVariables,
+    FallbackSharedIndependentInducingVariables,
+    InducingPoints,
+    InducingVariables,
+    SeparateIndependentInducingVariables,
+    SharedIndependentInducingVariables,
+)
 from .likelihoods import Gaussian
 from .ops.linalg import cholesky
 from .utilities.model_utils import add_likelihood_noise_cov, assert_params_false
@@ -238,12 +262,25 @@ class BasePosterior(AbstractPosterior):
     def q_sqrt(self) -> Optional[torch.Tensor]:
         return _value(self._q_sqrt)
 
+    @check_shapes(
+        "return[0]: [M, L] | [L, M, 1]",
+        "return[1]: [L, M, M]",
+    )
     def _precompute(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """Whitened: alpha = L^-T q_mu, Qinv = L^-T (I - S~) L^-1 with
         S~ = q_sqrt q_sqrt^T; unwhitened: alpha = Kuu^-1 q_mu and
-        S~ = L^-1 S L^-T. Returns alpha [M, L] and Qinv [L, M, M]."""
-        Kuu_val = Kuu(self.X_data, self.kernel, jitter=default_jitter())  # [M, M]
+        S~ = L^-1 S L^-T (``gpflow_tpu/posteriors.py:662-728``). A fully
+        correlated Kuu [M, P, M, P] is taken as [MP, MP]; for a Kuu [L, M, M]
+        q_mu becomes [L, M, 1] and the solves batch over L. Returns alpha
+        [M, L] or [L, M, 1] and Qinv [L, M, M]."""
+        Kuu_val = Kuu(self.X_data, self.kernel, jitter=default_jitter())  # [(L), M, M] or [M, P, M, P]
         q_mu = self.q_mu
+
+        if Kuu_val.ndim == 4:
+            ML = Kuu_val.shape[0] * Kuu_val.shape[1]
+            Kuu_val = Kuu_val.reshape(ML, ML)
+        if Kuu_val.ndim == 3:
+            q_mu = q_mu.mT[..., None]  # [L, M, 1]
         L = cholesky(Kuu_val)
 
         if self.whiten:
@@ -269,8 +306,11 @@ class BasePosterior(AbstractPosterior):
                 Linv_cov_u_LinvT = torch.matmul(Linv_qsqrt, Linv_qsqrt.mT)
             B = I - Linv_cov_u_LinvT
 
-        LinvT_B = torch.linalg.solve_triangular(L.mT, B, upper=True)
-        Qinv = torch.linalg.solve_triangular(L.mT, LinvT_B.mT, upper=True)
+        if B.ndim == 2 and L.ndim == 3:  # no q_sqrt, Kuu [L, M, M]
+            B = B.expand(L.shape[:-2] + B.shape)
+        L_b = L.expand(B.shape[:-2] + L.shape[-2:]) if B.ndim == 3 and L.ndim == 2 else L
+        LinvT_B = torch.linalg.solve_triangular(L_b.mT, B, upper=True)
+        Qinv = torch.linalg.solve_triangular(L_b.mT, LinvT_B.mT, upper=True)
 
         num_latent = self.q_mu.shape[-1]
         Qinv = Qinv.expand((num_latent,) + Qinv.shape[-2:])
@@ -283,6 +323,28 @@ class IndependentPosterior(BasePosterior):
     ) -> MeanAndVariance:
         return mean, expand_independent_outputs(cov, full_cov, full_output_cov)
 
+    @check_shapes(
+        "Xnew: [N, D]",
+        "return: [P, N, N] | [N, N] if full_cov",
+        "return: [P, N] | [N] if not full_cov",
+    )
+    def _get_Kff(self, Xnew: torch.Tensor, full_cov: bool) -> torch.Tensor:
+        """Kff of each latent kernel: a multioutput kernel's own call would
+        give the output-covariance layout (``posteriors.py:754-762``)."""
+        if isinstance(self.kernel, (kernels.SeparateIndependent, kernels.IndependentLatent)):
+            return torch.stack([k(Xnew, full_cov=full_cov) for k in self.kernel.kernels], dim=0)
+        if isinstance(self.kernel, kernels.MultioutputKernel):
+            return self.kernel.kernel(Xnew, full_cov=full_cov)
+        return self.kernel(Xnew, full_cov=full_cov)
+
+    def _cached_mean(self, alpha: torch.Tensor, Kuf_val: torch.Tensor) -> torch.Tensor:
+        """Kuf^T alpha: [N, L] from Kuf [M, N] and alpha [M, L], or from Kuf
+        [L, M, N] and alpha [L, M, 1]."""
+        mean = torch.matmul(Kuf_val.mT, alpha)
+        if Kuf_val.ndim == 3:
+            mean = mean.squeeze(-1).mT  # [N, L]
+        return mean
+
     def _conditional_with_precompute(
         self,
         cache: Tuple[torch.Tensor, ...],
@@ -290,11 +352,11 @@ class IndependentPosterior(BasePosterior):
         full_cov: bool = False,
         full_output_cov: bool = False,
     ) -> MeanAndVariance:
-        alpha, Qinv = cache  # alpha: [M, L]; Qinv: [L, M, M]
-        Kuf_val = Kuf(self.X_data, self.kernel, Xnew)  # [M, N]
-        Kff = self.kernel(Xnew, full_cov=full_cov)
+        alpha, Qinv = cache  # alpha: [M, L] or [L, M, 1]; Qinv: [L, M, M]
+        Kuf_val = Kuf(self.X_data, self.kernel, Xnew)  # [(L), M, N]
+        Kff = self._get_Kff(Xnew, full_cov)
 
-        mean = torch.matmul(Kuf_val.mT, alpha)  # [N, L]
+        mean = self._cached_mean(alpha, Kuf_val)
         if full_cov:
             cov = Kff - torch.matmul(Kuf_val.mT, torch.matmul(Qinv, Kuf_val))  # [L, N, N]
         else:
@@ -302,13 +364,16 @@ class IndependentPosterior(BasePosterior):
             cov = cov.mT  # [N, L]
         return self._post_process_mean_and_cov(mean, cov, full_cov, full_output_cov)
 
+    def _mix_mean(self, mean: torch.Tensor) -> torch.Tensor:
+        return mean
+
     def predict_mean(self, Xnew: torch.Tensor) -> torch.Tensor:
         """mean = Kuf^T alpha from the cache, skipping the O(M^2 N) Qinv term."""
         if self.cache is None:
             return super().predict_mean(Xnew)
         alpha, _ = self.cache
-        Kuf_val = Kuf(self.X_data, self.kernel, Xnew)  # [M, N]
-        return self._add_mean_function(Xnew, torch.matmul(Kuf_val.mT, alpha))
+        Kuf_val = Kuf(self.X_data, self.kernel, Xnew)  # [(L), M, N]
+        return self._add_mean_function(Xnew, self._mix_mean(self._cached_mean(alpha, Kuf_val)))
 
 
 class IndependentPosteriorSingleOutput(IndependentPosterior):
@@ -322,13 +387,6 @@ class IndependentPosteriorSingleOutput(IndependentPosterior):
             Kmn, Kmm, Knn, self.q_mu, full_cov=full_cov, q_sqrt=self.q_sqrt, white=self.whiten
         )
         return self._post_process_mean_and_cov(fmean, fvar, full_cov, full_output_cov)
-
-
-class _NotPortedPosterior(AbstractPosterior):
-    def __new__(cls, *args: Any, **kwargs: Any) -> "_NotPortedPosterior":
-        raise NotImplementedError(
-            f"{cls.__name__} is not ported to gpflow_tpu_torch yet; see ROADMAP.md"
-        )
 
 
 class GPRPosterior(AbstractPosterior):
@@ -566,30 +624,235 @@ class VGPPosterior(AbstractPosterior):
         return self._conditional_with_precompute(self._precompute(), Xnew, full_cov, full_output_cov)
 
 
-class IndependentPosteriorMultiOutput(_NotPortedPosterior):
-    pass
+class IndependentPosteriorMultiOutput(IndependentPosterior):
+    """Independent outputs or latent GPs (``posteriors.py:823-858``): shared
+    inducing points and a shared kernel through ``base_conditional`` with one
+    [M, M] Kuu; otherwise each output on its own Kuu [P, M, M] and Kuf
+    [P, M, N], as one batched conditional."""
+
+    @inherit_check_shapes
+    def _conditional_fused(
+        self, Xnew: torch.Tensor, full_cov: bool = False, full_output_cov: bool = False
+    ) -> MeanAndVariance:
+        if isinstance(self.X_data, SharedIndependentInducingVariables) and isinstance(
+            self.kernel, kernels.SharedIndependent
+        ):
+            Knn = self.kernel.kernel(Xnew, full_cov=full_cov)
+            Kmm = Kuu(self.X_data, self.kernel, jitter=default_jitter())  # [M, M]
+            Kmn = Kuf(self.X_data, self.kernel, Xnew)  # [M, N]
+            fmean, fvar = base_conditional(
+                Kmn, Kmm, Knn, self.q_mu, full_cov=full_cov, q_sqrt=self.q_sqrt, white=self.whiten
+            )
+        else:
+            Kmms = Kuu(self.X_data, self.kernel, jitter=default_jitter())  # [P, M, M]
+            Kmns = Kuf(self.X_data, self.kernel, Xnew)  # [P, M, N]
+            if isinstance(self.kernel, kernels.Combination):
+                kernel_list = list(self.kernel.kernels)
+            else:
+                kernel_list = [self.kernel.kernel] * len(self.X_data.inducing_variable_list)
+            Knns = torch.stack([k.K(Xnew) if full_cov else k.K_diag(Xnew) for k in kernel_list], dim=0)
+            fmean, fvar = separate_independent_conditional_implementation(
+                Kmns, Kmms, Knns, self.q_mu, q_sqrt=self.q_sqrt, full_cov=full_cov, white=self.whiten,
+            )
+            if full_cov:
+                # [P, batch..., N, N] -> batch-leading, as the shared branch gives it
+                fvar = torch.movedim(fvar, 0, -3)
+        return self._post_process_mean_and_cov(fmean, fvar, full_cov, full_output_cov)
 
 
-class LinearCoregionalizationPosterior(_NotPortedPosterior):
-    pass
+class LinearCoregionalizationPosterior(IndependentPosteriorMultiOutput):
+    """Conditions the L latent GPs, then mixes them with W
+    (``posteriors.py:861-886``)."""
+
+    def _mix_mean(self, mean: torch.Tensor) -> torch.Tensor:
+        return torch.matmul(mean, self.kernel.W.value.mT)  # [..., N, L] -> [..., N, P]
+
+    @check_shapes(
+        "mean: [batch..., N, L]",
+        "cov: [batch..., L, N, N] if full_cov",
+        "cov: [batch..., N, L] if not full_cov",
+        "return[0]: [batch..., N, P]",
+        "return[1]: [batch..., N, P, N, P] if full_cov and full_output_cov",
+        "return[1]: [batch..., N, P, P] if (not full_cov) and full_output_cov",
+        "return[1]: [batch..., P, N, N] if full_cov and (not full_output_cov)",
+        "return[1]: [batch..., N, P] if (not full_cov) and (not full_output_cov)",
+    )
+    def _post_process_mean_and_cov(
+        self, mean: torch.Tensor, cov: torch.Tensor, full_cov: bool, full_output_cov: bool
+    ) -> MeanAndVariance:
+        cov = expand_independent_outputs(cov, full_cov, full_output_cov=False)
+        if full_cov:
+            cov = torch.movedim(cov, -3, 0)  # mix_latent_gp takes [L, batch..., N, N]
+        return mix_latent_gp(self.kernel.W.value, mean, cov, full_cov, full_output_cov)
 
 
-class FullyCorrelatedPosterior(_NotPortedPosterior):
-    pass
+class FullyCorrelatedPosterior(BasePosterior):
+    """All outputs conditioned jointly through Kuu [M, P, M, P] and Kuf
+    [M, P, N, P], flattened to [MP, MP] and [MP, NP]
+    (``posteriors.py:889-972``)."""
+
+    @inherit_check_shapes
+    def _conditional_with_precompute(
+        self,
+        cache: Tuple[torch.Tensor, ...],
+        Xnew: torch.Tensor,
+        full_cov: bool = False,
+        full_output_cov: bool = False,
+    ) -> MeanAndVariance:
+        alpha, Qinv = cache
+
+        Kuf_val = Kuf(self.X_data, self.kernel, Xnew)
+        assert Kuf_val.ndim == 4
+        M, L, N, K = Kuf_val.shape
+        Kuf_val = Kuf_val.reshape(M * L, N * K)
+
+        Kff = self.kernel(Xnew, full_cov=full_cov, full_output_cov=full_output_cov)
+        if full_cov == full_output_cov:
+            Kff = Kff.reshape((N * K, N * K) if full_cov else (N * K,))
+
+        mean = torch.matmul(Kuf_val.mT, alpha)  # [NK, R]
+
+        if not full_cov and not full_output_cov:
+            cov = Kff - torch.sum(Kuf_val * torch.matmul(Qinv, Kuf_val), dim=-2)
+            cov = cov.mT if cov.ndim > 1 else cov
+        else:
+            Kfu_Qinv_Kuf = torch.matmul(Kuf_val.mT, torch.matmul(Qinv, Kuf_val))
+            if not (full_cov and full_output_cov):
+                Kfu_Qinv_Kuf = Kfu_Qinv_Kuf.reshape(Kfu_Qinv_Kuf.shape[:-2] + (N, K, N, K))
+                if full_cov:  # diagonal in the outputs
+                    tmp = torch.diagonal(torch.einsum("...ijkl->...ikjl", Kfu_Qinv_Kuf), dim1=-2, dim2=-1)
+                else:  # diagonal in the inputs
+                    tmp = torch.diagonal(torch.einsum("...ijkl->...jlik", Kfu_Qinv_Kuf), dim1=-2, dim2=-1)
+                Kfu_Qinv_Kuf = torch.einsum("...ijk->...kij", tmp)
+            cov = Kff - Kfu_Qinv_Kuf
+
+        mean = mean.reshape(N, K)
+        if full_cov == full_output_cov:
+            cov_shape = (N, K, N, K) if full_cov else (N, K)
+        else:
+            cov_shape = (K, N, N) if full_cov else (N, K, K)
+        return mean, cov.reshape(cov_shape)
+
+    @inherit_check_shapes
+    def _conditional_fused(
+        self, Xnew: torch.Tensor, full_cov: bool = False, full_output_cov: bool = False
+    ) -> MeanAndVariance:
+        Kmm = Kuu(self.X_data, self.kernel, jitter=default_jitter())  # [M, L, M, L]
+        Kmn = Kuf(self.X_data, self.kernel, Xnew)  # [M, L, N, P]
+        Knn = self.kernel(Xnew, full_cov=full_cov, full_output_cov=full_output_cov)
+
+        M, L, N, K = Kmn.shape
+        Kmm = Kmm.reshape(M * L, M * L)
+
+        if full_cov == full_output_cov:
+            Kmn = Kmn.reshape(M * L, N * K)
+            Knn = Knn.reshape((N * K, N * K) if full_cov else (N * K,))
+            mean, cov = base_conditional(
+                Kmn, Kmm, Knn, self.q_mu, full_cov=full_cov, q_sqrt=self.q_sqrt, white=self.whiten
+            )
+            mean = mean.reshape(N, K)
+            cov = cov.reshape((N, K, N, K) if full_cov else (N, K))
+        else:
+            mean, cov = fully_correlated_conditional(
+                Kmn.reshape(M * L, N, K), Kmm, Knn, self.q_mu,
+                full_cov=full_cov, full_output_cov=full_output_cov, q_sqrt=self.q_sqrt, white=self.whiten,
+            )
+        return mean, cov
 
 
-class FallbackIndependentLatentPosterior(_NotPortedPosterior):
-    pass
+class FallbackIndependentLatentPosterior(FullyCorrelatedPosterior):
+    """Independent latent GPs through the interdomain Kuf [M, L, N, P]
+    (``posteriors.py:975-1027``). The cache holds per-latent alpha
+    [L, M, 1] and Qinv [L, M, M] (Kuu is [L, M, M]), so it serves any number
+    of latent GPs, as the JAX package's extension of the reference does."""
+
+    @inherit_check_shapes
+    def _conditional_with_precompute(
+        self,
+        cache: Tuple[torch.Tensor, ...],
+        Xnew: torch.Tensor,
+        full_cov: bool = False,
+        full_output_cov: bool = False,
+    ) -> MeanAndVariance:
+        alpha, Qinv = cache  # alpha: [L, M, 1], Qinv: [L, M, M]
+
+        Kuf_val = Kuf(self.X_data, self.kernel, Xnew)  # [M, L, N, P]
+        assert Kuf_val.ndim == 4
+        Kff = self.kernel(Xnew, full_cov=full_cov, full_output_cov=full_output_cov)
+
+        mean = torch.einsum("mlnp,lm->np", Kuf_val, alpha[..., 0])
+        proj = torch.einsum("lmo,mlnp->lonp", Qinv, Kuf_val)  # sum_m Qinv[l, m, o] Kuf[m, l, n, p]
+        if full_cov and full_output_cov:
+            cov = Kff - torch.einsum("lonp,olqr->npqr", proj, Kuf_val)  # [N, P, N, P]
+        elif full_cov:
+            cov = Kff - torch.einsum("lonp,olqp->pnq", proj, Kuf_val)  # [P, N, N]
+        elif full_output_cov:
+            cov = Kff - torch.einsum("lonp,olnr->npr", proj, Kuf_val)  # [N, P, P]
+        else:
+            cov = Kff - torch.einsum("lonp,olnp->np", proj, Kuf_val)  # [N, P]
+        return mean, cov
+
+    @inherit_check_shapes
+    def _conditional_fused(
+        self, Xnew: torch.Tensor, full_cov: bool = False, full_output_cov: bool = False
+    ) -> MeanAndVariance:
+        Kmm = Kuu(self.X_data, self.kernel, jitter=default_jitter())  # [L, M, M]
+        Kmn = Kuf(self.X_data, self.kernel, Xnew)  # [M, L, N, P]
+        Knn = self.kernel(Xnew, full_cov=full_cov, full_output_cov=full_output_cov)
+        return independent_interdomain_conditional(
+            Kmn, Kmm, Knn, self.q_mu,
+            full_cov=full_cov, full_output_cov=full_output_cov, q_sqrt=self.q_sqrt, white=self.whiten,
+        )
 
 
 get_posterior_class = Dispatcher("get_posterior_class")
 
 
-@get_posterior_class.register(kernels.Kernel, InducingPoints)
+@get_posterior_class.register(kernels.Kernel, InducingVariables)
 def _get_posterior_base_case(
     kernel: kernels.Kernel, inducing_variable: InducingVariables
 ) -> Type[BasePosterior]:
     return IndependentPosteriorSingleOutput
+
+
+@get_posterior_class.register(kernels.MultioutputKernel, InducingPoints)
+def _get_posterior_fully_correlated_mo(
+    kernel: kernels.Kernel, inducing_variable: InducingVariables
+) -> Type[BasePosterior]:
+    return FullyCorrelatedPosterior
+
+
+def _get_posterior_independent_mo(
+    kernel: kernels.Kernel, inducing_variable: InducingVariables
+) -> Type[BasePosterior]:
+    return IndependentPosteriorMultiOutput
+
+
+for _k in (kernels.SharedIndependent, kernels.SeparateIndependent):
+    for _iv in (SeparateIndependentInducingVariables, SharedIndependentInducingVariables):
+        get_posterior_class.add((_k, _iv), _get_posterior_independent_mo)
+
+
+def _get_posterior_independentlatent_mo_fallback(
+    kernel: kernels.Kernel, inducing_variable: InducingVariables
+) -> Type[BasePosterior]:
+    return FallbackIndependentLatentPosterior
+
+
+for _iv in (FallbackSeparateIndependentInducingVariables, FallbackSharedIndependentInducingVariables):
+    get_posterior_class.add((kernels.IndependentLatent, _iv), _get_posterior_independentlatent_mo_fallback)
+
+
+def _get_posterior_linearcoregionalization_mo_efficient(
+    kernel: kernels.Kernel, inducing_variable: InducingVariables
+) -> Type[BasePosterior]:
+    return LinearCoregionalizationPosterior
+
+
+for _iv in (SeparateIndependentInducingVariables, SharedIndependentInducingVariables):
+    get_posterior_class.add(
+        (kernels.LinearCoregionalization, _iv), _get_posterior_linearcoregionalization_mo_efficient
+    )
 
 
 def create_posterior(

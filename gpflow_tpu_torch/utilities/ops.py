@@ -1,11 +1,13 @@
 """Tensor helpers (counterpart of ``gpflow_tpu/utilities/ops.py``)."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
-__all__ = ["difference_matrix", "square_distance"]
+from .shapes import check_shapes
+
+__all__ = ["difference_matrix", "leading_transpose", "square_distance"]
 
 
 def square_distance(X: torch.Tensor, X2: Optional[torch.Tensor]) -> torch.Tensor:
@@ -39,3 +41,23 @@ def difference_matrix(X: torch.Tensor, X2: Optional[torch.Tensor]) -> torch.Tens
     X2f = X2.reshape(-1, X2.shape[-1])
     diff = Xf[:, None, :] - X2f[None, :, :]
     return diff.reshape(X.shape[:-1] + X2.shape[:-1] + (X.shape[-1],))
+
+
+@check_shapes(
+    "tensor: [any...]",
+    "return: [transposed_any...]",
+)
+def leading_transpose(tensor: torch.Tensor, perm: Sequence, leading_dim: int = 0) -> torch.Tensor:
+    """Transposes ``tensor`` with its leading dims left in place
+    (``gpflow_tpu/utilities/ops.py:44-66``): ``perm`` holds ``...`` for the
+    leading dims and indices, negative ones counted from the end, for the
+    others, e.g. ``[..., -1, -2]``. ``leading_dim`` is accepted for the
+    signature and never changes the result, as in the JAX package."""
+    del leading_dim
+    perm = list(perm)
+    idx = perm.index(...)
+    rank = tensor.ndim
+    lead = list(range(rank - (len(perm) - 1)))
+    pre = [p % rank for p in perm[:idx]]
+    post = [p % rank for p in perm[idx + 1:]]
+    return tensor.permute(pre + lead + post)

@@ -151,6 +151,14 @@ def test_import_leaves_jax_out():
         "from gpflow_tpu_torch.models import VGP, VGPOpperArchambeau, SVGP_deprecated, training_loss_closure\n"
         "from gpflow_tpu_torch.models.vgp import update_vgp_data\n"
         "from gpflow_tpu_torch.posteriors import VGPPosterior\n"
+        "import gpflow_tpu_torch.kernels.multioutput.kernels, gpflow_tpu_torch.kernels.misc\n"
+        "import gpflow_tpu_torch.inducing_variables.multioutput.inducing_variables\n"
+        "import gpflow_tpu_torch.inducing_variables.inducing_patch\n"
+        "import gpflow_tpu_torch.covariances.multioutput.kuus, gpflow_tpu_torch.covariances.multioutput.kufs\n"
+        "import gpflow_tpu_torch.conditionals.multioutput.conditionals\n"
+        "from gpflow_tpu_torch.conditionals.util import mix_latent_gp, independent_interdomain_conditional\n"
+        "from gpflow_tpu_torch.posteriors import LinearCoregionalizationPosterior, FallbackIndependentLatentPosterior\n"
+        "from gpflow_tpu_torch.utilities.ops import leading_transpose\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'gpflow_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"

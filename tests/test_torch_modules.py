@@ -287,12 +287,13 @@ def test_predict_before_cache_raises_and_nocache_uses_fused_route():
                                   "IndependentPosteriorMultiOutput", "FullyCorrelatedPosterior",
                                   "LinearCoregionalizationPosterior", "FallbackIndependentLatentPosterior"])
 def test_unported_posteriors_name_the_roadmap(name):
-    if name in ("SGPRPosterior", "VGPPosterior"):  # ported with SGPR and VGP; tests/test_torch_sgpr.py
-        # and tests/test_torch_vgp.py hold them to the JAX package
-        assert not issubclass(getattr(posteriors, name), posteriors._NotPortedPosterior)
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        getattr(posteriors, name)(None, None, None, None, precompute_cache=None)
+    # Every posterior of the JAX package is ported now and no stub class is
+    # left: tests/test_torch_sgpr.py and tests/test_torch_vgp.py hold SGPR's
+    # and VGP's, tests/test_torch_multioutput.py the four multioutput ones,
+    # to the JAX package.
+    assert not hasattr(posteriors, "_NotPortedPosterior")
+    cls = getattr(posteriors, name)
+    assert issubclass(cls, posteriors.AbstractPosterior) and not cls.__abstractmethods__
 
 
 # --- likelihoods, functions -----------------------------------------------------------
