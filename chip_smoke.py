@@ -23,7 +23,9 @@ MultiClass (RobustMax) and Softmax over C = 10 latent GPs at M = 1024,
 B = 4096, N = 32768, D = 64 on synthetic data (slice 8; ``bench.py`` has no
 multiclass operating point); and the multioutput SVGP at SARCOS's shapes
 (N = 44484, D = 21, P = 7) with M = 1024, B = 4096 (slice 9; ``bench.py``
-has no multioutput operating point). Models are built on the card, the
+has no multioutput operating point); and GPMC and SGPMC with priors on
+their hyperparameters, sampled by HMC at the natural-gradient operating
+point's widths (slice 10; ``bench.py`` has no MCMC operating point). Models are built on the card, the
 port's default device; the float64 references ask for the CPU, or for float64
 on the card where the CPU would take minutes. Phases:
 
@@ -55,7 +57,7 @@ on the card where the CPU would take minutes. Phases:
 9. the GPR slice: at N = 8192 and 16384 on the solve and INV_SOLVE routes,
    ``training_loss()`` and its gradient under sync debug mode "error"
    against the same model in float64 on the card; a Matern12 GPR at
-   N = 8192 likewise (K2 on the path); 30 iterations of
+   N = 8192 likewise (K2 on the path); 15 iterations (30 before phase 20) of
    ``Scipy().minimize`` at N = 16384, which must lower the objective; then
    ``posterior()`` with ``predict_f`` and ``predict_mean``, and the fused
    ``predict_f`` and ``predict_y``, on 8192 new points against float64;
@@ -114,8 +116,9 @@ on the card where the CPU would take minutes. Phases:
    likelihood (rtol 1e-7) and its requests (1e-6), then the same step in
    float32 against float64; (b) the classifier (SquaredExponential +
    Linear, Bernoulli, Constant mean): ELBO and gradient under sync debug
-   mode "error" against float64, a Periodic VGP's objective (no K1), 20
-   ``Scipy`` iterations of ``training_loss_closure``, which must lower the
+   mode "error" against float64, a Periodic VGP's objective (no K1), 8
+   ``Scipy`` iterations of ``training_loss_closure`` (20 before phase 20
+   came), which must lower the
    objective, and requests of 4096 new points (``posterior()`` and
    ``predict_f``, fused ``predict_f``, ``predict_y``,
    ``predict_log_density``) on both routes against float64, probabilities
@@ -172,7 +175,32 @@ on the card where the CPU would take minutes. Phases:
    at the D = 21 shapes, TMA and edge paths, and launch counts exactly as
    each path implies; (i) timings: each route's value and gradient, steps
    per second, requests, a profile of one value and gradient of (a), K1 and
-   K2 at the D = 21 shapes.
+   K2 at the D = 21 shapes;
+20. the MCMC slice at the natural-gradient operating point's widths
+   (Bernoulli labels, D = 8; Matern32 with ARD lengthscales and LogNormal
+   priors on its variance and lengthscales): (a) SGPMC at M = 1024 over
+   N = 32768 (Z frozen), ``run_hmc`` through ``SamplingHelper`` under sync
+   debug mode "error", 100 burn-in steps adapting the step size toward an
+   acceptance of 0.75 and 100 kept samples of 10 leapfrog steps, log
+   probabilities finite, the acceptance logged; ``target_log_prob_fn`` and
+   its gradient against float64 on the card at the initial state, a
+   perturbed one and the state after burn-in, beside the lower-tier
+   control; the posterior predictive (``predict_y`` averaged over the kept
+   samples) on 4096 held-out points must beat the majority-class rate; (b)
+   GPMC on the first 4096 rows likewise, then ``predict_f_samples`` with
+   ``full_cov=True`` on the held-out points, whose moments must match
+   ``predict_f``'s; (c) in float64 on the card: a leapfrog trajectory run
+   back with the momentum negated returns to its start, |dH| falls by about
+   4 per halving of the step, and the JAX package's conjugate oracles hold
+   (GPMC against the exact GPR posterior, SGPMC against SGPR's optimal
+   q(u), chain moments within 5 Monte-Carlo standard errors); (d)
+   ``sample_conditional`` on phase 19's LinearCoregionalization at its 4449
+   request points, the moments of 1000 draws against the conditional's; (e)
+   K1 and K2 (matern32) against their plain versions at the path's shapes,
+   launch counts exactly as the recorded leapfrog and step counts imply, and
+   timings: each model's value and gradient, ms per HMC step, the chain, a
+   profile of one SGPMC value and gradient and of one HMC step, K1 and K2
+   at the path's shapes.
 
 Every failure raises, and the script then exits non-zero without the result
 line. The line before the last is ``{"kernels": [...]}``; the last is
@@ -268,7 +296,7 @@ F64_ELEMENT_ATOL, F64_ELEMENT_SHARE = 1e-3, 1e-2
 # lengthscales 1, noise 0.1, float32, B = 8192 new points per request.
 GPR_NS = (8192, 16384)
 GPR_NOISE = 0.1
-GPR_MAXITER = 30
+GPR_MAXITER = 15  # 30 until phase 20 came
 GPR_PENALTY = 1e15  # Scipy's nonfinite_penalty: a float32 trial point whose Cholesky fails is rejected
 # float32 against float64 on the card, for the value, each parameter's
 # gradient (relative to its largest float64 entry) and each prediction
@@ -374,7 +402,7 @@ SP_RTOL = {
 # n = N with a Gaussian likelihood of variance 0.1.
 VGP_N = 4096
 VGP_NOISE = 0.1
-VGP_MAXITER = 20
+VGP_MAXITER = 8  # 20 until phase 20 came: each evaluation takes ~1.5 s
 VGP_TIMED_ROUNDS = 3
 # One natural-gradient step of gamma = 1 takes the VGP to the GPR: in
 # float64, with the JAX package's test jitter, the ELBO within 1e-7 of the
@@ -524,6 +552,77 @@ MO_DIAG_RTOL = 16 * float(np.finfo(np.float32).eps)
 MO_K1_SHAPES = [(MO_M, MO_M, MO_D), (MO_M, MO_B, MO_D), (MO_M, MO_NEW, MO_D),
                 (MO_FC_M, MO_FC_M, MO_D), (MO_FC_M, MO_FC_B, MO_D)]
 MO_K2_SHAPES = [(MO_M, MO_M, MO_D), (MO_M, MO_B, MO_D), (MO_M, MO_NEW, MO_D)]
+
+# The MCMC path (slice 10; bench.py has no MCMC point): priors and HMC over
+# a GP classifier at the natural-gradient operating point's widths
+# (bench.py:233-249: D = 8, N = 32768, M = 1024, Bernoulli labels from
+# RandomState(2), float32), with the kernel of the JAX package's MCMC
+# example (doc/examples/mcmc.py), Matern32 with ARD lengthscales. Priors:
+# LogNormal(0, 1) on the variance and on each of the 8 lengthscales, centred
+# on bench.py's initial values (1 and 1); V ~ Normal(0, 1), the models' own.
+# SGPMC at M = 1024 over all N rows, its inducing points bench.py's Z, frozen
+# by set_trainable as the JAX package's oracle does
+# (tests/gpflow_tpu/models/test_hmc_conjugate_oracle.py:45-49); GPMC on the
+# first HMC_GPMC_N rows, the top of the non-LARGE range in which the JAX
+# harness fits VGP (phase 17 too): each leapfrog step factors an [N, N] K.
+# Both are sampled by run_hmc: HMC_BURNIN steps adapting the step size by
+# dual averaging toward HMC_TARGET, then HMC_SAMPLES kept samples, each step
+# HMC_LEAPFROG leapfrog steps; requests are the natural-gradient point's
+# NG_B held-out points.
+HMC_GPMC_N = 4096
+HMC_BURNIN, HMC_SAMPLES, HMC_LEAPFROG = 100, 100, 10
+HMC_STEP, HMC_TARGET = 0.01, 0.75
+HMC_PRIOR = (0.0, 1.0)  # LogNormal(loc, scale) of the variance and the lengthscales
+HMC_SEEDS = {"chain": SEED + 50, "state": SEED + 51, "momentum": SEED + 52, "conditional": SEED + 53,
+             "samples": SEED + 54}
+# target_log_prob_fn and its gradient in float32 on the card against float64
+# on the card at the same state (each float32 state cast to float64): the
+# value relative to itself, each part of the gradient to its largest float64
+# entry. The limits are set from readings at the three states of both
+# models (PERF.md §6, the MCMC slice), about 4-5 times the largest error of the sound
+# float32 runs: value 2.0e-7 (SGPMC after burn-in), gradients 1.4e-4
+# (SGPMC's lengthscales after burn-in; GPMC's 1.0e-4). Each check runs the
+# lower-tier control (K1 fed bfloat16-rounded X and Z, TF32 matmuls), which
+# must break a limit; its least largest gradient error over the checks is
+# 4.4e-3 (SGPMC perturbed), its value error 2.1e-8 to 2.7e-4 (at GPMC's
+# initial state V = 0, so F = 0 and K leaves the likelihood: only the
+# gradient in V tells the tiers apart, 6.2e-3).
+HMC_RTOL = {"value": 1e-6, "gradient": 5e-4}
+# Sampler checks in float64 on the card, on SGPMC from the state after
+# burn-in: HMC_LEAPFROG steps of HMC_DH_STEP forward and then back with the
+# momentum negated must return to the start (relative to its largest entry);
+# |dH| at (h, L), (h / 2, 2 L) and (h / 4, 4 L), the same trajectory length,
+# must fall by 4 per halving (leapfrog's energy error is O(h^2)). At
+# h = 0.02 the first readings were not in that regime (|dH| 5.5 for one
+# momentum, ratios 1.2-95); at 0.004 they read 3.995-4.289, and the round
+# trip 1.3e-15 (position) and 1.3e-13 (momentum).
+HMC_DH_STEP = 0.004
+HMC_REVERSE_RTOL = 1e-10
+HMC_DH_RATIO = (3.5, 4.5)
+HMC_DH_MOMENTA = 3
+# The JAX package's conjugate oracles (test_hmc_conjugate_oracle.py), in
+# float64 on the card: with a Gaussian likelihood and fixed hyperparameters,
+# GPMC's f = L v is the exact GPR posterior at the 40 training inputs and
+# SGPMC's u = L_z v SGPR's optimal q(u) at M = 8. The chains keep
+# HMC_ORACLE_SAMPLES after HMC_ORACLE_BURNIN adapted steps of 12 leapfrog
+# steps each (the oracle keeps 2000 after 500; each value and gradient at
+# these sizes is 2.6-3.3 ms of host time, so 1000 after 300 took 40-51 s a
+# chain in the first readings, least ESS 552-645; 300 after 100 gave ESS
+# 89-98 and a variance ratio of 1.49 for SGPMC, its step still adapting):
+# each sample mean must lie
+# within 5 Monte-Carlo standard errors (+1e-3) of the analytic mean, the
+# effective sample size estimated from the lag-1 autocorrelation, and the
+# mean ratio of sample to analytic variance within 25%, as in the oracle.
+HMC_ORACLE_SAMPLES, HMC_ORACLE_BURNIN = 500, 300
+# sample_conditional on phase 19's LinearCoregionalization (L = 4, P = 7,
+# M = 1024) at the 4449 request points, full_cov=False: HMC_COND_SAMPLES
+# draws, whose mean must lie within HMC_COND_Z standard errors of the
+# conditional's mean at every point and output (the largest of 31143
+# standard normals is ~4.5), and whose variance within HMC_COND_Z standard
+# errors, sqrt(2 / (S - 1)), of its variance.
+HMC_COND_SAMPLES, HMC_COND_Z = 1000, 6.0
+HMC_K1_SHAPES = [(NG_M, NG_M, D), (NG_M, NG_N, D), (HMC_GPMC_N, HMC_GPMC_N, D), (NG_M, NG_B, D)]
+HMC_K2_SHAPES = HMC_K1_SHAPES[:3]
 
 
 def log(*args):
@@ -1068,8 +1167,9 @@ def time_requests(model, Xb):
         log(f"time: {key} at B={B}: {ms:.4f} ms per request ({B / ms * 1e3:.0f} points/s)")
 
 
-def time_k1(n, m, iters=50, d=D):
-    """Phase 10: K1 against the plain version, rbf, device time, interleaved.
+def time_k1(n, m, iters=50, d=D, family="rbf"):
+    """Phase 10: K1 against the plain version (``family``, rbf by default),
+    device time, interleaved.
     At d = D the inputs are uniform on [0, 4]^8 as the flagship's; at another
     width N(0, 1 / d) per dimension, as N(0, 1) data over lengthscales
     sqrt(d) reach K1 (phase 18)."""
@@ -1085,11 +1185,11 @@ def time_k1(n, m, iters=50, d=D):
     fns = {"plain": pd.stationary_forward_plain, "k1": pd.stationary_forward_cuda}
     got = {"plain": [], "k1": []}
     for which in ("plain", "k1", "k1", "plain"):
-        got[which].append(device_ms(lambda: fns[which]("rbf", Xs, Zs, var), iters))
+        got[which].append(device_ms(lambda: fns[which](family, Xs, Zs, var), iters))
     k1, plain = min(got["k1"]), min(got["plain"])
     gbs = n * m * 4 / (k1 * 1e-3) / 1e9
     bound_ms, bound_by = kernel_bound_ms("K1", n, m, d)
-    log(f"time: K1 rbf ({n}, {m}, {d}): {k1:.4f} ms ({gbs:.0f} GB/s of output), plain {plain:.4f} ms, "
+    log(f"time: K1 {family} ({n}, {m}, {d}): {k1:.4f} ms ({gbs:.0f} GB/s of output), plain {plain:.4f} ms, "
         f"bound {bound_ms:.4f} ms by {bound_by} ({100 * bound_ms / k1:.0f}% of the bound's rate); "
         f"runs k1 {got['k1']}, plain {got['plain']}")
     return k1, plain
@@ -2413,7 +2513,7 @@ def vgp_train(m32, data, requests, launches):
     """Phase 17b, training: VGP_MAXITER iterations of ``Scipy().minimize``
     on ``models.training_loss_closure``, which must lower the objective;
     then the trained classifier's requests against float64 (no control:
-    20 iterations leave its predictions close to its mean function's, which
+    training leaves its predictions close to its mean function's, which
     bfloat16 points cannot move). Returns what the timings need."""
     from gpflow_tpu_torch.models import training_loss_closure
     from gpflow_tpu_torch.optimizers import Scipy
@@ -3373,6 +3473,393 @@ def mo_phases(launches):
     return errs
 
 
+def hmc_model(cls, data, Z, dtype):
+    """The Bernoulli GPMC or SGPMC of phase 20 on the card in ``dtype``:
+    Matern32 (variance 1, lengthscales 1) with LogNormal priors, V zeros;
+    SGPMC's Z frozen."""
+    from gpflow_tpu_torch import config, kernels, likelihoods, models, priors, set_trainable
+
+    with config.as_context(dataclasses.replace(config.config(), float=dtype)):
+        kernel = kernels.Matern32(lengthscales=np.ones(D))
+        kernel.variance.prior = priors.LogNormal(*HMC_PRIOR)
+        kernel.lengthscales.prior = priors.LogNormal(*HMC_PRIOR)
+        if cls == "GPMC":
+            model = models.GPMC(data, kernel, likelihoods.Bernoulli())
+        else:
+            model = models.SGPMC(data, kernel, likelihoods.Bernoulli(), inducing_variable=Z)
+            set_trainable(model.inducing_variable, False)
+    return model.to(dtype=dtype)
+
+
+def hmc_helper(model):
+    """``SamplingHelper`` over the model's trainable parameters, and their
+    paths in the same order."""
+    from gpflow_tpu_torch.optimizers import SamplingHelper
+    from gpflow_tpu_torch.utilities import parameter_dict
+
+    params = model.trainable_parameters
+    paths = {id(p): path for path, p in parameter_dict(model).items()}
+    return SamplingHelper(model.log_posterior_density, params), [paths[id(p)] for p in params]
+
+
+def hmc_launches(cls):
+    """K1 and K2 launches of one value and gradient of the target: K1 for
+    K(X) (GPMC) or Kuu and Kuf (SGPMC), K2 in the backward of each."""
+    n = 1 if cls == "GPMC" else 2
+    return {"K1": n, "K2": n}
+
+
+def hmc_value_and_grad(helper, state):
+    q = [s.detach().requires_grad_() for s in state]
+    value = helper.target_log_prob_fn(*q)
+    return value.detach(), torch.autograd.grad(value, q)
+
+
+def hmc_errors(got, want, paths):
+    """{output: (error, limit)} of a target value and gradient against float64."""
+    (value, grads), (value64, grads64) = got, want
+    out = {"value": (abs(float(value) - float(value64)) / abs(float(value64)), HMC_RTOL["value"])}
+    for path, g, g64 in zip(paths, grads, grads64):
+        out[f"gradient {path}"] = (rel_err(g, g64), HMC_RTOL["gradient"])
+    return out
+
+
+def hmc_perturbed(state):
+    """The state moved off its start: V by N(0, 0.25), the kernel's
+    unconstrained values by N(0, 0.09), from a seed (float32)."""
+    rng = np.random.RandomState(HMC_SEEDS["state"])
+    scales = [0.5 if s.numel() > D else 0.3 for s in state]
+    return [s + torch.from_numpy(np.asarray(c * rng.randn(*s.shape), dtype=np.float32)).cuda()
+            for s, c in zip(state, scales)]
+
+
+def hmc_check(what, cls, models, states, launches):
+    """Phase 20a/b: the target and its gradient of the float32 model under
+    sync debug mode "error", with exact launch counts, against float64 on
+    the card and the lower-tier control (K1 fed bfloat16-rounded X and Z,
+    TF32 matmuls) at each of ``states`` ({name: float32 state})."""
+    m32, m64, ctl = models
+    (h32, paths), (h64, _), (hctl, _) = hmc_helper(m32), hmc_helper(m64), hmc_helper(ctl)
+    for name, state in states.items():
+        label = f"{what} target at the {name} state"
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got, counts = counted(lambda: hmc_value_and_grad(h32, state))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        expect_launches(f"{label}: value and gradient", counts, hmc_launches(cls), launches)
+        want = hmc_value_and_grad(h64, [s.double() for s in state])
+        log(f"{label}: log density {float(want[0]):.6e}; largest float64 gradient entries "
+            + ", ".join(f"{p} {float(g.abs().max()):.3e}" for p, g in zip(paths, want[1])))
+        control = run_control(lambda: hmc_value_and_grad(hctl, state))
+        judge(label, hmc_errors(got, want, paths), hmc_errors(control, want, paths))
+
+
+def hmc_chain(what, cls, helper, launches):
+    """Phase 20a/b: ``run_hmc`` under sync debug mode "error": HMC_BURNIN
+    adapted steps and HMC_SAMPLES kept ones of HMC_LEAPFROG leapfrog steps,
+    log probabilities finite, launch counts exactly one value and gradient
+    per leapfrog step and one at the start. Returns the samples and the
+    chain's seconds."""
+    from gpflow_tpu_torch.optimizers import run_hmc
+
+    generator = torch.Generator(device="cuda").manual_seed(HMC_SEEDS["chain"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        (samples, log_probs), counts = counted(lambda: run_hmc(
+            helper.target_log_prob_fn, helper.current_state, num_samples=HMC_SAMPLES,
+            num_burnin_steps=HMC_BURNIN, step_size=HMC_STEP, num_leapfrog_steps=HMC_LEAPFROG,
+            generator=generator, adapt_step_size=True, target_accept=HMC_TARGET))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    seconds = time.perf_counter() - t0
+    steps = HMC_BURNIN + HMC_SAMPLES
+    evaluations = 1 + steps * HMC_LEAPFROG
+    expect_launches(f"{what} chain", counts, {k: v * evaluations for k, v in hmc_launches(cls).items()}, launches)
+    lp = log_probs.cpu()
+    assert bool(torch.all(torch.isfinite(lp))), f"{what}: a kept log probability is not finite"
+    moved = torch.stack([(s[1:] != s[:-1]).reshape(len(s) - 1, -1).any(1) for s in samples]).any(0)
+    log(f"{what} chain: {steps} steps ({HMC_BURNIN} adapting, {HMC_SAMPLES} kept) of {HMC_LEAPFROG} leapfrog steps, "
+        f"{evaluations} values and gradients in {seconds:.2f} s ({1e3 * seconds / steps:.2f} ms per step); "
+        f"acceptance over the kept steps {float(moved.double().mean()):.3f} (target {HMC_TARGET}); log probability "
+        f"first kept {float(lp[0]):.6e}, last {float(lp[-1]):.6e}")
+    return samples, seconds
+
+
+def hmc_predict(what, model, helper, samples, Xnew, Ynew, launches):
+    """Phase 20a/b: ``predict_y`` averaged over the kept samples on the
+    held-out points, which must beat the majority-class rate; two K1
+    launches a sample (Kuu and Kuf, or K(X) and K(X, Xnew))."""
+    def average():
+        total = 0.0
+        for j in range(HMC_SAMPLES):
+            helper.assign_values([s[j] for s in samples])
+            total = total + model.predict_y(Xnew)[0]
+        return total / HMC_SAMPLES
+
+    with torch.no_grad():
+        p, counts = counted(average)
+    expect_launches(f"{what} posterior predictive", counts, {"K1": 2 * HMC_SAMPLES, "K2": 0}, launches)
+    p = p.cpu().numpy()
+    assert np.all(np.isfinite(p)) and np.all((p >= 0) & (p <= 1)), f"{what}: predictive probabilities"
+    y = Ynew.cpu().numpy()
+    accuracy = float(np.mean((p > 0.5) == (y > 0.5)))
+    majority = float(max(y.mean(), 1 - y.mean()))
+    log(f"{what} posterior predictive over {HMC_SAMPLES} samples on {len(y)} held-out points: accuracy "
+        f"{accuracy:.4f}, majority-class rate {majority:.4f}")
+    assert accuracy > majority, f"{what}: the posterior predictive does not beat the majority class"
+
+
+def hmc_f_samples(model, Xnew, launches):
+    """Phase 20b: ``predict_f_samples(full_cov=True)`` of GPMC on the
+    held-out points; where float32's Cholesky of the [N, N] predictive
+    covariance fails at the jitter (NaN draws), the finding is logged and
+    the check runs with ``full_cov=False``. The draws' mean and variance
+    must match ``predict_f``'s within HMC_COND_Z standard errors."""
+    from gpflow_tpu_torch.config import default_jitter
+
+    S = 200
+    with torch.no_grad():
+        mean, var = model.predict_f(Xnew)
+        for full_cov in (True, False):
+            generator = torch.Generator(device="cuda").manual_seed(HMC_SEEDS["samples"])
+            draws, counts = counted(lambda: model.predict_f_samples(Xnew, num_samples=S, full_cov=full_cov,
+                                                                    generator=generator))
+            # K(X), K(X, Xnew), and K(Xnew) with full_cov
+            expect_launches(f"gpmc predict_f_samples full_cov={full_cov}", counts, {"K1": 3 if full_cov else 2, "K2": 0},
+                            launches)
+            assert draws.shape == (S,) + tuple(mean.shape)
+            if bool(torch.all(torch.isfinite(draws))):
+                break
+            assert full_cov, "gpmc predict_f_samples(full_cov=False) is not finite"
+            log(f"gpmc predict_f_samples: FINDING: float32's Cholesky of the [{len(Xnew)}, {len(Xnew)}] predictive "
+                f"covariance fails at the jitter {default_jitter()}; checking full_cov=False")
+    hmc_moments(f"gpmc predict_f_samples full_cov={full_cov}", draws, mean, var)
+
+
+def hmc_moments(what, draws, mean, var):
+    """The draws' mean within HMC_COND_Z standard errors of ``mean`` and
+    their variance within HMC_COND_Z standard errors of ``var``."""
+    S = draws.shape[0]
+    z_mean = float(((draws.double().mean(0) - mean.double()) / torch.sqrt(var.double() / S)).abs().max())
+    z_var = float(((draws.double().var(0) / var.double() - 1.0) / np.sqrt(2.0 / (S - 1))).abs().max())
+    log(f"{what}: {S} draws; largest standardized error of the mean {z_mean:.3f}, of the variance {z_var:.3f} "
+        f"(limit {HMC_COND_Z})")
+    assert z_mean <= HMC_COND_Z and z_var <= HMC_COND_Z, f"{what}: the draws' moments disagree"
+
+
+def hmc_sampler_checks(model64, state):
+    """Phase 20c: float64 leapfrog on the card from ``state``: forward then
+    back with the momentum negated returns to the start; |dH| falls by about
+    4 per halving of the step at a fixed trajectory length."""
+    from gpflow_tpu_torch.optimizers import mcmc
+
+    helper, _ = hmc_helper(model64)
+
+    def value_and_grad(q):
+        return mcmc._value_and_grad(helper.target_log_prob_fn, q)
+
+    def kinetic(p):
+        return sum(0.5 * float(torch.sum(pi * pi)) for pi in p)
+
+    q0 = tuple(s.double() for s in state)
+    logp0, g0 = value_and_grad(q0)
+    rng = np.random.RandomState(HMC_SEEDS["momentum"])
+    ratios = []
+    for k in range(HMC_DH_MOMENTA):
+        p0 = tuple(torch.from_numpy(np.asarray(rng.randn(*s.shape))).cuda() for s in q0)
+        dh = []
+        for halvings in range(3):
+            step = torch.tensor(HMC_DH_STEP / 2 ** halvings, dtype=torch.float64, device="cuda")
+            steps = HMC_LEAPFROG * 2 ** halvings
+            q1, p1, logp1, g1 = mcmc._leapfrog(value_and_grad, q0, p0, g0, step, steps)
+            dh.append(abs((-float(logp1) + kinetic(p1)) - (-float(logp0) + kinetic(p0))))
+            if halvings == 0 and k == 0:
+                q2, p2, _, _ = mcmc._leapfrog(value_and_grad, q1, tuple(-p for p in p1), g1, step, steps)
+                err_q = max(rel_err(a, b) for a, b in zip(q2, q0))
+                err_p = max(rel_err(-a, b) for a, b in zip(p2, p0))
+                log(f"hmc reversibility (sgpmc, float64, {steps} steps of {HMC_DH_STEP}): position {err_q:.3e}, "
+                    f"momentum {err_p:.3e} (limit {HMC_REVERSE_RTOL:.0e})")
+                assert err_q <= HMC_REVERSE_RTOL and err_p <= HMC_REVERSE_RTOL, "the leapfrog is not reversible"
+        ratios += [dh[0] / dh[1], dh[1] / dh[2]]
+        log(f"hmc energy error (sgpmc, float64, momentum {k}): |dH| {dh[0]:.4e}, {dh[1]:.4e}, {dh[2]:.4e} at steps "
+            f"{HMC_DH_STEP}, /2, /4; ratios {dh[0] / dh[1]:.3f}, {dh[1] / dh[2]:.3f}")
+    assert all(HMC_DH_RATIO[0] <= r <= HMC_DH_RATIO[1] for r in ratios), \
+        f"|dH| does not fall as step^2: ratios {ratios}, limits {HMC_DH_RATIO}"
+
+
+def hmc_oracle(cls):
+    """Phase 20c: the JAX package's conjugate oracle for ``cls`` in float64
+    on the card (``tests/gpflow_tpu/models/test_hmc_conjugate_oracle.py``)."""
+    from gpflow_tpu_torch import config, kernels, likelihoods, models, set_trainable
+    from gpflow_tpu_torch.optimizers import SamplingHelper, run_hmc
+
+    rng = np.random.RandomState(11)
+    n, noise = 40, 0.05
+    X = np.sort(rng.rand(n, 1) * 4.0, axis=0)
+    Y = np.sin(2.0 * X) + np.sqrt(noise) * rng.randn(n, 1)
+    with config.as_context(dataclasses.replace(config.config(), float=torch.float64)):
+        kernel = kernels.SquaredExponential(variance=1.2, lengthscales=0.7)
+        if cls == "GPMC":
+            model = models.GPMC((X, Y), kernel, likelihoods.Gaussian(noise))
+            Xu = X
+        else:
+            Xu = np.linspace(X.min(), X.max(), 8)[:, None]
+            model = models.SGPMC((X, Y), kernel, likelihoods.Gaussian(noise), inducing_variable=Xu.copy())
+            set_trainable(model.inducing_variable, False)
+            sgpr = models.SGPR((X, Y), kernels.SquaredExponential(variance=1.2, lengthscales=0.7),
+                               inducing_variable=Xu.copy(), noise_variance=noise)
+        set_trainable(model.kernel, False)
+        set_trainable(model.likelihood, False)
+        helper = SamplingHelper(model.log_posterior_density, model.trainable_parameters)
+        assert len(helper.current_state) == 1  # V only
+        t0 = time.perf_counter()
+        samples, log_probs = run_hmc(helper.target_log_prob_fn, helper.current_state,
+                                     num_samples=HMC_ORACLE_SAMPLES, num_burnin_steps=HMC_ORACLE_BURNIN,
+                                     step_size=0.08, num_leapfrog_steps=12, adapt_step_size=True,
+                                     generator=torch.Generator(device="cuda").manual_seed(3))
+        assert bool(torch.all(torch.isfinite(log_probs))), f"{cls} oracle chain: a log probability is not finite"
+        seconds = time.perf_counter() - t0
+        with torch.no_grad():
+            K = model.kernel(torch.from_numpy(Xu).cuda()).cpu().numpy() + config.default_jitter() * np.eye(len(Xu))
+            if cls == "GPMC":
+                Kn_inv = np.linalg.inv(K + noise * np.eye(n))
+                mean, var = (K @ Kn_inv @ Y)[:, 0], np.diag(K - K @ Kn_inv @ K)
+            else:
+                qu_mean, qu_cov = sgpr.compute_qu()
+                mean, var = qu_mean.cpu().numpy()[:, 0], np.diag(qu_cov.cpu().numpy())
+    f = samples[0].cpu().numpy()[..., 0] @ np.linalg.cholesky(K).T  # [S, n] or [S, M]
+    S = f.shape[0]
+    a = f - f.mean(0)
+    lag1 = np.abs(np.sum(a[1:] * a[:-1], 0)) / (np.sum(a * a, 0) + 1e-12)
+    ess = S * (1 - lag1) / (1 + lag1)
+    mc_se = np.sqrt(var / np.maximum(ess, 10.0))
+    err = np.abs(f.mean(0) - mean)
+    ratio = float(np.mean(f.var(0) / var))
+    log(f"hmc oracle {cls} (float64, {HMC_ORACLE_BURNIN} + {S} steps of 12, {seconds:.2f} s): largest mean error "
+        f"{float(np.max(err / (5.0 * mc_se + 1e-3))):.3f} of its limit (5 MC SE + 1e-3), least ESS {ess.min():.0f}; "
+        f"mean variance ratio {ratio:.3f} (limits 0.75, 1.25)")
+    assert np.all(err < 5.0 * mc_se + 1e-3), f"{cls} oracle: the posterior mean is off"
+    assert 0.75 < ratio < 1.25, f"{cls} oracle: the posterior variance is off"
+
+
+def hmc_sample_conditional(launches):
+    """Phase 20d: ``sample_conditional`` on phase 19's LinearCoregionalization
+    with q(u) off its start, at the 4449 request points, full_cov=False:
+    the draws' moments against the conditional's mean and variance; K1 for
+    Kuu and Kuf of each latent GP."""
+    from gpflow_tpu_torch.conditionals import sample_conditional
+
+    _, requests, Zs, W = make_mo_data()
+    start = mo_model("lmc", Zs, W, torch.float32)
+    model = mo_model("lmc", Zs, W, torch.float32, latent_values(start, MO_VALUE_SEEDS[0], MO_L))
+    Xnew = torch.from_numpy(requests[0]).cuda()
+    generator = torch.Generator(device="cuda").manual_seed(HMC_SEEDS["conditional"])
+    with torch.no_grad():
+        (draws, mean, var), counts = counted(lambda: sample_conditional(
+            Xnew, model.inducing_variable, model.kernel, model.q_mu.value, q_sqrt=model.q_sqrt.value, white=True,
+            full_cov=False, num_samples=HMC_COND_SAMPLES, generator=generator))
+    expect_launches("multioutput sample_conditional", counts, {"K1": 2 * MO_L, "K2": 0}, launches)
+    assert draws.shape == (HMC_COND_SAMPLES, MO_NEW, MO_P) and mean.shape == var.shape == (MO_NEW, MO_P)
+    hmc_moments(f"multioutput sample_conditional at {MO_NEW} points", draws, mean, var)
+
+
+def hmc_check_kernels():
+    """Phase 20e: K1 and K2 (matern32) against their plain versions at the
+    path's shapes, inputs uniform on [0, 4]^8 as the path's. Returns
+    {kernel: largest absolute error against float64}."""
+    from gpflow_tpu_torch.ops import pallas_distance as pd
+
+    rng = np.random.RandomState(SEED + 55)
+    var = torch.tensor([1.3], device="cuda")
+    worst = {"K1": 0.0, "K2": 0.0}
+    for kernel, shapes in (("K1", HMC_K1_SHAPES), ("K2", HMC_K2_SHAPES)):
+        seen = set()
+        for n, m, d in shapes:
+            Xs, Zs = (torch.from_numpy((rng.rand(k, d) * 4).astype(np.float32)).cuda() for k in (n, m))
+            if kernel == "K1":
+                out = pd.stationary_forward_cuda("matern32", Xs, Zs, var)
+                plan = plan_seen(kernel, seen)
+                plain32 = pd.stationary_forward_plain("matern32", Xs, Zs, var)
+                plain64 = pd.stationary_forward_plain("matern32", Xs.double(), Zs.double(), var.double())
+                tol64, tol32 = K1_ATOL_F64 * 1.3, K1_ATOL_F32 * 1.3
+            else:
+                g = torch.from_numpy(rng.randn(n, m).astype(np.float32)).cuda()
+                out = pd.stationary_wgrad_cuda("matern32", Xs, Zs, var, g)
+                plan = plan_seen(kernel, seen)
+                plain32 = pd.stationary_wgrad_plain("matern32", Xs, Zs, var, g)
+                plain64 = pd.stationary_wgrad_plain("matern32", Xs.double(), Zs.double(), var.double(), g.double())
+                top = max(float(plain64.abs().max()), 1e-30)
+                tol64, tol32 = K2_RTOL_F64 * top, K2_RTOL_F32 * top
+            torch.cuda.synchronize()
+            assert out.shape == (n, m) and out.dtype == torch.float32
+            err64, err32 = float((out.double() - plain64).abs().max()), float((out - plain32).abs().max())
+            log(f"{kernel} matern32 ({n}, {m}, {d}): max abs err {err64:.3e} vs plain f64, tol {tol64:.1e}; "
+                f"{err32:.3e} vs plain f32, tol {tol32:.1e}; {plan}")
+            assert err64 <= tol64 and err32 <= tol32, f"{kernel} matern32 disagrees with its plain version at {(n, m, d)}"
+            worst[kernel] = max(worst[kernel], err64)
+    return worst
+
+
+def hmc_timings(helpers, states, chain_seconds):
+    """Phase 20e: each model's target value and gradient (CUDA events, three
+    rounds of 5), ms per HMC step from the chain, a profile of one SGPMC
+    value and gradient and of one SGPMC step of HMC_LEAPFROG leapfrog steps,
+    and K1 and K2 (matern32) at the path's shapes."""
+    from gpflow_tpu_torch.optimizers import run_hmc
+
+    for what, helper in helpers.items():
+        rounds = [request_ms(lambda: hmc_value_and_grad(helper, states[what]), 5, warmup=1) for _ in range(3)]
+        log(f"time: {what} target value and gradient: {min(rounds):.3f} ms (rounds {[round(r, 3) for r in rounds]})")
+        log(f"time: {what} HMC step of {HMC_LEAPFROG} leapfrog steps: "
+            f"{1e3 * chain_seconds[what] / (HMC_BURNIN + HMC_SAMPLES):.2f} ms (the chain: {chain_seconds[what]:.2f} s)")
+    sgpmc = helpers["sgpmc"]
+    profile_device(lambda: hmc_value_and_grad(sgpmc, states["sgpmc"]), "sgpmc target value and gradient")
+    profile_device(lambda: run_hmc(sgpmc.target_log_prob_fn, states["sgpmc"], num_samples=1,
+                                   step_size=HMC_STEP, num_leapfrog_steps=HMC_LEAPFROG),
+                   f"one sgpmc HMC step ({HMC_LEAPFROG} values and gradients, and one at the start)")
+    with torch.no_grad():
+        for n, m, d in HMC_K1_SHAPES:
+            time_k1(n, m, iters=20, d=d, family="matern32")
+        for n, m, d in HMC_K2_SHAPES:
+            time_k2(n, m, iters=20, family="matern32", d=d)
+
+
+def hmc_phases(launches):
+    """Phase 20. Returns {kernel: largest absolute error of its checks}."""
+    X, Y, Z, Xnew, Ynew = make_ng_data()
+    requests = (torch.from_numpy(Xnew).cuda(), torch.from_numpy(Ynew).cuda())
+    helpers, states, seconds = {}, {}, {}
+    for cls, data in (("SGPMC", (X, Y)), ("GPMC", (X[:HMC_GPMC_N], Y[:HMC_GPMC_N]))):
+        what = cls.lower()
+        m32, m64 = hmc_model(cls, data, Z, torch.float32), hmc_model(cls, data, Z, torch.float64)
+        ctl = hmc_model(cls, (bf16(data[0]).numpy(), data[1]), bf16(Z).numpy(), torch.float32)
+        helper, paths = hmc_helper(m32)
+        log(f"{what}: state {paths}, {sum(s.numel() for s in helper.current_state)} dimensions")
+        start = helper.current_state
+        samples, seconds[what] = hmc_chain(what, cls, helper, launches)
+        after_burnin = [s[0].clone() for s in samples]
+        hmc_check(what, cls, (m32, m64, ctl), {"initial": start, "perturbed": hmc_perturbed(start),
+                                              "after burn-in": after_burnin}, launches)
+        hmc_predict(what, m32, helper, samples, *requests, launches)
+        if cls == "GPMC":
+            hmc_f_samples(m32, requests[0], launches)
+        else:
+            hmc_sampler_checks(m64, after_burnin)
+        helpers[what], states[what] = helper, after_burnin
+        del m64, ctl
+        torch.cuda.empty_cache()
+    hmc_oracle("GPMC")
+    hmc_oracle("SGPMC")
+    hmc_sample_conditional(launches)
+    torch.cuda.empty_cache()
+    errs = hmc_check_kernels()
+    hmc_timings(helpers, states, seconds)
+    return errs
+
+
 def _kernel_category(name):
     # cuSOLVER's float32 Cholesky runs as getrf_wo_pivot on this card
     n = name.lower()
@@ -3580,6 +4067,10 @@ def main():
     k1_err, k2_err = max(k1_err, mo_err["K1"]), max(k2_err, mo_err["K2"])
     torch.cuda.empty_cache()
 
+    hmc_err = hmc_phases(launches)
+    k1_err, k2_err = max(k1_err, hmc_err["K1"]), max(k2_err, hmc_err["K2"])
+    torch.cuda.empty_cache()
+
     n = GPR_NS[-1]
     with torch.no_grad():
         time_k1(GPR_NS[0], GPR_NS[0], iters=20)  # the Gram matrix at N = 8192
@@ -3594,9 +4085,9 @@ def main():
     assert total["K1"] > 0 and total["K2"] > 0, f"a kernel of the paths never launched: {total}"
     records = []
     for kernel, label, family, source, replaces, err, ms, plain_ms in (
-        ("K1", "K1 stationary covariance (rbf, matern52 and matern12 on the paths)", "rbf", "stationary_k1.cu",
-         136, k1_err, k1_ms, k1_plain_ms),
-        ("K2", "K2 stationary VJP weight (matern52 and matern12 on the training paths)", "matern52",
+        ("K1", "K1 stationary covariance (rbf, matern52, matern32 and matern12 on the paths)", "rbf",
+         "stationary_k1.cu", 136, k1_err, k1_ms, k1_plain_ms),
+        ("K2", "K2 stationary VJP weight (matern52, matern32 and matern12 on the training paths)", "matern52",
          "stationary_k2.cu", 142, k2_err, k2_ms, k2_plain_ms),
     ):
         bound_ms, bound_by = kernel_bound_ms(kernel, n, n, D)

@@ -9,7 +9,9 @@ GPRFITC and CGLB, and the VGP and VGPOpperArchambeau through the
 single-output ``conditionals.conditional``, with stationary, Linear, static
 and Periodic kernels, their sums and products, and mean functions, and
 multiclass SVGPs (``MultiClass``, ``Softmax``) over several latent GPs with
-the rest of the JAX package's likelihoods, and serves them (ROADMAP.md lists what is still to port). Shape contracts
+the rest of the JAX package's likelihoods, multioutput SVGPs, and the
+Bayesian models GPMC and SGPMC with parameter priors, sampled by
+``optimizers.run_hmc``, and serves them (ROADMAP.md lists what is still to port). Shape contracts
 (``utilities.check_shapes``) are off unless switched on. On a CUDA device, covariance matrices come from the hand-written
 kernel K1 and the gradients of the exponential and Matern families from K2
 (``gpflow_tpu_torch.ops.pallas_distance``).
@@ -36,15 +38,18 @@ from . import (
     optimizers,
     parallel,
     posteriors,
+    priors,
     utilities,
 )
-from .base import Module, Parameter
+from .base import Module, Parameter, PriorOn
+from .utilities import set_trainable
 
 config.use_exact_f32_matmul()
 
 __all__ = [
     "Module",
     "Parameter",
+    "PriorOn",
     "bijectors",
     "conditionals",
     "config",
@@ -61,5 +66,7 @@ __all__ = [
     "optimizers",
     "parallel",
     "posteriors",
+    "priors",
+    "set_trainable",
     "utilities",
 ]

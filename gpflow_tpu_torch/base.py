@@ -2,16 +2,19 @@
 
 A ``Module`` is a ``torch.nn.Module``. A ``Parameter`` is a small module that
 holds the unconstrained value as a ``torch.nn.Parameter`` together with its
-bijector, and exposes the constrained value as ``.value``. A Parameter is
-built on ``config.default_device()`` (the card unless the caller asks for
-another device); models move between devices and dtypes with ``.to()``. A
-Parameter that is not trainable has ``requires_grad=False``;
-``Module.trainable_parameters`` lists the trainable ones, whose
-``unconstrained`` tensors an optimizer takes.
+bijector and an optional prior, and exposes the constrained value as
+``.value``. A Parameter is built on ``config.default_device()`` (the card
+unless the caller asks for another device); models move between devices and
+dtypes with ``.to()``. A Parameter that is not trainable has
+``requires_grad=False``; ``Module.trainable_parameters`` lists the trainable
+ones, whose ``unconstrained`` tensors an optimizer takes. ``functionalize``
+turns a closure over Parameters into a pure function of their unconstrained
+values.
 """
 from __future__ import annotations
 
-from typing import Any, Optional, Tuple
+import enum
+from typing import TYPE_CHECKING, Any, Callable, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -20,9 +23,19 @@ from torch import nn
 from .bijectors import Bijector, Identity
 from .config import as_torch_dtype, default_device, default_float
 
-__all__ = ["MeanAndVariance", "Module", "Parameter"]
+if TYPE_CHECKING:  # priors -> logdensities -> utilities, whose __init__ imports this module
+    from .priors import Prior
+
+__all__ = ["MeanAndVariance", "Module", "Parameter", "PriorOn", "functionalize"]
 
 MeanAndVariance = Tuple[torch.Tensor, torch.Tensor]
+
+
+class PriorOn(enum.Enum):
+    """Where a parameter's prior density is evaluated (``gpflow_tpu/base.py:63-70``)."""
+
+    CONSTRAINED = "constrained"
+    UNCONSTRAINED = "unconstrained"
 
 
 class Module(nn.Module):
@@ -75,9 +88,12 @@ class Parameter(Module):
 
     Construction and ``assign`` take constrained values, check them (shape,
     NaN/Inf, and the transform's domain through the unconstrained value) and
-    store the unconstrained tensor. ``trainable`` (default True, or the
-    source's when ``value`` is a Parameter) is the unconstrained tensor's
-    ``requires_grad``.
+    store the unconstrained tensor. ``trainable`` (default True) is a flag of
+    the Parameter, mirrored in the unconstrained tensor's ``requires_grad``.
+    ``prior`` (a ``priors.Prior`` or None) is evaluated on the constrained
+    value or, with ``prior_on=PriorOn.UNCONSTRAINED``, on the unconstrained
+    one. Built from another Parameter, the new one inherits its
+    ``trainable``, ``prior`` and ``prior_on`` unless they are given.
     """
 
     def __init__(
@@ -85,26 +101,42 @@ class Parameter(Module):
         value: Any,
         *,
         transform: Optional[Bijector] = None,
+        prior: Optional[Prior] = None,
+        prior_on: Optional[Union[str, PriorOn]] = None,
         trainable: Optional[bool] = None,
         dtype: Any = None,
         name: Optional[str] = None,
     ) -> None:
         super().__init__()
-        if trainable is None:
-            trainable = value.trainable if isinstance(value, Parameter) else True
+        if isinstance(value, Parameter):
+            trainable = value.trainable if trainable is None else trainable
+            prior = value.prior if prior is None else prior
+            prior_on = value.prior_on if prior_on is None else prior_on
         self.transform = transform if transform is not None else Identity()
+        self.prior = prior
+        self.prior_on = PriorOn.CONSTRAINED if prior_on is None else prior_on
         self._name = name or "parameter"
         unconstrained = self.transform.inverse(_to_tensor(value, dtype, default_device()))
         _validate_finite(unconstrained, self.name)
-        self.unconstrained = nn.Parameter(unconstrained, requires_grad=bool(trainable))
+        self._trainable = True if trainable is None else bool(trainable)
+        self.unconstrained = nn.Parameter(unconstrained, requires_grad=self._trainable)
 
     @property
     def trainable(self) -> bool:
-        return self.unconstrained.requires_grad
+        return self._trainable
 
     @trainable.setter
     def trainable(self, flag: bool) -> None:
-        self.unconstrained.requires_grad_(bool(flag))
+        self._trainable = bool(flag)
+        self.unconstrained.requires_grad_(self._trainable)
+
+    @property
+    def prior_on(self) -> PriorOn:
+        return self._prior_on
+
+    @prior_on.setter
+    def prior_on(self, value: Union[str, PriorOn]) -> None:
+        self._prior_on = PriorOn(value)
 
     @property
     def value(self) -> torch.Tensor:
@@ -148,8 +180,48 @@ class Parameter(Module):
         """Assigns a new constrained value."""
         self._set_unconstrained(self._prepare_assign(value))
 
+    def assign_unconstrained(self, value: Any) -> None:
+        """Assigns a new unconstrained value, unchecked
+        (``gpflow_tpu/base.py:335-336``)."""
+        self._set_unconstrained(_to_tensor(value, self.dtype, self.device))
+
+    def log_prior_density(self) -> torch.Tensor:
+        """The log prior density of the parameter, summed over its elements,
+        with the change-of-variables term when the prior is on the
+        unconstrained value (``gpflow_tpu/base.py:338-353``); 0 without a
+        prior."""
+        if self.prior is None:
+            return torch.zeros((), dtype=self.dtype, device=self.device)
+        if self.prior_on is PriorOn.CONSTRAINED:
+            return torch.sum(self.prior.log_prob(self.value))
+        x = self.unconstrained
+        return torch.sum(self.prior.log_prob(x)) - torch.sum(self.transform.forward_log_det_jacobian(x))
+
     def extra_repr(self) -> str:
+        prior = "None" if self.prior is None else self.prior.name
         return (
-            f"name={self.name!r}, transform={self.transform.name}, trainable={self.trainable}, "
+            f"name={self.name!r}, transform={self.transform.name}, prior={prior}, trainable={self.trainable}, "
             f"shape={tuple(self.shape)}, dtype={self.dtype}"
         )
+
+
+def functionalize(
+    closure: Callable[[], Any], parameters: Sequence[Parameter]
+) -> Callable[[Sequence[torch.Tensor]], Any]:
+    """A pure function of the parameters' unconstrained values from a
+    zero-argument ``closure`` that reads them (``gpflow_tpu/base.py:107-130``):
+    each call puts the given tensors in the parameters' place, calls
+    ``closure`` and puts the parameters' own tensors back, also when
+    ``closure`` raises. The parameters' values never change."""
+
+    def fn(unconstrained: Sequence[torch.Tensor]) -> Any:
+        originals = [p._parameters["unconstrained"] for p in parameters]
+        try:
+            for p, u in zip(parameters, unconstrained):
+                p._parameters["unconstrained"] = u
+            return closure()
+        finally:
+            for p, o in zip(parameters, originals):
+                p._parameters["unconstrained"] = o
+
+    return fn

@@ -1,13 +1,15 @@
 """Parameter transforms (counterpart of ``gpflow_tpu/bijectors.py``).
 
 A bijector maps an unconstrained tensor to its constrained value with
-``forward`` and back with ``inverse``. Bijectors are frozen dataclasses that
+``forward`` and back with ``inverse``; ``forward_log_det_jacobian(x)`` is
+log|dy/dx| elementwise (callers sum it). Bijectors are frozen dataclasses that
 hold no tensors, so a ``Parameter`` moves between devices with ``.to()``
 without touching them.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -34,6 +36,9 @@ class Bijector:
     def inverse(self, y: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 
+    def forward_log_det_jacobian(self, x: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
     @property
     def name(self) -> str:
         return type(self).__name__.lower()
@@ -47,6 +52,9 @@ class Identity(Bijector):
     def inverse(self, y: torch.Tensor) -> torch.Tensor:
         return y
 
+    def forward_log_det_jacobian(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.zeros_like(x)
+
 
 @dataclasses.dataclass(frozen=True)
 class Exp(Bijector):
@@ -58,17 +66,28 @@ class Exp(Bijector):
     def inverse(self, y: torch.Tensor) -> torch.Tensor:
         return torch.log(y)
 
+    def forward_log_det_jacobian(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    # log(1 + e^x) as the JAX package writes it; torch's softplus returns x
+    # itself above its threshold, which differs in the last digits
+    return torch.logaddexp(x, torch.zeros_like(x))
+
 
 @dataclasses.dataclass(frozen=True)
 class Softplus(Bijector):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # log(1 + e^x) as the JAX package writes it; torch's softplus returns
-        # x itself above its threshold, which differs in the last digits
-        return torch.logaddexp(x, torch.zeros_like(x))
+        return _softplus(x)
 
     def inverse(self, y: torch.Tensor) -> torch.Tensor:
         # log(e^y - 1) = y + log(-expm1(-y)), stable for large and small y
         return y + torch.log(-torch.expm1(-y))
+
+    def forward_log_det_jacobian(self, x: torch.Tensor) -> torch.Tensor:
+        # log sigmoid(x) = -softplus(-x)
+        return -_softplus(-x)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,6 +99,9 @@ class Shift(Bijector):
 
     def inverse(self, y: torch.Tensor) -> torch.Tensor:
         return y - self.shift
+
+    def forward_log_det_jacobian(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.zeros_like(x)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,6 +117,9 @@ class Sigmoid(Bijector):
     def inverse(self, y: torch.Tensor) -> torch.Tensor:
         z = (y - self.low) / (self.high - self.low)
         return torch.log(z) - torch.log1p(-z)
+
+    def forward_log_det_jacobian(self, x: torch.Tensor) -> torch.Tensor:
+        return math.log(self.high - self.low) - _softplus(-x) - _softplus(x)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,6 +138,13 @@ class Chain(Bijector):
             y = b.inverse(y)
         return y
 
+    def forward_log_det_jacobian(self, x: torch.Tensor) -> torch.Tensor:
+        ldj = torch.zeros_like(x)
+        for b in reversed(self.bijectors):
+            ldj = ldj + b.forward_log_det_jacobian(x)
+            x = b.forward(x)
+        return ldj
+
 
 @dataclasses.dataclass(frozen=True)
 class TriangularMask(Bijector):
@@ -128,6 +160,9 @@ class TriangularMask(Bijector):
 
     def inverse(self, y: torch.Tensor) -> torch.Tensor:
         return torch.tril(y)
+
+    def forward_log_det_jacobian(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.zeros(x.shape[:-2], dtype=x.dtype, device=x.device)
 
 
 def positive(lower: Optional[float] = None, base: Optional[str] = None) -> Bijector:

@@ -1,11 +1,13 @@
 from . import conditionals as _conditionals_impl  # registers the single-output conditionals
 from . import multioutput  # registers the multioutput conditionals
+from . import sample_conditionals as _sample_impl  # registers sampling
 from .dispatch import conditional, sample_conditional
 from .util import (
     base_conditional,
     base_conditional_with_lm,
     expand_independent_outputs,
     inv_solve,
+    sample_mvn,
     set_inv_solve,
 )
 
@@ -17,5 +19,6 @@ __all__ = [
     "inv_solve",
     "multioutput",
     "sample_conditional",
+    "sample_mvn",
     "set_inv_solve",
 ]

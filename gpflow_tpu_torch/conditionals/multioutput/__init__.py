@@ -1,3 +1,3 @@
-from . import conditionals
+from . import conditionals, sample_conditionals
 
-__all__ = ["conditionals"]
+__all__ = ["conditionals", "sample_conditionals"]

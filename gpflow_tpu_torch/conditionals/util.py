@@ -22,6 +22,7 @@ from typing import Iterator, Optional
 import torch
 
 from ..base import MeanAndVariance
+from ..config import default_jitter
 from ..ops.linalg import chol_and_inverse, cholesky, triangular_inverse
 from ..utilities.ops import leading_transpose
 from ..utilities.shapes import check_shapes
@@ -37,6 +38,7 @@ __all__ = [
     "mix_latent_gp",
     "rollaxis_left",
     "rollaxis_right",
+    "sample_mvn",
     "separate_independent_conditional_implementation",
     "set_inv_solve",
 ]
@@ -166,6 +168,53 @@ def base_conditional_with_lm(
         fvar = fvar.mT  # [..., N, R]
 
     return fmean, fvar
+
+
+@check_shapes(
+    "mean: [batch..., N, D]",
+    "cov: [batch..., N, D, D] if full_cov",
+    "cov: [batch..., N, D] if not full_cov",
+    "return: [batch..., S, N, D] if num_samples",
+    "return: [batch..., N, D] if not num_samples",
+)
+def sample_mvn(
+    mean: torch.Tensor,
+    cov: torch.Tensor,
+    full_cov: bool,
+    num_samples: Optional[int] = None,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """Draws from batched D-dimensional normals (``gpflow_tpu/conditionals/util.py:271-305``):
+    mean [..., N, D], cov [..., N, D, D] (full_cov, factored with the
+    default jitter; NaN where the Cholesky fails) or [..., N, D]; returns
+    [..., (S,) N, D]. The standard normal draws come from ``generator``,
+    else from a new generator on the mean's device seeded 0."""
+    S = 1 if num_samples is None else num_samples
+    if full_cov:
+        eps_shape = mean.shape + (S,)  # [..., N, D, S]
+    else:
+        eps_shape = mean.shape[:-2] + (S,) + mean.shape[-2:]  # [..., S, N, D]
+    if generator is None:
+        generator = torch.Generator(device=mean.device).manual_seed(0)
+    eps = torch.randn(eps_shape, generator=generator, dtype=mean.dtype, device=mean.device)
+    return _sample_mvn_with_eps(mean, cov, full_cov, eps, num_samples)
+
+
+def _sample_mvn_with_eps(
+    mean: torch.Tensor, cov: torch.Tensor, full_cov: bool, eps: torch.Tensor, num_samples: Optional[int]
+) -> torch.Tensor:
+    """``sample_mvn`` from the standard normal draws ``eps``, [..., N, D, S]
+    with full_cov, else [..., S, N, D]."""
+    if full_cov:
+        D = mean.shape[-1]
+        chol = cholesky(cov + default_jitter() * torch.eye(D, dtype=cov.dtype, device=cov.device))  # [..., N, D, D]
+        samples = mean[..., None] + torch.matmul(chol, eps)  # [..., N, D, S]
+        samples = leading_transpose(samples, [..., -1, -3, -2])  # [..., S, N, D]
+    else:
+        samples = mean[..., None, :, :] + torch.sqrt(cov)[..., None, :, :] * eps
+    if num_samples is None:
+        return samples.squeeze(-3)
+    return samples
 
 
 def expand_independent_outputs(

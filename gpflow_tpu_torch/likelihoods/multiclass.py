@@ -19,6 +19,7 @@ import torch
 from ..base import MeanAndVariance, Module, Parameter
 from ..bijectors import Sigmoid
 from ..config import default_int
+from ..priors import Beta as BetaPrior
 from ..quadrature.gauss_hermite import DeviceGrid
 from ..utilities.shapes import check_shapes, inherit_check_shapes
 from .base import Likelihood, MonteCarloLikelihood
@@ -62,16 +63,17 @@ class Softmax(MonteCarloLikelihood):
 class RobustMax(Module):
     """The robust-max inverse link: 1 - epsilon for the largest latent
     function, epsilon / (C - 1) for each other (``multiclass.py:54-141``).
-    ``epsilon`` is a Parameter in (0, 1) (a ``Sigmoid`` transform), not
-    trainable; the JAX package's Beta(0.2, 5) prior on it waits for priors
-    in the port."""
+    ``epsilon`` is a Parameter in (0, 1) (a ``Sigmoid`` transform) with a
+    Beta(0.2, 5) prior, not trainable (``multiclass.py:62-65``)."""
 
     @check_shapes(
         "epsilon: []",
     )
     def __init__(self, num_classes: int, epsilon: float = 1e-3, **kwargs: Any) -> None:
         super().__init__()
-        self.epsilon = Parameter(epsilon, transform=Sigmoid(), trainable=False, name="epsilon")
+        self.epsilon = Parameter(
+            epsilon, transform=Sigmoid(), prior=BetaPrior(0.2, 5.0), trainable=False, name="epsilon"
+        )
         self.num_classes = num_classes
         self._squash = 1e-6
 

@@ -1,6 +1,8 @@
 from .cglb import CGLB, NystromPreconditioner, cglb_conjugate_gradient
+from .gpmc import GPMC
 from .gpr import GPR, GPR_deprecated, GPR_with_posterior
 from .model import BayesianModel, GPModel
+from .sgpmc import SGPMC
 from .sgpr import GPRFITC, SGPR, SGPR_deprecated, SGPR_with_posterior, SGPRBase_deprecated
 from .svgp import SVGP, SVGP_deprecated, SVGP_with_posterior
 from .training_mixins import ExternalDataTrainingLossMixin, InternalDataTrainingLossMixin
@@ -17,6 +19,7 @@ __all__ = [
     "BayesianModel",
     "CGLB",
     "ExternalDataTrainingLossMixin",
+    "GPMC",
     "GPModel",
     "GPRFITC",
     "GPR",
@@ -24,6 +27,7 @@ __all__ = [
     "GPR_with_posterior",
     "InternalDataTrainingLossMixin",
     "NystromPreconditioner",
+    "SGPMC",
     "SGPR",
     "SGPRBase_deprecated",
     "SGPR_deprecated",

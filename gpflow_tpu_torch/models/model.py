@@ -7,6 +7,7 @@ from typing import Any, Optional, Tuple
 import torch
 
 from ..base import MeanAndVariance, Module
+from ..conditionals.util import sample_mvn
 from ..config import default_device, default_float
 from ..functions import MeanFunction, Zero
 from ..kernels import Kernel, MultioutputKernel
@@ -21,11 +22,16 @@ class BayesianModel(Module, abc.ABC):
     """Base of all models: prior and posterior densities and the objective
     (``gpflow_tpu/models/model.py:22-49``)."""
 
+    @check_shapes("return: []")
     def log_prior_density(self) -> torch.Tensor:
-        """Sum of the log prior densities of the trainable parameters. Priors
-        are not ported yet (ROADMAP.md), so this is a zero of the default
-        float type, on the device of the model's parameters
+        """Sum of the log prior densities of the trainable parameters
+        (``gpflow_tpu/models/model.py:26-34``); a parameter without a prior
+        adds 0, so only those with one are evaluated. Without any, a zero of
+        the default float type on the device of the model's tensors
         (``config.default_device()`` for a model without any)."""
+        densities = [p.log_prior_density() for p in self.trainable_parameters if p.prior is not None]
+        if densities:
+            return sum(densities[1:], densities[0])
         first = next(self.parameters(), None)
         device = default_device() if first is None else first.device
         return torch.zeros((), dtype=default_float(), device=device)
@@ -91,6 +97,32 @@ class GPModel(BayesianModel):
         self, Xnew: torch.Tensor, full_cov: bool = False, full_output_cov: bool = False
     ) -> MeanAndVariance:
         raise NotImplementedError
+
+    @check_shapes(
+        "Xnew: [batch..., N, D]",
+        "return: [batch..., S, N, P] if num_samples is not None",
+        "return: [batch..., N, P] if num_samples is None",
+    )
+    def predict_f_samples(
+        self,
+        Xnew: torch.Tensor,
+        num_samples: Optional[int] = None,
+        full_cov: bool = True,
+        full_output_cov: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """Draws from the posterior of the latent functions at Xnew
+        (``gpflow_tpu/models/model.py:110-137``), through ``sample_mvn`` with
+        ``generator``."""
+        if full_cov and full_output_cov:
+            raise NotImplementedError(
+                "The combination of both `full_cov` and `full_output_cov` is not supported."
+            )
+        mean, cov = self.predict_f(Xnew, full_cov=full_cov, full_output_cov=full_output_cov)
+        if full_cov:
+            # mean [..., N, P] as [..., P, N] against cov [..., P, N, N]
+            return sample_mvn(mean.mT, cov, True, num_samples=num_samples, generator=generator).mT
+        return sample_mvn(mean, cov, full_output_cov, num_samples=num_samples, generator=generator)
 
     def predict_y(
         self, Xnew: torch.Tensor, full_cov: bool = False, full_output_cov: bool = False

@@ -12,7 +12,7 @@ from .shapes import (
     register_get_shape,
     set_enable_check_shapes,
 )
-from .traversal import load_jax_values, parameter_dict, read_values
+from .traversal import load_jax_values, parameter_dict, read_values, select_dict_parameters_with_prior
 
 __all__ = [
     "Dispatcher",
@@ -30,6 +30,7 @@ __all__ = [
     "prepare_parameter_or_function",
     "read_values",
     "register_get_shape",
+    "select_dict_parameters_with_prior",
     "set_enable_check_shapes",
     "set_trainable",
     "square_distance",

@@ -10,7 +10,7 @@ from torch import nn
 
 from ..base import Parameter
 
-__all__ = ["load_jax_values", "parameter_dict", "read_values"]
+__all__ = ["load_jax_values", "parameter_dict", "read_values", "select_dict_parameters_with_prior"]
 
 
 _LIST_INDEX = re.compile(r"\.(\d+)(?=\.|$)")
@@ -28,6 +28,11 @@ def parameter_dict(m: nn.Module) -> Dict[str, Parameter]:
     ``.kernel.kernels[0].variance`` to the module's Parameters, in the JAX
     package's path format (``traversal.py:89-93``)."""
     return {_jax_path(name): p for name, p in m.named_modules() if isinstance(p, Parameter)}
+
+
+def select_dict_parameters_with_prior(m: nn.Module) -> Dict[str, Parameter]:
+    """The Parameters that carry a prior, keyed by path (``traversal.py:117-119``)."""
+    return {k: p for k, p in parameter_dict(m).items() if p.prior is not None}
 
 
 def read_values(m: nn.Module) -> Dict[str, np.ndarray]:

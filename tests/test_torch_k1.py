@@ -159,6 +159,13 @@ def test_import_leaves_jax_out():
         "from gpflow_tpu_torch.conditionals.util import mix_latent_gp, independent_interdomain_conditional\n"
         "from gpflow_tpu_torch.posteriors import LinearCoregionalizationPosterior, FallbackIndependentLatentPosterior\n"
         "from gpflow_tpu_torch.utilities.ops import leading_transpose\n"
+        "import gpflow_tpu_torch.priors, gpflow_tpu_torch.conditionals.sample_conditionals\n"
+        "import gpflow_tpu_torch.conditionals.multioutput.sample_conditionals\n"
+        "from gpflow_tpu_torch import PriorOn, set_trainable\n"
+        "from gpflow_tpu_torch.models import GPMC, SGPMC\n"
+        "from gpflow_tpu_torch.optimizers import SamplingHelper, run_hmc\n"
+        "from gpflow_tpu_torch.conditionals.util import sample_mvn\n"
+        "from gpflow_tpu_torch.utilities import select_dict_parameters_with_prior\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'gpflow_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
