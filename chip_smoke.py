@@ -3,7 +3,13 @@
 
 Run from the repository root, on a machine with a CUDA card and nvcc:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # every phase
+    python3 chip_smoke.py --phases 5-8,21  # phases 1-4, then only these
+
+With ``--phases`` the script runs the build and the kernel checks of phases
+1-4, then each group of phases that holds a selected one (5-8, 9-10, 11-12,
+13-16, and 17 to 21 alone), then the record's kernel timings; without it,
+every phase.
 
 The paths are those of ``bench.py``'s flagship model at full width (SVGP,
 D = 8, M = 2048 inducing points, batches and requests of B = 8192 points,
@@ -25,7 +31,11 @@ multiclass operating point); and the multioutput SVGP at SARCOS's shapes
 (N = 44484, D = 21, P = 7) with M = 1024, B = 4096 (slice 9; ``bench.py``
 has no multioutput operating point); and GPMC and SGPMC with priors on
 their hyperparameters, sampled by HMC at the natural-gradient operating
-point's widths (slice 10; ``bench.py`` has no MCMC operating point). Models are built on the card, the
+point's widths (slice 10; ``bench.py`` has no MCMC operating point); and the
+GPLVM and the Bayesian GPLVM through the psi statistics, with
+``uncertain_conditional``, at oil flow's width (P = 12) with Q = 10 latent
+dimensions on synthetic data (slice 11; ``bench.py`` has no GPLVM operating
+point). Models are built on the card, the
 port's default device; the float64 references ask for the CPU, or for float64
 on the card where the CPU would take minutes. Phases:
 
@@ -200,7 +210,30 @@ on the card where the CPU would take minutes. Phases:
    launch counts exactly as the recorded leapfrog and step counts imply, and
    timings: each model's value and gradient, ms per HMC step, the chain, a
    profile of one SGPMC value and gradient and of one HMC step, K1 and K2
-   at the path's shapes.
+   at the path's shapes;
+21. the latent-variable slice (P = 12, Q = 10; the data a smooth manifold
+   made from a seed): (a) a BayesianGPLVM at N = 1000, M = 50 from PCA, 50
+   float64 L-BFGS iterations, which must raise the bound; the float32 bound
+   and its gradient against float64 on the card at the start, the result
+   and a perturbed point, each beside the lower-tier control, the float32
+   path's host syncs counted (``torch.linalg.eigh`` in the psi2 projection
+   reads its error flag) and the float64 one under sync debug mode "error";
+   ``predict_f`` of 1000 new points with and without ``full_cov``; the
+   analytic psi0, psi1 and psi2 at Q = 2 against the quadrature fallback with
+   20 points a dimension (K1 at (50, 400000, 2)); (b) a BayesianGPLVM at
+   N = 8192, M = 256 (one float32 [N, M, M] psi2 is 2.1 GB): the float32
+   bound and gradient against float64 (psi2 summed over chunks of N), the
+   peak memory, the times and a profile, ``predict_f`` at the 8192 latent
+   means; (c) a GPLVM at N = 8192: the float32 value and gradient in X and
+   the hyperparameters against float64 under sync debug mode "error" beside
+   the control (SquaredExponential at two points, Matern52 with K2 on the
+   path), 15 L-BFGS iterations, which must lower the objective; (d)
+   ``uncertain_conditional`` at 1024 inputs against a whitened q(u) of
+   M = 256, with and without a Linear mean function, float32 against
+   float64 beside the control, and float64 against a Monte-Carlo estimate of
+   10^4 draws at 16 inputs; (e) K1 and K2 against their plain versions at
+   the path's D = 10 and D = 2 shapes (TMA and edge paths, scalar staging),
+   launch counts exactly as each path implies, and their timings.
 
 Every failure raises, and the script then exits non-zero without the result
 line. The line before the last is ``{"kernels": [...]}``; the last is
@@ -623,6 +656,58 @@ HMC_ORACLE_SAMPLES, HMC_ORACLE_BURNIN = 500, 300
 HMC_COND_SAMPLES, HMC_COND_Z = 1000, 6.0
 HMC_K1_SHAPES = [(NG_M, NG_M, D), (NG_M, NG_N, D), (HMC_GPMC_N, HMC_GPMC_N, D), (NG_M, NG_B, D)]
 HMC_K2_SHAPES = HMC_K1_SHAPES[:3]
+
+# The latent-variable slice (phase 21; bench.py has no GPLVM operating
+# point): oil flow's width (P = 12 measurements, N = 1000 points; Bishop and
+# James 1993, the data set of GPflow's GPLVM notebook) with Q = 10 latent
+# dimensions. The data set is not in the repository, so the data are a
+# smooth manifold made from a seed as tests/gpflow_tpu/models/test_gplvm_f32.py
+# makes one: t ~ N(0, 1) [N, Q], Y = tanh(t W / sqrt(Q)) + 0.05 noise, with
+# one W [Q, P] for every size. (a) BayesianGPLVM at N = 1000, M = 50 from
+# PCA, X_data_var 0.1, SquaredExponential with Q lengthscales 1, noise 0.1,
+# trained in float64 (in float32 its bound climbs its own rounding error,
+# README.md); (b) the wide point, N = 8192, M = 256: one float32 [N, M, M]
+# psi2 is 2.1 GB, and the float64 reference sums psi2 over chunks of
+# GL_WIDE_CHUNK rows; (c) GPLVM at N = 8192; (d) uncertain_conditional at
+# GL_UC_N inputs with full covariances against a whitened q(u) of M = 256
+# and P outputs, and a Monte-Carlo estimate of GL_UC_DRAWS draws at
+# GL_UC_MC_N of them; the analytic psi statistics against the quadrature
+# fallback at Q = 2 and 20 points a dimension (Kuf at N * 400 points).
+GL_P, GL_Q = 12, 10
+GL_N, GL_M, GL_NOISE, GL_XVAR = 1000, 50, 0.1, 0.1
+GL_MAXITER, GL_EARLY = 50, 5
+GL_JITTER = 1e-4  # the float32 jitter, which the float64 references take too
+GL_WIDE_N, GL_WIDE_M, GL_WIDE_CHUNK = 8192, 256, 1024
+GL_GPLVM_N = 8192
+GL_UC_N, GL_UC_M, GL_UC_MC_N, GL_UC_DRAWS, GL_UC_Z = 1024, 256, 16, 10_000, 5.0
+GL_QUAD_Q, GL_QUAD_NGHP = 2, 20
+GL_SEEDS = {"W": SEED + 60, "data": SEED + 61, "Z": SEED + 62, "perturb": SEED + 63, "uc": SEED + 64,
+            "mc": SEED + 65, "kernels": SEED + 66}
+# float32 against float64 on the card, each output relative to the largest
+# float64 entry (the bound and the GPLVM's objective relative to themselves),
+# each check beside the lower-tier control (X_data_mean, Z and the inputs
+# rounded to bfloat16, TF32 matmuls), which must break one of the limits.
+# The limits are set from readings (PERF.md §6, the latent-variable slice), 3-7 times the largest
+# sound error: the Bayesian GPLVM's bound 3.1e-5 (the wide point; its
+# control 9.9e-5), its gradients 1.3e-3 (the wide point's Z; the control's
+# largest error in each check 1.2e-2 or more), its predict_f mean 4.2e-4
+# and variance 1.1e-5 (the control 3.0e-2 and 6.0e-3); the psi statistics
+# 1.4e-6 analytic and 2.7e-7 by quadrature (the control 6.5e-3); the GPLVM's
+# objective 4.0e-5 (the control's as small: float32 rounds the objective as
+# bfloat16 inputs do) and gradients 7.0e-5 (the control's in X 2.3e-2);
+# uncertain_conditional's mean 4.2e-6 and variance 5.8e-5 (the control 2.7e-3
+# and 1.8e-2).
+GL_RTOL = {"value": 1e-4, "gradient": 5e-3, "mean": 2e-3, "variance": 2e-4, "psi": 1e-5, "quadrature": 1e-5,
+           "gplvm value": 2e-4, "gplvm gradient": 5e-4, "uc mean": 2e-5, "uc variance": 3e-4}
+# The float32 bound and predict_f call torch.linalg.eigh once (the psi2
+# projection, models/gplvm.py), which reads its error flag on the host: one
+# sync each (the first call in a process synchronises once more).
+GL_F32_SYNCS = 1
+GL_K1_SHAPES = [(GL_M, GL_M, GL_Q), (GL_M, GL_N, GL_Q), (GL_N, GL_N, GL_Q), (GL_WIDE_M, GL_WIDE_M, GL_Q),
+                (GL_WIDE_M, GL_WIDE_N, GL_Q), (GL_GPLVM_N, GL_GPLVM_N, GL_Q),
+                (GL_M, GL_N * GL_QUAD_NGHP ** GL_QUAD_Q, GL_QUAD_Q),
+                (GL_M, GL_N - 1, GL_Q)]  # checked only: an odd column count takes the edge path
+GL_K2_SHAPES = [(GL_GPLVM_N, GL_GPLVM_N, GL_Q), (GL_WIDE_M, GL_WIDE_N - 2, GL_Q)]  # the second: the edge path
 
 
 def log(*args):
@@ -3021,7 +3106,7 @@ def mc_phases(launches):
     torch.cuda.empty_cache()
     k1_err = mc_check_k1(launches)
     mc_timings(models, trainers, lbfgs_eval_s, posts, requests)
-    return k1_err
+    return {"K1": k1_err}
 
 
 def make_mo_data():
@@ -3860,6 +3945,497 @@ def hmc_phases(launches):
     return errs
 
 
+
+def make_gl_data(n):
+    """Phase 21: Y [n, GL_P] on the manifold, float64 on the host."""
+    W = np.random.RandomState(GL_SEEDS["W"]).randn(GL_Q, GL_P)
+    rng = np.random.RandomState(GL_SEEDS["data"] + n)
+    t = rng.randn(n, GL_Q)
+    return np.tanh(t @ W / np.sqrt(GL_Q)) + 0.05 * rng.randn(n, GL_P)
+
+
+def gl_bgplvm(Y, m, dtype, values=None):
+    """Phase 21: a BayesianGPLVM on the card in ``dtype``: X_data_mean from
+    PCA, Z m of its rows picked by numpy's global generator seeded
+    GL_SEEDS["Z"]; or the constrained ``values`` of ``read_values``."""
+    from gpflow_tpu_torch import config, kernels
+    from gpflow_tpu_torch.models import BayesianGPLVM
+    from gpflow_tpu_torch.utilities import load_jax_values
+    from gpflow_tpu_torch.utilities.ops import pca_reduce
+
+    with config.as_context(dataclasses.replace(config.config(), float=dtype)):
+        X_mean = pca_reduce(Y, GL_Q)
+        np.random.seed(GL_SEEDS["Z"])
+        model = BayesianGPLVM(Y, X_mean, torch.full_like(X_mean, GL_XVAR),
+                              kernels.SquaredExponential(lengthscales=[1.0] * GL_Q), num_inducing_variables=m)
+        model.likelihood.variance.assign(GL_NOISE)
+    if values is not None:
+        load_jax_values(model, values)
+    return model
+
+
+def gl_gplvm(Y, kernel, dtype, values=None):
+    """Phase 21c: a GPLVM on the card in ``dtype``, X from PCA,
+    ``kernel`` with Q lengthscales 1, noise GL_NOISE; or ``values``."""
+    from gpflow_tpu_torch import config, kernels
+    from gpflow_tpu_torch.models import GPLVM
+    from gpflow_tpu_torch.utilities import load_jax_values
+
+    with config.as_context(dataclasses.replace(config.config(), float=dtype)):
+        model = GPLVM(Y, latent_dim=GL_Q, kernel=getattr(kernels, kernel)(lengthscales=[1.0] * GL_Q))
+        model.likelihood.variance.assign(GL_NOISE)
+    if values is not None:
+        load_jax_values(model, values)
+    return model
+
+
+def gl_bf16(values, keys):
+    """``values`` with the arrays at ``keys`` rounded as ``bf16``: the
+    lower-tier control's."""
+    return {k: bf16(v).numpy() if k in keys else v for k, v in values.items()}
+
+
+def gl_perturbed(values, x_key):
+    """``values`` moved off their point: the latent means by 0.3 N(0, 1),
+    the lengthscales by a factor exp(0.2 N(0, 1)) each."""
+    rng = np.random.RandomState(GL_SEEDS["perturb"])
+    out = dict(values)
+    out[x_key] = values[x_key] + 0.3 * rng.randn(*values[x_key].shape)
+    ls = values[".kernel.lengthscales"]
+    out[".kernel.lengthscales"] = ls * np.exp(0.2 * rng.randn(*ls.shape))
+    return out
+
+
+def gl_loss(model):
+    return model.training_loss()
+
+
+def gl_errors(got, want, kind=""):
+    """{output: (error, limit)} of a ``sparse_value_and_grad`` result against
+    float64: the value relative to itself, each gradient relative to its
+    largest float64 entry."""
+    (value, grads), (value64, grads64) = got, want
+    out = {"value": (abs(float(value) - float(value64)) / abs(float(value64)), GL_RTOL[f"{kind}value"])}
+    for path, want_g in grads64.items():
+        out[f"gradient {path}"] = (rel_err(grads[path], want_g), GL_RTOL[f"{kind}gradient"])
+    return out
+
+
+def count_syncs(fn):
+    """``fn()`` under sync debug mode "warn": its result and the number of
+    host synchronisations torch warned of."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def without_syncs(fn):
+    """``fn()`` under sync debug mode "error": a host sync fails."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def gl_check_bgplvm(what, Y, m, values, launches, m64=None):
+    """Phase 21a-b: the float32 bound and its gradient with respect to every
+    trainable parameter against float64 on the card (``m64``, else one built
+    from ``values``) and beside the lower-tier control, with exact launch
+    counts; the float32 path's host syncs are counted (GL_F32_SYNCS:
+    ``torch.linalg.eigh``'s error check), the float64 one runs under sync
+    debug mode "error". Returns the float32 model."""
+    m32 = gl_bgplvm(Y, m, torch.float32, values)
+    (got, counts), syncs = count_syncs(lambda: counted(lambda: sparse_value_and_grad(m32, gl_loss)))
+    expect_launches(f"{what} float32 value and gradient", counts, {"K1": 1, "K2": 0}, launches)
+    log(f"{what}: the float32 value and gradient synchronised the host {syncs} times")
+    assert syncs == GL_F32_SYNCS, f"{what}: {syncs} host syncs in the float32 value and gradient"
+    m64 = gl_bgplvm(Y, m, torch.float64, values) if m64 is None else m64
+    want = without_syncs(lambda: sparse_value_and_grad(m64, gl_loss))
+    ctl = gl_bgplvm(Y, m, torch.float32, gl_bf16(values, (".X_data_mean", ".inducing_variable.Z")))
+    control = run_control(lambda: sparse_value_and_grad(ctl, gl_loss))
+    log(f"{what}: bound {-float(got[0]):.8e} (float64 {-float(want[0]):.8e})")
+    judge(what, gl_errors(got, want), gl_errors(control, want))
+    return m32
+
+
+def gl_predict(what, m32, m64, ctl, Xnew, launches):
+    """Phase 21a-b: ``predict_f`` with and without ``full_cov`` against
+    float64 and beside the control, with exact launch counts (Kuu, Kuf and,
+    with ``full_cov``, K(Xnew))."""
+    for full_cov in (False, True):
+        with torch.no_grad():
+            (out, counts), syncs = count_syncs(lambda: counted(lambda: m32.predict_f(Xnew, full_cov=full_cov)))
+            expect_launches(f"{what} predict_f full_cov={full_cov}", counts, {"K1": 2 + full_cov, "K2": 0}, launches)
+            assert syncs == GL_F32_SYNCS, f"{what}: {syncs} host syncs in predict_f"
+            want = m64.predict_f(Xnew.double(), full_cov=full_cov)
+            control = run_control(lambda: ctl.predict_f(bf16(Xnew).cuda(), full_cov=full_cov))
+        assert all(bool(torch.all(torch.isfinite(t))) for t in out), f"{what}: predict_f is not finite"
+        assert float(want[1].diagonal(dim1=-2, dim2=-1).min() if full_cov else want[1].min()) > 0
+        judge(f"{what} predict_f full_cov={full_cov}",
+              {"mean": (rel_err(out[0], want[0]), GL_RTOL["mean"]), "variance": (rel_err(out[1], want[1]), GL_RTOL["variance"])},
+              {"mean": (rel_err(control[0], want[0]), None), "variance": (rel_err(control[1], want[1]), None)})
+
+
+def gl_quadrature(Y, launches):
+    """Phase 21a: the analytic SquaredExponential psi0, psi1 and psi2 of a
+    DiagonalGaussian at Q = 2 (X from PCA, Z 50 of its rows) against the
+    quadrature fallback with GL_QUAD_NGHP points a dimension: Kuf at
+    N * 400 points, one K1 launch for psi1 and two for psi2; both float32
+    results against the analytic float64 ones, beside the control."""
+    from gpflow_tpu_torch import config, kernels
+    from gpflow_tpu_torch.expectations import expectation, quadrature_expectation
+    from gpflow_tpu_torch.inducing_variables import InducingPoints
+    from gpflow_tpu_torch.probability_distributions import DiagonalGaussian
+    from gpflow_tpu_torch.utilities.ops import pca_reduce
+
+    with config.as_context(dataclasses.replace(config.config(), float=torch.float64)):
+        mu = pca_reduce(Y, GL_QUAD_Q).cpu().numpy()
+    Z = mu[np.random.RandomState(GL_SEEDS["Z"]).permutation(len(mu))[:GL_M]]
+    var = np.full_like(mu, GL_XVAR)
+
+    def stats(dtype, mu, Z, quad):
+        with config.as_context(dataclasses.replace(config.config(), float=dtype)), torch.no_grad():
+            k = kernels.SquaredExponential(variance=1.3, lengthscales=[1.0] * GL_QUAD_Q)
+            iv = InducingPoints(torch.as_tensor(np.asarray(Z, np.float64), dtype=dtype))
+            p = DiagonalGaussian(*(torch.as_tensor(np.asarray(a, np.float64), dtype=dtype, device="cuda")
+                                   for a in (mu, var)))
+            if quad:
+                return {"psi0": quadrature_expectation(p, k, nghp=GL_QUAD_NGHP),
+                        "psi1": quadrature_expectation(p, (k, iv), nghp=GL_QUAD_NGHP),
+                        "psi2": quadrature_expectation(p, (k, iv), (k, iv), nghp=GL_QUAD_NGHP)}
+            return {"psi0": expectation(p, k), "psi1": expectation(p, (k, iv)), "psi2": expectation(p, (k, iv), (k, iv))}
+
+    want = stats(torch.float64, mu, Z, False)
+    got, counts = counted(lambda: stats(torch.float32, mu, Z, True))
+    expect_launches(f"psi statistics by quadrature at Q = {GL_QUAD_Q}, N = {GL_N}, nghp = {GL_QUAD_NGHP}", counts,
+                    {"K1": 3, "K2": 0}, launches)
+    control = run_control(lambda: stats(torch.float32, bf16(mu).numpy(), bf16(Z).numpy(), True))
+    judge(f"psi statistics: float32 quadrature (K1 at ({GL_M}, {GL_N * GL_QUAD_NGHP ** GL_QUAD_Q}, {GL_QUAD_Q})) "
+          f"against the analytic float64",
+          {k: (rel_err(got[k], want[k]), GL_RTOL["quadrature"]) for k in want},
+          {k: (rel_err(control[k], want[k]), None) for k in want})
+    del got, control
+    torch.cuda.empty_cache()
+    got = stats(torch.float32, mu, Z, False)
+    control = run_control(lambda: stats(torch.float32, bf16(mu).numpy(), bf16(Z).numpy(), False))
+    judge("psi statistics: analytic float32 against float64",
+          {k: (rel_err(got[k], want[k]), GL_RTOL["psi"]) for k in want},
+          {k: (rel_err(control[k], want[k]), None) for k in want})
+
+
+def gl_small(launches):
+    """Phase 21a: BayesianGPLVM at N = GL_N, M = GL_M: GL_MAXITER float64
+    L-BFGS iterations from PCA, which must raise the bound; the float32
+    bound and gradient against float64 at the start, a perturbed start and
+    the fit's iterate after GL_EARLY iterations; ``predict_f`` of GL_N new
+    points near that iterate's latent means; at the fit's result, where
+    cond(Kuu) is past float32's reach, the float32 bound is only read; the
+    psi statistics against quadrature."""
+    from gpflow_tpu_torch.covariances import Kuu
+    from gpflow_tpu_torch.optimizers import Scipy
+    from gpflow_tpu_torch.utilities import read_values
+
+    what = f"bgplvm N={GL_N} M={GL_M}"
+    Y = make_gl_data(GL_N)
+    m64 = gl_bgplvm(Y, GL_M, torch.float64)
+    start = read_values(m64)
+    early = {}
+
+    def snapshot(step, variables, values):
+        if step + 1 == GL_EARLY:
+            early.update(read_values(m64))
+
+    with torch.no_grad():
+        elbo0 = float(m64.elbo())
+    t0 = time.perf_counter()
+    res, counts = counted(lambda: Scipy().minimize(m64.training_loss_closure(), m64.trainable_variables,
+                                                   options={"maxiter": GL_MAXITER}, step_callback=snapshot))
+    seconds = time.perf_counter() - t0
+    with torch.no_grad():
+        elbo1 = float(m64.elbo())
+    log(f"{what} float64 lbfgs from PCA: elbo {elbo0:.6e} -> {elbo1:.6e}; nit {res.nit}, nfev {res.nfev}, "
+        f"status {res.status} ({res.message}); noise {float(m64.likelihood.variance.numpy()):.4e}")
+    log(f"time: {what} float64 lbfgs: {seconds:.3f} s, {seconds / res.nfev:.4f} s per evaluation (a step callback "
+        f"reads the values each iteration)")
+    assert np.isfinite(elbo1) and elbo1 > elbo0, f"{what}: L-BFGS did not raise the bound"
+    expect_launches(f"{what} float64 lbfgs", counts, {"K1": 0, "K2": 0}, launches)
+    trained = read_values(m64)
+    first = gl_bgplvm(Y, GL_M, torch.float32, start)
+    with torch.no_grad():
+        _, syncs = count_syncs(first.elbo)
+    log(f"{what}: the first float32 bound in the process synchronised the host {syncs} times")
+    for label, values in (("start", start), ("perturbed start", gl_perturbed(start, ".X_data_mean")),
+                          (f"after {GL_EARLY} iterations", early)):
+        model = gl_bgplvm(Y, GL_M, torch.float64, values)
+        with torch.no_grad():
+            kuu = torch.linalg.eigvalsh(Kuu(model.inducing_variable, model.kernel, jitter=GL_JITTER))
+        log(f"{what} {label}: cond(Kuu + jitter I) {float(kuu[-1] / kuu[0]):.4e}")
+        gl_check_bgplvm(f"{what} {label}", Y, GL_M, values, launches, m64=model)
+    rng = np.random.RandomState(GL_SEEDS["perturb"] + 1)
+    Xnew = torch.from_numpy((early[".X_data_mean"] + 0.1 * rng.randn(GL_N, GL_Q)).astype(np.float32)).cuda()
+    ctl = gl_bgplvm(Y, GL_M, torch.float32, gl_bf16(early, (".X_data_mean", ".inducing_variable.Z")))
+    gl_predict(what, gl_bgplvm(Y, GL_M, torch.float32, early), gl_bgplvm(Y, GL_M, torch.float64, early), ctl, Xnew,
+               launches)
+    # the fit's result: read, not held to a limit
+    with torch.no_grad():
+        kuu = torch.linalg.eigvalsh(Kuu(m64.inducing_variable, m64.kernel, jitter=GL_JITTER))
+        bound32 = float(gl_bgplvm(Y, GL_M, torch.float32, trained).elbo())
+    log(f"{what} after {GL_MAXITER} iterations: FINDING: cond(Kuu + jitter I) {float(kuu[-1] / kuu[0]):.4e}; the "
+        f"float32 bound {bound32:.6e} against {elbo1:.6e} in float64 (rel err {abs(bound32 - elbo1) / abs(elbo1):.3e}): "
+        f"float32 cannot evaluate the bound at this conditioning")
+    assert np.isfinite(bound32), f"{what}: the float32 bound at the fit's result is not finite"
+    gl_quadrature(Y, launches)
+
+
+def gl_chunked_psi(model, chunk):
+    """Makes ``model`` (a float64 BayesianGPLVM) sum psi2 over chunks of
+    ``chunk`` rows, each recomputed in the backward pass, so that no
+    [N, M, M] float64 tensor is kept."""
+    from torch.utils.checkpoint import checkpoint
+
+    from gpflow_tpu_torch.expectations import expectation
+    from gpflow_tpu_torch.probability_distributions import DiagonalGaussian
+
+    def psi_statistics(pX):
+        kiv = (model.kernel, model.inducing_variable)
+
+        def part(mu, var):
+            return torch.sum(expectation(DiagonalGaussian(mu, var), kiv, kiv), dim=0)
+
+        psi2 = sum(checkpoint(part, pX.mu[i:i + chunk], pX.cov[i:i + chunk], use_reentrant=False)
+                   for i in range(0, pX.mu.shape[0], chunk))
+        return expectation(pX, kiv), psi2
+
+    model._psi_statistics = psi_statistics
+    return model
+
+
+def gl_wide(launches):
+    """Phase 21b: BayesianGPLVM at N = GL_WIDE_N, M = GL_WIDE_M from PCA:
+    the float32 bound and gradient against float64 (psi2 summed over
+    chunks), its peak memory and its time; ``predict_f`` at the N latent
+    means."""
+    from gpflow_tpu_torch.utilities import read_values
+
+    what = f"bgplvm N={GL_WIDE_N} M={GL_WIDE_M}"
+    Y = make_gl_data(GL_WIDE_N)
+    m64 = gl_chunked_psi(gl_bgplvm(Y, GL_WIDE_M, torch.float64), GL_WIDE_CHUNK)
+    values = read_values(m64)
+    m32 = gl_check_bgplvm(what, Y, GL_WIDE_M, values, launches, m64=m64)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    sparse_value_and_grad(m32, gl_loss)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    psi2_gb = GL_WIDE_N * GL_WIDE_M ** 2 * 4 / 1e9
+    log(f"memory: {what} float32 value and gradient: peak {peak / 1e9:.2f} GB ({(peak - base) / 1e9:.2f} GB above "
+        f"the {base / 1e9:.2f} GB held before it; one [N, M, M] psi2 is {psi2_gb:.2f} GB)")
+    value_ms = [request_ms(lambda: m32.training_loss(), 3, warmup=1) for _ in range(2)]
+    grad_ms = [request_ms(lambda: sparse_value_and_grad(m32, gl_loss), 3, warmup=1) for _ in range(2)]
+    log(f"time: {what} float32 bound {min(value_ms):.3f} ms, value and gradient {min(grad_ms):.3f} ms "
+        f"(rounds {[round(t, 3) for t in value_ms]}, {[round(t, 3) for t in grad_ms]})")
+    profile_device(lambda: sparse_value_and_grad(m32, gl_loss), f"{what} float32 value and gradient")
+    ctl = gl_bgplvm(Y, GL_WIDE_M, torch.float32, gl_bf16(values, (".X_data_mean", ".inducing_variable.Z")))
+    Xnew = m32.X_data_mean.value.detach().clone()
+    gl_predict(what, m32, m64, ctl, Xnew, launches)
+    request = request_ms(lambda: m32.predict_f(Xnew), 3, warmup=1)
+    log(f"time: {what} float32 predict_f at {GL_WIDE_N} points: {request:.3f} ms per request")
+
+
+def gl_gplvm_phase(launches):
+    """Phase 21c: GPLVM at N = GL_GPLVM_N from PCA: the float32 value and
+    gradient in X and the hyperparameters against float64 under sync debug
+    mode "error", beside the control, for SquaredExponential (at the start
+    and perturbed) and Matern52 (K2 on the path); GPR_MAXITER L-BFGS
+    iterations of the SquaredExponential one, which must lower the
+    objective; timings."""
+    from gpflow_tpu_torch.optimizers import Scipy
+    from gpflow_tpu_torch.utilities import read_values
+
+    Y = make_gl_data(GL_GPLVM_N)
+    models = {}
+    for kernel in ("SquaredExponential", "Matern52"):
+        what = f"gplvm {kernel} N={GL_GPLVM_N}"
+        start = read_values(gl_gplvm(Y, kernel, torch.float64))
+        sets = {"start": start}
+        if kernel == "SquaredExponential":
+            sets["perturbed"] = gl_perturbed(start, ".data[0]")
+        for label, values in sets.items():
+            m32 = gl_gplvm(Y, kernel, torch.float32, values)
+            got, counts = without_syncs(lambda: counted(lambda: sparse_value_and_grad(m32, gl_loss)))
+            expect_launches(f"{what} {label} value and gradient", counts,
+                            {"K1": 1, "K2": int(kernel == "Matern52")}, launches)
+            m64 = gl_gplvm(Y, kernel, torch.float64, values)
+            want = without_syncs(lambda: sparse_value_and_grad(m64, gl_loss))
+            ctl = gl_gplvm(Y, kernel, torch.float32, gl_bf16(values, (".data[0]",)))
+            control = run_control(lambda: sparse_value_and_grad(ctl, gl_loss))
+            judge(f"{what} {label}", gl_errors(got, want, "gplvm "), gl_errors(control, want, "gplvm "))
+            del ctl, m64
+            torch.cuda.empty_cache()
+        models[kernel] = gl_gplvm(Y, kernel, torch.float32, start)
+    for kernel, model in models.items():
+        ms = [request_ms(lambda: sparse_value_and_grad(model, gl_loss), 3, warmup=1) for _ in range(2)]
+        log(f"time: gplvm {kernel} N={GL_GPLVM_N} float32 value and gradient: {min(ms):.3f} ms "
+            f"(rounds {[round(t, 3) for t in ms]})")
+    model = models["SquaredExponential"]
+    with torch.no_grad():
+        loss0 = float(model.training_loss())
+    t0 = time.perf_counter()
+    res, counts = counted(lambda: Scipy().minimize(model.training_loss_closure(), model.trainable_variables,
+                                                   options={"maxiter": GPR_MAXITER}, nonfinite_penalty=GPR_PENALTY))
+    seconds = time.perf_counter() - t0
+    log(f"gplvm lbfgs N={GL_GPLVM_N}: loss {loss0:.6e} -> {float(res.fun):.6e}; nit {res.nit}, nfev {res.nfev}, "
+        f"non-finite evaluations {res.n_nonfinite_evals}, status {res.status} ({res.message})")
+    log(f"time: gplvm lbfgs N={GL_GPLVM_N}: {seconds:.3f} s, {seconds / res.nfev:.4f} s per evaluation over "
+        f"{sum(p.unconstrained.numel() for p in model.trainable_variables)} variables")
+    assert np.isfinite(res.fun) and float(res.fun) < loss0, "L-BFGS did not lower the GPLVM objective"
+    expect_launches(f"gplvm lbfgs N={GL_GPLVM_N}", counts, {"K1": int(res.nfev), "K2": 0}, launches)
+
+
+def gl_uncertain(launches):
+    """Phase 21d: ``uncertain_conditional`` at GL_UC_N Gaussian inputs (full
+    covariances) against a whitened q(u) of M = GL_UC_M and GL_P outputs,
+    with and without a Linear mean function: float32 under sync debug mode
+    "error" against float64, beside the control; and float64 at the first
+    GL_UC_MC_N inputs against a Monte-Carlo estimate over GL_UC_DRAWS draws
+    of each input through ``conditional``, within GL_UC_Z standard errors."""
+    from gpflow_tpu_torch import config, functions, kernels
+    from gpflow_tpu_torch.conditionals import conditional, uncertain_conditional
+    from gpflow_tpu_torch.inducing_variables import InducingPoints
+
+    rng = np.random.RandomState(GL_SEEDS["uc"])
+    mu = rng.randn(GL_UC_N, GL_Q)
+    a = 0.5 * rng.randn(GL_UC_N, GL_Q, GL_Q) / np.sqrt(GL_Q)
+    cov = a @ np.swapaxes(a, -1, -2) + 0.05 * np.eye(GL_Q)
+    Z = rng.randn(GL_UC_M, GL_Q)
+    q_mu = rng.randn(GL_UC_M, GL_P)
+    q_sqrt = np.tril(0.05 * rng.randn(GL_P, GL_UC_M, GL_UC_M), -1) + 0.5 * np.eye(GL_UC_M)
+    A, b = rng.randn(GL_Q, GL_P) / np.sqrt(GL_Q), rng.randn(GL_P)
+
+    def parts(dtype, mean, mu=mu, Z=Z):
+        np_dtype = np.float32 if dtype == torch.float32 else np.float64
+        with config.as_context(dataclasses.replace(config.config(), float=dtype)):
+            k = kernels.SquaredExponential(variance=1.0, lengthscales=[2.0] * GL_Q)
+            iv = InducingPoints(np.asarray(Z, np_dtype))
+            mf = functions.Linear(A.astype(np_dtype), b.astype(np_dtype)) if mean else None
+        t = lambda x: torch.as_tensor(np.asarray(x, np_dtype)).cuda()  # noqa: E731
+        return t(mu), t(cov), iv, k, t(q_mu), t(q_sqrt), mf
+
+    def run(args):
+        Xmu, Xvar, iv, k, qm, qs, mf = args
+        with torch.no_grad():
+            return uncertain_conditional(Xmu, Xvar, iv, k, qm, qs, mean_function=mf, white=True)
+
+    for mean in (False, True):
+        what = f"uncertain_conditional N={GL_UC_N} M={GL_UC_M}" + (" with a Linear mean" if mean else "")
+        args32 = parts(torch.float32, mean)
+        got, counts = without_syncs(lambda: counted(lambda: run(args32)))
+        expect_launches(what, counts, {"K1": 1, "K2": 0}, launches)
+        args64 = parts(torch.float64, mean)
+        want = without_syncs(lambda: run(args64))
+        control = run_control(lambda: run(parts(torch.float32, mean, mu=bf16(mu).numpy(), Z=bf16(Z).numpy())))
+        assert bool(torch.all(want[1] > 0)), f"{what}: a float64 variance is not positive"
+        judge(what, {"mean": (rel_err(got[0], want[0]), GL_RTOL["uc mean"]),
+                     "variance": (rel_err(got[1], want[1]), GL_RTOL["uc variance"])},
+              {"mean": (rel_err(control[0], want[0]), None), "variance": (rel_err(control[1], want[1]), None)})
+        ms = request_ms(lambda: run(args32), 5, warmup=1)
+        log(f"time: {what} float32: {ms:.3f} ms per call")
+
+        # the Monte-Carlo estimate at the first GL_UC_MC_N inputs, in float64
+        n = GL_UC_MC_N
+        Xmu, Xvar, iv, k, qm, qs, mf = args64
+        fmean, fvar = (t[:n] for t in want)
+        gen = torch.Generator(device="cuda").manual_seed(GL_SEEDS["mc"])
+        eps = torch.randn((GL_UC_DRAWS, n, GL_Q), generator=gen, dtype=torch.float64, device="cuda")
+        xs = Xmu[:n] + torch.einsum("nij,snj->sni", torch.linalg.cholesky(Xvar[:n]), eps)
+        with torch.no_grad():
+            mus, variances = conditional(xs.reshape(-1, GL_Q), iv, k, qm, q_sqrt=qs, white=True)
+            if mf is not None:
+                mus = mus + mf(xs.reshape(-1, GL_Q))
+        mus, variances = mus.reshape(GL_UC_DRAWS, n, GL_P), variances.reshape(GL_UC_DRAWS, n, GL_P)
+        mc_mean = mus.mean(0)
+        mc_var = variances.mean(0) + mus.var(0)
+        se_mean = mus.std(0) / np.sqrt(GL_UC_DRAWS)
+        se_var = (variances + (mus - mc_mean) ** 2).std(0) / np.sqrt(GL_UC_DRAWS)
+        z_mean = float(((mc_mean - fmean).abs() / se_mean).max())
+        z_var = float(((mc_var - fvar).abs() / se_var).max())
+        log(f"{what}: float64 against {GL_UC_DRAWS} Monte-Carlo draws at {n} inputs: mean within {z_mean:.2f}, "
+            f"variance within {z_var:.2f} standard errors (limit {GL_UC_Z})")
+        assert z_mean <= GL_UC_Z and z_var <= GL_UC_Z, f"{what}: disagrees with its Monte-Carlo estimate"
+
+
+def gl_check_kernels():
+    """Phase 21e: K1 (rbf) and K2 (matern52) against their plain versions
+    at the path's D = 10 and D = 2 shapes and at the edge-path shapes,
+    inputs N(0, 1 / d) per dimension, each with its launch plan; both
+    kernels must run their TMA and their edge path (scalar staging: D is
+    not a multiple of 4). Returns {kernel: largest absolute error against
+    float64}."""
+    from gpflow_tpu_torch.ops import pallas_distance as pd
+
+    rng = np.random.RandomState(GL_SEEDS["kernels"])
+    var = torch.tensor([1.0], device="cuda")
+    worst = {"K1": 0.0, "K2": 0.0}
+    for kernel, shapes, family in (("K1", GL_K1_SHAPES, "rbf"), ("K2", GL_K2_SHAPES, "matern52")):
+        seen = set()
+        for n, m, d in shapes:
+            Xs, Zs = (torch.from_numpy((rng.randn(k, d) / np.sqrt(d)).astype(np.float32)).cuda() for k in (n, m))
+            if kernel == "K1":
+                out = pd.stationary_forward_cuda(family, Xs, Zs, var)
+                plan = plan_seen(kernel, seen)
+                plain32 = pd.stationary_forward_plain(family, Xs, Zs, var)
+                plain64 = pd.stationary_forward_plain(family, Xs.double(), Zs.double(), var.double())
+                tol64, tol32 = K1_ATOL_F64, K1_ATOL_F32
+            else:
+                g = torch.from_numpy(rng.randn(n, m).astype(np.float32)).cuda()
+                out = pd.stationary_wgrad_cuda(family, Xs, Zs, var, g)
+                plan = plan_seen(kernel, seen)
+                plain32 = pd.stationary_wgrad_plain(family, Xs, Zs, var, g)
+                plain64 = pd.stationary_wgrad_plain(family, Xs.double(), Zs.double(), var.double(), g.double())
+                top = max(float(plain64.abs().max()), 1e-30)
+                tol64, tol32 = K2_RTOL_F64 * top, K2_RTOL_F32 * top
+            torch.cuda.synchronize()
+            assert out.shape == (n, m) and out.dtype == torch.float32
+            err64, err32 = float((out.double() - plain64).abs().max()), float((out - plain32).abs().max())
+            log(f"{kernel} {family} ({n}, {m}, {d}): max abs err {err64:.3e} vs plain f64, tol {tol64:.1e}; "
+                f"{err32:.3e} vs plain f32, tol {tol32:.1e}; {plan}")
+            assert err64 <= tol64 and err32 <= tol32, f"{kernel} {family} disagrees with its plain version at {(n, m, d)}"
+            worst[kernel] = max(worst[kernel], err64)
+            del out, plain32, plain64
+        log(f"{kernel} at D = {GL_Q} and {GL_QUAD_Q} ran (tma, vec) = {sorted(seen)}")
+        assert seen == {(True, False), (False, False)}, f"{kernel} at phase 21's shapes did not run both its paths"
+    torch.cuda.empty_cache()
+    return worst
+
+
+def gplvm_phases(launches):
+    """Phase 21. Returns {kernel: largest absolute error of its checks}."""
+    gl_small(launches)
+    torch.cuda.empty_cache()
+    gl_wide(launches)
+    torch.cuda.empty_cache()
+    gl_gplvm_phase(launches)
+    torch.cuda.empty_cache()
+    gl_uncertain(launches)
+    torch.cuda.empty_cache()
+    errs = gl_check_kernels()
+    with torch.no_grad():
+        for n, m, d in GL_K1_SHAPES:
+            time_k1(n, m, iters=10 if n * m > 1e7 else 20, d=d)
+        for n, m, d in GL_K2_SHAPES:
+            time_k2(n, m, iters=10, d=d)
+    return errs
+
+
 def _kernel_category(name):
     # cuSOLVER's float32 Cholesky runs as getrf_wo_pivot on this card
     n = name.lower()
@@ -3960,32 +4536,17 @@ def kernel_bound_ms(kernel, n, m, d):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def main():
-    name, smi = card_check()
-    log(smi)
+def svgp_phases(launches):
+    """Phases 5-8, and phase 10's timings of the serving and training paths."""
     from gpflow_tpu_torch import config
-    from gpflow_tpu_torch.ops import pallas_distance as pd
 
-    for kernel, (ready_s, nvcc_s) in build_kernels().items():
-        log(f"build: {kernel} library ready in {ready_s:.2f} s (nvcc {nvcc_s:.2f} s; 0 means built earlier)")
-
-    k1_err = check_k1()
-    k2_err = max(check_k2(), check_k2_coincident())
-
-    config.set_default_float(torch.float32)  # and with it the float32 jitter, 1e-4
-    launches = {}  # path -> launch counts of its run
     values, X = make_values(SEED)
     model = build_model(values, torch.float32)
     requests = [torch.from_numpy(X[i * B:(i + 1) * B]).to("cuda") for i in range(N_REQUESTS)]
     with torch.no_grad():
-        pd.launch_counts.update(K1=0, K2=0)
-        outputs = serve(model, requests)
-        torch.cuda.synchronize()
-        launches["serving"] = dict(pd.launch_counts)
+        outputs, counts = counted(lambda: serve(model, requests))
     # cache: Kuu once; cached requests: Kuf each; fused requests: Kuu + Kuf
-    expected = {"K1": 1 + 2 * N_REQUESTS + 2 * 2 * 2, "K2": 0}
-    log(f"slice: launches {launches['serving']}, expected {expected}")
-    assert launches["serving"] == expected, f"serving launch counts {launches['serving']} != {expected}"
+    expect_launches("serving", counts, {"K1": 1 + 2 * N_REQUESTS + 2 * 2 * 2, "K2": 0}, launches)
     with config.as_context(config.Config(float=torch.float64, jitter=1e-4, device="cpu")), torch.no_grad():
         reference = serve(build_model(values, torch.float64), [torch.from_numpy(X[:B]).double()])
     check_slice(outputs, reference)
@@ -4012,9 +4573,10 @@ def main():
         time_k1(M, B)
         time_k2(M, M)
         time_k2(M, B)
-    del model, requests, trainers, data
-    torch.cuda.empty_cache()
 
+
+def gpr_phases(launches):
+    """Phases 9-10."""
     gpr_data, Xnew = make_gpr_data()
     gpr_models = {n: check_gpr_objective("SquaredExponential", n, gpr_data[n], launches) for n in GPR_NS}
     check_gpr_objective("Matern12", GPR_NS[0], gpr_data[GPR_NS[0]], launches)
@@ -4036,9 +4598,10 @@ def main():
                         ("predict_y", lambda: trained.predict_y(Xb))):
             ms = request_ms(fn, 5, warmup=1)
             log(f"time: gpr {key} N={GPR_NS[-1]} at B={B}: {ms:.3f} ms per request ({B / ms * 1e3:.0f} points/s)")
-    del post, trained, gpr_models
-    torch.cuda.empty_cache()
 
+
+def ng_phases(launches):
+    """Phases 11-12."""
     ng_X, ng_Y, ng_Z, ng_Xnew, ng_Ynew = make_ng_data()
     ng_data = (torch.from_numpy(ng_X).cuda(), torch.from_numpy(ng_Y).cuda())
     ng_check_objective(ng_data, ng_Z, launches)
@@ -4051,25 +4614,69 @@ def main():
     classifier = ng_trainers["fused"].model
     ng_post, ng_Xb, ng_Yb = ng_serve(classifier, ng_Xnew, ng_Ynew, launches)
     ng_timings(ng_trainers, ng_post, classifier, ng_Xb, ng_Yb)
-    del ng_trainers, classifier, ng_post, ng_data
-    torch.cuda.empty_cache()
 
-    sparse_phases(launches)
-    torch.cuda.empty_cache()
 
-    vgp_phases(launches)
-    torch.cuda.empty_cache()
+# Phases 5-21 in the order they run, as groups that share their data: a
+# selection runs each group that holds a selected phase.
+PHASE_GROUPS = (
+    (range(5, 9), svgp_phases),
+    (range(9, 11), gpr_phases),
+    (range(11, 13), ng_phases),
+    (range(13, 17), sparse_phases),
+    (range(17, 18), vgp_phases),
+    (range(18, 19), mc_phases),
+    (range(19, 20), mo_phases),
+    (range(20, 21), hmc_phases),
+    (range(21, 22), gplvm_phases),
+)
 
-    k1_err = max(k1_err, mc_phases(launches))
-    torch.cuda.empty_cache()
 
-    mo_err = mo_phases(launches)
-    k1_err, k2_err = max(k1_err, mo_err["K1"]), max(k2_err, mo_err["K2"])
-    torch.cuda.empty_cache()
+def parse_phases(argv=None):
+    """The phases named by ``--phases`` (numbers and ranges, e.g. "5-8,21"),
+    or None for every phase."""
+    import argparse
 
-    hmc_err = hmc_phases(launches)
-    k1_err, k2_err = max(k1_err, hmc_err["K1"]), max(k2_err, hmc_err["K2"])
-    torch.cuda.empty_cache()
+    parser = argparse.ArgumentParser(description="Drives gpflow_tpu_torch's main paths on one CUDA card.")
+    parser.add_argument("--phases", help="the phases to run after the build and the kernel checks of phases 1-4, "
+                                         "as numbers and ranges among 5-21 (e.g. 5-8,21); by default every phase")
+    phases = parser.parse_args(argv).phases
+    if phases is None:
+        return None
+    selected = set()
+    for part in phases.split(","):
+        first, _, last = part.partition("-")
+        try:
+            selected.update(range(int(first), int(last or first) + 1))
+        except ValueError:
+            parser.error(f"--phases: {part!r} is not a number or a range")
+    unknown = selected - {n for numbers, _ in PHASE_GROUPS for n in numbers}
+    if unknown or not selected:
+        parser.error(f"--phases: no phase {sorted(unknown)}; phases 5-21 can be selected")
+    return selected
+
+
+def main(phases=None):
+    """Phases 1-4, then every phase in ``phases`` (all of them if None),
+    then the timings of the record line."""
+    name, smi = card_check()
+    log(smi)
+    from gpflow_tpu_torch import config
+
+    for kernel, (ready_s, nvcc_s) in build_kernels().items():
+        log(f"build: {kernel} library ready in {ready_s:.2f} s (nvcc {nvcc_s:.2f} s; 0 means built earlier)")
+
+    errs = {"K1": check_k1(), "K2": max(check_k2(), check_k2_coincident())}
+
+    config.set_default_float(torch.float32)  # and with it the float32 jitter, 1e-4
+    launches = {}  # path -> launch counts of its run
+    for numbers, run in PHASE_GROUPS:
+        if phases is not None and not phases & set(numbers):
+            continue
+        t0 = time.perf_counter()
+        for kernel, err in (run(launches) or {}).items():
+            errs[kernel] = max(errs[kernel], err)
+        torch.cuda.empty_cache()
+        log(f"time: phases {numbers[0]}-{numbers[-1]}: {time.perf_counter() - t0:.1f} s")
 
     n = GPR_NS[-1]
     with torch.no_grad():
@@ -4082,13 +4689,17 @@ def main():
 
     total = {k: sum(c[k] for c in launches.values()) for k in ("K1", "K2")}
     log(f"launches by path: {launches}")
-    assert total["K1"] > 0 and total["K2"] > 0, f"a kernel of the paths never launched: {total}"
+    if phases is None:
+        assert total["K1"] > 0 and total["K2"] > 0, f"a kernel of the paths never launched: {total}"
+    else:
+        log(f"phases {sorted(phases)} only: launches {total}")
+        assert total["K1"] + total["K2"] > 0, f"the selected phases launched no kernel: {total}"
     records = []
-    for kernel, label, family, source, replaces, err, ms, plain_ms in (
+    for kernel, label, family, source, replaces, ms, plain_ms in (
         ("K1", "K1 stationary covariance (rbf, matern52, matern32 and matern12 on the paths)", "rbf",
-         "stationary_k1.cu", 136, k1_err, k1_ms, k1_plain_ms),
+         "stationary_k1.cu", 136, k1_ms, k1_plain_ms),
         ("K2", "K2 stationary VJP weight (matern52, matern32 and matern12 on the training paths)", "matern52",
-         "stationary_k2.cu", 142, k2_err, k2_ms, k2_plain_ms),
+         "stationary_k2.cu", 142, k2_ms, k2_plain_ms),
     ):
         bound_ms, bound_by = kernel_bound_ms(kernel, n, n, D)
         log(f"bound: {kernel} ({n}, {n}, {D}): {bound_ms:.4f} ms by {bound_by}; measured {ms:.4f} ms "
@@ -4099,7 +4710,7 @@ def main():
             "source": f"gpflow_tpu_torch/csrc/{source}",
             "replaces": f"gpflow_tpu/ops/pallas_distance.py:{replaces}",
             "launches": total[kernel],
-            "max_abs_err": err,
+            "max_abs_err": errs[kernel],
             "ms": ms,
             "plain_ms": plain_ms,
             "bound_ms": bound_ms,
@@ -4113,4 +4724,4 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    main(parse_phases())

@@ -11,7 +11,9 @@ and Periodic kernels, their sums and products, and mean functions, and
 multiclass SVGPs (``MultiClass``, ``Softmax``) over several latent GPs with
 the rest of the JAX package's likelihoods, multioutput SVGPs, and the
 Bayesian models GPMC and SGPMC with parameter priors, sampled by
-``optimizers.run_hmc``, and serves them (ROADMAP.md lists what is still to port). Shape contracts
+``optimizers.run_hmc``, and the GPLVM and Bayesian GPLVM through the psi
+statistics of ``expectations`` (with ``conditionals.uncertain_conditional``),
+and serves them (ROADMAP.md lists what is still to port). Shape contracts
 (``utilities.check_shapes``) are off unless switched on. On a CUDA device, covariance matrices come from the hand-written
 kernel K1 and the gradients of the exponential and Matern families from K2
 (``gpflow_tpu_torch.ops.pallas_distance``).
@@ -26,6 +28,7 @@ from . import (
     conditionals,
     config,
     covariances,
+    expectations,
     functions,
     inducing_variables,
     kernels,
@@ -39,6 +42,7 @@ from . import (
     parallel,
     posteriors,
     priors,
+    probability_distributions,
     utilities,
 )
 from .base import Module, Parameter, PriorOn
@@ -54,6 +58,7 @@ __all__ = [
     "conditionals",
     "config",
     "covariances",
+    "expectations",
     "functions",
     "inducing_variables",
     "kernels",
@@ -67,6 +72,7 @@ __all__ = [
     "parallel",
     "posteriors",
     "priors",
+    "probability_distributions",
     "set_trainable",
     "utilities",
 ]

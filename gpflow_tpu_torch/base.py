@@ -26,9 +26,22 @@ from .config import as_torch_dtype, default_device, default_float
 if TYPE_CHECKING:  # priors -> logdensities -> utilities, whose __init__ imports this module
     from .priors import Prior
 
-__all__ = ["MeanAndVariance", "Module", "Parameter", "PriorOn", "functionalize"]
+__all__ = [
+    "InputData",
+    "MeanAndVariance",
+    "Module",
+    "OutputData",
+    "Parameter",
+    "PriorOn",
+    "RegressionData",
+    "functionalize",
+]
 
 MeanAndVariance = Tuple[torch.Tensor, torch.Tensor]
+# what models take as data (``gpflow_tpu/base.py:57-59``)
+InputData = Union[np.ndarray, torch.Tensor, "Parameter"]
+OutputData = Union[np.ndarray, torch.Tensor, "Parameter"]
+RegressionData = Tuple[InputData, OutputData]
 
 
 class PriorOn(enum.Enum):

@@ -21,4 +21,15 @@ __all__ = [
     "sample_conditional",
     "sample_mvn",
     "set_inv_solve",
+    "uncertain_conditional",
 ]
+
+
+def __getattr__(name: str):
+    # uncertain_conditional needs the expectations, which import the
+    # covariances and kernels: loaded on first use, as the JAX package does
+    if name == "uncertain_conditional":
+        from .uncertain_conditionals import uncertain_conditional
+
+        return uncertain_conditional
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -17,19 +17,21 @@ outputs; ``mix_latent_gp`` the moments of f = W g.
 from __future__ import annotations
 
 import contextlib
-from typing import Iterator, Optional
+from typing import Dict, Iterator, Optional, Union
 
 import torch
 
 from ..base import MeanAndVariance
 from ..config import default_jitter
 from ..ops.linalg import chol_and_inverse, cholesky, triangular_inverse
+from ..quadrature.gauss_hermite import canonical_device
 from ..utilities.ops import leading_transpose
 from ..utilities.shapes import check_shapes
 
 __all__ = [
     "base_conditional",
     "base_conditional_with_lm",
+    "default_generator",
     "expand_independent_outputs",
     "fully_correlated_conditional",
     "fully_correlated_conditional_repeat",
@@ -170,6 +172,20 @@ def base_conditional_with_lm(
     return fmean, fvar
 
 
+_default_generators: Dict[torch.device, torch.Generator] = {}
+
+
+def default_generator(device: Union[str, torch.device]) -> torch.Generator:
+    """The generator of the draws on ``device`` when the caller passes none:
+    one per device, seeded 0 when first needed and advanced by every draw
+    after, as the JAX package advances a seed counter
+    (``gpflow_tpu/conditionals/util.py:88-111``)."""
+    key = canonical_device(device)
+    if key not in _default_generators:
+        _default_generators[key] = torch.Generator(device=key).manual_seed(0)
+    return _default_generators[key]
+
+
 @check_shapes(
     "mean: [batch..., N, D]",
     "cov: [batch..., N, D, D] if full_cov",
@@ -188,14 +204,15 @@ def sample_mvn(
     mean [..., N, D], cov [..., N, D, D] (full_cov, factored with the
     default jitter; NaN where the Cholesky fails) or [..., N, D]; returns
     [..., (S,) N, D]. The standard normal draws come from ``generator``,
-    else from a new generator on the mean's device seeded 0."""
+    else from ``default_generator`` of the mean's device, so that two calls
+    without one draw anew."""
     S = 1 if num_samples is None else num_samples
     if full_cov:
         eps_shape = mean.shape + (S,)  # [..., N, D, S]
     else:
         eps_shape = mean.shape[:-2] + (S,) + mean.shape[-2:]  # [..., S, N, D]
     if generator is None:
-        generator = torch.Generator(device=mean.device).manual_seed(0)
+        generator = default_generator(mean.device)
     eps = torch.randn(eps_shape, generator=generator, dtype=mean.dtype, device=mean.device)
     return _sample_mvn_with_eps(mean, cov, full_cov, eps, num_samples)
 

@@ -96,6 +96,18 @@ class Kernel(Module, metaclass=abc.ABCMeta):
             X2 = _columns(X2, self.active_dims)
         return X, X2
 
+    def slice_cov(self, cov: torch.Tensor) -> torch.Tensor:
+        """The ``active_dims`` rows and columns of covariances [..., N, D, D];
+        a [N, D] diagonal is first expanded to full matrices
+        (``gpflow_tpu/kernels/base.py:93-105``). List dims are taken as
+        views, as in ``slice``, never by a list index."""
+        if cov.ndim == 2:
+            cov = torch.diag_embed(cov)
+        dims = self.active_dims
+        if isinstance(dims, slice):
+            return cov[..., dims, dims]
+        return _columns(_columns(cov, dims).mT, dims).mT
+
     @check_shapes(
         "ard_parameter: [any...]",
     )

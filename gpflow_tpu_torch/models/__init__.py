@@ -1,4 +1,5 @@
 from .cglb import CGLB, NystromPreconditioner, cglb_conjugate_gradient
+from .gplvm import GPLVM, BayesianGPLVM
 from .gpmc import GPMC
 from .gpr import GPR, GPR_deprecated, GPR_with_posterior
 from .model import BayesianModel, GPModel
@@ -16,10 +17,12 @@ from .util import (
 from .vgp import VGP, VGP_deprecated, VGP_with_posterior, VGPOpperArchambeau, update_vgp_data
 
 __all__ = [
+    "BayesianGPLVM",
     "BayesianModel",
     "CGLB",
     "ExternalDataTrainingLossMixin",
     "GPMC",
+    "GPLVM",
     "GPModel",
     "GPRFITC",
     "GPR",

@@ -15,7 +15,7 @@ from typing import Any, Optional
 import torch
 
 from .. import posteriors
-from ..base import MeanAndVariance
+from ..base import MeanAndVariance, Parameter
 from ..conditionals.util import _use_inv_solve, base_conditional
 from ..functions import MeanFunction
 from ..kernels import Kernel
@@ -52,6 +52,12 @@ class GPR_deprecated(GPModel, InternalDataTrainingLossMixin):
         super().__init__(kernel, likelihood, mean_function, num_latent_gps=Y_data.shape[-1])
         self.data = data_input_to_tensor(data)
 
+    def _data_tensors(self) -> RegressionData:
+        """(X, Y) as tensors: a GPLVM's X is a Parameter, read as its
+        constrained value."""
+        X, Y = self.data
+        return (X.value if isinstance(X, Parameter) else X), Y
+
     def maximum_log_likelihood_objective(self) -> torch.Tensor:
         return self.log_marginal_likelihood()
 
@@ -62,7 +68,7 @@ class GPR_deprecated(GPModel, InternalDataTrainingLossMixin):
         (``ops.linalg.mvn_logp``: dK = 1/2 beta beta^T - 1/2 K^-1, one [N, N]
         matmul and a blocked triangular inverse); otherwise the Cholesky and
         the triangular solve are differentiated by autograd."""
-        X, Y = self.data
+        X, Y = self._data_tensors()
         K = self.kernel(X)
         ks = add_likelihood_noise_cov(K, self.likelihood, X)
         m = self.mean_function(X)
@@ -78,7 +84,7 @@ class GPR_deprecated(GPModel, InternalDataTrainingLossMixin):
         """Posterior mean and covariance of f at Xnew, from K(X) + sigma^2 I,
         K(Xnew) and K(X, Xnew) on every call."""
         assert_params_false(self.predict_f, full_output_cov=full_output_cov)
-        X, Y = self.data
+        X, Y = self._data_tensors()
         err = Y - self.mean_function(X)
         kmm = self.kernel(X)
         knn = self.kernel(Xnew, full_cov=full_cov)
@@ -99,7 +105,7 @@ class GPR_with_posterior(GPR_deprecated):
         NOCACHE."""
         return posteriors.GPRPosterior(
             kernel=self.kernel,
-            data=self.data,
+            data=self._data_tensors(),
             likelihood=self.likelihood,
             mean_function=self.mean_function,
             precompute_cache=precompute_cache,

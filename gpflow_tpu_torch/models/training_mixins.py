@@ -9,9 +9,10 @@ from typing import Callable, Iterator, Tuple, Union
 
 import torch
 
+from ..base import RegressionData
+
 __all__ = ["ExternalDataTrainingLossMixin", "InternalDataTrainingLossMixin"]
 
-RegressionData = Tuple[torch.Tensor, torch.Tensor]
 LossClosure = Callable[[], torch.Tensor]
 
 

@@ -1,13 +1,15 @@
 """Tensor helpers (counterpart of ``gpflow_tpu/utilities/ops.py``)."""
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Any, Optional, Sequence
 
+import numpy as np
 import torch
 
+from ..config import default_device, default_float
 from .shapes import check_shapes
 
-__all__ = ["difference_matrix", "leading_transpose", "square_distance"]
+__all__ = ["difference_matrix", "leading_transpose", "pca_reduce", "square_distance"]
 
 
 def square_distance(X: torch.Tensor, X2: Optional[torch.Tensor]) -> torch.Tensor:
@@ -61,3 +63,22 @@ def leading_transpose(tensor: torch.Tensor, perm: Sequence, leading_dim: int = 0
     pre = [p % rank for p in perm[:idx]]
     post = [p % rank for p in perm[idx + 1:]]
     return tensor.permute(pre + lead + post)
+
+
+def pca_reduce(X: Any, latent_dim: int) -> torch.Tensor:
+    """X [N, D] projected onto its ``latent_dim`` principal directions
+    (``gpflow_tpu/utilities/ops.py:132-143``), to start a GPLVM's latent X.
+    It is computed on the host by numpy's ``eigh`` in float64, as the JAX
+    package computes it, so that the eigenvectors' signs are the same; the
+    result takes X's float type and device (a numpy X: the defaults)."""
+    if latent_dim > X.shape[1]:
+        raise ValueError("Cannot have more latent dimensions than observed")
+    if isinstance(X, torch.Tensor):
+        dtype, device = X.dtype, X.device
+        X_np = X.detach().cpu().numpy().astype(np.float64)
+    else:
+        dtype, device = default_float(), default_device()
+        X_np = np.asarray(X, dtype=np.float64)
+    X_centered = X_np - X_np.mean(axis=0, keepdims=True)
+    _, evecs = np.linalg.eigh(np.atleast_2d(np.cov(X_centered.T)))
+    return torch.tensor(X_centered @ evecs[:, -latent_dim:], dtype=dtype, device=device)

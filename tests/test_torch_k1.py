@@ -166,6 +166,18 @@ def test_import_leaves_jax_out():
         "from gpflow_tpu_torch.optimizers import SamplingHelper, run_hmc\n"
         "from gpflow_tpu_torch.conditionals.util import sample_mvn\n"
         "from gpflow_tpu_torch.utilities import select_dict_parameters_with_prior\n"
+        "import gpflow_tpu_torch.expectations, gpflow_tpu_torch.probability_distributions\n"
+        "import gpflow_tpu_torch.expectations.dispatch, gpflow_tpu_torch.expectations.expectations\n"
+        "import gpflow_tpu_torch.expectations.quadratures, gpflow_tpu_torch.expectations.squared_exponentials\n"
+        "import gpflow_tpu_torch.expectations.linears, gpflow_tpu_torch.expectations.mean_functions\n"
+        "import gpflow_tpu_torch.expectations.misc, gpflow_tpu_torch.expectations.sums\n"
+        "import gpflow_tpu_torch.expectations.products, gpflow_tpu_torch.expectations.cross_kernels\n"
+        "import gpflow_tpu_torch.conditionals.uncertain_conditionals\n"
+        "from gpflow_tpu_torch.conditionals import uncertain_conditional\n"
+        "from gpflow_tpu_torch.models import GPLVM, BayesianGPLVM\n"
+        "from gpflow_tpu_torch.utilities.ops import pca_reduce\n"
+        "from gpflow_tpu_torch.base import InputData, OutputData, RegressionData\n"
+        "assert gpflow_tpu_torch.probability_distributions.Gaussian and gpflow_tpu_torch.expectations.expectation\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'gpflow_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"

@@ -325,11 +325,13 @@ def test_sample_mvn_matches_jax(full_cov, num_samples):
                                                                      key=k))(key)
     got = _jax_draws(key)(_t(mean), _t(cov), full_cov, num_samples)
     _close(got, want, SAMPLE_RTOL)
-    # the public function: a shape of draws from a generator, seeded 0 by default
+    # the public function: a shape of draws from the device's default
+    # generator, which a generator in the same state reproduces
+    same = torch.Generator()
+    same.set_state(util.default_generator("cpu").get_state())
     out = util.sample_mvn(_t(mean), _t(cov), full_cov, num_samples=num_samples)
     assert out.shape == want.shape
-    assert torch.equal(out, util.sample_mvn(_t(mean), _t(cov), full_cov, num_samples=num_samples,
-                                            generator=torch.Generator().manual_seed(0)))
+    assert torch.equal(out, util.sample_mvn(_t(mean), _t(cov), full_cov, num_samples=num_samples, generator=same))
 
 
 @pytest.mark.parametrize("full_cov, num_samples", [(False, None), (True, 4)])
