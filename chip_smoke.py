@@ -8,7 +8,7 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
 
 With ``--phases`` the script runs the build and the kernel checks of phases
 1-4, then each group of phases that holds a selected one (5-8, 9-10, 11-12,
-13-16, and 17 to 21 alone), then the record's kernel timings; without it,
+13-16, and 17 to 22 alone), then the record's kernel timings; without it,
 every phase.
 
 The paths are those of ``bench.py``'s flagship model at full width (SVGP,
@@ -35,7 +35,10 @@ point's widths (slice 10; ``bench.py`` has no MCMC operating point); and the
 GPLVM and the Bayesian GPLVM through the psi statistics, with
 ``uncertain_conditional``, at oil flow's width (P = 12) with Q = 10 latent
 dimensions on synthetic data (slice 11; ``bench.py`` has no GPLVM operating
-point). Models are built on the card, the
+point); and the convolutional SVGP at MNIST's shapes (28 x 28 images, 5 x 5
+patches, M = 750 inducing patches, C = 10, B = 256) with ChangePoints and
+Categorical GPRs at N = 8192 (slice 12; ``bench.py`` has no convolutional
+operating point). Models are built on the card, the
 port's default device; the float64 references ask for the CPU, or for float64
 on the card where the CPU would take minutes. Phases:
 
@@ -233,7 +236,25 @@ on the card where the CPU would take minutes. Phases:
    float64 beside the control, and float64 against a Monte-Carlo estimate of
    10^4 draws at 16 inputs; (e) K1 and K2 against their plain versions at
    the path's D = 10 and D = 2 shapes (TMA and edge paths, scalar staging),
-   launch counts exactly as each path implies, and their timings.
+   launch counts exactly as each path implies, and their timings;
+22. the convolutional slice (synthetic images from a seed): (a) a multiclass
+   SVGP with a Convolutional kernel over InducingPatches at MNIST's shapes
+   (28 x 28 images, 5 x 5 patches, M = 750, C = 10, RobustMax, whitened full
+   q_sqrt, B = 256, N = 60000 and 1000 held out): the ELBO and its gradient
+   under sync debug mode "error" against float64 on the card on two sets of
+   values and with a Matern52 base kernel (K2 on Kuf's backward), each beside
+   the lower-tier control; ``Kuf_conv_patch``'s K1 route against the JAX
+   package's batched plain route; 50 Adam steps under sync debug mode
+   "error"; requests of the 1000 held-out images through ``posterior()``
+   and ``predict_y`` against float64, the held-out accuracy; CIFAR-10's
+   shapes once (32 x 32 x 3, 3 x 3 patches, B = 32); (b) a GPR with
+   ChangePoints of two Matern32 kernels at N = 8192, D = 1: the value and
+   gradient against float64 within cond * eps32, 15 L-BFGS iterations; (c) a
+   GPR with Categorical over D = 8 inputs and 10 labels at N = 8192 likewise,
+   an out-of-range label's NaN row; (d) K1 and K2 against their plain
+   versions at the path's D = 25, 9 and 1 shapes (K1 also at (8192, 8192,
+   9)), TMA and edge paths, launch counts exactly as each path implies, the
+   value and gradient's split, peak memory and profile, and the timings.
 
 Every failure raises, and the script then exits non-zero without the result
 line. The line before the last is ``{"kernels": [...]}``; the last is
@@ -628,8 +649,12 @@ HMC_RTOL = {"value": 1e-6, "gradient": 5e-4}
 # must fall by 4 per halving (leapfrog's energy error is O(h^2)). At
 # h = 0.02 the first readings were not in that regime (|dH| 5.5 for one
 # momentum, ratios 1.2-95); at 0.004 they read 3.995-4.289, and the round
-# trip 1.3e-15 (position) and 1.3e-13 (momentum).
-HMC_DH_STEP = 0.004
+# trip 1.3e-15 (position) and 1.3e-13 (momentum). A chain that ends
+# elsewhere moves the state: after the float32 backward's contraction went
+# to float64 accumulation (ROADMAP F2) the chain ended at a state where the
+# first ratio at 0.004 read 4.575 and the next 4.142 (the O(h^4) term:
+# 4 (1 + 0.14) falling to 4 (1 + 0.036)), so the check starts at 0.002.
+HMC_DH_STEP = 0.002
 HMC_REVERSE_RTOL = 1e-10
 HMC_DH_RATIO = (3.5, 4.5)
 HMC_DH_MOMENTA = 3
@@ -708,6 +733,69 @@ GL_K1_SHAPES = [(GL_M, GL_M, GL_Q), (GL_M, GL_N, GL_Q), (GL_N, GL_N, GL_Q), (GL_
                 (GL_M, GL_N * GL_QUAD_NGHP ** GL_QUAD_Q, GL_QUAD_Q),
                 (GL_M, GL_N - 1, GL_Q)]  # checked only: an odd column count takes the edge path
 GL_K2_SHAPES = [(GL_GPLVM_N, GL_GPLVM_N, GL_Q), (GL_WIDE_M, GL_WIDE_N - 2, GL_Q)]  # the second: the edge path
+
+# The convolutional slice (phase 22; bench.py has no convolutional point):
+# (a) the convolutional GP of van der Wilk, Rasmussen and Hensman (NeurIPS
+# 2017) on MNIST's shapes: 28 x 28 images, 5 x 5 patches (P = 576 patches an
+# image, S = 25), M = 750 inducing patches, C = 10 classes, MultiClass with
+# RobustMax, whitened full q_sqrt [C, M, M], batches of B = 256 images,
+# N = 60000 training and 1000 held-out images, float32. MNIST is not in the
+# repository, so the images are synthetic, from a seed, a translation-
+# invariant task as doc/examples/convolutional.py:47-58 makes one: noise
+# uniform in [0, CV_NOISE], plus one of C seeded 7 x 7 templates (a random
+# half of its pixels +0.8) at a uniformly random position; the label is the
+# template's index. Z: 750 of the distinct patches of the first M images
+# (doc/examples/convolutional.py:69-71). The base kernel is
+# SquaredExponential (K1, its backward from the saved K; Matern52 once, K2
+# on Kuf's backward) with lengthscale 0.5, near the median distance between
+# the inducing patches (0.43): at 1.0 cond(Kuu + 1e-4 I) is 4.9e6, at 0.5
+# 3.3e5 (numpy, the same Z). CIFAR-10's shapes once (32 x 32 x 3, 3 x 3
+# patches: P = 2700, S = 9, B = 32), so that the colour channels' order runs
+# on the card, with lengthscale 0.1: 3 x 3 patches inside a template nearly
+# repeat, and at 0.5 cond(Kuu + 1e-4 I) is 6.2e6, at 0.1 7.7e3. (b) ChangePoints: a GPR at bench.py's N = 8192
+# with D = 1, x sorted in [0, 10], sin(x) before 5 and sin(4 x) after,
+# noise 0.1; ChangePoints([Matern32(1.0), Matern32(0.2)], locations [4.0],
+# steepness 5.0), started away from the change at 5. (c) Categorical: a GPR
+# at N = 8192 on bench.py's D = 8 inputs and a label column of 10 labels.
+CV_C, CV_M, CV_B, CV_N, CV_NEW = 10, 750, 256, 60000, 1000
+CV_MNIST = {"image": (28, 28), "patch": (5, 5), "channels": 1, "lengthscale": 0.5}
+CV_NOISE, CV_BRIGHT, CV_TEMPLATE = 0.2, 0.8, 7
+CV_STEPS = 50  # Adam steps
+CV_TIMED_ROUNDS = 3
+CV_CIFAR = {"image": (32, 32), "patch": (3, 3), "channels": 3, "lengthscale": 0.1}
+CV_CIFAR_B = 32
+CV_SEEDS = {"data": SEED + 70, "templates": SEED + 71, "Z": SEED + 72, "values": (SEED + 73, SEED + 74),
+            "batch": SEED + 75, "train": SEED + 76, "cifar": SEED + 77, "kernels": SEED + 78, "cp": SEED + 79,
+            "cat": SEED + 80, "route": SEED + 81}
+CP_N, CP_NOISE, CP_MAXITER = GPR_NS[0], 0.1, GPR_MAXITER
+CAT_N, CAT_LABELS = GPR_NS[0], 10
+# float32 against float64 on the card, relative to the largest float64 entry
+# (the value to itself), beside the lower-tier control (Z and the images
+# rounded to bfloat16, TF32 matmuls), which must break at least one limit.
+# The limits are set from readings (PERF.md §6, the convolutional slice), 3-10
+# times the largest sound error over the two sets of values, the Matern52
+# base kernel and CIFAR-10's shapes: the value 9.5e-7 (the control 1.9e-5 or
+# more), the gradients 6.1e-4 (the lengthscale; the control's weights and Z
+# 1.3e-2 or more), q's 1.1e-4 (the control 8.4e-3), the fused request's mean
+# and variance 3.8e-4 and 4.7e-4 (the control 0.12 and 0.15). The slope in
+# the base kernel's variance is a cancellation, 0.14-0.68 beside gradients of
+# 1e3-2e4 in the other parameters, and float32 leaves 0.18-1.19 of it (the
+# control 2.3-340): its limit is relative to that small slope. The cached
+# route's float64 requests must equal the fused route's (4.3e-9 read; its
+# explicit inverse carries up to cond(Kuu)^2 eps64 ~ 5e-6).
+CV_RTOL = {"value": 1e-5, "gradient": 3e-3, "gradient q": 1e-3, "gradient .kernel.base_kernel.variance": 4.0,
+           "requests": {"mean": 2e-3, "var": 2e-3}, "routes f64": 1e-6}
+# Kuf_conv_patch's K1 route against the JAX package's batched plain route,
+# both float32, value and gradients relative to the largest entry (1.6e-6
+# read, the weights' gradient): the norm expansion of the plain route's
+# square_distance rounds |x|^2 + |z|^2 - 2 x.z, K1 sums (x - z)^2 directly.
+CV_ROUTE_RTOL = 1e-5
+CV_K1_SHAPES = [(CV_M, CV_M, 25), (CV_M, CV_B * 576, 25), (CV_M, CV_NEW * 576, 25), (CV_M, CV_M, 9),
+                (CV_M, 86400, 9), (CP_N, CP_N, 1), (CAT_N, CAT_N, 9),
+                (CV_M, CV_B * 576 - 3, 25)]  # the last: the edge path, no path's shape
+CV_K2_SHAPES = [(CV_M, CV_M, 25, "matern52"), (CV_M, CV_B * 576, 25, "matern52"),
+                (CV_M, CV_NEW * 576, 25, "matern52"), (CP_N, CP_N, 1, "matern32"),
+                (CV_M, CV_B * 576 - 3, 25, "matern52")]
 
 
 def log(*args):
@@ -1153,7 +1241,7 @@ def time_k2(n, m, iters=50, family="matern52", d=D):
     else:
         Xs, Zs = ((rng.randn(k, d) / np.sqrt(d)).astype(np.float32) for k in (n, m))
     Xs, Zs = torch.from_numpy(Xs).cuda(), torch.from_numpy(Zs).cuda()
-    g = torch.from_numpy(rng.randn(n, m).astype(np.float32)).cuda()
+    g = torch.randn(n, m, device="cuda", generator=torch.Generator(device="cuda").manual_seed(SEED + 6))
     var = torch.tensor([1.0], device="cuda")
     fns = {"plain": pd.stationary_wgrad_plain, "k2": pd.stationary_wgrad_cuda}
     got = {"plain": [], "k2": []}
@@ -4375,46 +4463,9 @@ def gl_uncertain(launches):
 
 def gl_check_kernels():
     """Phase 21e: K1 (rbf) and K2 (matern52) against their plain versions
-    at the path's D = 10 and D = 2 shapes and at the edge-path shapes,
-    inputs N(0, 1 / d) per dimension, each with its launch plan; both
-    kernels must run their TMA and their edge path (scalar staging: D is
-    not a multiple of 4). Returns {kernel: largest absolute error against
-    float64}."""
-    from gpflow_tpu_torch.ops import pallas_distance as pd
-
-    rng = np.random.RandomState(GL_SEEDS["kernels"])
-    var = torch.tensor([1.0], device="cuda")
-    worst = {"K1": 0.0, "K2": 0.0}
-    for kernel, shapes, family in (("K1", GL_K1_SHAPES, "rbf"), ("K2", GL_K2_SHAPES, "matern52")):
-        seen = set()
-        for n, m, d in shapes:
-            Xs, Zs = (torch.from_numpy((rng.randn(k, d) / np.sqrt(d)).astype(np.float32)).cuda() for k in (n, m))
-            if kernel == "K1":
-                out = pd.stationary_forward_cuda(family, Xs, Zs, var)
-                plan = plan_seen(kernel, seen)
-                plain32 = pd.stationary_forward_plain(family, Xs, Zs, var)
-                plain64 = pd.stationary_forward_plain(family, Xs.double(), Zs.double(), var.double())
-                tol64, tol32 = K1_ATOL_F64, K1_ATOL_F32
-            else:
-                g = torch.from_numpy(rng.randn(n, m).astype(np.float32)).cuda()
-                out = pd.stationary_wgrad_cuda(family, Xs, Zs, var, g)
-                plan = plan_seen(kernel, seen)
-                plain32 = pd.stationary_wgrad_plain(family, Xs, Zs, var, g)
-                plain64 = pd.stationary_wgrad_plain(family, Xs.double(), Zs.double(), var.double(), g.double())
-                top = max(float(plain64.abs().max()), 1e-30)
-                tol64, tol32 = K2_RTOL_F64 * top, K2_RTOL_F32 * top
-            torch.cuda.synchronize()
-            assert out.shape == (n, m) and out.dtype == torch.float32
-            err64, err32 = float((out.double() - plain64).abs().max()), float((out - plain32).abs().max())
-            log(f"{kernel} {family} ({n}, {m}, {d}): max abs err {err64:.3e} vs plain f64, tol {tol64:.1e}; "
-                f"{err32:.3e} vs plain f32, tol {tol32:.1e}; {plan}")
-            assert err64 <= tol64 and err32 <= tol32, f"{kernel} {family} disagrees with its plain version at {(n, m, d)}"
-            worst[kernel] = max(worst[kernel], err64)
-            del out, plain32, plain64
-        log(f"{kernel} at D = {GL_Q} and {GL_QUAD_Q} ran (tma, vec) = {sorted(seen)}")
-        assert seen == {(True, False), (False, False)}, f"{kernel} at phase 21's shapes did not run both its paths"
-    torch.cuda.empty_cache()
-    return worst
+    at the path's D = 10 and D = 2 shapes and at the edge-path shapes."""
+    return check_kernels(f"D = {GL_Q} and {GL_QUAD_Q}", GL_K1_SHAPES, [s + ("matern52",) for s in GL_K2_SHAPES],
+                         GL_SEEDS["kernels"])
 
 
 def gplvm_phases(launches):
@@ -4433,6 +4484,555 @@ def gplvm_phases(launches):
             time_k1(n, m, iters=10 if n * m > 1e7 else 20, d=d)
         for n, m, d in GL_K2_SHAPES:
             time_k2(n, m, iters=10, d=d)
+    return errs
+
+
+def make_cv_images(n, point, seed):
+    """``n`` images [n, W H C] of the operating point ``point`` (pixel (w, h)
+    of channel c at (w H + h) C + c, the layout ``get_patches`` reads) and
+    their labels [n, 1], float32: noise uniform in [0, CV_NOISE] plus one of
+    CV_C templates, CV_TEMPLATE pixels square, at a uniformly random position
+    in every channel."""
+    rng = np.random.RandomState(seed)
+    (W, H), channels = point["image"], point["channels"]
+    t = CV_TEMPLATE
+    templates = (np.random.RandomState(CV_SEEDS["templates"]).rand(CV_C, t, t) < 0.5) * np.float32(CV_BRIGHT)
+    X = (rng.rand(n, W, H, channels) * CV_NOISE).astype(np.float32)
+    labels = rng.randint(0, CV_C, n)
+    rows = rng.randint(0, W - t + 1, n)[:, None, None] + np.arange(t)[None, :, None]
+    cols = rng.randint(0, H - t + 1, n)[:, None, None] + np.arange(t)[None, None, :]
+    X[np.arange(n)[:, None, None], rows, cols] += templates[labels][..., None]
+    return X.reshape(n, W * H * channels), labels[:, None].astype(np.float32)
+
+
+def cv_patches(X, point):
+    """``Convolutional.get_patches`` in numpy: [n, C ow oh, S]."""
+    (W, H), (pw, ph), channels = point["image"], point["patch"], point["channels"]
+    imgs = X.reshape(-1, W * H, channels).transpose(0, 2, 1).reshape(-1, W, H)
+    rows = np.arange(W - pw + 1)[:, None, None, None] + np.arange(pw)[None, None, :, None]
+    cols = np.arange(H - ph + 1)[None, :, None, None] + np.arange(ph)[None, None, None, :]
+    return imgs[:, rows, cols].reshape(X.shape[0], -1, pw * ph)
+
+
+def cv_inducing(X, point, seed):
+    """CV_M distinct patches of the first CV_M images, drawn with ``seed``
+    (doc/examples/convolutional.py:69-71)."""
+    patches = cv_patches(X[:CV_M], point)
+    patches = np.unique(patches.reshape(-1, patches.shape[-1]), axis=0)
+    return patches[np.random.RandomState(seed).choice(len(patches), CV_M, replace=False)].copy()
+
+
+def cv_model(Z, dtype, values=None, base="SquaredExponential", point=CV_MNIST):
+    """The convolutional multiclass SVGP of phase 22 at ``point`` on the card
+    in ``dtype``: MultiClass (RobustMax) over CV_C latent GPs, ``num_data`` =
+    CV_N, whitened full q_sqrt, the point's base lengthscale; or the
+    constrained ``values`` of ``read_values``."""
+    from gpflow_tpu_torch import config, kernels, likelihoods
+    from gpflow_tpu_torch.inducing_variables import InducingPatches
+    from gpflow_tpu_torch.models import SVGP
+    from gpflow_tpu_torch.utilities import load_jax_values
+
+    with config.as_context(dataclasses.replace(config.config(), float=dtype)):
+        kernel = kernels.Convolutional(getattr(kernels, base)(lengthscales=point["lengthscale"]), point["image"],
+                                       point["patch"], colour_channels=point["channels"])
+        model = SVGP(kernel, likelihoods.MultiClass(CV_C), InducingPatches(Z), num_latent_gps=CV_C, num_data=CV_N)
+    model = model.to(dtype=dtype)
+    if values is not None:
+        np_dtype = np.float64 if dtype == torch.float64 else np.float32
+        load_jax_values(model, {k: np.asarray(v).astype(np_dtype) for k, v in values.items()})
+    return model
+
+
+def cv_value_and_grad(model, batch):
+    return sparse_value_and_grad(model, lambda m: m.training_loss(batch))
+
+
+def cv_check(what, Z, values, batch, launches, expected, base="SquaredExponential", point=CV_MNIST):
+    """Phase 22a: the float32 ELBO and its gradient in every trainable
+    parameter under sync debug mode "error", with exact launch counts,
+    against float64 on the card from the same values and beside the
+    lower-tier control. Returns the float32 model."""
+    m32, m64 = cv_model(Z, torch.float32, values, base, point), cv_model(Z, torch.float64, values, base, point)
+    ctl = cv_model(Z, torch.float32, bf16_values(values), base, point)
+    log(f"{what}: cond(Kuu + jitter I) {ng_cond(m64)[0]:.4e} (float64, jitter 1e-4)")
+    got, counts = counted(lambda: without_syncs(lambda: cv_value_and_grad(m32, batch)))
+    expect_launches(f"{what}: ELBO and gradient", counts, expected, launches)
+    assert bool(torch.isfinite(got[0])) and all(bool(torch.isfinite(g).all()) for g in got[1].values())
+    want = cv_value_and_grad(m64, tuple(t.double() for t in batch))
+    log(f"{what}: ELBO {-float(want[0]):.8e} (float32 {-float(got[0]):.8e}); largest float64 gradient entries "
+        + ", ".join(f"{k} {float(g.abs().max()):.3e}" for k, g in want[1].items()))
+    control = run_control(lambda: cv_value_and_grad(ctl, (bf16(batch[0]).cuda(), batch[1])))
+    judge(what, vgp_errors(got, want, CV_RTOL), vgp_errors(control, want, CV_RTOL))
+    del m64, ctl
+    torch.cuda.empty_cache()
+    return m32
+
+
+def cv_route_check(model, Xb):
+    """Phase 22a: ``Kuf_conv_patch`` (one 2-D base-kernel call: K1, its
+    backward from the saved K) against the JAX package's batched route (the
+    base kernel on [N, P, S], plain PyTorch) on the card, both float32, the
+    value and its gradients in Z, the weights and the base kernel's
+    parameters for a seeded cotangent, each relative to its largest entry;
+    both also against the batched route in float64."""
+    from gpflow_tpu_torch.covariances.kufs import Kuf_conv_patch
+
+    iv, k = model.inducing_variable, model.kernel
+    params = [iv.Z.unconstrained, k.weights.unconstrained, k.base_kernel.lengthscales.unconstrained,
+              k.base_kernel.variance.unconstrained]
+    g = torch.randn(CV_M, Xb.shape[0], device="cuda", generator=torch.Generator(device="cuda").manual_seed(
+        CV_SEEDS["route"]))
+
+    def batched(dtype):
+        # the base kernel's K(Z, Xp) on the [N, P, S] patches, as kufs.py:41-50
+        # calls it; float64 inputs promote the float32 parameters
+        Xp = k.get_patches(Xb).to(dtype)
+        bigK = k.base_kernel.K(iv.Z.value.to(dtype), Xp)  # [M, N, P]
+        return torch.sum(bigK * k.weights.value.to(dtype), dim=2) / k.num_patches
+
+    outs = {}
+    for label, fn in (("K1 route", lambda: Kuf_conv_patch(iv, k, Xb)), ("batched route", lambda: batched(torch.float32)),
+                      ("batched route float64", lambda: batched(torch.float64))):
+        value, counts = counted(fn)
+        grads = torch.autograd.grad((value * g.to(value.dtype)).sum(), params)
+        outs[label] = (value.detach(), grads, counts)
+    assert outs["K1 route"][2] == {"K1": 1, "K2": 0} and outs["batched route"][2] == {"K1": 0, "K2": 0}, \
+        f"the routes launched {outs['K1 route'][2]} and {outs['batched route'][2]}"
+    names = ("value", "gradient Z", "gradient weights", "gradient lengthscales", "gradient variance")
+    for a, b in (("K1 route", "batched route"), ("K1 route", "batched route float64"),
+                 ("batched route", "batched route float64")):
+        errs = [rel_err(outs[a][0], outs[b][0])] + [rel_err(x, y) for x, y in zip(outs[a][1], outs[b][1])]
+        log(f"Kuf_conv_patch at B={Xb.shape[0]} ({CV_M}, {Xb.shape[0] * 576}, 25): {a} against the {b}: "
+            + ", ".join(f"{n} {e:.3e}" for n, e in zip(names, errs)) + f" (tol {CV_ROUTE_RTOL:.0e})")
+        if b == "batched route":
+            assert max(errs) <= CV_ROUTE_RTOL, "Kuf_conv_patch's K1 route disagrees with the batched route"
+    del outs
+    torch.cuda.empty_cache()
+
+
+def cv_train(Z, staged, launches):
+    """Phase 22a: CV_STEPS Adam steps (1e-2 on every parameter) of
+    ``run_steps_sampled`` at B = CV_B under sync debug mode "error"; losses
+    finite and falling, launch counts exact. Returns the trainer."""
+    from gpflow_tpu_torch.parallel import DataParallelTrainer, adam
+
+    trainer = DataParallelTrainer(cv_model(Z, torch.float32), adam(1e-2))
+    trainer.stage_data(staged)
+    generator = torch.Generator(device="cuda").manual_seed(CV_SEEDS["train"])
+    losses, counts = counted(lambda: without_syncs(lambda: trainer.run_steps_sampled(CV_STEPS, CV_B, generator)))
+    losses = losses.cpu()
+    log(f"conv train adam: {CV_STEPS} steps at B={CV_B}, losses {[round(float(v), 1) for v in losses]}")
+    expect_launches("conv train adam", counts, {"K1": 2 * CV_STEPS, "K2": 0}, launches)
+    assert losses.shape == (CV_STEPS,) and bool(torch.isfinite(losses).all()), "conv training: a non-finite loss"
+    last = float(losses[-5:].mean())
+    log(f"conv train adam: loss {float(losses[0]):.6e} -> {last:.6e} (mean of the last 5)")
+    assert last < float(losses[0]), "conv training: the loss did not fall"
+    return trainer
+
+
+def cv_requests(model, Xb, launches=None, label=""):
+    """A request of Xb's images: class probabilities through ``posterior()``
+    (cached predict_f and the likelihood's predictive moments) and through
+    the fused ``predict_y``, with exact launch counts where ``launches``."""
+    with torch.no_grad():
+        post, counts = counted(model.posterior)
+        if launches is not None:
+            expect_launches(f"{label} posterior", counts, {"K1": 1, "K2": 0}, launches)
+        out = {}
+        for key, fn, k1 in (("posterior predict_y", lambda: model.likelihood.predict_mean_and_var(
+                                Xb, *post.predict_f(Xb)), 1),
+                            ("fused predict_y", lambda: model.predict_y(Xb), 2)):
+            out[key], counts = counted(fn)
+            if launches is not None:
+                expect_launches(f"{label} {key} request", counts, {"K1": k1, "K2": 0}, launches)
+    return out, post
+
+
+def cv_serve(model, requests, launches):
+    """Phase 22a: a request of the CV_NEW held-out images on both routes
+    against float64 on the card. The fused route is held to float64 beside
+    the lower-tier control; the cached route's float32 predictions are read,
+    not held: its (alpha, Qinv) cache is an explicit inverse, whose error
+    grows as cond(Kuu)^2 eps32 (posteriors.py), and the float64 cached route
+    must equal the float64 fused one. Probabilities in [0, 1]; held-out
+    accuracy above chance. Returns the posterior."""
+    from gpflow_tpu_torch.utilities import read_values
+
+    Xb, Yb = (torch.from_numpy(a).cuda() for a in requests)
+    values = read_values(model)
+    Z = values[".inducing_variable.Z"]
+    out, post = cv_requests(model, Xb, launches, f"conv {CV_NEW} images")
+    m64 = cv_model(Z, torch.float64, values)
+    want, _ = cv_requests(m64, Xb.double())
+    cond = ng_cond(m64)[0]
+    del m64
+    torch.cuda.empty_cache()
+    routes = [rel_err(a, b) for a, b in zip(want["posterior predict_y"], want["fused predict_y"])]
+    log(f"conv requests of {CV_NEW} images: float64 cached route against the fused one: mean {routes[0]:.3e}, var "
+        f"{routes[1]:.3e} (tol {CV_RTOL['routes f64']:.0e})")
+    assert max(routes) <= CV_RTOL["routes f64"], "conv: the cached route disagrees with the fused one in float64"
+    ctl = cv_model(Z, torch.float32, bf16_values(values))
+    cout = run_control(lambda: cv_requests(ctl, bf16(Xb).cuda())[0])
+    key, limits = "fused predict_y", CV_RTOL["requests"]
+    judge(f"conv fused predict_y of {CV_NEW} images",
+          {part: (rel_err(out[key][i], want[key][i]), limits[part]) for i, part in enumerate(("mean", "var"))},
+          {part: (rel_err(cout[key][i], want[key][i]), limits[part]) for i, part in enumerate(("mean", "var"))})
+    cached = [rel_err(a, b) for a, b in zip(out["posterior predict_y"], want["posterior predict_y"])]
+    log(f"conv requests of {CV_NEW} images: FINDING: at cond(Kuu + jitter I) {cond:.4e} (float64) the float32 "
+        f"cached route is off float64 by mean {cached[0]:.3e}, var {cached[1]:.3e} (cond^2 eps32 = "
+        f"{cond ** 2 * EPS32:.1e}); read, not held")
+    for key in out:
+        p = out[key][0]
+        assert bool(torch.isfinite(p).all()) and p.shape == (CV_NEW, CV_C), f"conv {key}: not finite"
+        accuracy = float((p.argmax(-1) == Yb[:, 0].long()).float().mean())
+        log(f"conv {key}: held-out accuracy {accuracy:.4f} over {CV_NEW} images after {CV_STEPS} Adam steps "
+            f"(chance {1 / CV_C:.2f}); probabilities in [{float(p.min()):.4e}, {float(p.max()):.4e}]")
+    p = out["fused predict_y"][0]
+    assert bool(((p >= 0) & (p <= 1)).all()), "conv: a probability outside [0, 1]"
+    assert float((p.argmax(-1) == Yb[:, 0].long()).float().mean()) > 1.0 / CV_C, "conv: accuracy at or below chance"
+    return post
+
+
+def cv_split(model, batch):
+    """Phase 22a: device milliseconds of the pieces of one value and
+    gradient: Kuf (K1 and the weighted sum over P), K_diag (the batched
+    plain path over [B, P, P]), each alone and with its backward, and the
+    whole ELBO with and without its gradient."""
+    from gpflow_tpu_torch.covariances import Kuf
+
+    X, _ = batch
+    iv, k = model.inducing_variable, model.kernel
+    params = [p.unconstrained for p in model.trainable_variables]
+    kuf_params = [iv.Z.unconstrained] + [p.unconstrained for p in k.trainable_variables]
+
+    def grad_of(fn, wrt):
+        return lambda: torch.autograd.grad(fn().sum(), wrt)
+
+    pieces = (("Kuf", lambda: Kuf(iv, k, X)), ("Kuf and its backward", grad_of(lambda: Kuf(iv, k, X), kuf_params)),
+              ("K_diag", lambda: k(X, full_cov=False)),
+              ("K_diag and its backward", grad_of(lambda: k(X, full_cov=False), [p.unconstrained for p in
+                                                                                 k.trainable_variables])),
+              ("ELBO", lambda: model.training_loss(batch)),
+              ("ELBO and its gradient", grad_of(lambda: model.training_loss(batch), params)))
+    for label, fn in pieces:
+        rounds = [device_ms(fn, 5, warmup=1) for _ in range(CV_TIMED_ROUNDS)]
+        log(f"time: conv split at B={CV_B}: {label} {min(rounds):.3f} ms device (rounds "
+            f"{[round(r, 3) for r in rounds]})")
+
+
+def contraction_float32(needs, Xs, Zs, variance, K, W, g):
+    """The backward's contraction as it was before ROADMAP F2, accumulated
+    in float32: the reference that ``time_f2`` times the float64 one
+    against."""
+    dXs = dZs = dvar = None
+    if needs[0]:
+        dXs = 2.0 * (W.sum(dim=1, keepdim=True) * Xs - W @ Zs)
+    if needs[1]:
+        dZs = 2.0 * (W.sum(dim=0).unsqueeze(1) * Zs - W.mT @ Xs)
+    if needs[2]:
+        dvar = (torch.sum(g * K) / variance).reshape(variance.shape)
+    return dXs, dZs, dvar
+
+
+def time_f2(model, batch):
+    """Phase 22: what F2's float64 accumulation costs, interleaved float32,
+    float64, float64, float32 in this run: the contraction alone at the
+    convolutional Kuf's and the CGLB block's shapes, and the convolutional
+    value and gradient with each."""
+    from gpflow_tpu_torch.ops import pallas_distance as pd
+
+    generator = torch.Generator(device="cuda").manual_seed(SEED + 82)
+    fns = {"float32": contraction_float32, "float64": pd._stationary_bwd_from_w}
+    var = torch.ones(1, device="cuda")
+    for n, m, d in ((CV_M, CV_B * 576, 25), (SP_N, SP_CHUNK, D)):
+        Xs, Zs, W = (torch.randn(*shape, device="cuda", generator=generator) for shape in ((n, d), (m, d), (n, m)))
+        got = {"float32": [], "float64": []}
+        for which in ("float32", "float64", "float64", "float32"):
+            got[which].append(device_ms(lambda: fns[which]((True, True, False), Xs, Zs, var, W, W, W), 10))
+        log(f"time: the backward's contraction at ({n}, {m}, {d}): float64 accumulation {min(got['float64']):.4f} ms, "
+            f"float32 {min(got['float32']):.4f} ms (runs {got})")
+        del Xs, Zs, W
+    got = {"float32": [], "float64": []}
+    try:
+        for which in ("float32", "float64", "float64", "float32"):
+            pd._stationary_bwd_from_w = fns[which]
+            got[which].append(device_ms(lambda: cv_value_and_grad(model, batch), 5, warmup=1))
+    finally:
+        pd._stationary_bwd_from_w = fns["float64"]
+    log(f"time: conv value and gradient with the float64 contraction {min(got['float64']):.3f} ms, with the float32 "
+        f"one {min(got['float32']):.3f} ms (runs {got})")
+
+
+def cv_timings(model, batch, trainer, post, requests):
+    """Phase 22a: the value and gradient by CUDA events (device and back to
+    back with the host), its split, F2's cost, its peak memory and a
+    profile; Adam steps per second; ms per request of CV_NEW images on both
+    routes."""
+    for what, fn in (("device", lambda: device_ms(lambda: cv_value_and_grad(model, batch), 5, warmup=1)),
+                     ("back to back with the host", lambda: request_ms(lambda: cv_value_and_grad(model, batch), 5,
+                                                                       warmup=1))):
+        rounds = [fn() for _ in range(CV_TIMED_ROUNDS)]
+        log(f"time: conv value and gradient M={CV_M}, B={CV_B}, C={CV_C}: {what} {min(rounds):.3f} ms "
+            f"(rounds {[round(r, 3) for r in rounds]})")
+    cv_split(model, batch)
+    time_f2(model, batch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    cv_value_and_grad(model, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"memory: conv float32 value and gradient at B={CV_B}: peak {peak / 1e9:.2f} GB ({(peak - base) / 1e9:.2f} "
+        f"GB above the {base / 1e9:.2f} GB held before it; one [M, B P] Kuf block is {CV_M * CV_B * 576 * 4 / 1e9:.2f} "
+        f"GB, one [B, P, P] K_diag block {CV_B * 576 ** 2 * 4 / 1e9:.2f} GB)")
+    profile_device(lambda: cv_value_and_grad(model, batch), f"conv value and gradient M={CV_M}, B={CV_B}", top=12)
+    rates = [CV_STEPS / request_ms(lambda: trainer.run_steps_sampled(CV_STEPS, CV_B), 1, warmup=int(i == 0)) * 1e3
+             for i in range(2)]
+    log(f"time: conv train adam at B={CV_B}: {max(rates):.2f} steps/s ({1e3 / max(rates):.3f} ms per step); rounds "
+        f"{[round(r, 2) for r in rates]}")
+    Xb = torch.from_numpy(requests[0]).cuda()
+    m = trainer.model
+    with torch.no_grad():
+        for key, fn in (("posterior()", m.posterior),
+                        ("posterior predict_y", lambda: m.likelihood.predict_mean_and_var(Xb, *post.predict_f(Xb))),
+                        ("fused predict_y", lambda: m.predict_y(Xb))):
+            rounds = [request_ms(fn, 3, warmup=1) for _ in range(2)]
+            log(f"time: conv {key} of {CV_NEW} images: {min(rounds):.3f} ms per request (rounds "
+                f"{[round(r, 3) for r in rounds]})")
+        peak_before = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        m.predict_y(Xb)
+        torch.cuda.synchronize()
+        log(f"memory: conv fused predict_y of {CV_NEW} images: peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+            f"(the value and gradient's {peak_before / 1e9:.2f})")
+
+
+def cv_cifar(launches):
+    """Phase 22a, once: a value and gradient at CIFAR-10's shapes (32 x 32 x
+    3 images, 3 x 3 patches: P = 2700, S = 9, B = 32; K1 at (750, 86400, 9)),
+    ``get_patches`` on the card against numpy, the float32 value and
+    gradient against float64 beside the control."""
+    b = CV_CIFAR_B
+    X, Y = make_cv_images(CV_M + b, CV_CIFAR, CV_SEEDS["cifar"])
+    Z = cv_inducing(X, CV_CIFAR, CV_SEEDS["cifar"])
+    batch = (torch.from_numpy(X[-b:]).cuda(), torch.from_numpy(Y[-b:]).cuda())
+    model = cv_model(Z, torch.float32, point=CV_CIFAR)
+    with torch.no_grad():
+        patches = model.kernel.get_patches(batch[0]).cpu().numpy()
+    assert patches.shape == (b, model.kernel.num_patches, 9) and model.kernel.num_patches == 2700
+    assert np.array_equal(patches, cv_patches(X[-b:], CV_CIFAR)), "get_patches on the card differs from numpy"
+    values = latent_values(model, CV_SEEDS["values"][0], CV_C)
+    cv_check(f"conv CIFAR-10 shapes B={b}", Z, values, batch, launches, {"K1": 2, "K2": 0}, point=CV_CIFAR)
+
+
+def cp_data():
+    """Phase 22b's GPR data: x sorted in [0, 10], sin(x) before 5 and
+    sin(4 x) after, noise 0.1; float32."""
+    rng = np.random.RandomState(CV_SEEDS["cp"])
+    X = np.sort(rng.rand(CP_N, 1) * 10, axis=0).astype(np.float32)
+    Y = np.where(X < 5, np.sin(X), np.sin(4 * X)) + 0.1 * rng.randn(CP_N, 1)
+    return X, Y.astype(np.float32)
+
+
+def cp_model(data, dtype, values=None):
+    from gpflow_tpu_torch import config, kernels
+    from gpflow_tpu_torch.models import GPR
+    from gpflow_tpu_torch.utilities import load_jax_values
+
+    with config.as_context(dataclasses.replace(config.config(), float=dtype)):
+        kernel = kernels.ChangePoints([kernels.Matern32(lengthscales=1.0), kernels.Matern32(lengthscales=0.2)],
+                                      locations=[4.0], steepness=5.0)
+        model = GPR(data, kernel, noise_variance=CP_NOISE)
+    model = model.to(dtype=dtype)
+    if values is not None:
+        load_jax_values(model, values)
+    return model
+
+
+def cat_data():
+    """Phase 22c's GPR data: bench.py's N = 8192 inputs in D = 8 and a label
+    column of CAT_LABELS labels; y = sin(3 x_0) plus a seeded offset per
+    label, noise 0.1."""
+    rng = np.random.RandomState(CV_SEEDS["cat"])
+    X = rng.rand(CAT_N, D).astype(np.float32)
+    labels = rng.randint(0, CAT_LABELS, (CAT_N, 1))
+    Y = np.sin(3 * X[:, :1]) + rng.randn(CAT_LABELS)[labels] + 0.1 * rng.randn(CAT_N, 1)
+    return np.concatenate([X, labels.astype(np.float32)], axis=1), Y.astype(np.float32)
+
+
+def cat_model(data, dtype, values=None):
+    from gpflow_tpu_torch import config, kernels
+    from gpflow_tpu_torch.models import GPR
+    from gpflow_tpu_torch.utilities import load_jax_values
+
+    with config.as_context(dataclasses.replace(config.config(), float=dtype)):
+        np.random.seed(CV_SEEDS["cat"])  # Categorical draws its Z_deltas from numpy's global state
+        kernel = kernels.Categorical(kernels.SquaredExponential(active_dims=list(range(D))),
+                                     kernels.SquaredExponential(active_dims=[D]), num_labels=CAT_LABELS)
+        model = GPR(data, kernel, noise_variance=GPR_NOISE)
+    model = model.to(dtype=dtype)
+    if values is not None:
+        load_jax_values(model, values)
+    return model
+
+
+def gpr_check(what, build, data, launches, expected):
+    """Phase 22b-c: a float32 GPR's training loss and gradient in every
+    trainable parameter under sync debug mode "error", with exact launch
+    counts, against float64 on the card from the same values, each within
+    cond * eps32 (phase 9's limit; cond an upper bound of cond(K + noise I)).
+    Returns the float32 model."""
+    from gpflow_tpu_torch.utilities import parameter_dict, read_values
+
+    m32 = build(tuple(torch.from_numpy(a).cuda() for a in data), torch.float32)
+    m64 = build(tuple(torch.from_numpy(a).double().cuda() for a in data), torch.float64, read_values(m32))
+    tol = gram_cond(m64) * EPS32
+    log(f"{what}: cond(K + noise I) <= {tol / EPS32:.4e}; tolerance cond * eps32 = {tol:.3e}")
+    (loss, grads), counts = counted(lambda: without_syncs(lambda: gpr_value_and_grad(m32, False)))
+    expect_launches(f"{what} value and gradient", counts, expected, launches)
+    loss64, grads64 = gpr_value_and_grad(m64, False)
+    err = abs(float(loss) - float(loss64)) / abs(float(loss64))
+    log(f"{what}: loss {float(loss):.8e} (float64 {float(loss64):.8e}), rel err {err:.3e}, tol {tol:.1e}")
+    assert bool(torch.isfinite(loss)) and err <= tol, f"{what}: the loss disagrees with float64"
+    paths = {id(p): path for path, p in parameter_dict(m32).items()}
+    for p, got, want in zip(m32.trainable_variables, grads, grads64):
+        gerr = rel_err(got, want)
+        log(f"{what}: gradient {paths[id(p)]} max |.| {float(want.abs().max()):.4e}, rel err {gerr:.3e}, tol {tol:.1e}")
+        assert bool(torch.isfinite(got).all()) and gerr <= tol, f"{what}: gradient {paths[id(p)]} disagrees"
+    return m32
+
+
+def cp_phase(launches):
+    """Phase 22b: the ChangePoints GPR's value and gradient against float64,
+    CP_MAXITER L-BFGS iterations, which must lower the objective (the
+    location's move logged), and the times. Returns the model."""
+    from gpflow_tpu_torch.optimizers import Scipy
+
+    what = f"changepoints gpr N={CP_N}"
+    model = gpr_check(what, cp_model, cp_data(), launches, {"K1": 2, "K2": 2})
+    with torch.no_grad():
+        loss0 = float(model.training_loss())
+    before = (float(model.kernel.locations.numpy()[0]), float(model.kernel.steepness.numpy()))
+    t0 = time.perf_counter()
+    res, counts = counted(lambda: Scipy().minimize(model.training_loss_closure(), model.trainable_variables,
+                                                   options={"maxiter": CP_MAXITER}, nonfinite_penalty=GPR_PENALTY))
+    seconds = time.perf_counter() - t0
+    after = (float(model.kernel.locations.numpy()[0]), float(model.kernel.steepness.numpy()))
+    log(f"{what} lbfgs: loss {loss0:.6e} -> {float(res.fun):.6e}; nit {res.nit}, nfev {res.nfev}, non-finite "
+        f"evaluations {res.n_nonfinite_evals}, status {res.status} ({res.message}); the location {before[0]:.4f} -> "
+        f"{after[0]:.4f} (the data change at 5), steepness {before[1]:.4f} -> {after[1]:.4f}; lengthscales "
+        f"{[round(float(k.lengthscales.numpy()), 4) for k in model.kernel.kernels]}")
+    log(f"time: {what} lbfgs: {seconds:.3f} s, {seconds / res.nfev:.4f} s per evaluation")
+    assert np.isfinite(res.fun) and float(res.fun) < loss0, "L-BFGS did not lower the ChangePoints objective"
+    expect_launches(f"{what} lbfgs", counts, {"K1": 2 * int(res.nfev), "K2": 2 * int(res.nfev)}, launches)
+    rounds = [request_ms(lambda: gpr_value_and_grad(model, False), 3, warmup=1) for _ in range(2)]
+    log(f"time: {what} value and gradient {min(rounds):.3f} ms (rounds {[round(r, 3) for r in rounds]})")
+
+
+def cat_phase(launches):
+    """Phase 22c: the Categorical GPR's value and gradient (Z_deltas and the
+    non-categorical kernel; the categorical one is frozen) against float64;
+    an out-of-range label gives NaN in its row and column on the card."""
+    from gpflow_tpu_torch.utilities import parameter_dict
+
+    what = f"categorical gpr N={CAT_N}"
+    data = cat_data()
+    # Categorical's K is its product's K, which cuts no term to its active
+    # dims (as in the JAX package): both SquaredExponential terms see all
+    # D + 1 columns, and K1 runs at (N, N, D + 1) for each
+    model = gpr_check(what, cat_model, data, launches, {"K1": 2, "K2": 0})
+    names = sorted(p for p, v in parameter_dict(model).items() if v.trainable)
+    assert names == [".kernel._Z_deltas", ".kernel.wrapped_kernel.kernels[0].lengthscales",
+                     ".kernel.wrapped_kernel.kernels[0].variance", ".likelihood.variance"], names
+    X = torch.from_numpy(data[0][:16]).cuda()
+    X[3, D] = CAT_LABELS
+    with torch.no_grad():
+        K = model.kernel(X)
+    nan = torch.isnan(K)
+    log(f"{what}: a label of {CAT_LABELS} in row 3 of 16: NaN in {int(nan.sum())} entries of its K")
+    assert bool(nan[3].all()) and bool(nan[:, 3].all()) and int(nan.sum()) == 2 * 16 - 1, "the NaN row is wrong"
+    rounds = [request_ms(lambda: gpr_value_and_grad(model, False), 3, warmup=1) for _ in range(2)]
+    log(f"time: {what} value and gradient {min(rounds):.3f} ms (rounds {[round(r, 3) for r in rounds]})")
+
+
+def check_kernels(what, k1_shapes, k2_shapes, seed):
+    """K1 (rbf) at ``k1_shapes`` [(n, m, d)] and K2 at ``k2_shapes``
+    [(n, m, d, family)] against their plain versions, inputs N(0, 1 / d)
+    per dimension, each with its launch plan; both kernels must run their
+    TMA and their edge path, with scalar staging (no d here is a multiple of
+    4). Returns {kernel: largest absolute error against float64}."""
+    from gpflow_tpu_torch.ops import pallas_distance as pd
+
+    rng = np.random.RandomState(seed)
+    generator = torch.Generator(device="cuda").manual_seed(seed)
+    var = torch.tensor([1.0], device="cuda")
+    worst = {"K1": 0.0, "K2": 0.0}
+    for kernel, shapes in (("K1", [s + ("rbf",) for s in k1_shapes]), ("K2", k2_shapes)):
+        seen = set()
+        for n, m, d, family in shapes:
+            Xs, Zs = (torch.from_numpy((rng.randn(k, d) / np.sqrt(d)).astype(np.float32)).cuda() for k in (n, m))
+            if kernel == "K1":
+                out = pd.stationary_forward_cuda(family, Xs, Zs, var)
+                plan = plan_seen(kernel, seen)
+                plain32 = pd.stationary_forward_plain(family, Xs, Zs, var)
+                plain64 = pd.stationary_forward_plain(family, Xs.double(), Zs.double(), var.double())
+                tol64, tol32 = K1_ATOL_F64, K1_ATOL_F32
+            else:
+                g = torch.randn(n, m, device="cuda", generator=generator)  # drawn on the card: n m reach 4e8
+                out = pd.stationary_wgrad_cuda(family, Xs, Zs, var, g)
+                plan = plan_seen(kernel, seen)
+                plain32 = pd.stationary_wgrad_plain(family, Xs, Zs, var, g)
+                plain64 = pd.stationary_wgrad_plain(family, Xs.double(), Zs.double(), var.double(), g.double())
+                top = max(float(plain64.abs().max()), 1e-30)
+                tol64, tol32 = K2_RTOL_F64 * top, K2_RTOL_F32 * top
+                del g
+            torch.cuda.synchronize()
+            assert out.shape == (n, m) and out.dtype == torch.float32
+            err64, err32 = float((out.double() - plain64).abs().max()), float((out - plain32).abs().max())
+            log(f"{kernel} {family} ({n}, {m}, {d}): max abs err {err64:.3e} vs plain f64, tol {tol64:.1e}; "
+                f"{err32:.3e} vs plain f32, tol {tol32:.1e}; {plan}")
+            assert err64 <= tol64 and err32 <= tol32, f"{kernel} {family} disagrees with its plain version at {(n, m, d)}"
+            worst[kernel] = max(worst[kernel], err64)
+            del out, plain32, plain64
+            torch.cuda.empty_cache()
+        log(f"{kernel} at {what}'s shapes ran (tma, vec) = {sorted(seen)}")
+        assert seen == {(True, False), (False, False)}, f"{kernel} at {what}'s shapes did not run both its paths"
+    return worst
+
+
+def conv_phases(launches):
+    """Phase 22. Returns {kernel: largest absolute error of its checks}."""
+    X, Y = make_cv_images(CV_N + CV_NEW, CV_MNIST, CV_SEEDS["data"])
+    Z = cv_inducing(X, CV_MNIST, CV_SEEDS["Z"])
+    staged = (torch.from_numpy(X[:CV_N]).cuda(), torch.from_numpy(Y[:CV_N]).cuda())
+    requests = (X[CV_N:], Y[CV_N:])
+    idx = torch.from_numpy(np.random.RandomState(CV_SEEDS["batch"]).randint(0, CV_N, CV_B)).cuda()
+    batch = (staged[0][idx], staged[1][idx])
+    base = cv_model(Z, torch.float32)
+    for i, seed in enumerate(CV_SEEDS["values"]):
+        values = latent_values(base, seed, CV_C)
+        model = cv_check(f"conv objective B={CV_B}, values seed {seed}", Z, values, batch, launches, {"K1": 2, "K2": 0})
+        if i == 0:
+            cv_route_check(model, batch[0])
+            cv_check(f"conv Matern52 objective B={CV_B}, values seed {seed}", Z, values, batch, launches,
+                     {"K1": 2, "K2": 2}, base="Matern52")
+    del model
+    cv_cifar(launches)
+    torch.cuda.empty_cache()
+    trainer = cv_train(Z, staged, launches)
+    post = cv_serve(trainer.model, requests, launches)
+    torch.cuda.empty_cache()
+    cp_phase(launches)
+    torch.cuda.empty_cache()
+    cat_phase(launches)
+    torch.cuda.empty_cache()
+    errs = check_kernels("phase 22", CV_K1_SHAPES, CV_K2_SHAPES, CV_SEEDS["kernels"])
+    cv_timings(trainer.model, batch, trainer, post, requests)
+    with torch.no_grad():
+        for n, m, d in CV_K1_SHAPES:
+            time_k1(n, m, iters=10 if n * m > 1e8 else 20, d=d)
+        for n, m, d, family in CV_K2_SHAPES:  # the plain version takes 0.3 s at (750, 576000, 25)
+            time_k2(n, m, iters=2 if n * m > 1e8 else 20, d=d, family=family)
     return errs
 
 
@@ -4616,7 +5216,7 @@ def ng_phases(launches):
     ng_timings(ng_trainers, ng_post, classifier, ng_Xb, ng_Yb)
 
 
-# Phases 5-21 in the order they run, as groups that share their data: a
+# Phases 5-22 in the order they run, as groups that share their data: a
 # selection runs each group that holds a selected phase.
 PHASE_GROUPS = (
     (range(5, 9), svgp_phases),
@@ -4628,6 +5228,7 @@ PHASE_GROUPS = (
     (range(19, 20), mo_phases),
     (range(20, 21), hmc_phases),
     (range(21, 22), gplvm_phases),
+    (range(22, 23), conv_phases),
 )
 
 
@@ -4638,7 +5239,7 @@ def parse_phases(argv=None):
 
     parser = argparse.ArgumentParser(description="Drives gpflow_tpu_torch's main paths on one CUDA card.")
     parser.add_argument("--phases", help="the phases to run after the build and the kernel checks of phases 1-4, "
-                                         "as numbers and ranges among 5-21 (e.g. 5-8,21); by default every phase")
+                                         "as numbers and ranges among 5-22 (e.g. 5-8,21); by default every phase")
     phases = parser.parse_args(argv).phases
     if phases is None:
         return None
@@ -4651,7 +5252,7 @@ def parse_phases(argv=None):
             parser.error(f"--phases: {part!r} is not a number or a range")
     unknown = selected - {n for numbers, _ in PHASE_GROUPS for n in numbers}
     if unknown or not selected:
-        parser.error(f"--phases: no phase {sorted(unknown)}; phases 5-21 can be selected")
+        parser.error(f"--phases: no phase {sorted(unknown)}; phases 5-22 can be selected")
     return selected
 
 

@@ -1,16 +1,14 @@
-"""Kuu registrations (counterpart of ``gpflow_tpu/covariances/kuus.py``;
-the (InducingPatches, Convolutional) case waits for the Convolutional
-kernel)."""
+"""Kuu registrations (counterpart of ``gpflow_tpu/covariances/kuus.py``)."""
 from __future__ import annotations
 
 import torch
 
-from ..inducing_variables import InducingPoints, Multiscale
-from ..kernels import Kernel, SquaredExponential
+from ..inducing_variables import InducingPatches, InducingPoints, Multiscale
+from ..kernels import Convolutional, Kernel, SquaredExponential
 from ..utilities.shapes import check_shapes
 from .dispatch import Kuu
 
-__all__ = ["Kuu_kernel_inducingpoints", "Kuu_sqexp_multiscale"]
+__all__ = ["Kuu_conv_patch", "Kuu_kernel_inducingpoints", "Kuu_sqexp_multiscale"]
 
 
 @Kuu.register(InducingPoints, Kernel)
@@ -35,4 +33,15 @@ def Kuu_sqexp_multiscale(
     sc = torch.sqrt(idlengthscales2[None, ...] + idlengthscales2[:, None, ...] - lengthscales ** 2)
     d = inducing_variable._cust_square_dist(Zmu, Zmu, sc)
     Kzz = kernel.variance.value * torch.exp(-d / 2) * torch.prod(lengthscales / sc, 2)
+    return Kzz + jitter * torch.eye(inducing_variable.num_inducing, dtype=Kzz.dtype, device=Kzz.device)
+
+
+@Kuu.register(InducingPatches, Convolutional)
+@check_shapes("return: [M, M]")
+def Kuu_conv_patch(
+    inducing_variable: InducingPatches, kernel: Convolutional, *, jitter: float = 0.0
+) -> torch.Tensor:
+    """The base kernel's K(Z) + jitter I in patch space -> [M, M]
+    (``kuus.py:44-52``); on 2-D CUDA float32 patches, K1."""
+    Kzz = kernel.base_kernel.K(inducing_variable.Z.value)
     return Kzz + jitter * torch.eye(inducing_variable.num_inducing, dtype=Kzz.dtype, device=Kzz.device)

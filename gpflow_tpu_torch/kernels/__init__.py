@@ -1,4 +1,7 @@
 from .base import ActiveDims, Combination, Kernel, Product, ReducingCombination, Sum
+from .categorical import Categorical
+from .changepoints import ChangePoints
+from .convolutional import Convolutional
 from .linears import Linear, Polynomial
 from .misc import ArcCosine, Coregion
 from .multioutput import (
@@ -31,8 +34,11 @@ __all__ = [
     "AnisotropicStationary",
     "ArcCosine",
     "Bias",
+    "Categorical",
+    "ChangePoints",
     "Combination",
     "Constant",
+    "Convolutional",
     "Coregion",
     "Cosine",
     "Exponential",

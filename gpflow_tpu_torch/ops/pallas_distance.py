@@ -447,15 +447,24 @@ def _stationary_bwd_from_w(
 ) -> Tuple[Optional[torch.Tensor], ...]:
     """dXs, dZs, dvar from the VJP weight W = g * var * h'(d2)
     (``pallas_distance.py:237-251``): d(d2)/dXs_i = 2 (Xs_i - Zs_j) per pair
-    contracts to two matmuls, and dK/dvar = K / var. Computed in W's dtype
-    (float32 for bfloat16 inputs) and cast back to each input's; ``needs``
-    skips the gradients autograd does not ask for."""
+    contracts to dXs = 2 (rowsum(W) Xs - W Zs) and its transpose for dZs,
+    and dK/dvar = K / var. The two contractions, each with W's row or column
+    sums as one more column, accumulate in float64: in float32 the
+    difference cancels where the inputs lie many lengthscales from the
+    origin (a 1-D series 50 lengthscales long kept 1e-2 of its lengthscale's
+    gradient, ROADMAP F2). Each result is cast back to its input's dtype;
+    ``needs`` skips the gradients autograd does not ask for."""
     dXs = dZs = dvar = None
-    x, z = Xs.to(W.dtype), Zs.to(W.dtype)
-    if needs[0]:
-        dXs = (2.0 * (W.sum(dim=1, keepdim=True) * x - W @ z)).to(Xs.dtype)
-    if needs[1]:
-        dZs = (2.0 * (W.sum(dim=0).unsqueeze(1) * z - W.mT @ x)).to(Zs.dtype)
+    if needs[0] or needs[1]:
+        W64 = W.to(torch.float64)
+        x, z = Xs.to(torch.float64), Zs.to(torch.float64)
+        if needs[0]:
+            Wz = W64 @ torch.cat([z, torch.ones_like(z[:, :1])], dim=1)  # [N, D + 1]: W z, rowsum(W)
+            dXs = (2.0 * (Wz[:, -1:] * x - Wz[:, :-1])).to(Xs.dtype)
+        if needs[1]:
+            Wx = W64.mT @ torch.cat([x, torch.ones_like(x[:, :1])], dim=1)  # [M, D + 1]: W^T x, colsum(W)
+            dZs = (2.0 * (Wx[:, -1:] * z - Wx[:, :-1])).to(Zs.dtype)
+        del W64
     if needs[2]:
         dvar = (torch.sum(g * K) / variance.to(K.dtype)).reshape(variance.shape).to(variance.dtype)
     return dXs, dZs, dvar

@@ -177,6 +177,11 @@ def test_import_leaves_jax_out():
         "from gpflow_tpu_torch.models import GPLVM, BayesianGPLVM\n"
         "from gpflow_tpu_torch.utilities.ops import pca_reduce\n"
         "from gpflow_tpu_torch.base import InputData, OutputData, RegressionData\n"
+        "import gpflow_tpu_torch.kernels.convolutional, gpflow_tpu_torch.kernels.changepoints\n"
+        "import gpflow_tpu_torch.kernels.categorical\n"
+        "from gpflow_tpu_torch.kernels import Categorical, ChangePoints, Convolutional\n"
+        "from gpflow_tpu_torch.covariances.kuus import Kuu_conv_patch\n"
+        "from gpflow_tpu_torch.covariances.kufs import Kuf_conv_patch\n"
         "assert gpflow_tpu_torch.probability_distributions.Gaussian and gpflow_tpu_torch.expectations.expectation\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'gpflow_tpu'))\n"
         "assert not bad, bad\n"
