@@ -5,11 +5,14 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
 
     python3 chip_smoke.py                 # every phase
     python3 chip_smoke.py --phases 5-8,21  # phases 1-4, then only these
+    python3 chip_smoke.py --k1-host-us ROOT  # K1's host dispatch with ROOT's package
 
 With ``--phases`` the script runs the build and the kernel checks of phases
 1-4, then each group of phases that holds a selected one (5-8, 9-10, 11-12,
-13-16, and 17 to 22 alone), then the record's kernel timings; without it,
-every phase.
+13-16, and 17 to 23 alone), then the record's kernel timings; without it,
+every phase. ``--k1-host-us`` builds K1 from the checkout at ROOT and prints
+phase 23's host time of one K1 call with that checkout's package, three
+times, and nothing else: run it on two checkouts in one call to compare.
 
 The paths are those of ``bench.py``'s flagship model at full width (SVGP,
 D = 8, M = 2048 inducing points, batches and requests of B = 8192 points,
@@ -38,7 +41,9 @@ dimensions on synthetic data (slice 11; ``bench.py`` has no GPLVM operating
 point); and the convolutional SVGP at MNIST's shapes (28 x 28 images, 5 x 5
 patches, M = 750 inducing patches, C = 10, B = 256) with ChangePoints and
 Categorical GPRs at N = 8192 (slice 12; ``bench.py`` has no convolutional
-operating point). Models are built on the card, the
+operating point); and the flagship SVGP and the GPR at N = 8192 served from
+``torch.export`` artifacts, with checkpoints and the trainer's state
+(slice 13). Models are built on the card, the
 port's default device; the float64 references ask for the CPU, or for float64
 on the card where the CPU would take minutes. Phases:
 
@@ -254,7 +259,28 @@ on the card where the CPU would take minutes. Phases:
    an out-of-range label's NaN row; (d) K1 and K2 against their plain
    versions at the path's D = 25, 9 and 1 shapes (K1 also at (8192, 8192,
    9)), TMA and edge paths, launch counts exactly as each path implies, the
-   value and gradient's split, peak memory and profile, and the timings.
+   value and gradient's split, peak memory and profile, and the timings;
+23. serving artifacts (phase 5's flagship SVGP from the same seed, and the
+   GPR at N = 8192 of ``bench.py``'s data): (a) ``export_serving`` of
+   ``predict_f``, ``predict_y`` and ``predict_mean`` with a symbolic batch,
+   ``load_serving``, requests of 8192, 5000 and 1 points against the live
+   cached posterior (expected exact; held within ``SV_RTOL``) and float64 on
+   the card (phase 5's 1e-3), K1 launched inside the loaded programs once per
+   method and request at (2048, n, 8), once at export for the cache's Kuu;
+   (b) a bucketed export (1024, 4096, 8192), requests of 1000, 5000, 8192
+   and 20000 points (the last in three chunks), launch counts per bucket and
+   chunk, outputs against the symbolic artifact's; (c) the GPR's symbolic
+   ``predict_f`` and ``predict_y`` at 8192 points against the live
+   posterior and float64 within cond * eps32; (d) assigns to the model leave
+   the artifact unchanged, and an export under ``set_pallas_enabled(False)``
+   launches no K1 and leaves the switch as it was; (e) a fresh process that
+   imports torch and ``gpflow_tpu_torch.utilities.serving`` only (no model
+   code) serves the bucketed artifact to the same bits; (f) a checkpoint
+   round trip, and the trainer's state saved after 10 Adam steps on explicit
+   batches of B: a fresh trainer that loads it takes the next 10 steps to the
+   same bits; (g) requests by CUDA events on both artifacts against the live
+   posterior, and K1's host dispatch through its op; K1 against its plain
+   version at the new shapes and their timings.
 
 Every failure raises, and the script then exits non-zero without the result
 line. The line before the last is ``{"kernels": [...]}``; the last is
@@ -263,7 +289,9 @@ line. The line before the last is ``{"kernels": [...]}``; the last is
 import contextlib
 import dataclasses
 import json
+import os
 import subprocess
+import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -796,6 +824,33 @@ CV_K1_SHAPES = [(CV_M, CV_M, 25), (CV_M, CV_B * 576, 25), (CV_M, CV_NEW * 576, 2
 CV_K2_SHAPES = [(CV_M, CV_M, 25, "matern52"), (CV_M, CV_B * 576, 25, "matern52"),
                 (CV_M, CV_NEW * 576, 25, "matern52"), (CP_N, CP_N, 1, "matern32"),
                 (CV_M, CV_B * 576 - 3, 25, "matern52")]
+
+# Phase 23, serving artifacts (slice 13): phase 5's flagship SVGP and the
+# GPR at N = 8192 exported through torch.export and served from the loaded
+# programs. Symbolic requests of these sizes; a bucketed artifact of these
+# buckets served these sizes (the last in three chunks: 8192, 8192 and 3616
+# padded to 4096).
+SV_METHODS = ("predict_f", "predict_y", "predict_mean")
+SV_REQUESTS = (8192, 5000, 1)
+SV_BUCKETS = (1024, 4096, 8192)
+SV_BUCKET_REQUESTS = (1000, 5000, 8192, 20000)
+SV_GPR_N = 8192
+SV_TRAIN_STEPS = 10  # Adam steps before the trainer's state is saved, and after
+SV_HOST_CALLS = 1000  # K1 calls at (1, 1, 8) timed on the host clock
+# Served outputs against the live cached posterior of the same model, and a
+# bucketed request against the symbolic artifact's at the same points, as a
+# fraction of the largest entry and at least of the prior variance (1): the
+# same function of the same values, so they should agree to the bit; but the
+# program may take a product through another routine than eager PyTorch
+# does at some sizes (a request of one point), and a padded request may
+# order the M = 2048 terms of its products otherwise:
+# rounding of order sqrt(M) eps32 of the terms' sum, with the variance's
+# cancellation Kff - kuf^T Qinv kuf on top.
+SV_RTOL = 1e-4
+# The shapes of phase 23 that no earlier phase checks: Kuf of the symbolic
+# requests of 5000 and 1 points and of the buckets 1024 and 4096, and the
+# GPR's K(X, Xnew) at N = 8192.
+SV_K1_SHAPES = [(M, 5000, D), (M, 1, D), (M, 1024, D), (M, 4096, D), (SV_GPR_N, SV_GPR_N, D)]
 
 
 def log(*args):
@@ -5216,7 +5271,341 @@ def ng_phases(launches):
     ng_timings(ng_trainers, ng_post, classifier, ng_Xb, ng_Yb)
 
 
-# Phases 5-22 in the order they run, as groups that share their data: a
+def k1_host_us(calls=SV_HOST_CALLS):
+    """Host microseconds per K1 call at (1, 1, 8) through
+    ``stationary_forward_cuda``: ``time.perf_counter`` around ``calls``
+    calls and one synchronisation at the end. Each launch takes ~3 µs on
+    the card, so the host's dispatch, not the kernel, sets the pace."""
+    from gpflow_tpu_torch.ops import pallas_distance as pd
+
+    Xs, Zs = torch.rand(1, D, device="cuda"), torch.rand(1, D, device="cuda")
+    var = torch.ones(1, device="cuda")
+    for _ in range(50):
+        pd.stationary_forward_cuda("rbf", Xs, Zs, var)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        pd.stationary_forward_cuda("rbf", Xs, Zs, var)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def sv_check_k1():
+    """Phase 23: K1 (rbf) against its plain version at ``SV_K1_SHAPES``, on
+    the flagship's inputs (uniform on [0, 4]^8), with phase 3's tolerances.
+    Returns the largest error against float64."""
+    from gpflow_tpu_torch.ops import pallas_distance as pd
+
+    rng = np.random.RandomState(SEED + 80)
+    var = torch.tensor([1.0], device="cuda")
+    worst, seen = 0.0, set()
+    for n, m, d in SV_K1_SHAPES:
+        Xs, Zs = (torch.from_numpy((rng.rand(k, d) * 4).astype(np.float32)).cuda() for k in (n, m))
+        K = pd.stationary_forward_cuda("rbf", Xs, Zs, var)
+        plan = plan_seen("K1", seen)
+        plain32 = pd.stationary_forward_plain("rbf", Xs, Zs, var)
+        plain64 = pd.stationary_forward_plain("rbf", Xs.double(), Zs.double(), var.double())
+        torch.cuda.synchronize()
+        err64, err32 = float((K.double() - plain64).abs().max()), float((K - plain32).abs().max())
+        log(f"K1 rbf ({n}, {m}, {d}): max abs err {err64:.3e} vs plain f64, tol {K1_ATOL_F64:.1e}; "
+            f"{err32:.3e} vs plain f32, tol {K1_ATOL_F32:.1e}; {plan}")
+        assert K.shape == (n, m) and err64 <= K1_ATOL_F64 and err32 <= K1_ATOL_F32, \
+            f"K1 disagrees with its plain version at {(n, m, d)}"
+        worst = max(worst, err64)
+    return worst
+
+
+def sv_outputs(served, Xn):
+    """Every method of a served artifact on ``Xn``, as tuples of tensors."""
+    outs = {}
+    for name in served.methods:
+        out = getattr(served, name)(Xn)
+        outs[name] = tuple(out) if isinstance(out, (tuple, list)) else (out,)
+    return outs
+
+
+def sv_live(post, likelihood, Xn):
+    """The live counterparts of ``sv_outputs`` from a cached posterior."""
+    with torch.no_grad():
+        mean, var = post.predict_f(Xn)
+        return {"predict_f": (mean, var), "predict_y": tuple(likelihood.predict_mean_and_var(Xn, mean, var)),
+                "predict_mean": (post.predict_mean(Xn),)}
+
+
+def sv_compare(what, got, want, rtol, scales=None, floor=1e-30):
+    """The largest difference of each output against ``want``, as a
+    fraction of the largest entry of ``want`` or ``floor``, the larger (or
+    of ``scales[i]``); fails above ``rtol``. Returns the largest."""
+    worst = 0.0
+    for name, tensors in got.items():
+        for i, (g, w) in enumerate(zip(tensors, want[name])):
+            assert g.shape == w.shape and bool(torch.isfinite(g).all()), f"{what} {name}[{i}]: {g.shape} {w.shape}"
+            scale = scales[i] if scales is not None else max(float(w.abs().max()), floor)
+            err = float((g.double() - w.double()).abs().max()) / scale
+            log(f"serving: {what}: {name}[{i}] max abs err {err:.3e} of the reference's scale, tol {rtol:.1e}")
+            assert err <= rtol, f"serving: {what}: {name}[{i}] disagrees"
+            worst = max(worst, err)
+    return worst
+
+
+def sv_k1_tiles(n):
+    """The tiles of K1's launch plan for Kuf at (M, n): Z's M rows against
+    the request's n columns."""
+    from gpflow_tpu_torch.ops import pallas_distance as pd
+
+    plan = pd.launch_plans["K1"]
+    return plan.tiles == -(-M // plan.tile_rows) * -(-n // pd._TILE_COLS)
+
+
+def sv_symbolic(model, model64, root, launches):
+    """Phase 23 (a): the symbolic export of the flagship SVGP, its loaded
+    artifact's requests against the live cached posterior and float64."""
+    from gpflow_tpu_torch.utilities import export_serving, load_serving
+
+    path = os.path.join(root, "symbolic")
+    _, counts = counted(lambda: export_serving(model, path, input_dim=D, dtype=torch.float32, methods=SV_METHODS))
+    expect_launches("serving symbolic export", counts, {"K1": 1, "K2": 0}, launches)  # Kuu of the cache
+    served = load_serving(path)
+    post, post64 = model.posterior(), model64.posterior()
+    rng = np.random.RandomState(SEED + 81)
+    requests = {}
+    for n in SV_REQUESTS:
+        Xn = torch.from_numpy((rng.rand(n, D) * 4).astype(np.float32)).cuda()
+        out, counts = counted(lambda: sv_outputs(served, Xn))
+        expect_launches(f"serving symbolic request {n}", counts, {"K1": len(SV_METHODS), "K2": 0}, launches)
+        assert sv_k1_tiles(n), f"K1's last launch was not Kuf at ({M}, {n})"
+        live = sv_compare(f"symbolic {n} against live", out, sv_live(post, model.likelihood, Xn), SV_RTOL,
+                          floor=1.0)
+        log(f"serving: symbolic request of {n}: largest difference from the live posterior {live:.3e} "
+            f"({'exact' if live == 0 else 'not exact'})")
+        sv_compare(f"symbolic {n} against f64", out, sv_live(post64, model64.likelihood, Xn.double()),
+                   SLICE_RTOL["cached"])
+        requests[n] = (Xn, out)
+    return served, requests
+
+
+def sv_bucketed(model, symbolic, root, launches):
+    """Phase 23 (b): the bucketed export; each request's launches (one per
+    method and chunk) and outputs against the symbolic artifact's."""
+    from gpflow_tpu_torch.utilities import export_serving, load_serving
+
+    path = os.path.join(root, "bucketed")
+    _, counts = counted(lambda: export_serving(model, path, input_dim=D, dtype=torch.float32, methods=SV_METHODS,
+                                               bucket_sizes=SV_BUCKETS))
+    expect_launches("serving bucketed export", counts, {"K1": 1, "K2": 0}, launches)
+    served = load_serving(path)
+    rng = np.random.RandomState(SEED + 82)
+    outputs = {}
+    for n in SV_BUCKET_REQUESTS:
+        Xn = torch.from_numpy((rng.rand(n, D) * 4).astype(np.float32)).cuda()
+        chunks = -(-n // SV_BUCKETS[-1])
+        out, counts = counted(lambda: sv_outputs(served, Xn))
+        expect_launches(f"serving bucketed request {n}", counts, {"K1": len(SV_METHODS) * chunks, "K2": 0},
+                        launches)
+        last = n - (chunks - 1) * SV_BUCKETS[-1]
+        assert sv_k1_tiles(next(b for b in SV_BUCKETS if b >= last)), f"K1's last launch was not a bucket's Kuf"
+        with torch.no_grad():
+            sv_compare(f"bucketed {n} against symbolic", out, sv_outputs(symbolic, Xn), SV_RTOL, floor=1.0)
+        outputs[n] = (Xn, out)
+    return path, served, outputs
+
+
+def sv_gpr(root, launches):
+    """Phase 23 (c): the GPR at N = 8192 (``bench.py``'s data), exported
+    with a symbolic batch; a request of 8192 points against the live
+    posterior and float64 on the card, as phase 9 holds it."""
+    from gpflow_tpu_torch.utilities import export_serving, load_serving, read_values
+
+    gpr_data, Xnew = make_gpr_data()
+    data = tuple(torch.from_numpy(a).cuda() for a in gpr_data[SV_GPR_N])
+    model = gpr_model("SquaredExponential", data, torch.float32)
+    path = os.path.join(root, "gpr")
+    _, counts = counted(lambda: export_serving(model, path, input_dim=D, dtype=torch.float32,
+                                               methods=SV_METHODS[:2]))
+    expect_launches("serving gpr export", counts, {"K1": 1, "K2": 0}, launches)  # K(X) of the cache
+    served = load_serving(path)
+    Xb = torch.from_numpy(Xnew).cuda()
+    out, counts = counted(lambda: sv_outputs(served, Xb))
+    expect_launches(f"serving gpr request {B}", counts, {"K1": 2, "K2": 0}, launches)  # K(X, Xnew) each
+    live = {k: v for k, v in sv_live(model.posterior(), model.likelihood, Xb).items() if k in out}
+    err = sv_compare("gpr against live", out, live, SV_RTOL, floor=1.0)
+    log(f"serving: gpr request of {B}: largest difference from the live posterior {err:.3e}")
+    m64 = gpr_model("SquaredExponential", tuple(t.double() for t in data), torch.float64,
+                    {k: v.astype(np.float64) for k, v in read_values(model).items()})
+    tol = gram_cond(m64) * EPS32
+    want = {k: v for k, v in sv_live(m64.posterior(), m64.likelihood, Xb.double()).items() if k in out}
+    prior = float(m64.kernel.variance.value)
+    log(f"serving: gpr: cond(K + noise I) <= {tol / EPS32:.4e}; tolerance cond * eps32 = {tol:.3e}")
+    for name, (mean, var) in out.items():
+        sv_compare(f"gpr {name} against f64", {name: (mean, var)}, {name: want[name]}, tol,
+                   scales=(float(want[name][0].abs().max()), prior))
+    del served, model, m64
+    torch.cuda.empty_cache()
+
+
+def sv_frozen(model, served, request, root, launches):
+    """Phase 23 (d): assigns to the model leave the artifact as it was; an
+    export under ``set_pallas_enabled(False)`` launches no K1, and the
+    switch stays as the caller set it."""
+    from gpflow_tpu_torch.ops import get_pallas_enabled, set_pallas_enabled
+    from gpflow_tpu_torch.utilities import export_serving, load_serving
+
+    Xn, before = request
+    model.kernel.lengthscales.assign(0.5 * np.ones(D, np.float32))
+    model.kernel.variance.assign(2.0)
+    with torch.no_grad():
+        after = sv_outputs(served, Xn)
+    for name in before:
+        assert all(torch.equal(a, b) for a, b in zip(after[name], before[name])), f"{name} changed after assign"
+    log("serving: the artifact's outputs are unchanged after assigning new kernel values to the model")
+    switch = get_pallas_enabled()
+    set_pallas_enabled(False)
+    try:
+        path = os.path.join(root, "plain")
+        _, counts = counted(lambda: export_serving(model, path, input_dim=D, dtype=torch.float32,
+                                                   methods=("predict_f",)))
+        assert get_pallas_enabled() is False, "export changed the switch"
+    finally:
+        set_pallas_enabled(switch)
+    plain = load_serving(path)
+    _, request_counts = counted(lambda: plain.predict_f(Xn))
+    log(f"serving: the plain-path export launched {counts}, its request {request_counts}")
+    assert counts == request_counts == {"K1": 0, "K2": 0}, "a plain-path artifact launched a kernel"
+
+
+def sv_fresh_process(path, request, root):
+    """Phase 23 (e): a process that imports torch and
+    ``gpflow_tpu_torch.utilities.serving`` only loads the bucketed artifact
+    and serves one request, which must equal this process's to the bit."""
+    Xn, out = request
+    x_path, out_path = os.path.join(root, "X.npy"), os.path.join(root, "out.npz")
+    np.save(x_path, Xn.cpu().numpy())
+    code = (
+        "import sys, numpy as np, torch\n"
+        "from gpflow_tpu_torch.utilities.serving import load_serving\n"
+        "from gpflow_tpu_torch.ops import pallas_distance as pd\n"
+        "path, x_path, out_path = sys.argv[1:]\n"
+        "served = load_serving(path)\n"
+        "X = torch.from_numpy(np.load(x_path)).cuda()\n"
+        "outs = {name: getattr(served, name)(X) for name in served.methods}\n"
+        "arrays = {f'{name}_{i}': t.cpu().numpy() for name, out in outs.items()\n"
+        "          for i, t in enumerate(out if isinstance(out, tuple) else (out,))}\n"
+        "np.savez(out_path, **arrays)\n"
+        "bad = sorted(m for m in sys.modules if m.startswith('gpflow_tpu_torch.models') or m.split('.')[0] == 'jax')\n"
+        "assert not bad, bad\n"
+        "print('launches', pd.launch_counts['K1'])\n"
+    )
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code, path, x_path, out_path],
+                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, f"the loader process failed: {proc.stderr[-3000:]}"
+    log(f"serving: a fresh process loaded the bucketed artifact and served {Xn.shape[0]} points in "
+        f"{time.perf_counter() - t0:.1f} s with K1 {proc.stdout.split()[-1]} launches, no model code imported")
+    assert int(proc.stdout.split()[-1]) == len(SV_METHODS), proc.stdout
+    with np.load(out_path) as got:
+        for name, tensors in out.items():
+            for i, t in enumerate(tensors):
+                assert np.array_equal(got[f"{name}_{i}"], t.cpu().numpy()), f"fresh process: {name}[{i}] differs"
+    log("serving: the fresh process's outputs equal this process's to the bit")
+
+
+def sv_checkpoints(model, values, root, launches):
+    """Phase 23 (f): a checkpoint of the flagship loads into a fresh model
+    with equal outputs; the trainer's state saved after 10 Adam steps on
+    explicit batches of B lets a fresh trainer take the next 10 steps to the
+    same parameters."""
+    from gpflow_tpu_torch.parallel import DataParallelTrainer, adam
+    from gpflow_tpu_torch.utilities import load_checkpoint, read_values, save_checkpoint
+
+    ckpt = os.path.join(root, "flagship.npz")
+    save_checkpoint(ckpt, model)
+    fresh = build_model(values, torch.float32)
+    load_checkpoint(ckpt, fresh)
+    Xn = torch.from_numpy((np.random.RandomState(SEED + 83).rand(B, D) * 4).astype(np.float32)).cuda()
+    with torch.no_grad():
+        for a, b in zip(fresh.posterior().predict_f(Xn), model.posterior().predict_f(Xn)):
+            assert torch.equal(a, b), "a model loaded from the checkpoint serves other outputs"
+    assert all(np.array_equal(read_values(fresh)[k], v) for k, v in read_values(model).items())
+    log("serving: the checkpoint round trip gives equal values and outputs")
+
+    X, Y, _ = make_training_data(SEED)
+    steps = 2 * SV_TRAIN_STEPS
+    Xs = torch.from_numpy(X[:steps * B].reshape(steps, B, D)).cuda()
+    Ys = torch.from_numpy(Y[:steps * B].reshape(steps, B, 1)).cuda()
+
+    def trainer():
+        return DataParallelTrainer(build_model(values, torch.float32), adam(1e-2))
+
+    first = trainer()
+    _, counts = counted(lambda: first.run_steps((Xs[:SV_TRAIN_STEPS], Ys[:SV_TRAIN_STEPS])))
+    expect_launches("serving trainer steps", counts, {"K1": 2 * SV_TRAIN_STEPS, "K2": 0}, launches)
+    state = os.path.join(root, "trainer.npz")
+    first.save_state(state)
+    losses = first.run_steps((Xs[SV_TRAIN_STEPS:], Ys[SV_TRAIN_STEPS:]))
+    second = trainer()
+    second.load_state(state)
+    resumed = second.run_steps((Xs[SV_TRAIN_STEPS:], Ys[SV_TRAIN_STEPS:]))
+    worst = max(float((a - b).abs().max()) for a, b in zip(first.model.parameters(), second.model.parameters()))
+    log(f"serving: trainer state: {SV_TRAIN_STEPS} steps after the restore; largest parameter difference "
+        f"{worst:.3e}, losses {'equal' if torch.equal(losses, resumed) else 'differ'} "
+        f"(last {float(losses[-1]):.6e} and {float(resumed[-1]):.6e})")
+    assert worst == 0.0 and torch.equal(losses, resumed), "the restored trainer took other steps"
+
+
+def sv_timings(model, symbolic, bucketed):
+    """Phase 23 (g): requests by CUDA events, back to back, host included:
+    8192 points on the symbolic and bucketed artifacts and the live cached
+    posterior, and 5000 points (the bucketed artifact pads them to 8192);
+    the op's host time."""
+    from gpflow_tpu_torch.utilities import bucket_size_for
+
+    Xn = torch.from_numpy((np.random.RandomState(SEED + 84).rand(B, D) * 4).astype(np.float32)).cuda()
+    n = SV_REQUESTS[1]
+    post = model.posterior()
+    with torch.no_grad():
+        for key, fn in ((f"live cached predict_f at {B}", lambda: post.predict_f(Xn)),
+                        (f"symbolic artifact predict_f at {B}", lambda: symbolic.predict_f(Xn)),
+                        (f"bucketed artifact predict_f at {B}", lambda: bucketed.predict_f(Xn)),
+                        (f"live cached predict_f at {n}", lambda: post.predict_f(Xn[:n])),
+                        (f"symbolic artifact predict_f at {n}", lambda: symbolic.predict_f(Xn[:n])),
+                        (f"bucketed artifact predict_f at {n}, padded to {bucket_size_for(n, SV_BUCKETS)}",
+                         lambda: bucketed.predict_f(Xn[:n]))):
+            ms = request_ms(fn, 20)
+            log(f"time: serving {key}: {ms:.4f} ms per request")
+    log(f"time: K1 host dispatch at (1, 1, {D}): {k1_host_us():.2f} µs per call through the registered op "
+        f"({SV_HOST_CALLS} calls, one synchronisation)")
+
+
+def serving_phases(launches):
+    """Phase 23: the serving artifacts of the flagship SVGP and the GPR, the
+    checkpoints and the trainer's state, K1 at the new shapes, timings."""
+    import tempfile
+
+    from gpflow_tpu_torch import config
+    from gpflow_tpu_torch.ops.cuda_build import BUILD_DIR
+
+    values, _ = make_values(SEED)
+    model = build_model(values, torch.float32)
+    with config.as_context(config.Config(float=torch.float64, jitter=1e-4, device="cuda")):
+        model64 = build_model(values, torch.float64)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as root:
+        symbolic, requests = sv_symbolic(model, model64, root, launches)
+        path, bucketed, outputs = sv_bucketed(model, symbolic, root, launches)
+        sv_gpr(root, launches)
+        sv_timings(model, symbolic, bucketed)
+        sv_frozen(model, symbolic, requests[SV_REQUESTS[0]], root, launches)
+        sv_fresh_process(path, outputs[SV_BUCKET_REQUESTS[1]], root)
+        sv_checkpoints(model, values, root, launches)
+    del model64
+    worst = sv_check_k1()
+    with torch.no_grad():
+        for n, m, d in SV_K1_SHAPES:
+            time_k1(n, m, d=d)
+    return {"K1": worst}
+
+
+# Phases 5-23 in the order they run, as groups that share their data: a
 # selection runs each group that holds a selected phase.
 PHASE_GROUPS = (
     (range(5, 9), svgp_phases),
@@ -5229,22 +5618,27 @@ PHASE_GROUPS = (
     (range(20, 21), hmc_phases),
     (range(21, 22), gplvm_phases),
     (range(22, 23), conv_phases),
+    (range(23, 24), serving_phases),
 )
 
 
-def parse_phases(argv=None):
-    """The phases named by ``--phases`` (numbers and ranges, e.g. "5-8,21"),
-    or None for every phase."""
+def parse_args(argv=None):
+    """The options: ``phases``, the phases named by ``--phases`` (numbers
+    and ranges, e.g. "5-8,21"), or None for every phase; ``k1_host_us``,
+    the root of a checkout whose package ``--k1-host-us`` times instead."""
     import argparse
 
     parser = argparse.ArgumentParser(description="Drives gpflow_tpu_torch's main paths on one CUDA card.")
     parser.add_argument("--phases", help="the phases to run after the build and the kernel checks of phases 1-4, "
-                                         "as numbers and ranges among 5-22 (e.g. 5-8,21); by default every phase")
-    phases = parser.parse_args(argv).phases
-    if phases is None:
-        return None
+                                         "as numbers and ranges among 5-23 (e.g. 5-8,21); by default every phase")
+    parser.add_argument("--k1-host-us", metavar="ROOT",
+                        help="only build K1 from the checkout at ROOT and print the host time of one K1 call "
+                             "at (1, 1, 8) with that checkout's package (phase 23's measurement)")
+    args = parser.parse_args(argv)
+    if args.phases is None:
+        return args
     selected = set()
-    for part in phases.split(","):
+    for part in args.phases.split(","):
         first, _, last = part.partition("-")
         try:
             selected.update(range(int(first), int(last or first) + 1))
@@ -5252,8 +5646,25 @@ def parse_phases(argv=None):
             parser.error(f"--phases: {part!r} is not a number or a range")
     unknown = selected - {n for numbers, _ in PHASE_GROUPS for n in numbers}
     if unknown or not selected:
-        parser.error(f"--phases: no phase {sorted(unknown)}; phases 5-22 can be selected")
-    return selected
+        parser.error(f"--phases: no phase {sorted(unknown)}; phases 5-23 can be selected")
+    args.phases = selected
+    return args
+
+
+def k1_host_us_of(root):
+    """``--k1-host-us``: ``k1_host_us`` with the package of the checkout at
+    ``root`` (another commit's, to compare K1's dispatch on one card)."""
+    sys.path.insert(0, os.path.abspath(root))
+    name, smi = card_check()
+    log(smi)
+    import gpflow_tpu_torch
+
+    from gpflow_tpu_torch.ops.pallas_distance import k1_library
+
+    k1_library()
+    for _ in range(3):
+        log(f"time: K1 host dispatch at (1, 1, {D}): {k1_host_us():.2f} µs per call, package "
+            f"{os.path.dirname(gpflow_tpu_torch.__file__)} ({SV_HOST_CALLS} calls, one synchronisation; {name})")
 
 
 def main(phases=None):
@@ -5325,4 +5736,8 @@ def main(phases=None):
 
 
 if __name__ == "__main__":
-    main(parse_phases())
+    options = parse_args()
+    if options.k1_host_us:
+        k1_host_us_of(options.k1_host_us)
+    else:
+        main(options.phases)

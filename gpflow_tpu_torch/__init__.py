@@ -13,7 +13,8 @@ the rest of the JAX package's likelihoods, multioutput SVGPs, and the
 Bayesian models GPMC and SGPMC with parameter priors, sampled by
 ``optimizers.run_hmc``, and the GPLVM and Bayesian GPLVM through the psi
 statistics of ``expectations`` (with ``conditionals.uncertain_conditional``),
-and serves them (ROADMAP.md lists what is still to port). Shape contracts
+and serves them, also as exported artifacts (``utilities.serving``)
+(ROADMAP.md lists what is still to port). Shape contracts
 (``utilities.check_shapes``) are off unless switched on. On a CUDA device, covariance matrices come from the hand-written
 kernel K1 and the gradients of the exponential and Matern families from K2
 (``gpflow_tpu_torch.ops.pallas_distance``).
@@ -21,34 +22,45 @@ kernel K1 and the gradients of the exponential and Matern families from K2
 Parameters and model data are built on ``config.default_device()``, which is
 ``"cuda"`` unless the caller asks for another device
 (``config.set_default_device("cpu")``); importing the package needs no card.
+The subpackages of models, kernels and the rest load on first use.
 Float32 matmuls run in exact IEEE fp32 (TF32 off).
 """
-from . import (
-    bijectors,
-    conditionals,
-    config,
-    covariances,
-    expectations,
-    functions,
-    inducing_variables,
-    kernels,
-    kullback_leiblers,
-    likelihoods,
-    logdensities,
-    mean_functions,
-    models,
-    ops,
-    optimizers,
-    parallel,
-    posteriors,
-    priors,
-    probability_distributions,
-    utilities,
-)
+import importlib
+from typing import Any
+
+from . import bijectors, config, ops, utilities
 from .base import Module, Parameter, PriorOn
 from .utilities import set_trainable
 
 config.use_exact_f32_matmul()
+
+# Imported on first use, so that a process that only serves an exported
+# artifact (``utilities.serving``) loads no model code.
+_SUBPACKAGES = (
+    "conditionals",
+    "covariances",
+    "expectations",
+    "functions",
+    "inducing_variables",
+    "kernels",
+    "kullback_leiblers",
+    "likelihoods",
+    "logdensities",
+    "mean_functions",
+    "models",
+    "optimizers",
+    "parallel",
+    "posteriors",
+    "priors",
+    "probability_distributions",
+)
+
+
+def __getattr__(name: str) -> Any:
+    if name in _SUBPACKAGES:
+        return importlib.import_module(f".{name}", __name__)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 __all__ = [
     "Module",

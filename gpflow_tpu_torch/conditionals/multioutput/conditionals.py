@@ -26,12 +26,7 @@ from ...kernels import (
     SeparateIndependent,
     SharedIndependent,
 )
-from ...posteriors import (
-    FallbackIndependentLatentPosterior,
-    FullyCorrelatedPosterior,
-    IndependentPosteriorMultiOutput,
-    LinearCoregionalizationPosterior,
-)
+from ... import posteriors  # its classes are read at call time: posteriors imports this package
 from ..dispatch import conditional
 
 __all__ = [
@@ -85,7 +80,7 @@ def shared_independent_conditional(
 ) -> MeanAndVariance:
     """Kuu [M, M], Kuf [M, N] (``conditionals.py:61-81``)."""
     return _posterior_fused(
-        IndependentPosteriorMultiOutput, Xnew, inducing_variable, kernel, f, q_sqrt, white,
+        posteriors.IndependentPosteriorMultiOutput, Xnew, inducing_variable, kernel, f, q_sqrt, white,
         full_cov, full_output_cov,
     )
 
@@ -113,7 +108,7 @@ def separate_independent_conditional(
 ) -> MeanAndVariance:
     """Kuu [L, M, M], Kuf [L, M, N] (``conditionals.py:89-104``)."""
     return _posterior_fused(
-        IndependentPosteriorMultiOutput, Xnew, inducing_variable, kernel, f, q_sqrt, white,
+        posteriors.IndependentPosteriorMultiOutput, Xnew, inducing_variable, kernel, f, q_sqrt, white,
         full_cov, full_output_cov,
     )
 
@@ -156,7 +151,7 @@ def fallback_independent_latent_conditional(
     """Interdomain: Kuu [L, M, M], Kuf [M, L, N, P]
     (``conditionals.py:131-147``)."""
     return _posterior_fused(
-        FallbackIndependentLatentPosterior, Xnew, inducing_variable, kernel, f, q_sqrt, white,
+        posteriors.FallbackIndependentLatentPosterior, Xnew, inducing_variable, kernel, f, q_sqrt, white,
         full_cov, full_output_cov,
     )
 
@@ -196,7 +191,7 @@ def inducing_point_conditional(
     """Fully correlated: Kuu [M, P, M, P], Kuf [M, P, N, P]
     (``conditionals.py:171-189``)."""
     return _posterior_fused(
-        FullyCorrelatedPosterior, Xnew, inducing_variable, kernel, f, q_sqrt, white,
+        posteriors.FullyCorrelatedPosterior, Xnew, inducing_variable, kernel, f, q_sqrt, white,
         full_cov, full_output_cov,
     )
 
@@ -225,7 +220,7 @@ def coregionalization_conditional(
     """Conditions in g-space then mixes with W
     (``conditionals.py:200-216``)."""
     return _posterior_fused(
-        LinearCoregionalizationPosterior, Xnew, inducing_variable, kernel, f, q_sqrt, white,
+        posteriors.LinearCoregionalizationPosterior, Xnew, inducing_variable, kernel, f, q_sqrt, white,
         full_cov, full_output_cov,
     )
 

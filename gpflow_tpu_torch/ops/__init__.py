@@ -2,8 +2,12 @@
 from .linalg import chol_and_inverse, cholesky, cholesky_mm, mvn_logp, sym_jitter, triangular_inverse
 from .pallas_distance import (
     PALLAS_FAMILIES,
+    get_pallas_enabled,
     launch_counts,
     pallas_available,
+    rbf_kernel_matrix,
+    scaled_squared_distance,
+    set_pallas_enabled,
     stationary_forward,
     stationary_kernel_matrix,
     stationary_wgrad,
@@ -14,9 +18,13 @@ __all__ = [
     "chol_and_inverse",
     "cholesky",
     "cholesky_mm",
+    "get_pallas_enabled",
     "launch_counts",
     "mvn_logp",
     "pallas_available",
+    "rbf_kernel_matrix",
+    "scaled_squared_distance",
+    "set_pallas_enabled",
     "stationary_forward",
     "stationary_kernel_matrix",
     "stationary_wgrad",

@@ -7,18 +7,27 @@ public names keep the JAX package's, where K1 and K2 are Pallas kernels).
 the lengthscales, h one of ``PALLAS_FAMILIES``. The backward expresses every
 gradient as matmuls against the VJP weight ``W = g * variance * h'(d2)``:
 
-* on a CUDA tensor in float32 or bfloat16, K1 computes K and, for the
-  exponential and Matern families, K2 computes W: CUDA C++ kernels for
-  Hopper (``gpflow_tpu_torch/csrc/stationary_k1.cu``, ``stationary_k2.cu``),
-  built with nvcc on first use and loaded with ctypes, each launched as
-  ``_launch_plan`` decides from the shapes and addresses alone;
-* on a CPU tensor, the plain PyTorch versions ``stationary_forward_plain``
-  and ``stationary_wgrad_plain`` compute the same functions;
+* where ``pallas_available`` holds, K1 computes K and, for the exponential
+  and Matern families, K2 computes W: CUDA C++ kernels for Hopper
+  (``gpflow_tpu_torch/csrc/stationary_k1.cu``, ``stationary_k2.cu``), built
+  with nvcc on first use and loaded with ctypes, each launched as
+  ``_launch_plan`` decides from the shapes and addresses alone. Each launch
+  is a registered torch op, ``torch.ops.gpflow_tpu_torch.stationary_k1`` and
+  ``stationary_k2``, with a CUDA implementation only and a fake one that
+  gives the output's shape: ``torch.export`` keeps each as one node of the
+  graph, and an exported program launches the kernel;
+* elsewhere the plain PyTorch versions ``stationary_forward_plain`` and
+  ``stationary_wgrad_plain`` compute the same functions;
 * rbf and rq take W from the saved K, with no kernel, on both devices.
 
-float64 never reaches K1 or K2 (``pallas_available``), as in the JAX
-package: the kernels compute in float32. A CUDA request that a kernel cannot
-take raises; there is no fallback to the plain version on the card.
+The switch ``set_pallas_enabled`` decides where the kernels serve
+(``gpflow_tpu/ops/pallas_distance.py:44-75``): None (the default) sends a
+CUDA tensor in float32 or bfloat16 to them; False sends every tensor to the
+plain versions, on the card too; True sends every float32 or bfloat16 tensor
+to them, and a CPU tensor then raises. float64 never reaches K1 or K2,
+whatever the switch says, as in the JAX package: the kernels compute in
+float32. A request that a kernel cannot take raises; there is no fallback to
+the plain version once the kernel is chosen.
 """
 from __future__ import annotations
 
@@ -36,11 +45,15 @@ __all__ = [
     "PALLAS_FAMILIES",
     "WGRAD_FAMILIES",
     "LaunchPlan",
+    "get_pallas_enabled",
     "k1_library",
     "k2_library",
     "launch_counts",
     "launch_plans",
     "pallas_available",
+    "rbf_kernel_matrix",
+    "scaled_squared_distance",
+    "set_pallas_enabled",
     "stationary_forward",
     "stationary_forward_cuda",
     "stationary_forward_plain",
@@ -122,10 +135,29 @@ def _launch_plan(
     return LaunchPlan(tile_rows=rows, tiles=tiles, grid=min(tiles, sms * resident), tma=tma, vec=vec)
 
 
+_state: Dict[str, Optional[bool]] = {"enabled": None}  # None: auto
+
+
+def set_pallas_enabled(value: Optional[bool]) -> None:
+    """True or False forces the kernels on or off for float32 and bfloat16
+    tensors; None restores auto (``pallas_distance.py:44-50``)."""
+    _state["enabled"] = value
+
+
+def get_pallas_enabled() -> Optional[bool]:
+    """The switch: True or False, or None for auto (``pallas_distance.py:52-55``)."""
+    return _state["enabled"]
+
+
 def pallas_available(X: torch.Tensor) -> bool:
-    """True where K1 and K2 serve ``X``: a CUDA tensor in float32 or bfloat16
-    (``gpflow_tpu/ops/pallas_distance.py:57-75``, without its override)."""
-    return X.is_cuda and X.dtype in _KERNEL_DTYPES
+    """True where K1 and K2 serve ``X``: never for float64; else as the
+    switch says, and in auto for a CUDA tensor
+    (``gpflow_tpu/ops/pallas_distance.py:57-75``, without its environment
+    variable)."""
+    if X.dtype not in _KERNEL_DTYPES:
+        return False
+    enabled = _state["enabled"]
+    return X.is_cuda if enabled is None else bool(enabled)
 
 
 def _tail_value(family: str, d2: torch.Tensor, alpha: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -305,15 +337,23 @@ def _scalar_on(device: torch.device, value: Optional[torch.Tensor], name: str) -
     return t.contiguous()
 
 
+def _check_on_card(kernel: str, Xs: torch.Tensor, Zs: torch.Tensor) -> None:
+    """Raises unless Xs and Zs are CUDA tensors: the ops have no other
+    implementation. Reads only the devices, which are known while
+    ``torch.export`` traces with symbolic sizes."""
+    for name, t in (("Xs", Xs), ("Zs", Zs)):
+        if not t.is_cuda:
+            raise ValueError(f"{kernel} takes CUDA tensors; {name} is on {t.device}")
+
+
 def _check_inputs(kernel: str, Xs: torch.Tensor, Zs: torch.Tensor) -> None:
     """Raises unless Xs [N, D] and Zs [M, D] are contiguous CUDA tensors of
     one kernel dtype on one device, with N, M and D in int32. The grid is
     persistent and one-dimensional, so N and M have no other limit; N * M
     itself may pass 2^31: the kernels index tiles and offset every row of an
     [N, M] matrix in int64 (``csrc/stationary_tile.cuh``)."""
+    _check_on_card(kernel, Xs, Zs)
     for name, t in (("Xs", Xs), ("Zs", Zs)):
-        if not t.is_cuda:
-            raise ValueError(f"{kernel} takes CUDA tensors; {name} is on {t.device}")
         if t.dtype not in _KERNEL_DTYPES:
             raise ValueError(f"{kernel} takes float32 or bfloat16; {name} is {t.dtype}")
         if t.ndim != 2 or not t.is_contiguous():
@@ -328,24 +368,12 @@ def _check_inputs(kernel: str, Xs: torch.Tensor, Zs: torch.Tensor) -> None:
         raise ValueError(f"{kernel} takes N, M and D below 2^31; got N={N}, M={M}, D={D}")
 
 
-def stationary_forward_cuda(
-    family: str,
-    Xs: torch.Tensor,
-    Zs: torch.Tensor,
-    variance: torch.Tensor,
-    alpha: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """Launches K1 on the current CUDA stream: ``out[i, j] = var * h(d2)``.
-
-    Xs: [N, D] and Zs: [M, D], contiguous CUDA tensors of one dtype (float32
-    or bfloat16) on one device; variance and alpha: one float32 element each
-    on that device (alpha is read by family "rq" only). Returns [N, M]
-    float32, outside autograd (``stationary_kernel_matrix`` differentiates).
-    Raises on anything else."""
-    if family not in _FAMILY_CODES:
-        raise ValueError(f"Unknown stationary family: {family}")
-    if family == "rq" and alpha is None:
-        raise ValueError("family='rq' requires alpha")
+@torch.library.custom_op("gpflow_tpu_torch::stationary_k1", mutates_args=(), device_types="cuda")
+def _k1_op(family: str, Xs: torch.Tensor, Zs: torch.Tensor, variance: torch.Tensor,
+           alpha: Optional[torch.Tensor]) -> torch.Tensor:
+    """K1's launch on the current CUDA stream, the CUDA implementation of
+    ``torch.ops.gpflow_tpu_torch.stationary_k1``: checks, plans, launches and
+    counts. It reads no value on the host, so it never synchronises."""
     _check_inputs("K1", Xs, Zs)
     var = _scalar_on(Xs.device, variance, "variance")
     a = var if alpha is None else _scalar_on(Xs.device, alpha, "alpha")
@@ -368,22 +396,19 @@ def stationary_forward_cuda(
     return out
 
 
-def stationary_wgrad_cuda(
-    family: str,
-    Xs: torch.Tensor,
-    Zs: torch.Tensor,
-    variance: torch.Tensor,
-    g: torch.Tensor,
-) -> torch.Tensor:
-    """Launches K2 on the current CUDA stream: ``W[i, j] = g[i, j] * var * h'(d2)``.
+@_k1_op.register_fake
+def _k1_fake(family: str, Xs: torch.Tensor, Zs: torch.Tensor, variance: torch.Tensor,
+             alpha: Optional[torch.Tensor]) -> torch.Tensor:
+    """K1's output [N, M] float32 on the inputs' device, for tracing: no launch."""
+    return Xs.new_empty((Xs.shape[0], Zs.shape[0]), dtype=torch.float32)
 
-    family: one of ``WGRAD_FAMILIES``; Xs: [N, D] and Zs: [M, D], contiguous
-    CUDA tensors of one dtype (float32 or bfloat16) on one device; variance:
-    one float32 element on that device; g: [N, M] contiguous float32 on that
-    device. Returns W [N, M] float32. Raises on anything else."""
-    if family not in WGRAD_FAMILIES:
-        raise ValueError(f"K2 serves the families {WGRAD_FAMILIES}, not {family!r} "
-                         "(rbf and rq take W from the saved K)")
+
+@torch.library.custom_op("gpflow_tpu_torch::stationary_k2", mutates_args=(), device_types="cuda")
+def _k2_op(family: str, Xs: torch.Tensor, Zs: torch.Tensor, variance: torch.Tensor,
+           g: torch.Tensor) -> torch.Tensor:
+    """K2's launch on the current CUDA stream, the CUDA implementation of
+    ``torch.ops.gpflow_tpu_torch.stationary_k2``: checks, plans, launches and
+    counts, with no host synchronisation."""
     _check_inputs("K2", Xs, Zs)
     (N, D), M = Xs.shape, Zs.shape[0]
     if (g.device != Xs.device or g.dtype != torch.float32 or tuple(g.shape) != (N, M)
@@ -410,6 +435,57 @@ def stationary_wgrad_cuda(
     return W
 
 
+@_k2_op.register_fake
+def _k2_fake(family: str, Xs: torch.Tensor, Zs: torch.Tensor, variance: torch.Tensor,
+             g: torch.Tensor) -> torch.Tensor:
+    """K2's output [N, M] float32 on the inputs' device, for tracing: no launch."""
+    return Xs.new_empty((Xs.shape[0], Zs.shape[0]), dtype=torch.float32)
+
+
+def stationary_forward_cuda(
+    family: str,
+    Xs: torch.Tensor,
+    Zs: torch.Tensor,
+    variance: torch.Tensor,
+    alpha: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Launches K1 on the current CUDA stream through its op:
+    ``out[i, j] = var * h(d2)``.
+
+    Xs: [N, D] and Zs: [M, D], contiguous CUDA tensors of one dtype (float32
+    or bfloat16) on one device; variance and alpha: one float32 element each
+    on that device (alpha is read by family "rq" only). Returns [N, M]
+    float32, outside autograd (``stationary_kernel_matrix`` differentiates).
+    Raises on anything else."""
+    if family not in _FAMILY_CODES:
+        raise ValueError(f"Unknown stationary family: {family}")
+    if family == "rq" and alpha is None:
+        raise ValueError("family='rq' requires alpha")
+    _check_on_card("K1", Xs, Zs)
+    return torch.ops.gpflow_tpu_torch.stationary_k1(family, Xs, Zs, variance, alpha)
+
+
+def stationary_wgrad_cuda(
+    family: str,
+    Xs: torch.Tensor,
+    Zs: torch.Tensor,
+    variance: torch.Tensor,
+    g: torch.Tensor,
+) -> torch.Tensor:
+    """Launches K2 on the current CUDA stream through its op:
+    ``W[i, j] = g[i, j] * var * h'(d2)``.
+
+    family: one of ``WGRAD_FAMILIES``; Xs: [N, D] and Zs: [M, D], contiguous
+    CUDA tensors of one dtype (float32 or bfloat16) on one device; variance:
+    one float32 element on that device; g: [N, M] contiguous float32 on that
+    device. Returns W [N, M] float32. Raises on anything else."""
+    if family not in WGRAD_FAMILIES:
+        raise ValueError(f"K2 serves the families {WGRAD_FAMILIES}, not {family!r} "
+                         "(rbf and rq take W from the saved K)")
+    _check_on_card("K2", Xs, Zs)
+    return torch.ops.gpflow_tpu_torch.stationary_k2(family, Xs, Zs, variance, g)
+
+
 def stationary_forward(
     family: str,
     Xs: torch.Tensor,
@@ -417,8 +493,8 @@ def stationary_forward(
     variance: torch.Tensor,
     alpha: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """K1 on a CUDA tensor, the plain version on a CPU tensor."""
-    if Xs.is_cuda:
+    """K1 where ``pallas_available(Xs)``, else the plain version."""
+    if pallas_available(Xs):
         return stationary_forward_cuda(family, Xs, Zs, variance, alpha)
     return stationary_forward_plain(family, Xs, Zs, variance, alpha)
 
@@ -430,8 +506,8 @@ def stationary_wgrad(
     variance: torch.Tensor,
     g: torch.Tensor,
 ) -> torch.Tensor:
-    """K2 on a CUDA tensor, the plain version on a CPU tensor."""
-    if Xs.is_cuda:
+    """K2 where ``pallas_available(Xs)``, else the plain version."""
+    if pallas_available(Xs):
         return stationary_wgrad_cuda(family, Xs, Zs, variance, g.contiguous())
     return stationary_wgrad_plain(family, Xs, Zs, variance, g)
 
@@ -533,9 +609,9 @@ def stationary_kernel_matrix(
 ) -> torch.Tensor:
     """K[i, j] = variance * h(||(X_i - Z_j) / lengthscales||^2) for the given
     isotropic family, differentiable with respect to every tensor input
-    (``gpflow_tpu/ops/pallas_distance.py:306-325``). On CUDA the scalars
-    reach the kernels as float32 [1] tensors on the device; their gradients
-    flow back through that reshape and cast."""
+    (``gpflow_tpu/ops/pallas_distance.py:306-325``). Where the kernels serve,
+    the scalars reach them as float32 [1] tensors on the device; their
+    gradients flow back through that reshape and cast."""
     if family not in PALLAS_FAMILIES:
         raise ValueError(f"Unknown stationary family: {family}")
     if family == "rq" and alpha is None:
@@ -543,11 +619,32 @@ def stationary_kernel_matrix(
     Xs = (X / lengthscales).contiguous()
     Zs = (Z / lengthscales).contiguous()
     variance = torch.as_tensor(variance)
-    if Xs.is_cuda:
+    on_kernel = pallas_available(Xs)
+    if on_kernel:
         variance = variance.reshape(1).to(torch.float32)
     if family == "rq":
         alpha = torch.as_tensor(alpha)
-        if Xs.is_cuda:
+        if on_kernel:
             alpha = alpha.reshape(1).to(torch.float32)
         return _RationalQuadratic.apply(Xs, Zs, variance, alpha)
     return _Stationary.apply(family, Xs, Zs, variance)
+
+
+def rbf_kernel_matrix(
+    X: torch.Tensor,
+    Z: torch.Tensor,
+    lengthscales: torch.Tensor,
+    variance: torch.Tensor,
+) -> torch.Tensor:
+    """K[i, j] = variance * exp(-0.5 ||(X_i - Z_j) / lengthscales||^2),
+    differentiable with respect to every input (``pallas_distance.py:328-336``):
+    ``stationary_kernel_matrix`` with family rbf, so K1 where it serves."""
+    return stationary_kernel_matrix(X, Z, lengthscales, variance, family="rbf")
+
+
+def scaled_squared_distance(Xs: torch.Tensor, Zs: torch.Tensor) -> torch.Tensor:
+    """||xs - zs||^2 for inputs already divided by the lengthscales, computed
+    directly by ``square_distance`` and never through K1
+    (``pallas_distance.py:357-369``): recovering d2 from exp(-d2 / 2) in
+    float32 would clamp large distances and blur small ones."""
+    return square_distance(Xs, Zs)

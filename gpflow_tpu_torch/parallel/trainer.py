@@ -9,11 +9,14 @@ natural-gradient step instead, and the optimizer handles the rest. The steps
 of ``run_steps`` and ``run_steps_sampled`` are queued without waiting for
 the device: no loss, Cholesky failure or rejected natural-gradient step is
 read on the host inside them, and the losses come back as one device tensor.
+``state_dict``/``load_state_dict`` and ``save_state``/``load_state`` snapshot
+and restore the optimization state (``gpflow_tpu/parallel/trainer.py:454-523``).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..base import Module, Parameter
@@ -101,8 +104,8 @@ class DataParallelTrainer:
         if not self._params and not self._vparams:
             raise ValueError("Model has no trainable parameters")
         self.device = (self._params or [p.unconstrained for p in self._vparams])[0].device
-        factory = optimizer if optimizer is not None else adam(1e-2)
-        self.optimizer = factory(self._params) if self._params else None
+        self._factory = optimizer if optimizer is not None else adam(1e-2)
+        self.optimizer = self._factory(self._params) if self._params else None
         self._rejections = torch.zeros((), dtype=torch.int64, device=self.device)
         self._staged_data: Optional[Tuple[torch.Tensor, ...]] = None
         self._sample_counter = 0
@@ -201,3 +204,77 @@ class DataParallelTrainer:
         """Nothing to write back: the steps update the model's parameters in
         place. Kept for the JAX package's API, where it copies them out of
         the device state."""
+
+    def _optimizer_state(self) -> Dict[int, Dict[str, torch.Tensor]]:
+        """The optimizer's state by parameter index, as ``torch.optim`` keeps
+        it. Before the first step, the state that step starts from, as
+        optax's ``init`` gives it: the structure of a copy's state after one
+        step with zero gradients, every tensor zero (for Adam: step 0 and
+        zero moments)."""
+        if self.optimizer is None:
+            return {}
+        state = self.optimizer.state_dict()["state"]
+        if len(state) == len(self._params):
+            return state
+        copies = [torch.zeros_like(p, requires_grad=True) for p in self._params]
+        probe = self._factory(copies)
+        for c in copies:
+            c.grad = torch.zeros_like(c)
+        probe.step()
+        return {i: {k: torch.zeros_like(v) for k, v in s.items()} for i, s in probe.state_dict()["state"].items()}
+
+    def _state_leaves(self) -> List[torch.Tensor]:
+        """The trainable unconstrained parameters, the natural-gradient ones
+        (q_mu, q_sqrt) and the optimizer's state (by parameter, its entries
+        by name), in that order."""
+        opt = self._optimizer_state()
+        return ([p.detach() for p in self._params] + [p.unconstrained.detach() for p in self._vparams]
+                + [opt[i][k] for i in sorted(opt) for k in sorted(opt[i])])
+
+    def state_dict(self) -> Dict[str, np.ndarray]:
+        """A host snapshot of the optimization state: the trainable
+        parameters, the natural-gradient parameters and the optimizer's
+        state, as ``leaf_XXXX`` numpy arrays. Like the JAX package, it holds
+        no sampling counter: ``run_steps_sampled`` after a restore draws as a
+        fresh trainer does unless it is given a generator."""
+        return {f"leaf_{i:04d}": t.detach().cpu().numpy().copy() for i, t in enumerate(self._state_leaves())}
+
+    def load_state_dict(self, host_state: Dict[str, Any]) -> None:
+        """Restores a ``state_dict`` snapshot into this trainer, each leaf in
+        the dtype and on the device of this trainer's own."""
+        leaves = self._state_leaves()
+        saved = [np.asarray(host_state[k]) for k in sorted(host_state)]
+        if len(saved) != len(leaves):
+            raise ValueError(
+                f"checkpoint has {len(saved)} leaves, trainer state has "
+                f"{len(leaves)} — model/optimizer structure mismatch"
+            )
+        placed = []
+        for cur, new in zip(leaves, saved):
+            if tuple(cur.shape) != tuple(new.shape):
+                raise ValueError(
+                    f"checkpoint leaf shape {new.shape} != trainer leaf "
+                    f"shape {tuple(cur.shape)}"
+                )
+            placed.append(torch.as_tensor(new).to(device=cur.device, dtype=cur.dtype))
+        n_params = len(self._params) + len(self._vparams)
+        with torch.no_grad():
+            for p, new in zip(self._params + [p.unconstrained for p in self._vparams], placed):
+                p.copy_(new)
+        if self.optimizer is not None:
+            opt = self._optimizer_state()
+            rest = iter(placed[n_params:])
+            self.optimizer.load_state_dict({
+                "state": {i: {k: next(rest) for k in sorted(opt[i])} for i in sorted(opt)},
+                "param_groups": self.optimizer.state_dict()["param_groups"],
+            })
+
+    def save_state(self, path: str) -> None:
+        """Saves ``state_dict`` to the npz file ``path`` (``.npz`` is added
+        where missing)."""
+        np.savez(path if path.endswith(".npz") else path + ".npz", **self.state_dict())
+
+    def load_state(self, path: str) -> None:
+        """Restores a ``save_state`` file into this trainer."""
+        with np.load(path if path.endswith(".npz") else path + ".npz") as npz:
+            self.load_state_dict({k: npz[k] for k in npz.files})

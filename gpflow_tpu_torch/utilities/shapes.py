@@ -32,7 +32,8 @@ Spec syntax (subset of the reference package's):
 
 Shapes come from ``register_get_shape`` extractors, else from ``.shape``
 (``torch.Tensor``, the port's ``Parameter``, numpy arrays, inducing
-variables); Python ints and floats are scalars.
+variables); Python ints and floats are scalars. A symbolic size (a
+``torch.SymInt`` while ``torch.export`` traces) is bound as it is.
 """
 from __future__ import annotations
 
@@ -41,6 +42,8 @@ import inspect
 import os
 import re
 from typing import Any, Callable, Dict, FrozenSet, List, Optional, Sequence, Tuple, TypeVar
+
+import torch
 
 __all__ = [
     "ShapeError",
@@ -359,6 +362,12 @@ def register_get_shape(tp: type) -> Callable[[Callable[[Any], Any]], Callable[[A
     return decorator
 
 
+def _dim(s: Any) -> Any:
+    """A size as an int; a symbolic size as it is, since ``int`` would pin
+    it to the traced example's value."""
+    return s if isinstance(s, torch.SymInt) else int(s)
+
+
 def _shape_of(value: Any) -> Optional[Tuple[int, ...]]:
     if isinstance(value, bool):
         return None  # flags are not shaped values
@@ -369,12 +378,12 @@ def _shape_of(value: Any) -> Optional[Tuple[int, ...]]:
             shape = fn(value)
             if shape is None or any(s is None for s in shape):
                 return None
-            return tuple(int(s) for s in shape)
+            return tuple(_dim(s) for s in shape)
     shape = getattr(value, "shape", None)
     if shape is None:
         return None
     try:
-        return tuple(int(s) for s in shape)
+        return tuple(_dim(s) for s in shape)
     except Exception:  # abstract/symbolic dims (incl. shape-polymorphic
         return None  # export dims, which raise InconclusiveDimensionOperation)
 

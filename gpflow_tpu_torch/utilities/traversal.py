@@ -1,16 +1,28 @@
-"""Parameter paths and bulk assignment (counterpart of
+"""Parameter paths, bulk assignment and copies (counterpart of
 ``gpflow_tpu/utilities/traversal.py``)."""
 from __future__ import annotations
 
+import copy as _copy
 import re
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional, TypeVar
 
 import numpy as np
 from torch import nn
 
 from ..base import Parameter
 
-__all__ = ["load_jax_values", "parameter_dict", "read_values", "select_dict_parameters_with_prior"]
+__all__ = [
+    "deepcopy",
+    "freeze",
+    "load_jax_values",
+    "multiple_assign",
+    "parameter_dict",
+    "read_values",
+    "reset_cache_bijectors",
+    "select_dict_parameters_with_prior",
+]
+
+M = TypeVar("M", bound=nn.Module)
 
 
 _LIST_INDEX = re.compile(r"\.(\d+)(?=\.|$)")
@@ -56,3 +68,40 @@ def load_jax_values(model: nn.Module, values: Mapping[str, Any]) -> None:
     prepared = [(params[path], params[path]._prepare_assign(np.asarray(v))) for path, v in values.items()]
     for p, unconstrained in prepared:
         p._set_unconstrained(unconstrained)
+
+
+def multiple_assign(m: nn.Module, vars_dict: Mapping[str, Any]) -> None:
+    """Assigns constrained values to the parameters at some of ``m``'s paths
+    (``traversal.py:101-114``). Atomic: every path and value is checked (an
+    unknown path raises ``KeyError``; a wrong shape, NaN or a value outside
+    a parameter's domain raises ``ValueError``) before the first parameter
+    changes."""
+    params = parameter_dict(m)
+    prepared = []
+    for path, value in vars_dict.items():
+        if path not in params:
+            raise KeyError(f"No parameter at path {path!r}; available: {sorted(params)}")
+        prepared.append((params[path], params[path]._prepare_assign(value)))
+    for p, unconstrained in prepared:
+        p._set_unconstrained(unconstrained)
+
+
+def reset_cache_bijectors(input_module: M) -> M:
+    """Returns the module (``traversal.py:122-127``): the port's bijectors
+    keep no cache to clear before a copy."""
+    return input_module
+
+
+def deepcopy(m: M, memo: Optional[Dict[int, Any]] = None) -> M:
+    """A deep copy of a module tree (``traversal.py:130-134``)."""
+    return _copy.deepcopy(reset_cache_bijectors(m), memo)
+
+
+def freeze(m: M) -> M:
+    """A deep copy of ``m`` with every parameter non-trainable
+    (``traversal.py:137-147``)."""
+    frozen = deepcopy(m)
+    for p in frozen.modules():
+        if isinstance(p, Parameter):
+            p.trainable = False
+    return frozen

@@ -182,6 +182,12 @@ def test_import_leaves_jax_out():
         "from gpflow_tpu_torch.kernels import Categorical, ChangePoints, Convolutional\n"
         "from gpflow_tpu_torch.covariances.kuus import Kuu_conv_patch\n"
         "from gpflow_tpu_torch.covariances.kufs import Kuf_conv_patch\n"
+        "import gpflow_tpu_torch.utilities.serving, gpflow_tpu_torch.utilities.bucketing\n"
+        "import gpflow_tpu_torch.utilities.checkpoints, gpflow_tpu_torch.parallel.trainer\n"
+        "from gpflow_tpu_torch.utilities import export_serving, load_serving, bucketize, save_checkpoint\n"
+        "from gpflow_tpu_torch.utilities import multiple_assign, freeze, deepcopy, reset_cache_bijectors\n"
+        "from gpflow_tpu_torch.ops import set_pallas_enabled, get_pallas_enabled, rbf_kernel_matrix\n"
+        "from gpflow_tpu_torch.ops import scaled_squared_distance\n"
         "assert gpflow_tpu_torch.probability_distributions.Gaussian and gpflow_tpu_torch.expectations.expectation\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'gpflow_tpu'))\n"
         "assert not bad, bad\n"
@@ -317,3 +323,73 @@ def test_tile_heights_match_the_cuda_sources(source):
     assert tuple(int(r) for r in re.findall(r"case (\d+): \*smem", text)) == pd._TILE_ROWS
     header = (REPO / "gpflow_tpu_torch" / "csrc" / "stationary_tile.cuh").read_text()
     assert "kTileM = kThreadsX * kColsPerThread" in header and pd._TILE_COLS == 32 * 4
+
+
+@pytest.mark.parametrize("switch", [None, False])
+def test_the_switch_sends_cpu_tensors_to_the_plain_version(switch):
+    X = torch.from_numpy(np.random.RandomState(4).rand(5, 2).astype(np.float32))
+    pd.set_pallas_enabled(switch)
+    try:
+        assert not pd.pallas_available(X)
+        K = pd.stationary_forward("matern52", X, X, torch.tensor(1.3))
+        W = pd.stationary_wgrad("matern52", X, X, torch.tensor(1.3), torch.ones(5, 5))
+    finally:
+        pd.set_pallas_enabled(None)
+    np.testing.assert_array_equal(K.numpy(), pd.stationary_forward_plain("matern52", X, X, torch.tensor(1.3)).numpy())
+    assert W.shape == (5, 5) and pd.launch_counts == {"K1": 0, "K2": 0}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_the_forced_switch_raises_on_a_cpu_tensor(dtype):
+    X = torch.zeros(4, 2, dtype=dtype)
+    pd.set_pallas_enabled(True)
+    try:
+        assert pd.get_pallas_enabled() is True and pd.pallas_available(X)
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            pd.stationary_forward("rbf", X, X, torch.tensor([1.0]))
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            pd.stationary_wgrad("matern52", X, X, torch.tensor([1.0]), torch.ones(4, 4))
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            kernels.SquaredExponential().K(X)
+    finally:
+        pd.set_pallas_enabled(None)
+    assert pd.get_pallas_enabled() is None and pd.launch_counts == {"K1": 0, "K2": 0}
+
+
+@pytest.mark.parametrize("switch", [None, True, False])
+def test_float64_never_reaches_the_kernels(switch):
+    X = torch.zeros(3, 2, dtype=torch.float64)
+    pd.set_pallas_enabled(switch)
+    try:
+        assert not pd.pallas_available(X)
+        assert pd.stationary_forward("rbf", X, X, torch.tensor(1.0, dtype=torch.float64)).dtype == torch.float64
+    finally:
+        pd.set_pallas_enabled(None)
+
+
+def test_the_ops_are_registered_with_fake_implementations():
+    k1, k2 = torch.ops.gpflow_tpu_torch.stationary_k1, torch.ops.gpflow_tpu_torch.stationary_k2
+    Xs, Zs = torch.empty(6, 3, device="meta"), torch.empty(9, 3, device="meta")
+    var = torch.empty(1, device="meta")
+    K = k1("rbf", Xs, Zs, var, None)
+    W = k2("matern52", Xs.to(torch.bfloat16), Zs.to(torch.bfloat16), var, torch.empty(6, 9, device="meta"))
+    for out in (K, W):
+        assert out.device.type == "meta" and out.shape == (6, 9) and out.dtype == torch.float32
+    assert pd.launch_counts == {"K1": 0, "K2": 0}
+    with pytest.raises(NotImplementedError):
+        k1("rbf", torch.zeros(2, 3), torch.zeros(2, 3), torch.ones(1), None)  # no CPU implementation
+
+
+def test_public_names_match_the_jax_package():
+    from gpflow_tpu.ops import pallas_distance as jax_pd
+
+    rng = np.random.RandomState(5)
+    X, Z, ls = rng.rand(7, 3), rng.rand(4, 3), np.array([0.5, 1.0, 2.0])
+    got = pd.rbf_kernel_matrix(torch.from_numpy(X), torch.from_numpy(Z), torch.from_numpy(ls),
+                               torch.tensor(1.3, dtype=torch.float64))
+    # the JAX function always takes its Pallas kernel, which runs on a TPU only: its kernel class instead
+    want = jax_kernels.SquaredExponential(variance=1.3, lengthscales=ls).K(X, Z)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-12)
+    got = pd.scaled_squared_distance(torch.from_numpy(X / ls), torch.from_numpy(Z / ls))
+    np.testing.assert_allclose(got.numpy(), np.asarray(jax_pd.scaled_squared_distance(X / ls, Z / ls)),
+                               rtol=1e-12, atol=1e-14)
