@@ -9,7 +9,7 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
 
 With ``--phases`` the script runs the build and the kernel checks of phases
 1-4, then each group of phases that holds a selected one (5-8, 9-10, 11-12,
-13-16, and 17 to 23 alone), then the record's kernel timings; without it,
+13-16, and 17 to 24 alone), then the record's kernel timings; without it,
 every phase. ``--k1-host-us`` builds K1 from the checkout at ROOT and prints
 phase 23's host time of one K1 call with that checkout's package, three
 times, and nothing else: run it on two checkouts in one call to compare.
@@ -43,7 +43,10 @@ patches, M = 750 inducing patches, C = 10, B = 256) with ChangePoints and
 Categorical GPRs at N = 8192 (slice 12; ``bench.py`` has no convolutional
 operating point); and the flagship SVGP and the GPR at N = 8192 served from
 ``torch.export`` artifacts, with checkpoints and the trainer's state
-(slice 13). Models are built on the card, the
+(slice 13); and the tools around them, ``training_loop``, ``Monitor`` with
+its TensorBoard tasks, the summary table, the profiler and the matmul tier
+on the flagship SVGP and the GPR at N = 8192 (slice 14). Models are built
+on the card, the
 port's default device; the float64 references ask for the CPU, or for float64
 on the card where the CPU would take minutes. Phases:
 
@@ -199,7 +202,7 @@ on the card where the CPU would take minutes. Phases:
    priors on its variance and lengthscales): (a) SGPMC at M = 1024 over
    N = 32768 (Z frozen), ``run_hmc`` through ``SamplingHelper`` under sync
    debug mode "error", 100 burn-in steps adapting the step size toward an
-   acceptance of 0.75 and 100 kept samples of 10 leapfrog steps, log
+   acceptance of 0.75 and 60 kept samples of 10 leapfrog steps, log
    probabilities finite, the acceptance logged; ``target_log_prob_fn`` and
    its gradient against float64 on the card at the initial state, a
    perturbed one and the state after burn-in, beside the lower-tier
@@ -280,7 +283,28 @@ on the card where the CPU would take minutes. Phases:
    batches of B: a fresh trainer that loads it takes the next 10 steps to the
    same bits; (g) requests by CUDA events on both artifacts against the live
    posterior, and K1's host dispatch through its op; K1 against its plain
-   version at the new shapes and their timings.
+   version at the new shapes and their timings;
+24. the training tools (phase 5's flagship SVGP from the same seed on one
+   batch of B rows of phase 7's data, and the GPR at N = 8192): (a)
+   ``training_loop`` of 20 steps with ``use_scan`` False and True from the
+   same start, both under sync debug mode "error", against a hand loop of
+   ``torch.optim.Adam`` over the same closure, K1 twice a step, ms per step
+   by CUDA events; (b) a ``Monitor`` over a 20-step loop, a period-1 group
+   (an ``ExecuteCallback`` recording the ELBO, a ``ScalarToTensorBoard``)
+   and a period-5 group (``ModelToTensorBoard``, and ``ImageToTensorBoard``
+   where matplotlib is installed), the call counts, and the event file read
+   back against the logged values (a task whose package is missing is
+   named and not run); (c) the GPR fit by ``Scipy().minimize`` for 5
+   iterations with the ``Monitor`` as ``step_callback``, called once per
+   iteration with the step alone, K1 once per evaluation; (d)
+   ``tabulate_module_summary`` of the trained SVGP against the table built
+   from ``read_values``, and ``print_summary``; (e) ``profile`` around 3
+   steps under ``annotate("train_step")``, whose trace must hold the
+   annotation and K1; (f) the flagship ELBO's float32 error against float64
+   on the card with exact fp32 matmuls and under the "high" tier (TF32),
+   set in-process by ``config.apply_environment_tiers``, and exact fp32
+   restored after. The script refuses to start where ``GPFLOW_TPU_PALLAS``
+   is set.
 
 Every failure raises, and the script then exits non-zero without the result
 line. The line before the last is ``{"kernels": [...]}``; the last is
@@ -650,9 +674,12 @@ MO_K2_SHAPES = [(MO_M, MO_M, MO_D), (MO_M, MO_B, MO_D), (MO_M, MO_NEW, MO_D)]
 # Both are sampled by run_hmc: HMC_BURNIN steps adapting the step size by
 # dual averaging toward HMC_TARGET, then HMC_SAMPLES kept samples, each step
 # HMC_LEAPFROG leapfrog steps; requests are the natural-gradient point's
-# NG_B held-out points.
+# NG_B held-out points. 60 kept samples, 100 until phase 24 came: on a host
+# whose HMC step took 148 ms (NVIDIA H100 80GB HBM3, 700 W; 100-116 ms on
+# others) the whole run took 472.6 s. The checks read the first kept
+# sample, which the cut leaves as it was.
 HMC_GPMC_N = 4096
-HMC_BURNIN, HMC_SAMPLES, HMC_LEAPFROG = 100, 100, 10
+HMC_BURNIN, HMC_SAMPLES, HMC_LEAPFROG = 100, 60, 10
 HMC_STEP, HMC_TARGET = 0.01, 0.75
 HMC_PRIOR = (0.0, 1.0)  # LogNormal(loc, scale) of the variance and the lengthscales
 HMC_SEEDS = {"chain": SEED + 50, "state": SEED + 51, "momentum": SEED + 52, "conditional": SEED + 53,
@@ -699,7 +726,9 @@ HMC_DH_MOMENTA = 3
 # within 5 Monte-Carlo standard errors (+1e-3) of the analytic mean, the
 # effective sample size estimated from the lag-1 autocorrelation, and the
 # mean ratio of sample to analytic variance within 25%, as in the oracle.
-HMC_ORACLE_SAMPLES, HMC_ORACLE_BURNIN = 500, 300
+# 300 kept, 500 until phase 24 came (least ESS 267-326 at 500, so ~160 now;
+# the mean's limit scales with it, and the ratio averages every dimension).
+HMC_ORACLE_SAMPLES, HMC_ORACLE_BURNIN = 300, 300
 # sample_conditional on phase 19's LinearCoregionalization (L = 4, P = 7,
 # M = 1024) at the 4449 request points, full_cov=False: HMC_COND_SAMPLES
 # draws, whose mean must lie within HMC_COND_Z standard errors of the
@@ -852,6 +881,19 @@ SV_RTOL = 1e-4
 # GPR's K(X, Xnew) at N = 8192.
 SV_K1_SHAPES = [(M, 5000, D), (M, 1, D), (M, 1024, D), (M, 4096, D), (SV_GPR_N, SV_GPR_N, D)]
 
+# Phase 24: the training tools around the flagship SVGP (phase 5's values,
+# one batch of B rows of phase 7's data) and the GPR at N = 8192.
+TL_STEPS = 20  # training_loop steps, and steps of the monitored loop
+TL_PERIODS = (1, 5)  # the monitor's two groups
+TL_GPR_ITERS = 5  # the monitored Scipy fit of the GPR
+TL_PROFILE_STEPS = 3
+# The three loss histories of one start (training_loop with use_scan False
+# and True, a hand loop of torch.optim.Adam over the same closure) run the
+# same operations in the same order on the same inputs, so they should
+# agree to the bit; the limit is phase 7's float32 loss tolerance, which a
+# reduction taken in another order by an atomic would stay well inside.
+TL_RTOL = 1e-5
+
 
 def log(*args):
     print(*args, flush=True)
@@ -860,6 +902,10 @@ def log(*args):
 def card_check():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
+    if "GPFLOW_TPU_PALLAS" in os.environ:
+        # the variable could turn the kernels off, and the launch counts
+        # would then fail far from their cause
+        raise SystemExit("chip_smoke: unset GPFLOW_TPU_PALLAS; the script drives the kernels as they route by default")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -5605,7 +5651,309 @@ def serving_phases(launches):
     return {"K1": worst}
 
 
-# Phases 5-23 in the order they run, as groups that share their data: a
+def tl_batch():
+    """One batch of B rows of phase 7's data (``bench.py``'s generator), on the card."""
+    X, Y, _ = make_training_data(SEED)
+    return torch.from_numpy(X[:B]).cuda(), torch.from_numpy(Y[:B]).cuda()
+
+
+def tl_adam_steps(model, closure, steps, after_step=None):
+    """``steps`` hand-written Adam steps (``parallel.adam``'s optimizer) of
+    the model's trainable parameters on ``closure()``; ``after_step(step)``
+    runs after each. Returns the [steps] loss history on the card."""
+    from gpflow_tpu_torch.parallel import adam
+
+    opt = adam()([p.unconstrained for p in model.trainable_variables])
+    losses = []
+    for step in range(steps):
+        opt.zero_grad(set_to_none=True)
+        loss = closure()
+        loss.backward()
+        opt.step()
+        losses.append(loss.detach())
+        if after_step is not None:
+            after_step(step)
+    return torch.stack(losses)
+
+
+def tl_events_ms(fn):
+    """``fn()`` and its milliseconds by CUDA events (ending in a synchronise)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def tl_training_loop(values, batch, launches):
+    """Phase 24 (a): ``training_loop`` with ``use_scan`` False and True from
+    the same start, both under sync debug mode "error", against a hand loop
+    of torch.optim.Adam over the same closure. Returns the trained model."""
+    from gpflow_tpu_torch.utilities import read_values, training_loop
+
+    warm = build_model(values, torch.float32)  # the optimizer's first step loads code: not timed
+    _, counts = counted(lambda: training_loop(warm.training_loss_closure(batch), var_list=warm.trainable_variables,
+                                              maxiter=2))
+    expect_launches("training_loop warm-up", counts, {"K1": 4, "K2": 0}, launches)
+    histories, finals = {}, {}
+    trained = None
+    for label in ("use_scan=False", "use_scan=True", "hand loop"):
+        model = build_model(values, torch.float32)
+        closure = model.training_loss_closure(batch)
+        if label == "hand loop":
+            run = lambda: tl_adam_steps(model, closure, TL_STEPS)  # noqa: E731
+        else:
+            scan = label == "use_scan=True"
+            run = lambda: training_loop(closure, var_list=model.trainable_variables,  # noqa: E731
+                                        maxiter=TL_STEPS, use_scan=scan)
+        torch.cuda.set_sync_debug_mode("error" if label != "hand loop" else 0)
+        try:
+            (history, ms), counts = counted(lambda: tl_events_ms(run))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        expect_launches(f"training_loop {label}", counts, {"K1": 2 * TL_STEPS, "K2": 0}, launches)  # Kuu, Kuf
+        histories[label] = history.double().cpu()
+        finals[label] = read_values(model)
+        log(f"time: training_loop {label}: {TL_STEPS} steps at M={M}, B={B} in {ms:.2f} ms, "
+            f"{ms / TL_STEPS:.3f} ms per step; loss {float(histories[label][0]):.6e} -> "
+            f"{float(histories[label][-1]):.6e}")
+        assert history.shape == (TL_STEPS,) and bool(torch.isfinite(history).all()), f"{label}: non-finite loss"
+        assert float(histories[label][-1]) < float(histories[label][0]), f"{label}: the loss did not fall"
+        if label == "use_scan=False":
+            trained = model
+    want = histories["hand loop"]
+    for label in ("use_scan=False", "use_scan=True"):
+        err = float(((histories[label] - want) / want).abs().max())
+        bits = bool(torch.equal(histories[label], want))
+        value_err = max(float(np.abs(finals[label][k] - v).max()) for k, v in finals["hand loop"].items())
+        log(f"training_loop {label} against the hand loop: history max rel err {err:.3e} (equal bits: {bits}), "
+            f"final values max abs diff {value_err:.3e}; tol {TL_RTOL:.0e}")
+        assert err <= TL_RTOL, f"training_loop {label}: history disagrees with the hand loop"
+    return trained
+
+
+def tl_monitor(values, batch, root, launches):
+    """Phase 24 (b): a Monitor with a period-1 group (an ExecuteCallback that
+    records the ELBO, a ScalarToTensorBoard) and a period-5 group
+    (ModelToTensorBoard) over a TL_STEPS-step loop; the call counts, and the
+    event file read back against the logged values."""
+    import importlib.util
+
+    from gpflow_tpu_torch.monitor import (ExecuteCallback, ImageToTensorBoard, ModelToTensorBoard, Monitor,
+                                          MonitorTaskGroup, ScalarToTensorBoard, ToTensorBoard)
+    from gpflow_tpu_torch.utilities import read_values
+
+    model = build_model(values, torch.float32)
+    elbos, snapshots = [], {}
+
+    def record_elbo():
+        with torch.no_grad():
+            elbos.append(float(model.elbo(batch)))
+
+    class CountedModelTask(ModelToTensorBoard):
+        def run(self, **kwargs):
+            snapshots[self.current_step] = read_values(self.model)
+            super().run(**kwargs)
+
+    log_dir = os.path.join(root, "monitor")
+    fast = [ExecuteCallback(record_elbo)]
+    slow = []
+    if importlib.util.find_spec("tensorboard") is None:
+        log("monitor: ScalarToTensorBoard, ModelToTensorBoard and ImageToTensorBoard not run: "
+            "no tensorboard package on this machine")
+    else:
+        fast.append(ScalarToTensorBoard(log_dir, lambda: elbos[-1], "elbo"))
+        slow.append(CountedModelTask(log_dir, model))
+        try:
+            slow.append(ImageToTensorBoard(log_dir, lambda fig, ax: ax.plot(elbos), "elbo_curve"))
+        except ImportError as e:
+            log(f"monitor: ImageToTensorBoard not run: {e}")
+    monitor = Monitor(MonitorTaskGroup(fast, period=TL_PERIODS[0]), MonitorTaskGroup(slow, period=TL_PERIODS[1]))
+    (_, ms), counts = counted(lambda: tl_events_ms(lambda: tl_adam_steps(
+        model, model.training_loss_closure(batch), TL_STEPS, after_step=monitor)))
+    # each step: Kuu and Kuf of the loss, and of the recorded ELBO
+    expect_launches("monitored loop", counts, {"K1": 4 * TL_STEPS, "K2": 0}, launches)
+    calls = (len(elbos), len(snapshots))
+    want_calls = (TL_STEPS // TL_PERIODS[0], TL_STEPS // TL_PERIODS[1])
+    log(f"monitor: {TL_STEPS} steps, ELBO {elbos[0]:.6e} -> {elbos[-1]:.6e}; calls per group {calls}, "
+        f"expected {want_calls if slow else (want_calls[0], 0)}")
+    log(f"time: monitored loop: {TL_STEPS} steps with their monitor calls in {ms:.2f} ms, "
+        f"{ms / TL_STEPS:.3f} ms per step")
+    assert len(elbos) == want_calls[0] and np.all(np.isfinite(elbos))
+    assert elbos[-1] > elbos[0], "the monitored loop did not raise the ELBO"
+    if not slow:
+        return
+    assert len(snapshots) == want_calls[1] and sorted(snapshots) == list(range(0, TL_STEPS, TL_PERIODS[1]))
+    ToTensorBoard.close_all_writers()
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+    acc = EventAccumulator(log_dir, size_guidance={"scalars": 0, "images": 0})
+    acc.Reload()
+    scalars = {tag: [(e.step, e.value) for e in acc.Scalars(tag)] for tag in acc.Tags()["scalars"]}
+    assert scalars["elbo"] == [(i, float(np.float32(v))) for i, v in enumerate(elbos)], "elbo events differ"
+    n_model = 0
+    for path, first in snapshots[0].items():
+        if not path.startswith((".kernel", ".likelihood")):
+            continue
+        name = path.lstrip(".")
+        tags = [name] if first.size == 1 else [f"{name}[{i}]" for i in range(min(first.size, 3))]
+        for j, tag in enumerate(tags):
+            got = scalars.pop(tag)
+            want = [(step, float(np.float32(snap[path].reshape(-1)[j]))) for step, snap in sorted(snapshots.items())]
+            assert got == want, f"{tag}: events {got} != logged {want}"
+            n_model += 1
+    images = acc.Tags()["images"]
+    log(f"monitor: event file read back: elbo x{len(elbos)} and {n_model} parameter tags x{len(snapshots)} "
+        f"equal the logged values; images {[(t, len(acc.Images(t))) for t in images]}")
+    assert set(scalars) == {"elbo"}, f"unexpected scalar tags {sorted(scalars)}"
+    if len(slow) == 2:
+        assert images == ["elbo_curve"] and len(acc.Images("elbo_curve")) == want_calls[1]
+
+
+def tl_scipy_monitor(launches):
+    """Phase 24 (c): the GPR at N = 8192 fit by ``Scipy().minimize`` with a
+    Monitor as ``step_callback``: one call per iteration with the step
+    alone, seeing the current iterate; K1 once per evaluation."""
+    from gpflow_tpu_torch.monitor import Monitor, MonitorTask, MonitorTaskGroup
+    from gpflow_tpu_torch.optimizers import Scipy
+
+    gpr_data, _ = make_gpr_data()
+    data = tuple(torch.from_numpy(a).cuda() for a in gpr_data[GPR_NS[0]])
+    model = gpr_model("SquaredExponential", data, torch.float32)
+    seen = []
+
+    class Record(MonitorTask):
+        def run(self, **kwargs):
+            seen.append((self.current_step, kwargs, model.likelihood.variance.numpy()))
+
+    with torch.no_grad():
+        loss0 = float(model.training_loss())
+    t0 = time.perf_counter()
+    res, counts = counted(lambda: Scipy().minimize(
+        model.training_loss_closure(), model.trainable_variables, options={"maxiter": TL_GPR_ITERS},
+        step_callback=Monitor(MonitorTaskGroup(Record(), period=1)), nonfinite_penalty=GPR_PENALTY))
+    seconds = time.perf_counter() - t0
+    log(f"monitor: gpr N={GPR_NS[0]} Scipy: loss {loss0:.6e} -> {float(res.fun):.6e}, nit {res.nit}, "
+        f"nfev {res.nfev}; monitor called at steps {[step for step, _, _ in seen]}")
+    log(f"time: monitored gpr lbfgs N={GPR_NS[0]}: {seconds:.3f} s, {1e3 * seconds / res.nfev:.2f} ms per "
+        f"evaluation (host clock)")
+    expect_launches(f"monitored gpr lbfgs N={GPR_NS[0]}", counts, {"K1": int(res.nfev), "K2": 0}, launches)
+    assert [step for step, _, _ in seen] == list(range(res.nit)) and res.nit > 0
+    assert all(kwargs == {} for _, kwargs, _ in seen), "the Monitor was called with more than the step"
+    assert np.array_equal(seen[-1][2], model.likelihood.variance.numpy()), "the last call saw another iterate"
+    assert np.isfinite(res.fun) and float(res.fun) < loss0, "L-BFGS did not lower the GPR objective"
+
+
+def tl_summary(model):
+    """Phase 24 (d): the summary table of the card-trained SVGP, whose
+    values come to the host in one copy, against the table built from
+    ``read_values`` (one copy per parameter); then ``print_summary``."""
+    from tabulate import tabulate
+
+    from gpflow_tpu_torch.utilities import leaf_components, print_summary, read_values, tabulate_module_summary
+    from gpflow_tpu_torch.utilities.traversal import _format_value
+
+    t0 = time.perf_counter()
+    text = tabulate_module_summary(model)
+    ms = 1e3 * (time.perf_counter() - t0)
+    values = read_values(model)
+    root = type(model).__name__
+    rows = [[path, "Parameter", p.transform.name, "", str(p.trainable), str(tuple(p.shape)),
+             values[path[len(root):]].dtype.name, _format_value(values[path[len(root):]])]
+            for path, p in leaf_components(model).items()]
+    want = tabulate(rows, headers=["name", "class", "transform", "prior", "trainable", "shape", "dtype", "value"],
+                    tablefmt="fancy_grid")
+    log(f"summary: {len(rows)} parameters, table in {ms:.1f} ms on the host clock; equal to read_values' "
+        f"table: {text == want}")
+    assert text == want, "the summary table's values differ from read_values"
+    print_summary(model)
+
+
+def tl_profile(values, batch, root, launches):
+    """Phase 24 (e): ``profile`` around TL_PROFILE_STEPS steps, each under
+    ``annotate("train_step")``; the trace must hold the annotation and K1."""
+    import glob
+
+    from gpflow_tpu_torch.utilities import annotate, profile, training_loop
+
+    model = build_model(values, torch.float32)
+    log_dir = os.path.join(root, "profile")
+
+    def step():
+        with annotate("train_step"):
+            return training_loop(model.training_loss_closure(batch), var_list=model.trainable_variables,
+                                 maxiter=1)
+
+    t0 = time.perf_counter()
+    with profile(log_dir):
+        _, counts = counted(lambda: [step() for _ in range(TL_PROFILE_STEPS)])
+    seconds = time.perf_counter() - t0
+    expect_launches("profiled steps", counts, {"K1": 2 * TL_PROFILE_STEPS, "K2": 0}, launches)
+    traces = glob.glob(os.path.join(log_dir, "*.pt.trace.json"))
+    assert len(traces) == 1, f"profile wrote {traces}"
+    with open(traces[0]) as f:
+        trace = f.read()
+    n_annot, n_k1 = trace.count('"train_step"'), trace.count("stationary_k1_kernel")
+    log(f"profile: {TL_PROFILE_STEPS} steps traced in {seconds:.2f} s; {os.path.basename(traces[0])}, "
+        f"{len(trace) / 1e6:.1f} MB: 'train_step' x{n_annot}, stationary_k1_kernel x{n_k1}")
+    assert n_annot >= TL_PROFILE_STEPS and n_k1 > 0, "the trace lacks the annotation or K1"
+
+
+def tl_tf32(values, batch, launches):
+    """Phase 24 (f): the flagship ELBO's float32 error against float64 on
+    the card with exact fp32 matmuls and under the "high" tier (TF32), set
+    in-process through ``config.apply_environment_tiers``; then exact fp32
+    is restored."""
+    from gpflow_tpu_torch import config
+
+    model = build_model(values, torch.float32)
+    with config.as_context(config.Config(float=torch.float64, jitter=1e-4, device="cuda")):
+        model64 = build_model(values, torch.float64)
+    with torch.no_grad():
+        want = float(model64.elbo(tuple(t.double() for t in batch)))
+        errs = {}
+        for tier, environ in (("exact fp32", {}), ("tf32 (GPFLOW_TPU_FAST_MATMUL=high)",
+                                                   {"GPFLOW_TPU_FAST_MATMUL": "high"})):
+            try:
+                config.apply_environment_tiers(environ)
+                assert torch.backends.cuda.matmul.allow_tf32 == bool(environ)
+                got, counts = counted(lambda: float(model.elbo(batch)))
+            finally:
+                config.apply_environment_tiers({})
+            expect_launches(f"elbo {tier}", counts, {"K1": 2, "K2": 0}, launches)
+            errs[tier] = abs(got - want) / abs(want)
+            log(f"tier: flagship ELBO at M={M}, B={B} with {tier}: {got:.8e}, float64 {want:.8e}, "
+                f"rel err {errs[tier]:.3e}")
+            assert np.isfinite(got)
+    assert torch.backends.cuda.matmul.allow_tf32 is False and torch.backends.cudnn.allow_tf32 is False
+    assert torch.get_float32_matmul_precision() == "highest", "exact fp32 was not restored"
+    del model64
+    return errs
+
+
+def tools_phases(launches):
+    """Phase 24: training_loop, Monitor with the TensorBoard tasks, the
+    monitored Scipy fit, the summary table, the profiler and the matmul tier
+    on the flagship SVGP and the GPR at N = 8192."""
+    import tempfile
+
+    from gpflow_tpu_torch.ops.cuda_build import BUILD_DIR
+
+    values, _ = make_values(SEED)
+    batch = tl_batch()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as root:
+        trained = tl_training_loop(values, batch, launches)
+        tl_monitor(values, batch, root, launches)
+        tl_scipy_monitor(launches)
+        tl_summary(trained)
+        tl_profile(values, batch, root, launches)
+    tl_tf32(values, batch, launches)
+
+
+# Phases 5-24 in the order they run, as groups that share their data: a
 # selection runs each group that holds a selected phase.
 PHASE_GROUPS = (
     (range(5, 9), svgp_phases),
@@ -5619,6 +5967,7 @@ PHASE_GROUPS = (
     (range(21, 22), gplvm_phases),
     (range(22, 23), conv_phases),
     (range(23, 24), serving_phases),
+    (range(24, 25), tools_phases),
 )
 
 
@@ -5630,7 +5979,7 @@ def parse_args(argv=None):
 
     parser = argparse.ArgumentParser(description="Drives gpflow_tpu_torch's main paths on one CUDA card.")
     parser.add_argument("--phases", help="the phases to run after the build and the kernel checks of phases 1-4, "
-                                         "as numbers and ranges among 5-23 (e.g. 5-8,21); by default every phase")
+                                         "as numbers and ranges among 5-24 (e.g. 5-8,21); by default every phase")
     parser.add_argument("--k1-host-us", metavar="ROOT",
                         help="only build K1 from the checkout at ROOT and print the host time of one K1 call "
                              "at (1, 1, 8) with that checkout's package (phase 23's measurement)")
@@ -5646,7 +5995,7 @@ def parse_args(argv=None):
             parser.error(f"--phases: {part!r} is not a number or a range")
     unknown = selected - {n for numbers, _ in PHASE_GROUPS for n in numbers}
     if unknown or not selected:
-        parser.error(f"--phases: no phase {sorted(unknown)}; phases 5-23 can be selected")
+        parser.error(f"--phases: no phase {sorted(unknown)}; phases 5-24 can be selected")
     args.phases = selected
     return args
 

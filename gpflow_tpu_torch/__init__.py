@@ -13,8 +13,10 @@ the rest of the JAX package's likelihoods, multioutput SVGPs, and the
 Bayesian models GPMC and SGPMC with parameter priors, sampled by
 ``optimizers.run_hmc``, and the GPLVM and Bayesian GPLVM through the psi
 statistics of ``expectations`` (with ``conditionals.uncertain_conditional``),
-and serves them, also as exported artifacts (``utilities.serving``)
-(ROADMAP.md lists what is still to port). Shape contracts
+and serves them, also as exported artifacts (``utilities.serving``), with
+``utilities.training_loop``, ``monitor``, ``utilities.print_summary`` and
+``utilities.profile`` around them (the multi-GPU mesh of ``parallel`` is
+not ported: ROADMAP.md). Shape contracts
 (``utilities.check_shapes``) are off unless switched on. On a CUDA device, covariance matrices come from the hand-written
 kernel K1 and the gradients of the exponential and Matern families from K2
 (``gpflow_tpu_torch.ops.pallas_distance``).
@@ -23,16 +25,25 @@ Parameters and model data are built on ``config.default_device()``, which is
 ``"cuda"`` unless the caller asks for another device
 (``config.set_default_device("cpu")``); importing the package needs no card.
 The subpackages of models, kernels and the rest load on first use.
-Float32 matmuls run in exact IEEE fp32 (TF32 off).
+
+The environment sets the tiers at import (``config.apply_environment_tiers``,
+as ``gpflow_tpu/__init__.py:12-39``): float32 matmuls run in exact IEEE fp32
+(TF32 off) unless ``GPFLOW_TPU_FAST_MATMUL`` is "high" or "1", which allows
+TF32; ``GPFLOW_TPU_DISABLE_X64`` is accepted and switches nothing.
+``GPFLOW_TPU_PALLAS`` ("0" or "1") turns the kernels off or on where
+``ops.set_pallas_enabled`` has not, and ``GPFLOW_<NAME>`` sets the
+defaults of ``config``.
 """
 import importlib
 from typing import Any
 
-from . import bijectors, config, ops, utilities
-from .base import Module, Parameter, PriorOn
+from . import bijectors, ci_utils, config, ops, utilities
+from .base import Module, Parameter, PriorOn, TensorType
+from .config import default_float, default_int, default_jitter
 from .utilities import set_trainable
+from .versions import __version__
 
-config.use_exact_f32_matmul()
+config.apply_environment_tiers()
 
 # Imported on first use, so that a process that only serves an exported
 # artifact (``utilities.serving``) loads no model code.
@@ -40,6 +51,7 @@ _SUBPACKAGES = (
     "conditionals",
     "covariances",
     "expectations",
+    "experimental",
     "functions",
     "inducing_variables",
     "kernels",
@@ -48,11 +60,13 @@ _SUBPACKAGES = (
     "logdensities",
     "mean_functions",
     "models",
+    "monitor",
     "optimizers",
     "parallel",
     "posteriors",
     "priors",
     "probability_distributions",
+    "quadrature",
 )
 
 
@@ -66,11 +80,18 @@ __all__ = [
     "Module",
     "Parameter",
     "PriorOn",
+    "TensorType",
+    "__version__",
     "bijectors",
+    "ci_utils",
     "conditionals",
     "config",
     "covariances",
+    "default_float",
+    "default_int",
+    "default_jitter",
     "expectations",
+    "experimental",
     "functions",
     "inducing_variables",
     "kernels",
@@ -79,12 +100,14 @@ __all__ = [
     "logdensities",
     "mean_functions",
     "models",
+    "monitor",
     "ops",
     "optimizers",
     "parallel",
     "posteriors",
     "priors",
     "probability_distributions",
+    "quadrature",
     "set_trainable",
     "utilities",
 ]

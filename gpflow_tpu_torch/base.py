@@ -9,12 +9,12 @@ dtypes with ``.to()``. A Parameter that is not trainable has
 ``requires_grad=False``; ``Module.trainable_parameters`` lists the trainable
 ones, whose ``unconstrained`` tensors an optimizer takes. ``functionalize``
 turns a closure over Parameters into a pure function of their unconstrained
-values.
+values, and ``capture_parameter_reads`` lists the Parameters a block reads.
 """
 from __future__ import annotations
 
 import enum
-from typing import TYPE_CHECKING, Any, Callable, Optional, Sequence, Tuple, Union
+from typing import TYPE_CHECKING, Any, Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -27,6 +27,7 @@ if TYPE_CHECKING:  # priors -> logdensities -> utilities, whose __init__ imports
     from .priors import Prior
 
 __all__ = [
+    "AnyNDArray",
     "InputData",
     "MeanAndVariance",
     "Module",
@@ -34,13 +35,25 @@ __all__ = [
     "Parameter",
     "PriorOn",
     "RegressionData",
+    "TensorData",
+    "TensorLike",
+    "TensorType",
+    "Transform",
+    "capture_parameter_reads",
     "functionalize",
 ]
 
+# type aliases (``gpflow_tpu/base.py:46-60``)
+TensorType = Union[np.ndarray, torch.Tensor, "Parameter"]
+# a tuple of types is a union signature when registering with a Dispatcher
+TensorLike: Tuple[type, ...] = (object,)
+AnyNDArray = np.ndarray
+TensorData = Union[np.ndarray, torch.Tensor, "Parameter"]
+Transform = Union[Bijector]
 MeanAndVariance = Tuple[torch.Tensor, torch.Tensor]
-# what models take as data (``gpflow_tpu/base.py:57-59``)
-InputData = Union[np.ndarray, torch.Tensor, "Parameter"]
-OutputData = Union[np.ndarray, torch.Tensor, "Parameter"]
+# what models take as data
+InputData = TensorType
+OutputData = TensorType
 RegressionData = Tuple[InputData, OutputData]
 
 
@@ -69,6 +82,31 @@ class Module(nn.Module):
         """Alias of ``trainable_parameters`` (``gpflow_tpu/base.py:729``), the
         name an optimizer such as ``Scipy`` is handed."""
         return self.trainable_parameters
+
+
+# The open ``capture_parameter_reads`` blocks, innermost last: each read of a
+# Parameter's value is appended to the innermost one's list.
+_PARAM_READ_CAPTURE: List[List["Parameter"]] = []
+
+
+class capture_parameter_reads:
+    """Collects every Parameter whose value is read inside the block
+    (``value`` or ``log_prior_density``); afterwards ``.parameters`` holds
+    them in first-read order, each once (``gpflow_tpu/base.py:80-100``)."""
+
+    def __enter__(self) -> "capture_parameter_reads":
+        self._raw: List["Parameter"] = []
+        _PARAM_READ_CAPTURE.append(self._raw)
+        self.parameters: List["Parameter"] = []
+        return self
+
+    def __exit__(self, *exc: Any) -> None:
+        _PARAM_READ_CAPTURE.pop()
+        seen: set = set()
+        for p in self._raw:
+            if id(p) not in seen:
+                seen.add(id(p))
+                self.parameters.append(p)
 
 
 def _to_tensor(value: Any, dtype: Any, device: Optional[torch.device] = None) -> torch.Tensor:
@@ -153,11 +191,15 @@ class Parameter(Module):
 
     @property
     def value(self) -> torch.Tensor:
+        if _PARAM_READ_CAPTURE:
+            _PARAM_READ_CAPTURE[-1].append(self)
         return self.transform.forward(self.unconstrained)
 
     @property
     def shape(self) -> torch.Size:
-        return self.unconstrained.shape
+        """The constrained value's shape (that of ``unconstrained`` but for a
+        reshaping transform such as ``FillTriangular``)."""
+        return self.transform.forward_shape(self.unconstrained.shape)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -176,12 +218,14 @@ class Parameter(Module):
         """The unconstrained tensor for a constrained ``value``, checked,
         without changing the parameter."""
         constrained = _to_tensor(value, self.dtype, self.device)
-        if constrained.shape != self.shape:
+        # compared in unconstrained space, where a reshaping transform's
+        # inverse has put the value
+        unconstrained = self.transform.inverse(constrained)
+        if unconstrained.shape != self.unconstrained.shape:
             raise ValueError(
                 f"Parameter {self.name!r}: cannot assign value of shape "
                 f"{tuple(constrained.shape)} to parameter of shape {tuple(self.shape)}"
             )
-        unconstrained = self.transform.inverse(constrained)
         _validate_finite(unconstrained, self.name)
         return unconstrained
 
@@ -203,6 +247,8 @@ class Parameter(Module):
         with the change-of-variables term when the prior is on the
         unconstrained value (``gpflow_tpu/base.py:338-353``); 0 without a
         prior."""
+        if _PARAM_READ_CAPTURE:
+            _PARAM_READ_CAPTURE[-1].append(self)
         if self.prior is None:
             return torch.zeros((), dtype=self.dtype, device=self.device)
         if self.prior_on is PriorOn.CONSTRAINED:

@@ -12,12 +12,14 @@ import dataclasses
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 __all__ = [
     "Bijector",
     "Chain",
     "Exp",
+    "FillTriangular",
     "Identity",
     "Shift",
     "Sigmoid",
@@ -25,6 +27,7 @@ __all__ = [
     "TriangularMask",
     "positive",
     "triangular",
+    "triangular_size",
 ]
 
 
@@ -38,6 +41,10 @@ class Bijector:
 
     def forward_log_det_jacobian(self, x: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
+
+    def forward_shape(self, shape: torch.Size) -> torch.Size:
+        """The shape of ``forward(x)`` for an x of ``shape``."""
+        return shape
 
     @property
     def name(self) -> str:
@@ -145,6 +152,59 @@ class Chain(Bijector):
             x = b.forward(x)
         return ldj
 
+    def forward_shape(self, shape: torch.Size) -> torch.Size:
+        for b in reversed(self.bijectors):
+            shape = b.forward_shape(shape)
+        return shape
+
+
+def triangular_size(n: int) -> int:
+    """The number of free entries of an n x n lower-triangular matrix
+    (``gpflow_tpu/bijectors.py:355-363``)."""
+    return n * (n + 1) // 2
+
+
+def _tri_n(m: int) -> int:
+    n = int(round((math.sqrt(8.0 * m + 1.0) - 1.0) / 2.0))
+    if triangular_size(n) != m:
+        raise ValueError(f"Last dimension {m} is not a triangular number")
+    return n
+
+
+@dataclasses.dataclass(frozen=True)
+class FillTriangular(Bijector):
+    """Packed vector [..., n(n+1)/2] <-> lower-triangular [..., n, n]
+    (``gpflow_tpu/bijectors.py:262-288``); volume preserving (ldj = 0).
+
+    ``forward`` is the JAX package's concatenate, reverse and reshape (the
+    packing order of ``tfp.math.fill_triangular``, not row-major);
+    ``inverse`` gathers the lower triangle in that order. ``TriangularMask``
+    is what ``triangular()`` gives; this packed form is for callers that
+    store n(n+1)/2 values.
+    """
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n = _tri_n(x.shape[-1])
+        xc = torch.cat([x[..., n:], torch.flip(x, dims=(-1,))], dim=-1)  # [..., n * n]
+        return torch.tril(xc.reshape(x.shape[:-1] + (n, n)))
+
+    def inverse(self, y: torch.Tensor) -> torch.Tensor:
+        n = y.shape[-1]
+        # the forward's construction run on indices: which packed entry lands
+        # at each slot of the lower triangle, in row-major order
+        idx = np.arange(triangular_size(n))
+        packed_at_slot = np.concatenate([idx[n:], idx[::-1]]).reshape(n, n)
+        rows, cols = np.tril_indices(n)
+        order = np.argsort(packed_at_slot[rows, cols])
+        return y[..., torch.as_tensor(rows[order], device=y.device), torch.as_tensor(cols[order], device=y.device)]
+
+    def forward_log_det_jacobian(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+
+    def forward_shape(self, shape: torch.Size) -> torch.Size:
+        n = _tri_n(shape[-1])
+        return torch.Size(tuple(shape[:-1]) + (n, n))
+
 
 @dataclasses.dataclass(frozen=True)
 class TriangularMask(Bijector):
@@ -168,10 +228,11 @@ class TriangularMask(Bijector):
 def positive(lower: Optional[float] = None, base: Optional[str] = None) -> Bijector:
     """``shift(lower) o softplus``, or ``shift(lower) o exp`` with
     ``base="exp"`` (``gpflow_tpu/bijectors.py:317-338``); ``lower`` defaults
-    to ``config.default_positive_minimum()``."""
-    from .config import default_positive_minimum
+    to ``config.default_positive_minimum()`` and ``base`` to
+    ``config.default_positive_bijector()``."""
+    from .config import default_positive_bijector, default_positive_minimum
 
-    name = "softplus" if base is None else base.lower()
+    name = (base if base is not None else default_positive_bijector()).lower()
     if name == "softplus":
         bijector: Bijector = Softplus()
     elif name == "exp":

@@ -5,15 +5,17 @@ nothing: losses run eagerly. ``torch.compile`` is not put around them because
 the covariance kernels are launched through ctypes, which it cannot trace."""
 from __future__ import annotations
 
-from typing import Callable, Iterator, Tuple, Union
+from typing import Callable, Iterator, Tuple, TypeVar, Union
 
 import torch
 
-from ..base import RegressionData
+from ..base import InputData, OutputData, RegressionData
 
-__all__ = ["ExternalDataTrainingLossMixin", "InternalDataTrainingLossMixin"]
+__all__ = ["Data", "ExternalDataTrainingLossMixin", "InternalDataTrainingLossMixin"]
 
 LossClosure = Callable[[], torch.Tensor]
+# as ``gpflow_tpu/models/training_mixins.py:23``
+Data = TypeVar("Data", RegressionData, InputData, OutputData)
 
 
 class InternalDataTrainingLossMixin:

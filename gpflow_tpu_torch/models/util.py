@@ -10,7 +10,11 @@ from ..base import Module, Parameter
 from ..config import default_device, default_float
 from ..inducing_variables import InducingPoints, InducingVariables
 from ..utilities.shapes import check_shapes
-from .training_mixins import InternalDataTrainingLossMixin, RegressionData
+from .training_mixins import ExternalDataTrainingLossMixin, InternalDataTrainingLossMixin, RegressionData  # noqa: F401
+
+# as ``gpflow_tpu/models/util.py:17-18``
+InducingVariablesLike = Union[InducingVariables, torch.Tensor, np.ndarray]
+InducingPointsLike = Union[InducingPoints, torch.Tensor, np.ndarray]
 
 __all__ = [
     "data_input_to_tensor",
@@ -21,7 +25,7 @@ __all__ = [
 ]
 
 
-def inducingpoint_wrapper(inducing_variable: Any) -> InducingVariables:
+def inducingpoint_wrapper(inducing_variable: InducingVariablesLike) -> InducingVariables:
     """Wraps a raw [M, D] array or tensor into InducingPoints."""
     if not isinstance(inducing_variable, InducingVariables):
         inducing_variable = InducingPoints(inducing_variable)

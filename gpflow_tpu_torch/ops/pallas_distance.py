@@ -24,7 +24,9 @@ The switch ``set_pallas_enabled`` decides where the kernels serve
 (``gpflow_tpu/ops/pallas_distance.py:44-75``): None (the default) sends a
 CUDA tensor in float32 or bfloat16 to them; False sends every tensor to the
 plain versions, on the card too; True sends every float32 or bfloat16 tensor
-to them, and a CPU tensor then raises. float64 never reaches K1 or K2,
+to them, and a CPU tensor then raises. Where the switch is None, the
+environment variable ``GPFLOW_TPU_PALLAS`` decides if it is set, as True
+(any value but "0", "false" and "False") or False. float64 never reaches K1 or K2,
 whatever the switch says, as in the JAX package: the kernels compute in
 float32. A request that a kernel cannot take raises; there is no fallback to
 the plain version once the kernel is chosen.
@@ -34,6 +36,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import math
+import os
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -151,13 +154,19 @@ def get_pallas_enabled() -> Optional[bool]:
 
 def pallas_available(X: torch.Tensor) -> bool:
     """True where K1 and K2 serve ``X``: never for float64; else as the
-    switch says, and in auto for a CUDA tensor
-    (``gpflow_tpu/ops/pallas_distance.py:57-75``, without its environment
-    variable)."""
+    switch says; where it is None (auto), as ``GPFLOW_TPU_PALLAS`` says if
+    set ("0", "false" and "False" turn the kernels off, any other value on),
+    and otherwise for a CUDA tensor (``gpflow_tpu/ops/pallas_distance.py:57-75``).
+    A CPU tensor let through raises at the kernel's wrapper."""
     if X.dtype not in _KERNEL_DTYPES:
         return False
     enabled = _state["enabled"]
-    return X.is_cuda if enabled is None else bool(enabled)
+    if enabled is not None:
+        return bool(enabled)
+    env = os.environ.get("GPFLOW_TPU_PALLAS")
+    if env is not None:
+        return env not in ("0", "false", "False")
+    return X.is_cuda
 
 
 def _tail_value(family: str, d2: torch.Tensor, alpha: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -13,14 +13,15 @@ A variable that no gradient reaches (autograd returns None for it, as for a
 variable read only through ``.detach()``) raises, unless
 ``allow_unused_variables`` is set.
 
-``Monitor`` (the JAX package's ``monitor/``) is not ported yet (ROADMAP.md
-item 22), so ``step_callback`` takes a function only.
+``step_callback`` is called once per iteration, after the iterate has been
+assigned to the variables: a ``monitor.Monitor`` with the step alone, any
+other callable with the step, the variables and their unconstrained values.
 """
 from __future__ import annotations
 
 import warnings
 from collections import OrderedDict
-from typing import Any, Callable, List, Optional, Sequence, Tuple
+from typing import Any, Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import scipy.optimize
@@ -28,6 +29,7 @@ import torch
 
 from ..base import Parameter
 from ..bijectors import TriangularMask
+from ..monitor.base import Monitor
 
 __all__ = ["Scipy"]
 
@@ -128,7 +130,7 @@ class _ParameterCodec:
 
 
 LossClosure = Callable[[], torch.Tensor]
-StepCallback = Callable[[int, Sequence[Parameter], Sequence[np.ndarray]], None]
+StepCallback = Union[Monitor, Callable[[int, Sequence[Parameter], Sequence[np.ndarray]], None]]
 
 
 class Scipy:
@@ -173,7 +175,8 @@ class Scipy:
         :param method: scipy method, default "L-BFGS-B".
         :param step_callback: called once per optimizer iteration as
             ``(step, variables, values)``, where ``values`` are the current
-            unconstrained arrays, after they were assigned to ``variables``.
+            unconstrained arrays, after they were assigned to ``variables``;
+            a ``monitor.Monitor`` is called with the step alone.
         :param compile: accepted for the JAX package's signature; the loss
             runs eagerly either way.
         :param allow_unused_variables: warn instead of raising where no
@@ -339,8 +342,8 @@ class Scipy:
         codec: Optional[_ParameterCodec] = None,
     ) -> Callable[..., None]:
         """Adapts ``step_callback`` to scipy's per-iteration ``callback``:
-        counts iterations and assigns the current iterate to ``variables``
-        before the callback reads them."""
+        counts iterations, assigns the current iterate to ``variables`` and
+        calls a ``Monitor`` with the step alone (``gpflow_tpu/optimizers/scipy.py:483-512``)."""
         if codec is None:
             codec = _ParameterCodec(variables)
         step = [0]
@@ -348,8 +351,10 @@ class Scipy:
         def _callback(x: Any, *_args: Any) -> None:
             decoded = codec.decode(np.asarray(getattr(x, "x", x)))  # scipy may pass an OptimizeResult
             Scipy.assign_tensors(variables, decoded)
-            # a Monitor would be called here with the step alone (ROADMAP.md item 22)
-            step_callback(step[0], variables, decoded)
+            if isinstance(step_callback, Monitor):
+                step_callback(step[0])
+            else:
+                step_callback(step[0], variables, decoded)
             step[0] += 1
 
         return _callback

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import enum
 from abc import ABC, abstractmethod
+from dataclasses import dataclass
 from typing import Any, Optional, Tuple, Type, Union
 
 import torch
@@ -59,7 +60,7 @@ from .likelihoods import Gaussian
 from .ops.linalg import cholesky
 from .utilities.model_utils import add_likelihood_noise_cov, assert_params_false
 from .utilities.multipledispatch import Dispatcher
-from .utilities.shapes import check_shapes, inherit_check_shapes
+from .utilities.shapes import check_shapes, inherit_check_shapes, register_get_shape
 
 __all__ = [
     "AbstractPosterior",
@@ -72,10 +73,12 @@ __all__ = [
     "IndependentPosteriorSingleOutput",
     "LinearCoregionalizationPosterior",
     "PrecomputeCacheType",
+    "PrecomputedValue",
     "SGPRPosterior",
     "VGPPosterior",
     "create_posterior",
     "get_posterior_class",
+    "get_precomputed_value_shape",
 ]
 
 
@@ -91,6 +94,40 @@ class PrecomputeCacheType(enum.Enum):
     TENSOR = "tensor"
     VARIABLE = "variable"
     NOCACHE = "nocache"
+
+
+@dataclass
+class PrecomputedValue:
+    """A cache entry and, per axis, whether it may change size between
+    calls (``gpflow_tpu/posteriors.py:135-161``); informational, as torch
+    runs each shape eagerly."""
+
+    value: torch.Tensor
+    axis_dynamic: Tuple[bool, ...]
+
+    @staticmethod
+    def shape_of(value: "PrecomputedValue") -> Tuple[Optional[int], ...]:
+        """The shape, with each dynamic axis as None (unknown)."""
+        return tuple(None if dyn else int(s) for s, dyn in zip(value.value.shape, value.axis_dynamic))
+
+    @staticmethod
+    @check_shapes(
+        "alpha: [M, L] | [L, M, 1]",
+        "Qinv: [M, M] | [L, M, M]",
+    )
+    def wrap_alpha_Qinv(alpha: torch.Tensor, Qinv: torch.Tensor) -> Tuple["PrecomputedValue", ...]:
+        """(alpha, Qinv) of ``BasePosterior``'s cache, every axis fixed."""
+        return (
+            PrecomputedValue(alpha, (False,) * alpha.ndim),
+            PrecomputedValue(Qinv, (False,) * Qinv.ndim),
+        )
+
+
+@register_get_shape(PrecomputedValue)
+def get_precomputed_value_shape(shaped: PrecomputedValue) -> Tuple[Optional[int], ...]:
+    """The shape that shape contracts see (``gpflow_tpu/posteriors.py:164-170``):
+    dynamic axes are unknown."""
+    return PrecomputedValue.shape_of(shaped)
 
 
 def _validate_precompute_cache_type(value: Union[None, PrecomputeCacheType, str]) -> PrecomputeCacheType:

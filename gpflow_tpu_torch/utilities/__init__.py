@@ -1,9 +1,26 @@
+from . import bijectors
+from .bijectors import positive, triangular, triangular_size
 from .bucketing import bucket_size_for, bucketize, pad_to_bucket
-from .misc import set_trainable, to_default_float
+from .misc import (
+    is_variable,
+    positive_parameter,
+    set_trainable,
+    to_default_float,
+    to_default_int,
+    training_loop,
+)
 from .model_utils import add_likelihood_noise_cov, add_noise_cov, assert_params_false
 from .multipledispatch import Dispatcher
-from .ops import square_distance
+from .ops import (
+    broadcasting_elementwise,
+    difference_matrix,
+    eye,
+    leading_transpose,
+    pca_reduce,
+    square_distance,
+)
 from .parameter_or_function import evaluate_parameter_or_function, prepare_parameter_or_function
+from .profiling import annotate, profile
 from .shapes import (
     ShapeError,
     check_shape,
@@ -16,12 +33,16 @@ from .shapes import (
 from .traversal import (
     deepcopy,
     freeze,
+    leaf_components,
     load_jax_values,
     multiple_assign,
     parameter_dict,
+    print_summary,
     read_values,
     reset_cache_bijectors,
     select_dict_parameters_with_prior,
+    tabulate_module_summary,
+    traverse_module,
 )
 from .checkpoints import load_checkpoint, save_checkpoint
 from .serving import ServedModel, export_serving, load_serving
@@ -32,24 +53,37 @@ __all__ = [
     "ShapeError",
     "add_likelihood_noise_cov",
     "add_noise_cov",
+    "annotate",
     "assert_params_false",
+    "bijectors",
+    "broadcasting_elementwise",
     "bucket_size_for",
     "bucketize",
     "check_shape",
     "check_shapes",
     "deepcopy",
+    "difference_matrix",
     "evaluate_parameter_or_function",
     "export_serving",
+    "eye",
     "freeze",
     "get_enable_check_shapes",
     "inherit_check_shapes",
+    "is_variable",
+    "leading_transpose",
+    "leaf_components",
     "load_checkpoint",
     "load_jax_values",
     "load_serving",
     "multiple_assign",
     "pad_to_bucket",
     "parameter_dict",
+    "pca_reduce",
+    "positive",
+    "positive_parameter",
     "prepare_parameter_or_function",
+    "print_summary",
+    "profile",
     "read_values",
     "register_get_shape",
     "reset_cache_bijectors",
@@ -58,5 +92,11 @@ __all__ = [
     "set_enable_check_shapes",
     "set_trainable",
     "square_distance",
+    "tabulate_module_summary",
     "to_default_float",
+    "to_default_int",
+    "training_loop",
+    "traverse_module",
+    "triangular",
+    "triangular_size",
 ]

@@ -1,7 +1,7 @@
 """Tensor helpers (counterpart of ``gpflow_tpu/utilities/ops.py``)."""
 from __future__ import annotations
 
-from typing import Any, Optional, Sequence
+from typing import Any, Callable, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -9,7 +9,38 @@ import torch
 from ..config import default_device, default_float
 from .shapes import check_shapes
 
-__all__ = ["difference_matrix", "leading_transpose", "pca_reduce", "square_distance"]
+__all__ = [
+    "broadcasting_elementwise",
+    "difference_matrix",
+    "eye",
+    "leading_transpose",
+    "pca_reduce",
+    "square_distance",
+]
+
+
+def eye(num: int, value: Union[torch.Tensor, float] = 1.0, dtype: Any = None) -> torch.Tensor:
+    """value * I_num (``gpflow_tpu/utilities/ops.py:28-34``), in ``dtype``
+    (default: ``default_float()``), on ``value``'s device if it is a tensor,
+    else on ``config.default_device()``."""
+    dtype = dtype if dtype is not None else default_float()
+    if isinstance(value, torch.Tensor):
+        return value.to(dtype) * torch.eye(num, dtype=dtype, device=value.device)
+    return value * torch.eye(num, dtype=dtype, device=default_device())
+
+
+@check_shapes(
+    "a: [a_shape...]",
+    "b: [b_shape...]",
+    "return: [a_shape..., b_shape...]",
+)
+def broadcasting_elementwise(
+    op: Callable[[torch.Tensor, torch.Tensor], torch.Tensor], a: torch.Tensor, b: torch.Tensor
+) -> torch.Tensor:
+    """``op`` applied to every pair: result[i..., j...] = op(a[i...], b[j...])
+    (``gpflow_tpu/utilities/ops.py:62-76``)."""
+    flatres = op(a.reshape(-1, 1), b.reshape(1, -1))
+    return flatres.reshape(a.shape + b.shape)
 
 
 def square_distance(X: torch.Tensor, X2: Optional[torch.Tensor]) -> torch.Tensor:

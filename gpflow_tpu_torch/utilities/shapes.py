@@ -3,8 +3,9 @@
 the port's own environment switch).
 
 Disabled by default (one flag check per decorated call); enable in tests or
-debugging with ``set_enable_check_shapes(True)`` or
-``GPFLOW_TPU_TORCH_CHECK_SHAPES=1``. A check reads ``.shape`` only, never a
+debugging with ``set_enable_check_shapes(True)`` or, before the import,
+``GPFLOW_TPU_TORCH_CHECK_SHAPES=1`` (where that is unset, the JAX package's
+``GPFLOW_TPU_CHECK_SHAPES`` decides). A check reads ``.shape`` only, never a
 value, so it never synchronises the host with a CUDA device.
 
 Spec syntax (subset of the reference package's):
@@ -58,12 +59,14 @@ __all__ = [
 F = TypeVar("F", bound=Callable[..., Any])
 
 def _env_enabled(value: str) -> bool:
-    """Truthiness of the GPFLOW_TPU_TORCH_CHECK_SHAPES env value: "0", "",
-    "false", "no" and "off" (any case) turn the checks off."""
+    """Truthiness of a switch's environment value: "0", "", "false", "no"
+    and "off" (any case) turn the checks off."""
     return value.lower() not in ("0", "", "false", "no", "off")
 
 
-_state = {"enabled": _env_enabled(os.environ.get("GPFLOW_TPU_TORCH_CHECK_SHAPES", "0"))}
+# GPFLOW_TPU_TORCH_CHECK_SHAPES, else the JAX package's GPFLOW_TPU_CHECK_SHAPES
+_state = {"enabled": _env_enabled(os.environ.get(
+    "GPFLOW_TPU_TORCH_CHECK_SHAPES", os.environ.get("GPFLOW_TPU_CHECK_SHAPES", "0")))}
 
 
 class ShapeError(ValueError):

@@ -188,6 +188,14 @@ def test_import_leaves_jax_out():
         "from gpflow_tpu_torch.utilities import multiple_assign, freeze, deepcopy, reset_cache_bijectors\n"
         "from gpflow_tpu_torch.ops import set_pallas_enabled, get_pallas_enabled, rbf_kernel_matrix\n"
         "from gpflow_tpu_torch.ops import scaled_squared_distance\n"
+        "import gpflow_tpu_torch.monitor, gpflow_tpu_torch.monitor.base, gpflow_tpu_torch.monitor.tensorboard\n"
+        "import gpflow_tpu_torch.experimental.utils, gpflow_tpu_torch.ci_utils, gpflow_tpu_torch.versions\n"
+        "import gpflow_tpu_torch.utilities.bijectors, gpflow_tpu_torch.utilities.profiling\n"
+        "from gpflow_tpu_torch.utilities import training_loop, print_summary, traverse_module, annotate, profile\n"
+        "from gpflow_tpu_torch.posteriors import PrecomputedValue, get_precomputed_value_shape\n"
+        "from gpflow_tpu_torch.base import capture_parameter_reads, TensorType\n"
+        "from gpflow_tpu_torch.bijectors import FillTriangular, triangular_size\n"
+        "from gpflow_tpu_torch import monitor, quadrature, experimental, default_float, __version__\n"
         "assert gpflow_tpu_torch.probability_distributions.Gaussian and gpflow_tpu_torch.expectations.expectation\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'gpflow_tpu'))\n"
         "assert not bad, bad\n"
