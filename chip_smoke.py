@@ -9,7 +9,7 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
 
 With ``--phases`` the script runs the build and the kernel checks of phases
 1-4, then each group of phases that holds a selected one (5-8, 9-10, 11-12,
-13-16, and 17 to 24 alone), then the record's kernel timings; without it,
+13-16, and 17 to 25 alone), then the record's kernel timings; without it,
 every phase. ``--k1-host-us`` builds K1 from the checkout at ROOT and prints
 phase 23's host time of one K1 call with that checkout's package, three
 times, and nothing else: run it on two checkouts in one call to compare.
@@ -45,7 +45,9 @@ operating point); and the flagship SVGP and the GPR at N = 8192 served from
 ``torch.export`` artifacts, with checkpoints and the trainer's state
 (slice 13); and the tools around them, ``training_loop``, ``Monitor`` with
 its TensorBoard tasks, the summary table, the profiler and the matmul tier
-on the flagship SVGP and the GPR at N = 8192 (slice 14). Models are built
+on the flagship SVGP and the GPR at N = 8192 (slice 14); and the shape
+contracts of slices 1-6 on those paths, with the checks on and off (slice
+15). Models are built
 on the card, the
 port's default device; the float64 references ask for the CPU, or for float64
 on the card where the CPU would take minutes. Phases:
@@ -304,7 +306,23 @@ on the card where the CPU would take minutes. Phases:
    on the card with exact fp32 matmuls and under the "high" tier (TF32),
    set in-process by ``config.apply_environment_tiers``, and exact fp32
    restored after. The script refuses to start where ``GPFLOW_TPU_PALLAS``
-   is set.
+   is set;
+25. the shape contracts of slices 1-6 (``set_enable_check_shapes``), each
+   path run four times from the same state, checks off, on, on, off, and
+   every run equal to the bit with the launch counts the path implies: (a)
+   the flagship SVGP's training step (phase 7's model and data,
+   SquaredExponential, then Matern52), 10 steps a run under sync debug mode
+   "error", the losses and trained parameters, and ms per step both ways by
+   CUDA events; (b) the GPR at N = 8192, value and gradient with rbf and
+   with Matern12 (K2 at coincident points); (c) the Bernoulli SVGP's fused
+   natural-gradient step (Matern52, M = 1024, B = 4096), 10 steps a run;
+   (d) SGPR (rbf) and the matrix-free CGLB (Matern52, chunk 4096, a fixed
+   v) at N = 32768, M = 1024, value and gradient; (e) with the checks on, a
+   request of D = 7 to the flagship's cached and fused ``predict_f`` and a
+   q_sqrt of rank 4 to ``gauss_kl`` and the unwhitened ``prior_kl`` raise
+   ``ShapeError`` and launch no kernel; (f) the flagship exported with the
+   checks on and a symbolic batch serves 8192, 5000 and 1 points against
+   the live posterior, K1 inside the loaded program.
 
 Every failure raises, and the script then exits non-zero without the result
 line. The line before the last is ``{"kernels": [...]}``; the last is
@@ -893,6 +911,16 @@ TL_PROFILE_STEPS = 3
 # agree to the bit; the limit is phase 7's float32 loss tolerance, which a
 # reduction taken in another order by an atomic would stay well inside.
 TL_RTOL = 1e-5
+
+# Phase 25: the shape contracts of slices 1-6 driven with the checks on and
+# off from the same state, in this order (each mode twice, interleaved):
+# the flagship SVGP step, the GPR at N = 8192, the Bernoulli SVGP's fused
+# natural-gradient step, SGPR and the matrix-free CGLB at bench width. A
+# check reads shapes only, so each run of a path gives the same bits.
+CT_ORDER = (False, True, True, False)
+CT_STEPS = 10  # training steps of each run
+CT_SEED = SEED + 90  # the steps' batch draws and CGLB's fixed v
+CT_SPARSE = (("SGPR", "SquaredExponential"), ("CGLB", "Matern52"))
 
 
 def log(*args):
@@ -5953,7 +5981,245 @@ def tools_phases(launches):
     tl_tf32(values, batch, launches)
 
 
-# Phases 5-24 in the order they run, as groups that share their data: a
+@contextlib.contextmanager
+def ct_checks(on):
+    """The port's shape checks on or off inside the block, restored after."""
+    from gpflow_tpu_torch.utilities import get_enable_check_shapes, set_enable_check_shapes
+
+    previous = get_enable_check_shapes()
+    set_enable_check_shapes(on)
+    try:
+        yield
+    finally:
+        set_enable_check_shapes(previous)
+
+
+def ct_mode(on):
+    return "checks on" if on else "checks off"
+
+
+def ct_same(what, runs):
+    """Every run's outputs (a list of tensors) equal to the first run's, to
+    the bit and in shape."""
+    first = runs[0]
+    for i, outs in enumerate(runs[1:], 1):
+        assert len(outs) == len(first), f"{what}: run {i} gave {len(outs)} outputs, run 0 {len(first)}"
+        for j, (a, b) in enumerate(zip(outs, first)):
+            assert a.shape == b.shape and torch.equal(a, b), \
+                f"{what}: output {j} of run {i} ({ct_mode(CT_ORDER[i])}) differs from run 0's"
+    log(f"contracts {what}: {len(runs)} runs ({', '.join(ct_mode(on) for on in CT_ORDER)}) equal to the bit, "
+        f"{len(first)} outputs each")
+
+
+def ct_steps(trainer, steps, batch):
+    """``steps`` calls of ``run_steps_sampled(1, batch)``, each drawing with
+    its own seeded generator, under sync debug mode "error"; returns the
+    losses [steps], each step's milliseconds by CUDA events, and each step's
+    host milliseconds (the time to enqueue it, which the device hides where
+    it runs behind)."""
+    generators = [torch.Generator(device="cuda").manual_seed(CT_SEED + i) for i in range(steps)]
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    losses, host = [], []
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        events[0].record()
+        for i in range(steps):
+            t0 = time.perf_counter()
+            losses.append(trainer.run_steps_sampled(1, batch, generator=generators[i]))
+            events[i + 1].record()
+            host.append(1e3 * (time.perf_counter() - t0))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return torch.cat(losses), [events[i].elapsed_time(events[i + 1]) for i in range(steps)], host
+
+
+def ct_training(what, build, staged, batch, expected, launches):
+    """(a) and (c): CT_STEPS steps of a fresh trainer from ``build()`` in each
+    mode of CT_ORDER; the losses and the trained parameters of every run
+    equal to the bit, the launch counts ``expected`` in each. Returns the
+    median ms per step of steps 2 to CT_STEPS in each mode, by CUDA events
+    and on the host clock."""
+    runs, ms, host_ms = [], {False: [], True: []}, {False: [], True: []}
+    for i, on in enumerate(CT_ORDER):
+        with ct_checks(on):
+            trainer = build()
+            trainer.stage_data(staged)
+            (losses, step_ms, step_host), counts = counted(lambda: ct_steps(trainer, CT_STEPS, batch))
+        expect_launches(f"contracts {what} run {i} ({ct_mode(on)})", counts, expected, launches)
+        assert bool(torch.isfinite(losses).all()), f"contracts {what}: non-finite loss"
+        runs.append([losses] + [p.unconstrained.detach().clone() for p in trainer.model.trainable_variables])
+        ms[on] += step_ms[1:]
+        host_ms[on] += step_host[1:]
+    ct_same(what, runs)
+    return ({on: float(np.median(v)) for on, v in ms.items()},
+            {on: float(np.median(v)) for on, v in host_ms.items()})
+
+
+def ct_log_step_times(what, ms, host_ms, smi):
+    log(f"time: contracts {what}: {ms[False]:.3f} ms per step with the checks off, {ms[True]:.3f} ms with them "
+        f"on ({100 * (ms[True] / ms[False] - 1):+.1f}%; CUDA events); host {host_ms[False]:.3f} and "
+        f"{host_ms[True]:.3f} ms to enqueue a step ({host_ms[True] - host_ms[False]:+.3f} ms); medians of steps "
+        f"2-{CT_STEPS} of two runs each; {smi}")
+
+
+def ct_value_and_grad(what, build, objective, expected, launches):
+    """(b) and (d): the value and gradient of ``objective(build())`` under
+    sync debug mode "error" in each mode of CT_ORDER, equal to the bit,
+    with the launch counts ``expected`` in each."""
+    runs = []
+    for i, on in enumerate(CT_ORDER):
+        with ct_checks(on):
+            model = build()
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                (value, grads), counts = counted(lambda: objective(model))
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        expect_launches(f"contracts {what} run {i} ({ct_mode(on)})", counts, expected, launches)
+        grads = list(grads.values()) if isinstance(grads, dict) else list(grads)
+        assert bool(torch.isfinite(value)), f"contracts {what}: non-finite value"
+        runs.append([value] + grads)
+    ct_same(what, runs)
+    log(f"contracts {what}: value {float(runs[0][0]):.6e}")
+
+
+def ct_flagship_steps(launches, smi):
+    """(a): the flagship SVGP's training step (phase 7's model and data)."""
+    from gpflow_tpu_torch.parallel import DataParallelTrainer
+
+    X, Y, Z = make_training_data(SEED)
+    staged = (torch.from_numpy(X).cuda(), torch.from_numpy(Y).cuda())
+    for kernel in TRAIN_KERNELS:
+        expected = {"K1": 2 * CT_STEPS, "K2": 2 * CT_STEPS if kernel == "Matern52" else 0}
+        ms, host_ms = ct_training(f"flagship SVGP step {kernel}",
+                                  lambda: DataParallelTrainer(training_model(kernel, Z, torch.float32, "cuda")),
+                                  staged, B, expected, launches)
+        ct_log_step_times(f"flagship SVGP step {kernel} (M={M}, B={B}, D={D})", ms, host_ms, smi)
+
+
+def ct_gpr(launches):
+    """(b): ``bench.py``'s GPR at N = 8192, value and gradient."""
+    data = make_gpr_data()[0][GPR_NS[0]]
+    for kernel in ("SquaredExponential", "Matern12"):
+        ct_value_and_grad(f"GPR {kernel} N={GPR_NS[0]}", lambda: gpr_model(kernel, data, torch.float32),
+                          lambda m: gpr_value_and_grad(m, False),
+                          {"K1": 1, "K2": 1 if kernel == "Matern12" else 0}, launches)
+
+
+def ct_natgrad(launches, smi):
+    """(c): the Bernoulli SVGP's fused natural-gradient step with Matern52."""
+    from gpflow_tpu_torch.parallel import DataParallelTrainer, adam
+
+    X, Y, Z, _, _ = make_ng_data()
+    staged = (torch.from_numpy(X).cuda(), torch.from_numpy(Y).cuda())
+    # phase 12's counts of a fused step: Kuu and Kuf, and K2 for both
+    ms, host_ms = ct_training("Bernoulli SVGP fused natural-gradient step Matern52",
+                              lambda: DataParallelTrainer(ng_model("Matern52", Z, torch.float32), adam(1e-2),
+                                                          natgrad_gamma=NG_GAMMA, natgrad_fused=True),
+                              staged, NG_B, {"K1": 2 * CT_STEPS, "K2": 2 * CT_STEPS}, launches)
+    ct_log_step_times(f"Bernoulli SVGP fused natural-gradient step Matern52 (M={NG_M}, B={NG_B})", ms, host_ms,
+                      smi)
+
+
+def ct_sparse(launches):
+    """(d): SGPR and the matrix-free CGLB at bench width, at a fixed v."""
+    data, Z, _, _ = make_sparse_data()
+    v = torch.from_numpy(0.1 * np.random.RandomState(CT_SEED).randn(1, SP_N).astype(np.float32)).cuda()
+    objective = lambda m: sparse_value_and_grad(m, lambda mm: mm.training_loss())  # noqa: E731
+    for cls, kernel in CT_SPARSE:
+        kwargs = {"matrix_free_chunk": SP_CHUNK, "v_grad_optimization": True} if cls == "CGLB" else {}
+
+        def build():
+            model = sparse_model(cls, data, Z, torch.float32, kernel=kernel, **kwargs)
+            if cls == "CGLB":
+                model.aux_vec.assign(v)
+            return model
+
+        nc = -(-SP_N // SP_CHUNK)
+        # SGPR: Kuu and Kuf (rbf's backward from the saved K); CGLB as phase 15
+        expected = ({"K1": 2 + 2 * nc, "K2": 2 + nc} if cls == "CGLB" else {"K1": 2, "K2": 0})
+        ct_value_and_grad(f"{cls} {kernel} N={SP_N} M={SP_M}", build, objective, expected, launches)
+
+
+def ct_malformed(model, post):
+    """(e): a request of D = 7 to the flagship's cached and fused
+    ``predict_f``, and a q_sqrt of rank 4 to ``gauss_kl`` and to the
+    unwhitened ``prior_kl``: each raises ShapeError with the checks on,
+    and no kernel launches."""
+    from gpflow_tpu_torch.kullback_leiblers import gauss_kl, prior_kl
+    from gpflow_tpu_torch.ops import pallas_distance as pd
+    from gpflow_tpu_torch.utilities import ShapeError
+
+    X7 = torch.rand(B, D - 1, device="cuda")
+    q_mu, q_sqrt = model.q_mu.value.detach(), model.q_sqrt.value.detach()[None]  # [1, 1, M, M]
+    calls = (("cached predict_f", lambda: post.predict_f(X7)),
+             ("fused predict_f", lambda: model.predict_f(X7)),
+             ("gauss_kl", lambda: gauss_kl(q_mu, q_sqrt)),
+             ("prior_kl unwhitened", lambda: prior_kl(model.inducing_variable, model.kernel, q_mu, q_sqrt,
+                                                      whiten=False)))
+    torch.cuda.synchronize()
+    pd.launch_counts.update(K1=0, K2=0)
+    with ct_checks(True):
+        for what, call in calls:
+            try:
+                call()
+            except ShapeError as e:
+                log(f"contracts malformed {what}: ShapeError: {e}")
+            else:
+                raise AssertionError(f"contracts: the malformed {what} did not raise ShapeError")
+    torch.cuda.synchronize()
+    counts = dict(pd.launch_counts)
+    assert counts == {"K1": 0, "K2": 0}, f"contracts: the malformed calls launched {counts}"
+    log(f"contracts malformed calls: {len(calls)} raised ShapeError, launches {counts}")
+
+
+def ct_export(model, post, launches):
+    """(f): the flagship exported with the checks on and a symbolic batch;
+    the loaded artifact serves SV_REQUESTS, K1 inside the program once per
+    method and request, against the live posterior."""
+    import tempfile
+
+    from gpflow_tpu_torch.ops.cuda_build import BUILD_DIR
+    from gpflow_tpu_torch.utilities import export_serving, load_serving
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    rng = np.random.RandomState(CT_SEED)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as root, ct_checks(True):
+        path = os.path.join(root, "checked")
+        _, counts = counted(lambda: export_serving(model, path, input_dim=D, dtype=torch.float32,
+                                                   methods=SV_METHODS))
+        expect_launches("contracts export with the checks on", counts, {"K1": 1, "K2": 0}, launches)
+        served = load_serving(path)
+        for n in SV_REQUESTS:
+            Xn = torch.from_numpy((rng.rand(n, D) * 4).astype(np.float32)).cuda()
+            out, counts = counted(lambda: sv_outputs(served, Xn))
+            expect_launches(f"contracts served request {n}", counts, {"K1": len(SV_METHODS), "K2": 0}, launches)
+            assert sv_k1_tiles(n), f"contracts: K1's last launch was not Kuf at ({M}, {n})"
+            live = sv_compare(f"contracts checked export {n} against live", out,
+                              sv_live(post, model.likelihood, Xn), SV_RTOL, floor=1.0)
+            log(f"contracts: request of {n} from the artifact exported with the checks on: largest difference "
+                f"from the live posterior {live:.3e} ({'exact' if live == 0 else 'not exact'})")
+
+
+def contracts_phases(launches):
+    """Phase 25: the slices-1-6 paths with the shape checks on and off."""
+    _, smi = card_check()
+    ct_flagship_steps(launches, smi)
+    ct_gpr(launches)
+    ct_natgrad(launches, smi)
+    ct_sparse(launches)
+    values, _ = make_values(SEED)
+    model = build_model(values, torch.float32)
+    with torch.no_grad():
+        post = model.posterior()
+        ct_malformed(model, post)
+        ct_export(model, post, launches)
+
+
+# Phases 5-25 in the order they run, as groups that share their data: a
 # selection runs each group that holds a selected phase.
 PHASE_GROUPS = (
     (range(5, 9), svgp_phases),
@@ -5968,6 +6234,7 @@ PHASE_GROUPS = (
     (range(22, 23), conv_phases),
     (range(23, 24), serving_phases),
     (range(24, 25), tools_phases),
+    (range(25, 26), contracts_phases),
 )
 
 
@@ -5979,7 +6246,7 @@ def parse_args(argv=None):
 
     parser = argparse.ArgumentParser(description="Drives gpflow_tpu_torch's main paths on one CUDA card.")
     parser.add_argument("--phases", help="the phases to run after the build and the kernel checks of phases 1-4, "
-                                         "as numbers and ranges among 5-24 (e.g. 5-8,21); by default every phase")
+                                         "as numbers and ranges among 5-25 (e.g. 5-8,21); by default every phase")
     parser.add_argument("--k1-host-us", metavar="ROOT",
                         help="only build K1 from the checkout at ROOT and print the host time of one K1 call "
                              "at (1, 1, 8) with that checkout's package (phase 23's measurement)")
@@ -5995,7 +6262,7 @@ def parse_args(argv=None):
             parser.error(f"--phases: {part!r} is not a number or a range")
     unknown = selected - {n for numbers, _ in PHASE_GROUPS for n in numbers}
     if unknown or not selected:
-        parser.error(f"--phases: no phase {sorted(unknown)}; phases 5-24 can be selected")
+        parser.error(f"--phases: no phase {sorted(unknown)}; phases 5-25 can be selected")
     args.phases = selected
     return args
 

@@ -158,12 +158,6 @@ class Chain(Bijector):
         return shape
 
 
-def triangular_size(n: int) -> int:
-    """The number of free entries of an n x n lower-triangular matrix
-    (``gpflow_tpu/bijectors.py:355-363``)."""
-    return n * (n + 1) // 2
-
-
 def _tri_n(m: int) -> int:
     n = int(round((math.sqrt(8.0 * m + 1.0) - 1.0) / 2.0))
     if triangular_size(n) != m:
@@ -248,3 +242,18 @@ def positive(lower: Optional[float] = None, base: Optional[str] = None) -> Bijec
 def triangular() -> TriangularMask:
     """The transform of full-covariance ``q_sqrt`` parameters."""
     return TriangularMask()
+
+
+# imported at the end, as in the JAX package: ``utilities`` imports this
+# module, and needs ``positive`` and ``triangular`` defined first
+from .utilities.shapes import check_shapes  # noqa: E402
+
+
+@check_shapes(
+    "n: []",
+    "return: []",
+)
+def triangular_size(n: int) -> int:
+    """The number of free entries of an n x n lower-triangular matrix
+    (``gpflow_tpu/bijectors.py:355-363``)."""
+    return n * (n + 1) // 2

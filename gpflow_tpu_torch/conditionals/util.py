@@ -72,6 +72,16 @@ def _use_inv_solve() -> bool:
     return bool(_inv_solve_state and _inv_solve_state[0])
 
 
+@check_shapes(
+    "Kmn: [M, batch..., N]",
+    "Kmm: [M, M]",
+    "Knn: [batch..., N, N] if full_cov",
+    "Knn: [batch..., N] if not full_cov",
+    "f: [M, R]",
+    "return[0]: [batch..., N, R]",
+    "return[1]: [batch..., R, N, N] if full_cov",
+    "return[1]: [batch..., N, R] if not full_cov",
+)
 def base_conditional(
     Kmn: torch.Tensor,
     Kmm: torch.Tensor,
@@ -100,6 +110,16 @@ def base_conditional(
     )
 
 
+@check_shapes(
+    "Kmn: [M, batch..., N]",
+    "Lm: [M, M]",
+    "Knn: [batch..., N, N] if full_cov",
+    "Knn: [batch..., N] if not full_cov",
+    "f: [M, R]",
+    "return[0]: [batch..., N, R]",
+    "return[1]: [batch..., R, N, N] if full_cov",
+    "return[1]: [batch..., N, R] if not full_cov",
+)
 def base_conditional_with_lm(
     Kmn: torch.Tensor,
     Lm: torch.Tensor,
@@ -234,6 +254,10 @@ def _sample_mvn_with_eps(
     return samples
 
 
+@check_shapes(
+    "fvar: [batch..., P, N, N] if full_cov",
+    "fvar: [batch..., N, P] if not full_cov",
+)
 def expand_independent_outputs(
     fvar: torch.Tensor, full_cov: bool, full_output_cov: bool
 ) -> torch.Tensor:

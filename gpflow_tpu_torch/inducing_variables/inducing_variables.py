@@ -32,6 +32,9 @@ class InducingVariables(Module, abc.ABC):
 
 
 class InducingPointsBase(InducingVariables):
+    @check_shapes(
+        "Z: [M, D]",
+    )
     def __init__(self, Z: Any, name: Optional[str] = None) -> None:
         """:param Z: [M, D] initial positions of the inducing points."""
         super().__init__()
@@ -42,6 +45,9 @@ class InducingPointsBase(InducingVariables):
             self._name = name
 
     @property
+    @check_shapes(
+        "return: []",
+    )
     def num_inducing(self) -> int:
         return self.Z.shape[0]
 

@@ -43,6 +43,9 @@ class FallbackSharedIndependentInducingVariables(MultioutputInducingVariables):
         self.inducing_variable = inducing_variable
 
     @property
+    @check_shapes(
+        "return: []",
+    )
     def num_inducing(self) -> int:
         return self.inducing_variable.num_inducing
 
@@ -68,6 +71,9 @@ class FallbackSeparateIndependentInducingVariables(MultioutputInducingVariables)
         self.inducing_variable_list = nn.ModuleList(inducing_variable_list)
 
     @property
+    @check_shapes(
+        "return: []",
+    )
     def num_inducing(self) -> int:
         nums = {iv.num_inducing for iv in self.inducing_variable_list}
         if len(nums) != 1:

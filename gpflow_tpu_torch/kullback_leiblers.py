@@ -11,6 +11,7 @@ from .inducing_variables import InducingVariables
 from .kernels import Kernel
 from .ops.linalg import cholesky
 from .utilities import Dispatcher
+from .utilities.shapes import check_shapes
 
 __all__ = ["gauss_kl", "prior_kl"]
 
@@ -18,6 +19,12 @@ prior_kl = Dispatcher("prior_kl")
 
 
 @prior_kl.register(InducingVariables, Kernel, object, object)
+@check_shapes(
+    "inducing_variable: [N, D, broadcast L]",
+    "q_mu: [M, L]",
+    "q_sqrt: [M, L] | [L, M, M]",
+    "return: []",
+)
 def _prior_kl_default(
     inducing_variable: InducingVariables,
     kernel: Kernel,
@@ -38,6 +45,11 @@ def _prior_kl_default(
     return gauss_kl(q_mu, q_sqrt, K)
 
 
+@check_shapes(
+    "q_mu: [M, L]",
+    "q_sqrt: [M, L] | [L, M, M]",
+    "return: []",
+)
 def gauss_kl(
     q_mu: torch.Tensor,
     q_sqrt: torch.Tensor,

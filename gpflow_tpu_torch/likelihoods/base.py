@@ -212,6 +212,7 @@ class QuadratureLikelihood(Likelihood, abc.ABC):
     def _quadrature_reduction(self, quadrature_result: torch.Tensor) -> torch.Tensor:
         return quadrature_result.squeeze(-1)
 
+    @inherit_check_shapes
     def _predict_log_density(
         self, X: torch.Tensor, Fmu: torch.Tensor, Fvar: torch.Tensor, Y: torch.Tensor
     ) -> torch.Tensor:
@@ -219,11 +220,13 @@ class QuadratureLikelihood(Likelihood, abc.ABC):
             self.quadrature.logspace(self._quadrature_log_prob, Fmu, Fvar, X=X, Y=Y)
         )
 
+    @inherit_check_shapes
     def _variational_expectations(
         self, X: torch.Tensor, Fmu: torch.Tensor, Fvar: torch.Tensor, Y: torch.Tensor
     ) -> torch.Tensor:
         return self._quadrature_reduction(self.quadrature(self._quadrature_log_prob, Fmu, Fvar, X=X, Y=Y))
 
+    @inherit_check_shapes
     def _predict_mean_and_var(
         self, X: torch.Tensor, Fmu: torch.Tensor, Fvar: torch.Tensor
     ) -> MeanAndVariance:
@@ -250,6 +253,7 @@ class ScalarLikelihood(QuadratureLikelihood, abc.ABC):
     def __init__(self, **kwargs: Any) -> None:
         super().__init__(input_dim=None, latent_dim=None, observation_dim=None, **kwargs)
 
+    @inherit_check_shapes
     def _log_prob(self, X: torch.Tensor, F: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
         return torch.sum(self._scalar_log_prob(X, F, Y), dim=-1)
 
@@ -268,9 +272,11 @@ class ScalarLikelihood(QuadratureLikelihood, abc.ABC):
     def _quadrature_dim(self) -> int:
         return 1
 
+    @inherit_check_shapes
     def _quadrature_log_prob(self, F: torch.Tensor, X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
         return self._scalar_log_prob(X, F, Y)
 
+    @inherit_check_shapes
     def _quadrature_reduction(self, quadrature_result: torch.Tensor) -> torch.Tensor:
         return torch.sum(quadrature_result, dim=-1)
 
@@ -337,11 +343,17 @@ class SwitchedLikelihood(ScalarLikelihood):
         mu_list, var_list = zip(*mvs)
         return torch.cat(mu_list, dim=1), torch.cat(var_list, dim=1)
 
-    @inherit_check_shapes
+    @check_shapes(
+        "F: [batch..., Q]",
+        "return: [batch..., R]",
+    )
     def _conditional_mean(self, X: torch.Tensor, F: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 
-    @inherit_check_shapes
+    @check_shapes(
+        "F: [batch..., Q]",
+        "return: [batch..., R]",
+    )
     def _conditional_variance(self, X: torch.Tensor, F: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 

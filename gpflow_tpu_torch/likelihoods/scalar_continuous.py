@@ -79,25 +79,31 @@ class Gaussian(ScalarLikelihood):
         (``scalar_continuous.py:77-85``)."""
         return self._variance(X).expand(X.shape[:-1] + (1,))
 
+    @inherit_check_shapes
     def _conditional_mean(self, X: torch.Tensor, F: torch.Tensor) -> torch.Tensor:
         return F
 
+    @inherit_check_shapes
     def _conditional_variance(self, X: torch.Tensor, F: torch.Tensor) -> torch.Tensor:
         return self._variance(X).expand(F.shape)
 
+    @inherit_check_shapes
     def _predict_mean_and_var(
         self, X: torch.Tensor, Fmu: torch.Tensor, Fvar: torch.Tensor
     ) -> MeanAndVariance:
         return Fmu, Fvar + self._variance(X)
 
+    @inherit_check_shapes
     def _scalar_log_prob(self, X: torch.Tensor, F: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
         return logdensities.gaussian(Y, F, self._variance(X))
 
+    @inherit_check_shapes
     def _predict_log_density(
         self, X: torch.Tensor, Fmu: torch.Tensor, Fvar: torch.Tensor, Y: torch.Tensor
     ) -> torch.Tensor:
         return torch.sum(logdensities.gaussian(Y, Fmu, Fvar + self._variance(X)), dim=-1)
 
+    @inherit_check_shapes
     def _variational_expectations(
         self, X: torch.Tensor, Fmu: torch.Tensor, Fvar: torch.Tensor, Y: torch.Tensor
     ) -> torch.Tensor:

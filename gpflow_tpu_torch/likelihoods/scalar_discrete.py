@@ -12,6 +12,7 @@ from .. import logdensities
 from ..base import MeanAndVariance, Parameter
 from ..bijectors import positive
 from ..config import default_device, default_float
+from ..utilities.shapes import check_shapes, inherit_check_shapes
 from .base import ScalarLikelihood
 from .utils import inv_probit
 
@@ -33,15 +34,19 @@ class Poisson(ScalarLikelihood):
         self.invlink = invlink
         self.binsize = float(binsize)
 
+    @inherit_check_shapes
     def _scalar_log_prob(self, X: torch.Tensor, F: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
         return logdensities.poisson(Y, self.invlink(F) * self.binsize)
 
+    @inherit_check_shapes
     def _conditional_variance(self, X: torch.Tensor, F: torch.Tensor) -> torch.Tensor:
         return self.invlink(F) * self.binsize
 
+    @inherit_check_shapes
     def _conditional_mean(self, X: torch.Tensor, F: torch.Tensor) -> torch.Tensor:
         return self.invlink(F) * self.binsize
 
+    @inherit_check_shapes
     def _variational_expectations(
         self, X: torch.Tensor, Fmu: torch.Tensor, Fvar: torch.Tensor, Y: torch.Tensor
     ) -> torch.Tensor:
@@ -65,9 +70,11 @@ class Bernoulli(ScalarLikelihood):
         super().__init__(**kwargs)
         self.invlink = invlink
 
+    @inherit_check_shapes
     def _scalar_log_prob(self, X: torch.Tensor, F: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
         return logdensities.bernoulli(Y, self.invlink(F))
 
+    @inherit_check_shapes
     def _predict_mean_and_var(
         self, X: torch.Tensor, Fmu: torch.Tensor, Fvar: torch.Tensor
     ) -> MeanAndVariance:
@@ -76,15 +83,18 @@ class Bernoulli(ScalarLikelihood):
             return p, p - torch.square(p)
         return super()._predict_mean_and_var(X, Fmu, Fvar)
 
+    @inherit_check_shapes
     def _predict_log_density(
         self, X: torch.Tensor, Fmu: torch.Tensor, Fvar: torch.Tensor, Y: torch.Tensor
     ) -> torch.Tensor:
         p = self.predict_mean_and_var(X, Fmu, Fvar)[0]
         return torch.sum(logdensities.bernoulli(Y, p), dim=-1)
 
+    @inherit_check_shapes
     def _conditional_mean(self, X: torch.Tensor, F: torch.Tensor) -> torch.Tensor:
         return self.invlink(F)
 
+    @inherit_check_shapes
     def _conditional_variance(self, X: torch.Tensor, F: torch.Tensor) -> torch.Tensor:
         p = self.conditional_mean(X, F)
         return p - (p ** 2)
@@ -97,6 +107,9 @@ class Ordinal(ScalarLikelihood):
     density, so mislabelled data fails loudly. ``sigma`` is a positive
     Parameter."""
 
+    @check_shapes(
+        "bin_edges: [num_bins_minus_1]",
+    )
     def __init__(self, bin_edges: np.ndarray, **kwargs: Any) -> None:
         super().__init__(**kwargs)
         self.register_buffer(
@@ -111,6 +124,7 @@ class Ordinal(ScalarLikelihood):
         inf = torch.full((1,), math.inf, dtype=scaled.dtype, device=scaled.device)
         return torch.cat([scaled, inf], 0), torch.cat([-inf, scaled], 0)
 
+    @inherit_check_shapes
     def _scalar_log_prob(self, X: torch.Tensor, F: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
         Y = Y.to(torch.int64)
         left, right = self._scaled_bins()
@@ -120,6 +134,10 @@ class Ordinal(ScalarLikelihood):
         logp = torch.log(inv_probit(left[safe_Y] - F / sigma) - inv_probit(right[safe_Y] - F / sigma) + 1e-6)
         return torch.where(valid, logp, math.nan)
 
+    @check_shapes(
+        "F: [batch..., latent_dim]",
+        "return: [batch_and_latent_dim, num_bins]",
+    )
     def _make_phi(self, F: torch.Tensor) -> torch.Tensor:
         """The [flattened batch, num_bins] matrix of bin probabilities
         (``scalar_discrete.py:139-153``)."""
@@ -127,11 +145,13 @@ class Ordinal(ScalarLikelihood):
         F = F.reshape(-1, 1) / self.sigma.value
         return inv_probit(left - F) - inv_probit(right - F)
 
+    @inherit_check_shapes
     def _conditional_mean(self, X: torch.Tensor, F: torch.Tensor) -> torch.Tensor:
         phi = self._make_phi(F)
         Ys = torch.arange(self.num_bins, dtype=phi.dtype, device=phi.device).reshape(-1, 1)
         return torch.reshape(phi @ Ys, F.shape)
 
+    @inherit_check_shapes
     def _conditional_variance(self, X: torch.Tensor, F: torch.Tensor) -> torch.Tensor:
         phi = self._make_phi(F)
         Ys = torch.arange(self.num_bins, dtype=phi.dtype, device=phi.device).reshape(-1, 1)

@@ -5,9 +5,15 @@ import math
 
 import torch
 
+from ..utilities.shapes import check_shapes
+
 __all__ = ["inv_probit"]
 
 
+@check_shapes(
+    "x: [batch...]",
+    "return: [batch...]",
+)
 def inv_probit(x: torch.Tensor) -> torch.Tensor:
     """The standard normal CDF squashed into (1e-3, 1 - 1e-3)
     (``gpflow_tpu/likelihoods/utils.py:17-20``)."""

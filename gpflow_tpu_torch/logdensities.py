@@ -23,6 +23,12 @@ __all__ = [
 ]
 
 
+@check_shapes(
+    "x: [broadcast shape...]",
+    "mu: [broadcast shape...]",
+    "var: [broadcast shape...]",
+    "return: [shape...]",
+)
 def gaussian(x: torch.Tensor, mu: torch.Tensor, var: torch.Tensor) -> torch.Tensor:
     """log N(x | mu, var), broadcast elementwise (``logdensities.py:33``)."""
     return -0.5 * (math.log(2.0 * math.pi) + torch.log(var) + torch.square(mu - x) / var)
@@ -40,11 +46,21 @@ def lognormal(x: torch.Tensor, mu: torch.Tensor, var: torch.Tensor) -> torch.Ten
     return gaussian(lnx, mu, var) - lnx
 
 
+@check_shapes(
+    "x: [broadcast shape...]",
+    "p: [broadcast shape...]",
+    "return: [shape...]",
+)
 def bernoulli(x: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     """log p where x > 0.5, else log(1 - p) (``logdensities.py:54-55``)."""
     return torch.log(torch.where(x > 0.5, p, 1.0 - p))
 
 
+@check_shapes(
+    "x: [broadcast shape...]",
+    "lam: [broadcast shape...]",
+    "return: [shape...]",
+)
 def poisson(x: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
     """log Poisson(x | lam) (``logdensities.py:63-64``)."""
     return x * torch.log(lam) - lam - torch.lgamma(x + 1.0)
@@ -154,6 +170,12 @@ def laplace(x: torch.Tensor, mu: torch.Tensor, sigma: torch.Tensor) -> torch.Ten
     return -torch.abs(mu - x) / sigma - torch.log(2.0 * sigma)
 
 
+@check_shapes(
+    "x: [D, broadcast R]",
+    "mu: [D, broadcast R]",
+    "L: [D, D]",
+    "return: [R]",
+)
 def multivariate_normal(x: torch.Tensor, mu: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
     """log N(x[:, r] | mu[:, r], L L^T) for each column r, given the lower
     Cholesky factor L [D, D] (``logdensities.py:141-154``): x [D, R], mu

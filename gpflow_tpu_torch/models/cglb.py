@@ -37,6 +37,7 @@ from ..config import default_device, default_float
 from ..kernels import Kernel
 from ..posteriors import sgpr_conditional
 from ..utilities.model_utils import add_noise_cov, assert_params_false
+from ..utilities.shapes import check_shapes, inherit_check_shapes
 from .sgpr import SGPR_deprecated as SGPR
 from .training_mixins import RegressionData
 
@@ -53,6 +54,10 @@ class CGLB(SGPR):
     """SGPR with a tighter, Jensen-corrected log-determinant bound and a
     CG-estimated quadratic term (``gpflow_tpu/models/cglb.py:30-263``)."""
 
+    @check_shapes(
+        "data[0]: [N, D]",
+        "data[1]: [N, P]",
+    )
     def __init__(
         self,
         data: RegressionData,
@@ -84,6 +89,9 @@ class CGLB(SGPR):
         self.cg_iterations: Optional[int] = None
 
     @property
+    @check_shapes(
+        "return: [P, N]",
+    )
     def aux_vec(self) -> Parameter:
         """The auxiliary vector v [R, N]."""
         return self._v
@@ -111,6 +119,9 @@ class CGLB(SGPR):
 
         return mv
 
+    @check_shapes(
+        "return: []",
+    )
     def logdet_term(self, common: SGPR.CommonTensors) -> torch.Tensor:
         """log|K + s2 I| <= log|Q + s2 I| + N log(1 + tr(K - Q) / (s2 N))
         (``cglb.py:98-114``)."""
@@ -127,6 +138,9 @@ class CGLB(SGPR):
         logtrace = num_data * torch.log(1 + trace / num_data)
         return -output_dim * (logdet_b + 0.5 * logsigma_sq + 0.5 * logtrace)
 
+    @check_shapes(
+        "return: []",
+    )
     def quad_term(self, common: SGPR.CommonTensors) -> torch.Tensor:
         """The bound -0.5 (v . (r + 0.5 K v) + 0.5 r^T Q^-1 r) on
         -0.5 y^T (K + s2 I)^-1 y through the auxiliary vector v
@@ -170,6 +184,7 @@ class CGLB(SGPR):
 
         return -ub
 
+    @inherit_check_shapes
     def predict_f(
         self,
         Xnew: torch.Tensor,
@@ -211,6 +226,7 @@ class CGLB(SGPR):
         mean = sgpr_mean + cg_mean + self.mean_function(Xnew)
         return mean, var
 
+    @inherit_check_shapes
     def predict_y(
         self,
         Xnew: torch.Tensor,
@@ -224,6 +240,7 @@ class CGLB(SGPR):
         )
         return self.likelihood.predict_mean_and_var(Xnew, f_mean, f_var)
 
+    @inherit_check_shapes
     def predict_log_density(
         self,
         data: RegressionData,
@@ -243,11 +260,20 @@ class NystromPreconditioner:
     """Q^-1 = (Q_ff + s2 I)^-1 applied through A = s^-1 L^-1 Kuf [M, N] and
     LB (``cglb.py:266-303``)."""
 
+    @check_shapes(
+        "A: [M, N]",
+        "LB: [M, M]",
+    )
     def __init__(self, A: torch.Tensor, LB: torch.Tensor, sigma_sq: torch.Tensor) -> None:
         self.A = A
         self.LB = LB
         self.sigma_sq = sigma_sq
 
+    @check_shapes(
+        "v: [B, N]",
+        "return[0]: [B, N]",
+        "return[1]: [B]",
+    )
     def __call__(self, v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """For v [R, N]: v^T Q^-1 as rows [R, N], and each column's quadratic
         v_r^T Q^-1 v_r [R]. Per column, as in the JAX package, so that the CG
@@ -302,6 +328,11 @@ def _cglb_conjugate_gradient(
     return v, i
 
 
+@check_shapes(
+    "b: [B, N]",
+    "initial: [B, N]",
+    "return: [B, N]",
+)
 def cglb_conjugate_gradient(
     K: KOperator,
     b: torch.Tensor,

@@ -278,6 +278,7 @@ class BayesianGPLVM(GPModel, InternalDataTrainingLossMixin):
             var = var[:, None].expand(var.shape + (P,))
         return mean + self.mean_function(Xnew), var
 
+    @inherit_check_shapes
     def predict_log_density(
         self, data: RegressionData, full_cov: bool = False, full_output_cov: bool = False
     ) -> torch.Tensor:

@@ -23,6 +23,7 @@ from ..likelihoods import Gaussian
 from ..logdensities import multivariate_normal
 from ..ops.linalg import cholesky, mvn_logp
 from ..utilities.model_utils import add_likelihood_noise_cov, assert_params_false
+from ..utilities.shapes import check_shapes, inherit_check_shapes
 from .model import GPModel
 from .training_mixins import InternalDataTrainingLossMixin, RegressionData
 from .util import data_input_to_tensor
@@ -36,6 +37,11 @@ class GPR_deprecated(GPModel, InternalDataTrainingLossMixin):
     ``data`` is (X [N, D], Y [N, P]); it is stored as tensors of the default
     float type on ``config.default_device()``."""
 
+    @check_shapes(
+        "data[0]: [N, D]",
+        "data[1]: [N, P]",
+        "noise_variance: []",
+    )
     def __init__(
         self,
         data: RegressionData,
@@ -58,9 +64,15 @@ class GPR_deprecated(GPModel, InternalDataTrainingLossMixin):
         X, Y = self.data
         return (X.value if isinstance(X, Parameter) else X), Y
 
+    @check_shapes(
+        "return: []",
+    )
     def maximum_log_likelihood_objective(self) -> torch.Tensor:
         return self.log_marginal_likelihood()
 
+    @check_shapes(
+        "return: []",
+    )
     def log_marginal_likelihood(self) -> torch.Tensor:
         """log p(Y | theta) through the Cholesky factor of K + sigma^2 I.
 
@@ -78,6 +90,7 @@ class GPR_deprecated(GPModel, InternalDataTrainingLossMixin):
         # [R] log likelihoods, one for each column of Y
         return torch.sum(multivariate_normal(Y, m, L))
 
+    @inherit_check_shapes
     def predict_f(
         self, Xnew: torch.Tensor, full_cov: bool = False, full_output_cov: bool = False
     ) -> MeanAndVariance:
@@ -111,6 +124,7 @@ class GPR_with_posterior(GPR_deprecated):
             precompute_cache=precompute_cache,
         )
 
+    @inherit_check_shapes
     def predict_f(
         self, Xnew: torch.Tensor, full_cov: bool = False, full_output_cov: bool = False
     ) -> MeanAndVariance:

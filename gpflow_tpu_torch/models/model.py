@@ -36,14 +36,23 @@ class BayesianModel(Module, abc.ABC):
         device = default_device() if first is None else first.device
         return torch.zeros((), dtype=default_float(), device=device)
 
+    @check_shapes(
+        "return: []",
+    )
     def log_posterior_density(self, *args: Any, **kwargs: Any) -> torch.Tensor:
         return self.maximum_log_likelihood_objective(*args, **kwargs) + self.log_prior_density()
 
+    @check_shapes(
+        "return: []",
+    )
     def _training_loss(self, *args: Any, **kwargs: Any) -> torch.Tensor:
         """-(objective + log prior density): the loss that training minimises."""
         return -(self.maximum_log_likelihood_objective(*args, **kwargs) + self.log_prior_density())
 
     @abc.abstractmethod
+    @check_shapes(
+        "return: []",
+    )
     def maximum_log_likelihood_objective(self, *args: Any, **kwargs: Any) -> torch.Tensor:
         raise NotImplementedError
 
@@ -93,6 +102,14 @@ class GPModel(BayesianModel):
         return output_dim
 
     @abc.abstractmethod
+    @check_shapes(
+        "Xnew: [batch..., N, D]",
+        "return[0]: [batch..., N, P]",
+        "return[1]: [batch..., N, P] if (not full_cov) and (not full_output_cov)",
+        "return[1]: [batch..., P, N, N] if full_cov and (not full_output_cov)",
+        "return[1]: [batch..., N, P, P] if (not full_cov) and full_output_cov",
+        "return[1]: [batch..., N, P, N, P] if full_cov and full_output_cov",
+    )
     def predict_f(
         self, Xnew: torch.Tensor, full_cov: bool = False, full_output_cov: bool = False
     ) -> MeanAndVariance:
@@ -124,6 +141,11 @@ class GPModel(BayesianModel):
             return sample_mvn(mean.mT, cov, True, num_samples=num_samples, generator=generator).mT
         return sample_mvn(mean, cov, full_output_cov, num_samples=num_samples, generator=generator)
 
+    @check_shapes(
+        "Xnew: [batch..., N, D]",
+        "return[0]: [batch..., N, P]",
+        "return[1]: [batch..., N, P]",
+    )
     def predict_y(
         self, Xnew: torch.Tensor, full_cov: bool = False, full_output_cov: bool = False
     ) -> MeanAndVariance:
@@ -136,6 +158,9 @@ class GPModel(BayesianModel):
         f_mean, f_var = self.predict_f(Xnew, full_cov=full_cov, full_output_cov=full_output_cov)
         return self.likelihood.predict_mean_and_var(Xnew, f_mean, f_var)
 
+    @check_shapes(
+        "return: [batch..., N]",
+    )
     def predict_log_density(
         self, data: Tuple[torch.Tensor, torch.Tensor], full_cov: bool = False, full_output_cov: bool = False
     ) -> torch.Tensor:

@@ -28,6 +28,7 @@ from ..kernels import Kernel
 from ..likelihoods import Gaussian
 from ..ops.linalg import cholesky
 from ..utilities.model_utils import add_noise_cov, assert_params_false
+from ..utilities.shapes import check_shapes, inherit_check_shapes
 from .model import GPModel
 from .training_mixins import InternalDataTrainingLossMixin, RegressionData
 from .util import data_input_to_tensor, inducingpoint_wrapper
@@ -42,6 +43,11 @@ class SGPRBase_deprecated(GPModel, InternalDataTrainingLossMixin):
     ``data`` is (X [N, D], Y [N, P]); it is stored as tensors of the default
     float type on ``config.default_device()``, as are the inducing points."""
 
+    @check_shapes(
+        "data[0]: [N, D]",
+        "data[1]: [N, P]",
+        "noise_variance: []",
+    )
     def __init__(
         self,
         data: RegressionData,
@@ -65,6 +71,9 @@ class SGPRBase_deprecated(GPModel, InternalDataTrainingLossMixin):
         self.num_data = X_data.shape[0]
         self.inducing_variable = inducingpoint_wrapper(inducing_variable)
 
+    @check_shapes(
+        "return: []",
+    )
     def upper_bound(self) -> torch.Tensor:
         """The Titsias (2014) upper bound on the log marginal likelihood
         (``sgpr.py:67-107``)."""
@@ -119,9 +128,21 @@ class SGPR_deprecated(SGPRBase_deprecated):
         AAT: torch.Tensor
         L: torch.Tensor
 
+    @check_shapes(
+        "return: []",
+    )
     def maximum_log_likelihood_objective(self) -> torch.Tensor:
         return self.elbo()
 
+    @check_shapes(
+        "return.sigma_sq: [N]",
+        "return.sigma: [N]",
+        "return.A: [M, N]",
+        "return.B: [M, M]",
+        "return.LB: [M, M]",
+        "return.AAT: [M, M]",
+        "return.L: [M, M]",
+    )
     def _common_calculation(self) -> "SGPR_deprecated.CommonTensors":
         """sigma, L = chol(Kuu), A = L^-1 Kuf / sigma [M, N], B = A A^T + I
         and LB = chol(B) (``sgpr.py:136-154``)."""
@@ -142,6 +163,9 @@ class SGPR_deprecated(SGPRBase_deprecated):
 
         return self.CommonTensors(sigma_sq, sigma, A, B, LB, AAT, L)
 
+    @check_shapes(
+        "return: []",
+    )
     def logdet_term(self, common: "SGPR_deprecated.CommonTensors") -> torch.Tensor:
         """The Jensen bound on -0.5 P log|K + sigma^2 I| (``sgpr.py:156-176``)."""
         sigma_sq = common.sigma_sq
@@ -161,6 +185,9 @@ class SGPR_deprecated(SGPRBase_deprecated):
 
         return -outdim * (half_logdet_b + 0.5 * log_sigma_sq + 0.5 * trace)
 
+    @check_shapes(
+        "return: []",
+    )
     def quad_term(self, common: "SGPR_deprecated.CommonTensors") -> torch.Tensor:
         """The lower bound on -0.5 y^T (K + sigma^2 I)^-1 y (``sgpr.py:178-195``)."""
         sigma = common.sigma
@@ -178,6 +205,9 @@ class SGPR_deprecated(SGPRBase_deprecated):
 
         return -0.5 * (err_inner_prod - c_inner_prod)
 
+    @check_shapes(
+        "return: []",
+    )
     def elbo(self) -> torch.Tensor:
         """The collapsed evidence lower bound (``sgpr.py:197-206``)."""
         common = self._common_calculation()
@@ -187,6 +217,7 @@ class SGPR_deprecated(SGPRBase_deprecated):
         quad = self.quad_term(common)
         return const + logdet + quad
 
+    @inherit_check_shapes
     def predict_f(
         self, Xnew: torch.Tensor, full_cov: bool = False, full_output_cov: bool = False
     ) -> MeanAndVariance:
@@ -203,6 +234,10 @@ class SGPR_deprecated(SGPRBase_deprecated):
         )
         return mean + self.mean_function(Xnew), var
 
+    @check_shapes(
+        "return[0]: [M, P]",
+        "return[1]: [M, M]",
+    )
     def compute_qu(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """Mean [M, P] and covariance [M, M] of the implied q(u): an SVGP with
         this q(u) predicts as the SGPR does (``sgpr.py:247-269``)."""
@@ -230,6 +265,15 @@ class SGPR_deprecated(SGPRBase_deprecated):
 class GPRFITC(SGPRBase_deprecated):
     """GP regression with the FITC approximation (``sgpr.py:272-363``)."""
 
+    @check_shapes(
+        "return[0]: [N, R]",
+        "return[1]: [N]",
+        "return[2]: [M, M]",
+        "return[3]: [M, M]",
+        "return[4]: [M, R]",
+        "return[5]: [N, R]",
+        "return[6]: [M, R]",
+    )
     def common_terms(self) -> Tuple[torch.Tensor, ...]:
         """err [N, R], nu = Kdiag - diag(Qff) + sigma^2 [N], Luu [M, M],
         L = chol(I + V nu^-1 V^T) [M, M], alpha [M, R], beta [N, R] and
@@ -257,9 +301,15 @@ class GPRFITC(SGPRBase_deprecated):
 
         return err, nu, Luu, L, alpha, beta, gamma
 
+    @check_shapes(
+        "return: []",
+    )
     def maximum_log_likelihood_objective(self) -> torch.Tensor:
         return self.fitc_log_marginal_likelihood()
 
+    @check_shapes(
+        "return: []",
+    )
     def fitc_log_marginal_likelihood(self) -> torch.Tensor:
         """The FITC log marginal likelihood through the Woodbury identity and
         the determinant lemma (``sgpr.py:318-334``)."""
@@ -275,6 +325,7 @@ class GPRFITC(SGPRBase_deprecated):
 
         return mahalanobisTerm + logNormalizingTerm * self.num_latent_gps
 
+    @inherit_check_shapes
     def predict_f(
         self, Xnew: torch.Tensor, full_cov: bool = False, full_output_cov: bool = False
     ) -> MeanAndVariance:
@@ -323,6 +374,7 @@ class SGPR_with_posterior(SGPR_deprecated):
             precompute_cache=precompute_cache,
         )
 
+    @inherit_check_shapes
     def predict_f(
         self, Xnew: torch.Tensor, full_cov: bool = False, full_output_cov: bool = False
     ) -> MeanAndVariance:

@@ -10,6 +10,7 @@ from typing import Callable, Iterator, Tuple, TypeVar, Union
 import torch
 
 from ..base import InputData, OutputData, RegressionData
+from ..utilities.shapes import check_shapes
 
 __all__ = ["Data", "ExternalDataTrainingLossMixin", "InternalDataTrainingLossMixin"]
 
@@ -21,6 +22,9 @@ Data = TypeVar("Data", RegressionData, InputData, OutputData)
 class InternalDataTrainingLossMixin:
     """For models that keep their data (GPR; ``training_mixins.py:26-42``)."""
 
+    @check_shapes(
+        "return: []",
+    )
     def training_loss(self) -> torch.Tensor:
         """The loss on the model's own data."""
         return self._training_loss()
@@ -35,6 +39,11 @@ class ExternalDataTrainingLossMixin:
     """For models that take their data per call, as minibatches (SVGP;
     ``training_mixins.py:45-82``)."""
 
+    @check_shapes(
+        "data[0]: [N, D]",
+        "data[1]: [N, P]",
+        "return: []",
+    )
     def training_loss(self, data: RegressionData) -> torch.Tensor:
         """The loss on one batch (X [N, D], Y [N, P])."""
         return self._training_loss(data)

@@ -23,6 +23,7 @@ from ..base import Parameter
 from ..bijectors import Bijector
 from ..ops.linalg import cholesky as _cholesky
 from ..ops.linalg import sym_jitter as _sym_jitter
+from ..utilities.shapes import check_shapes
 
 __all__ = [
     "NaturalGradient",
@@ -47,16 +48,34 @@ class XiTransform(metaclass=abc.ABCMeta):
 
     @staticmethod
     @abc.abstractmethod
+    @check_shapes(
+        "mean: [N, D]",
+        "varsqrt: [D, N, N]",
+        "return[0]: [N, D]",
+        "return[1]: [D, N, N]",
+    )
     def meanvarsqrt_to_xi(mean: torch.Tensor, varsqrt: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         ...
 
     @staticmethod
     @abc.abstractmethod
+    @check_shapes(
+        "xi1: [N, D]",
+        "xi2: [D, N, N]",
+        "return[0]: [N, D]",
+        "return[1]: [D, N, N]",
+    )
     def xi_to_meanvarsqrt(xi1: torch.Tensor, xi2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         ...
 
     @staticmethod
     @abc.abstractmethod
+    @check_shapes(
+        "nat1: [N, D]",
+        "nat2: [D, N, N]",
+        "return[0]: [N, D]",
+        "return[1]: [D, N, N]",
+    )
     def naturals_to_xi(nat1: torch.Tensor, nat2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         ...
 
@@ -66,14 +85,32 @@ class XiNat(XiTransform):
     one step of gamma = 1 reaches the optimum (``natgrad.py:84-116``)."""
 
     @staticmethod
+    @check_shapes(
+        "mean: [N, D]",
+        "varsqrt: [D, N, N]",
+        "return[0]: [N, D]",
+        "return[1]: [D, N, N]",
+    )
     def meanvarsqrt_to_xi(mean: torch.Tensor, varsqrt: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         return meanvarsqrt_to_natural(mean, varsqrt)
 
     @staticmethod
+    @check_shapes(
+        "xi1: [N, D]",
+        "xi2: [D, N, N]",
+        "return[0]: [N, D]",
+        "return[1]: [D, N, N]",
+    )
     def xi_to_meanvarsqrt(xi1: torch.Tensor, xi2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         return natural_to_meanvarsqrt(xi1, xi2)
 
     @staticmethod
+    @check_shapes(
+        "nat1: [N, D]",
+        "nat2: [D, N, N]",
+        "return[0]: [N, D]",
+        "return[1]: [D, N, N]",
+    )
     def naturals_to_xi(nat1: torch.Tensor, nat2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         return nat1, nat2
 
@@ -82,14 +119,32 @@ class XiSqrtMeanVar(XiTransform):
     """xi = (mean, varsqrt), the model's own parameters (``natgrad.py:119-151``)."""
 
     @staticmethod
+    @check_shapes(
+        "mean: [N, D]",
+        "varsqrt: [D, N, N]",
+        "return[0]: [N, D]",
+        "return[1]: [D, N, N]",
+    )
     def meanvarsqrt_to_xi(mean: torch.Tensor, varsqrt: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         return mean, varsqrt
 
     @staticmethod
+    @check_shapes(
+        "xi1: [N, D]",
+        "xi2: [D, N, N]",
+        "return[0]: [N, D]",
+        "return[1]: [D, N, N]",
+    )
     def xi_to_meanvarsqrt(xi1: torch.Tensor, xi2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         return xi1, xi2
 
     @staticmethod
+    @check_shapes(
+        "nat1: [N, D]",
+        "nat2: [D, N, N]",
+        "return[0]: [N, D]",
+        "return[1]: [D, N, N]",
+    )
     def naturals_to_xi(nat1: torch.Tensor, nat2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         return natural_to_meanvarsqrt(nat1, nat2)
 
@@ -113,12 +168,29 @@ class NaturalGradient:
         """A plain dict for checkpoint metadata (``natgrad.py:176-179``)."""
         return {"name": type(self).__name__, "gamma": float(self.gamma)}
 
+    @check_shapes(
+        "var_list[all][0]: [N, D]",
+        "var_list[all][1]: [D, N, N]",
+    )
     def minimize(self, loss_fn: LossClosure, var_list: Sequence[NatGradParameters]) -> None:
         """One natural-gradient step on each (q_mu, q_sqrt[, xi]) tuple of
         ``var_list``, from one gradient of ``loss_fn()`` with respect to all
         of them (``natgrad.py:185-203``). The gradient is taken with
         ``torch.autograd.grad``, so no ``.grad`` of any tensor changes."""
         parameters = [(v[0], v[1], (v[2] if len(v) > 2 else None)) for v in var_list]
+        self._natgrad_steps(loss_fn, parameters)
+
+    @check_shapes(
+        "parameters[all][0]: [N, D]",
+        "parameters[all][1]: [D, N, N]",
+    )
+    def _natgrad_steps(
+        self,
+        loss_fn: LossClosure,
+        parameters: Sequence[Tuple[Parameter, Parameter, Optional[XiTransform]]],
+    ) -> None:
+        """The step of ``minimize`` on (q_mu, q_sqrt, xi) triples
+        (``natgrad.py:320-334``)."""
         for _, q_sqrt, _ in parameters:
             if q_sqrt.value.ndim != 3:
                 raise ValueError(
@@ -171,6 +243,12 @@ class NaturalGradient:
             varsqrt_new = torch.where(ok, varsqrt_new, q_sqrt_value)
         return mean_new, varsqrt_new, ok
 
+    @check_shapes(
+        "q_mu_grad: [N, D]",
+        "q_sqrt_grad: [D, N_N_transformed...]",
+        "q_mu: [N, D]",
+        "q_sqrt: [D, N, N]",
+    )
     def _natgrad_apply_gradients(
         self,
         q_mu_grad: torch.Tensor,
@@ -213,6 +291,14 @@ def swap_dimensions(
     [N, D]; with ``swap=False`` they are [D, N, 1] (``natgrad.py:450-470``)."""
 
     @functools.wraps(method)
+    @check_shapes(
+        "a_nd: [N, D] if swap",
+        "a_nd: [D, N, 1] if not swap",
+        "b_dnn: [D, N, N]",
+        "return[0]: [N, D] if swap",
+        "return[0]: [D, N, 1] if not swap",
+        "return[1]: [D, N, N]",
+    )
     def wrapper(a_nd: torch.Tensor, b_dnn: torch.Tensor, swap: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
         if swap:
             A_dn1, B_dnn = method(a_nd.mT[:, :, None], b_dnn)
@@ -222,6 +308,10 @@ def swap_dimensions(
     return wrapper
 
 
+@check_shapes(
+    "M: [D, N, N]",
+    "return: [D, N, N]",
+)
 def _inverse_lower_triangular(M: torch.Tensor) -> torch.Tensor:
     """Inverses of lower-triangular [D, N, N] matrices: one triangular solve
     against the identity (``natgrad.py:477-482``)."""
@@ -236,6 +326,12 @@ def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 @swap_dimensions
+@check_shapes(
+    "nat1: [D, N, 1]",
+    "nat2: [D, N, N]",
+    "return[0]: [D, N, 1]",
+    "return[1]: [D, N, N]",
+)
 def natural_to_meanvarsqrt(nat1: torch.Tensor, nat2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     var_sqrt_inv = _cholesky(_sym_jitter(-2 * nat2))
     var_sqrt = _inverse_lower_triangular(var_sqrt_inv)
@@ -246,6 +342,12 @@ def natural_to_meanvarsqrt(nat1: torch.Tensor, nat2: torch.Tensor) -> Tuple[torc
 
 
 @swap_dimensions
+@check_shapes(
+    "mu: [D, N, 1]",
+    "s_sqrt: [D, N, N]",
+    "return[0]: [D, N, 1]",
+    "return[1]: [D, N, N]",
+)
 def meanvarsqrt_to_natural(mu: torch.Tensor, s_sqrt: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     s_sqrt_inv = _inverse_lower_triangular(s_sqrt)
     s_inv = _mm(s_sqrt_inv.mT, s_sqrt_inv)
@@ -253,22 +355,46 @@ def meanvarsqrt_to_natural(mu: torch.Tensor, s_sqrt: torch.Tensor) -> Tuple[torc
 
 
 @swap_dimensions
+@check_shapes(
+    "nat1: [D, N, 1]",
+    "nat2: [D, N, N]",
+    "return[0]: [D, N, 1]",
+    "return[1]: [D, N, N]",
+)
 def natural_to_expectation(nat1: torch.Tensor, nat2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return meanvarsqrt_to_expectation(*natural_to_meanvarsqrt(nat1, nat2, swap=False), swap=False)
 
 
 @swap_dimensions
+@check_shapes(
+    "eta1: [D, N, 1]",
+    "eta2: [D, N, N]",
+    "return[0]: [D, N, 1]",
+    "return[1]: [D, N, N]",
+)
 def expectation_to_natural(eta1: torch.Tensor, eta2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return meanvarsqrt_to_natural(*expectation_to_meanvarsqrt(eta1, eta2, swap=False), swap=False)
 
 
 @swap_dimensions
+@check_shapes(
+    "eta1: [D, N, 1]",
+    "eta2: [D, N, N]",
+    "return[0]: [D, N, 1]",
+    "return[1]: [D, N, N]",
+)
 def expectation_to_meanvarsqrt(eta1: torch.Tensor, eta2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     var = eta2 - _mm(eta1, eta1.mT)
     return eta1, _cholesky(_sym_jitter(var))
 
 
 @swap_dimensions
+@check_shapes(
+    "m: [D, N, 1]",
+    "v_sqrt: [D, N, N]",
+    "return[0]: [D, N, 1]",
+    "return[1]: [D, N, N]",
+)
 def meanvarsqrt_to_expectation(m: torch.Tensor, v_sqrt: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     v = _mm(v_sqrt, v_sqrt.mT)
     return m, v + _mm(m, m.mT)

@@ -273,6 +273,11 @@ class AbstractPosterior(Module, ABC):
 class BasePosterior(AbstractPosterior):
     """q(u) posterior with the (alpha, Qinv) cache."""
 
+    @check_shapes(
+        "inducing_variable: [M, D, broadcast P]",
+        "q_mu: [N, P]",
+        "q_sqrt: [N, P] | [P, N, N]",
+    )
     def __init__(
         self,
         kernel: kernels.Kernel,
@@ -286,18 +291,35 @@ class BasePosterior(AbstractPosterior):
     ) -> None:
         super().__init__(kernel, inducing_variable, mean_function=mean_function)
         self.whiten = whiten
-        self._q_mu = q_mu  # [M, L]
-        self._q_sqrt = q_sqrt  # None, [M, L] (diagonal) or [L, M, M] (lower triangular)
+        self._set_qdist(q_mu, q_sqrt)
         if precompute_cache is not None:
             self.update_cache(precompute_cache)
 
     @property
+    @check_shapes(
+        "return: [N, P]",
+    )
     def q_mu(self) -> torch.Tensor:
         return _value(self._q_mu)
 
     @property
+    @check_shapes(
+        "return: [N, P] | [P, N, N]",
+    )
     def q_sqrt(self) -> Optional[torch.Tensor]:
         return _value(self._q_sqrt)
+
+    @check_shapes(
+        "q_mu: [N, P]",
+        "q_sqrt: [N, P] | [P, N, N]",
+    )
+    def _set_qdist(self, q_mu: Any, q_sqrt: Any) -> None:
+        """Holds q(u)'s mean [M, L] and its square root: None, [M, L]
+        (diagonal) or [L, M, M] (lower triangular). The JAX package wraps
+        them in a ``_DeltaDist``, ``_DiagNormal`` or ``_MvNormal`` by the
+        rank of q_sqrt, whose contracts this one's alternatives hold."""
+        self._q_mu = q_mu
+        self._q_sqrt = q_sqrt
 
     @check_shapes(
         "return[0]: [M, L] | [L, M, 1]",
@@ -355,6 +377,16 @@ class BasePosterior(AbstractPosterior):
 
 
 class IndependentPosterior(BasePosterior):
+    @check_shapes(
+        "mean: [batch..., N, P]",
+        "cov: [batch..., P, N, N] if full_cov",
+        "cov: [batch..., N, P] if not full_cov",
+        "return[0]: [batch..., N, P]",
+        "return[1]: [batch..., N, P, N, P] if full_cov and full_output_cov",
+        "return[1]: [batch..., N, P, P] if (not full_cov) and full_output_cov",
+        "return[1]: [batch..., P, N, N] if full_cov and (not full_output_cov)",
+        "return[1]: [batch..., N, P] if (not full_cov) and (not full_output_cov)",
+    )
     def _post_process_mean_and_cov(
         self, mean: torch.Tensor, cov: torch.Tensor, full_cov: bool, full_output_cov: bool
     ) -> MeanAndVariance:
@@ -382,6 +414,7 @@ class IndependentPosterior(BasePosterior):
             mean = mean.squeeze(-1).mT  # [N, L]
         return mean
 
+    @inherit_check_shapes
     def _conditional_with_precompute(
         self,
         cache: Tuple[torch.Tensor, ...],
@@ -414,12 +447,16 @@ class IndependentPosterior(BasePosterior):
 
 
 class IndependentPosteriorSingleOutput(IndependentPosterior):
+    @inherit_check_shapes
     def _conditional_fused(
         self, Xnew: torch.Tensor, full_cov: bool = False, full_output_cov: bool = False
     ) -> MeanAndVariance:
         Knn = self.kernel(Xnew, full_cov=full_cov)
-        Kmm = Kuu(self.X_data, self.kernel, jitter=default_jitter())  # [M, M]
+        # Kuf before Kuu: with the checks on, an Xnew whose D is not Z's
+        # fails the kernel's contract before Kuu is computed (the parameters
+        # are first read in the JAX package's order all the same)
         Kmn = Kuf(self.X_data, self.kernel, Xnew)  # [M, N]
+        Kmm = Kuu(self.X_data, self.kernel, jitter=default_jitter())  # [M, M]
         fmean, fvar = base_conditional(
             Kmn, Kmm, Knn, self.q_mu, full_cov=full_cov, q_sqrt=self.q_sqrt, white=self.whiten
         )
@@ -431,6 +468,10 @@ class GPRPosterior(AbstractPosterior):
     factor of K(X, X) + sigma^2 I and alpha = (K + sigma^2 I)^-1 err
     (``gpflow_tpu/posteriors.py:326-414``)."""
 
+    @check_shapes(
+        "data[0]: [N, D]",
+        "data[1]: [N, Q]",
+    )
     def __init__(
         self,
         kernel: kernels.Kernel,
@@ -447,6 +488,7 @@ class GPRPosterior(AbstractPosterior):
         if precompute_cache is not None:
             self.update_cache(precompute_cache)
 
+    @inherit_check_shapes
     def _conditional_with_precompute(
         self,
         cache: Tuple[torch.Tensor, ...],
@@ -471,6 +513,10 @@ class GPRPosterior(AbstractPosterior):
         Kmn = self.kernel(self.X_data, Xnew)
         return self._add_mean_function(Xnew, torch.matmul(Kmn.mT, alpha))
 
+    @check_shapes(
+        "return[0]: [M, D]",
+        "return[1]: [M, M]",
+    )
     def _precompute_base(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """(err, Lm): what the full conditional needs."""
         err = self.Y_data - self.mean_function(self.X_data)
@@ -478,6 +524,11 @@ class GPRPosterior(AbstractPosterior):
         Lm = cholesky(add_likelihood_noise_cov(Kmm, self.likelihood, self.X_data))
         return err, Lm
 
+    @check_shapes(
+        "return[0]: [M, D]",
+        "return[1]: [M, M]",
+        "return[2]: [M, D]",
+    )
     def _precompute(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         err, Lm = self._precompute_base()
         alpha = torch.linalg.solve_triangular(
@@ -485,6 +536,7 @@ class GPRPosterior(AbstractPosterior):
         )
         return err, Lm, alpha
 
+    @inherit_check_shapes
     def _conditional_fused(
         self, Xnew: torch.Tensor, full_cov: bool = False, full_output_cov: bool = False
     ) -> MeanAndVariance:
@@ -522,6 +574,11 @@ class SGPRPosterior(AbstractPosterior):
     LB = chol(I + A A^T) for A = L^-1 Kuf / sigma, c = LB^-1 A err / sigma
     and alpha = L^-T LB^-T c (``gpflow_tpu/posteriors.py:417-538``)."""
 
+    @check_shapes(
+        "data[0]: [N, D]",
+        "data[1]: [N, Q]",
+        "inducing_variable: [M, D, 1]",
+    )
     def __init__(
         self,
         kernel: kernels.Kernel,
@@ -542,6 +599,7 @@ class SGPRPosterior(AbstractPosterior):
         if precompute_cache is not None:
             self.update_cache(precompute_cache)
 
+    @inherit_check_shapes
     def _conditional_with_precompute(
         self,
         cache: Tuple[torch.Tensor, ...],
@@ -553,6 +611,11 @@ class SGPRPosterior(AbstractPosterior):
         return sgpr_conditional(self.kernel, self.inducing_variable, self.num_latent_gps, cache[0], cache[1],
                                 cache[2], Xnew, full_cov)
 
+    @check_shapes(
+        "return[0]: [M, M]",
+        "return[1]: [M, M]",
+        "return[2]: [M, D]",
+    )
     def _precompute_base(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """(L, LB, c): what the full conditional needs."""
         err = self.Y_data - self.mean_function(self.X_data)
@@ -571,6 +634,12 @@ class SGPRPosterior(AbstractPosterior):
         c = torch.linalg.solve_triangular(LB, Aerr, upper=False)
         return L, LB, c
 
+    @check_shapes(
+        "return[0]: [M, M]",
+        "return[1]: [M, M]",
+        "return[2]: [M, D]",
+        "return[3]: [M, D]",
+    )
     def _precompute(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
         L, LB, c = self._precompute_base()
         # alpha for one-matvec mean-only serving, computed here and not on
@@ -589,6 +658,7 @@ class SGPRPosterior(AbstractPosterior):
         Kus = Kuf(self.inducing_variable, self.kernel, Xnew)
         return self._add_mean_function(Xnew, torch.matmul(Kus.mT, alpha))
 
+    @inherit_check_shapes
     def _conditional_fused(
         self, Xnew: torch.Tensor, full_cov: bool = False, full_output_cov: bool = False
     ) -> MeanAndVariance:

@@ -8,6 +8,8 @@ from typing import Any, Callable, List, Tuple, Union
 
 import torch
 
+from ..utilities.shapes import check_shapes
+
 __all__ = ["GaussianQuadrature"]
 
 
@@ -16,10 +18,20 @@ class GaussianQuadrature(abc.ABC):
     points; subclasses define the points and weights."""
 
     @abc.abstractmethod
+    @check_shapes(
+        "mean: [batch..., dim]",
+        "var: [batch..., dim]",
+        "return[0]: [N_quad, batch..., dim]",
+        "return[1]: [N_quad, broadcast ones...]",
+    )
     def _build_X_W(self, mean: torch.Tensor, var: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """mean, var [batch..., dim] -> X [N_quad, batch..., dim] and
         W [N_quad, 1..., 1]."""
 
+    @check_shapes(
+        "mean: [batch..., dim]",
+        "var: [batch..., dim]",
+    )
     def __call__(
         self,
         fun: Union[Callable[..., torch.Tensor], Iterable],
@@ -37,6 +49,10 @@ class GaussianQuadrature(abc.ABC):
             return [torch.sum(f(X, *args, **kwargs) * W, dim=0) for f in fun]
         return torch.sum(fun(X, *args, **kwargs) * W, dim=0)
 
+    @check_shapes(
+        "mean: [batch..., dim]",
+        "var: [batch..., dim]",
+    )
     def logspace(
         self,
         fun: Union[Callable[..., torch.Tensor], Iterable],

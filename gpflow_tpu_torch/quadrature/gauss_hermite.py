@@ -9,6 +9,7 @@ import numpy as np
 import torch
 
 from ..config import default_device
+from ..utilities.shapes import check_shapes, inherit_check_shapes
 from .base import GaussianQuadrature
 
 __all__ = [
@@ -23,12 +24,22 @@ __all__ = [
 ]
 
 
+@check_shapes(
+    "xs[all]: [.]",
+    "return: [N_product, D]",
+)
 def list_to_flat_grid(xs: Sequence[np.ndarray]) -> np.ndarray:
     """The [N1 * ... * Nd, d] grid of all combinations of d rank-1 arrays,
     in 'xy' meshgrid order (``gauss_hermite.py:28-32``)."""
     return np.reshape(np.stack(np.meshgrid(*xs), axis=-1), (-1, len(xs)))
 
 
+@check_shapes(
+    "zs[all]: [.]",
+    "dzs[all]: [.]",
+    "return[0]: [N_product, D]",
+    "return[1]: [N_product, 1]",
+)
 def reshape_Z_dZ(zs: Sequence[np.ndarray], dzs: Sequence[np.ndarray]) -> Tuple[np.ndarray, np.ndarray]:
     """Grid points Z [N_product, d] and product weights dZ [N_product, 1]
     from per-dimension points and weights (``gauss_hermite.py:41-49``)."""
@@ -37,11 +48,19 @@ def reshape_Z_dZ(zs: Sequence[np.ndarray], dzs: Sequence[np.ndarray]) -> Tuple[n
     return Z, dZ
 
 
+@check_shapes(
+    "x: [any...]",
+    "return[all]: [any...]",
+)
 def repeat_as_list(x: np.ndarray, n: int) -> List[np.ndarray]:
     """A list of ``n`` references to ``x`` (``gauss_hermite.py:56-58``)."""
     return [x for _ in range(n)]
 
 
+@check_shapes(
+    "return[0]: [N]",
+    "return[1]: [N]",
+)
 def gh_points_and_weights(n_gh: int) -> Tuple[np.ndarray, np.ndarray]:
     """Hermite-Gauss points z (times sqrt(2)) and weights dz (over sqrt(pi)),
     so that E_{N(mu, s^2)}[f] ~= sum_i dz_i f(mu + s z_i)
@@ -50,6 +69,10 @@ def gh_points_and_weights(n_gh: int) -> Tuple[np.ndarray, np.ndarray]:
     return z * np.sqrt(2.0), dz / np.sqrt(np.pi)
 
 
+@check_shapes(
+    "return[0]: [N_quad, D]",
+    "return[1]: [N_quad, 1]",
+)
 def ndgh_points_and_weights(dim: int, n_gh: int) -> Tuple[np.ndarray, np.ndarray]:
     """The Cartesian-product grid over ``dim`` dimensions: Z [n_gh**dim, dim]
     and dZ [n_gh**dim, 1] (``gauss_hermite.py:81-89``)."""
@@ -101,6 +124,7 @@ class NDiagGHQuadrature(GaussianQuadrature, DeviceGrid):
         self.Z, self.dZ = ndgh_points_and_weights(dim, n_gh)
         DeviceGrid.__init__(self, self.Z, self.dZ)
 
+    @inherit_check_shapes
     def _build_X_W(self, mean: torch.Tensor, var: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """mean, var [b1, ..., bN, dim] -> X [n_gh_total, b1, ..., bN, dim]
         and W [n_gh_total, 1, ..., 1]."""

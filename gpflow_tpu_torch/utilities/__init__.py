@@ -1,5 +1,6 @@
+from typing import Any
+
 from . import bijectors
-from .bijectors import positive, triangular, triangular_size
 from .bucketing import bucket_size_for, bucketize, pad_to_bucket
 from .misc import (
     is_variable,
@@ -100,3 +101,14 @@ __all__ = [
     "triangular",
     "triangular_size",
 ]
+
+
+def __getattr__(name: str) -> Any:
+    # positive, triangular and triangular_size live in the package's
+    # bijectors, whose shape contract imports utilities.shapes: resolving
+    # them lazily breaks the import cycle (see utilities/bijectors.py)
+    if name in ("positive", "triangular", "triangular_size"):
+        from .. import bijectors as _bijectors
+
+        return getattr(_bijectors, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -7,6 +7,7 @@ import torch
 
 from ..base import Module, Parameter
 from ..config import default_device, default_float, default_int
+from .shapes import check_shapes
 
 __all__ = [
     "is_variable",
@@ -26,12 +27,20 @@ def _to_default(x: Any, dtype: torch.dtype) -> torch.Tensor:
     return torch.as_tensor(x, dtype=dtype, device=default_device())
 
 
+@check_shapes(
+    "x: [any...]",
+    "return: [any...]",
+)
 def to_default_int(x: Any) -> torch.Tensor:
     """``x`` as a tensor of ``default_int()`` (``gpflow_tpu/utilities/misc.py:24-29``):
     a tensor keeps its device, anything else goes to ``config.default_device()``."""
     return _to_default(x, default_int())
 
 
+@check_shapes(
+    "x: [any...]",
+    "return: [any...]",
+)
 def to_default_float(x: Any) -> torch.Tensor:
     """``x`` as a tensor of ``default_float()`` (``gpflow_tpu/utilities/misc.py:32-37``):
     a tensor keeps its device, anything else goes to ``config.default_device()``."""

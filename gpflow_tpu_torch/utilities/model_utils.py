@@ -5,6 +5,8 @@ from typing import Any, Callable
 
 import torch
 
+from .shapes import check_shapes
+
 __all__ = ["add_likelihood_noise_cov", "add_noise_cov", "assert_params_false"]
 
 
@@ -17,6 +19,11 @@ def assert_params_false(called_method: Callable[..., Any], **kwargs: bool) -> No
         )
 
 
+@check_shapes(
+    "K: [batch..., N, N]",
+    "likelihood_variance: [broadcast batch..., broadcast N]",
+    "return: [batch..., N, N]",
+)
 def add_noise_cov(K: torch.Tensor, likelihood_variance: torch.Tensor) -> torch.Tensor:
     """K + sigma^2 I for K [batch..., N, N] and a variance that broadcasts to
     [batch..., N]."""
@@ -24,6 +31,11 @@ def add_noise_cov(K: torch.Tensor, likelihood_variance: torch.Tensor) -> torch.T
     return K + torch.as_tensor(likelihood_variance) * eye
 
 
+@check_shapes(
+    "K: [batch..., N, N]",
+    "X: [batch..., N, D]",
+    "return: [batch..., N, N]",
+)
 def add_likelihood_noise_cov(K: torch.Tensor, likelihood: Any, X: torch.Tensor) -> torch.Tensor:
     """K + diag(likelihood.variance_at(X)), batched over the leading dims:
     K [batch..., N, N] and X [batch..., N, D] give a variance [batch..., N]

@@ -19,6 +19,10 @@ __all__ = [
 ]
 
 
+@check_shapes(
+    "value: []",
+    "return: [N, N]",
+)
 def eye(num: int, value: Union[torch.Tensor, float] = 1.0, dtype: Any = None) -> torch.Tensor:
     """value * I_num (``gpflow_tpu/utilities/ops.py:28-34``), in ``dtype``
     (default: ``default_float()``), on ``value``'s device if it is a tensor,
@@ -43,6 +47,12 @@ def broadcasting_elementwise(
     return flatres.reshape(a.shape + b.shape)
 
 
+@check_shapes(
+    "X: [batch..., N, D]",
+    "X2: [batch2..., N2, D]",
+    "return: [batch..., N, batch2..., N2] if X2 is not None",
+    "return: [batch..., N, N] if X2 is None",
+)
 def square_distance(X: torch.Tensor, X2: Optional[torch.Tensor]) -> torch.Tensor:
     """Squared pairwise distance ||x - x2||^2 by the norm expansion
     (``gpflow_tpu/utilities/ops.py:84-102``).
@@ -63,6 +73,12 @@ def square_distance(X: torch.Tensor, X2: Optional[torch.Tensor]) -> torch.Tensor
     return dist
 
 
+@check_shapes(
+    "X: [batch..., N, D]",
+    "X2: [batch2..., N2, D]",
+    "return: [batch..., N, batch2..., N2, D] if X2 is not None",
+    "return: [batch..., N, N, D] if X2 is None",
+)
 def difference_matrix(X: torch.Tensor, X2: Optional[torch.Tensor]) -> torch.Tensor:
     """Pairwise differences X[..., n, :] - X2[..., m, :]
     (``gpflow_tpu/utilities/ops.py:111-124``): [batch..., N, D] and
@@ -96,6 +112,11 @@ def leading_transpose(tensor: torch.Tensor, perm: Sequence, leading_dim: int = 0
     return tensor.permute(pre + lead + post)
 
 
+@check_shapes(
+    "X: [N, D]",
+    "latent_dim: []",
+    "return: [N, Q]",
+)
 def pca_reduce(X: Any, latent_dim: int) -> torch.Tensor:
     """X [N, D] projected onto its ``latent_dim`` principal directions
     (``gpflow_tpu/utilities/ops.py:132-143``), to start a GPLVM's latent X.

@@ -196,6 +196,12 @@ def test_import_leaves_jax_out():
         "from gpflow_tpu_torch.base import capture_parameter_reads, TensorType\n"
         "from gpflow_tpu_torch.bijectors import FillTriangular, triangular_size\n"
         "from gpflow_tpu_torch import monitor, quadrature, experimental, default_float, __version__\n"
+        "import gpflow_tpu_torch.logdensities, gpflow_tpu_torch.likelihoods.utils, gpflow_tpu_torch.likelihoods.base\n"
+        "import gpflow_tpu_torch.likelihoods.scalar_continuous, gpflow_tpu_torch.quadrature.gauss_hermite\n"
+        "import gpflow_tpu_torch.quadrature.base, gpflow_tpu_torch.utilities.model_utils, gpflow_tpu_torch.utilities.ops\n"
+        "import gpflow_tpu_torch.models.training_mixins, gpflow_tpu_torch.models.model, gpflow_tpu_torch.models.gpr\n"
+        "import gpflow_tpu_torch.models.sgpr, gpflow_tpu_torch.models.cglb, gpflow_tpu_torch.models.gplvm\n"
+        "import gpflow_tpu_torch.inducing_variables.inducing_variables, gpflow_tpu_torch.kernels.base\n"
         "assert gpflow_tpu_torch.probability_distributions.Gaussian and gpflow_tpu_torch.expectations.expectation\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'gpflow_tpu'))\n"
         "assert not bad, bad\n"
