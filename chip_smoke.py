@@ -9,7 +9,7 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
 
 With ``--phases`` the script runs the build and the kernel checks of phases
 1-4, then each group of phases that holds a selected one (5-8, 9-10, 11-12,
-13-16, and 17 to 25 alone), then the record's kernel timings; without it,
+13-16, and 17 to 26 alone), then the record's kernel timings; without it,
 every phase. ``--k1-host-us`` builds K1 from the checkout at ROOT and prints
 phase 23's host time of one K1 call with that checkout's package, three
 times, and nothing else: run it on two checkouts in one call to compare.
@@ -204,7 +204,7 @@ on the card where the CPU would take minutes. Phases:
    priors on its variance and lengthscales): (a) SGPMC at M = 1024 over
    N = 32768 (Z frozen), ``run_hmc`` through ``SamplingHelper`` under sync
    debug mode "error", 100 burn-in steps adapting the step size toward an
-   acceptance of 0.75 and 60 kept samples of 10 leapfrog steps, log
+   acceptance of 0.75 and 20 kept samples of 10 leapfrog steps, log
    probabilities finite, the acceptance logged; ``target_log_prob_fn`` and
    its gradient against float64 on the card at the initial state, a
    perturbed one and the state after burn-in, beside the lower-tier
@@ -322,7 +322,30 @@ on the card where the CPU would take minutes. Phases:
    q_sqrt of rank 4 to ``gauss_kl`` and the unwhitened ``prior_kl`` raise
    ``ShapeError`` and launch no kernel; (f) the flagship exported with the
    checks on and a symbolic batch serves 8192, 5000 and 1 points against
-   the live posterior, K1 inside the loaded program.
+   the live posterior, K1 inside the loaded program;
+26. the one-rank mesh (``gpflow_tpu_torch.parallel`` over an NCCL group of
+   world size 1 on a ``FileStore``): each path run with a one-rank mesh and
+   without one from the same state, equal to the bit with the same launch
+   counts: (a) the flagship SVGP step (phase 7's model and data,
+   SquaredExponential, then Matern52), 10 steps each way under sync debug
+   mode "error" through ``DataParallelTrainer(mesh=make_mesh())``, ms per
+   step both ways by CUDA events; (b) the Bernoulli SVGP's fused
+   natural-gradient step (Matern52, M = 1024, B = 4096), likewise; (c)
+   ``shard_internal_data`` on SGPR and the matrix-free CGLB (chunk 4096, a
+   fixed v) at N = 32768, M = 1024, value and gradient; (d)
+   ``sharded_predict_f`` of 8192 points of the flagship against its
+   ``predict_f``; (e) phase 19's multioutput SVGP (LinearCoregionalization
+   of 4 latent GPs) with ``latent_axis`` on a {"data": 1, "latent": 1}
+   mesh, 10 steps each way; (f) a numpy request to the flagship's
+   ``predict_f`` against the same points as a tensor (outside sync debug
+   mode "error": the copy of a numpy input to the card may synchronise);
+   (b) and (e), host-bound, run once each way for the bits, then 12 steps
+   each way timed with the two trainers' steps in turn (the host's speed
+   drifts); (e) then under ``torch.profiler``: device busy time, kernels
+   and collectives a step both ways, the kernels that the mesh adds and
+   the host time of the operations that only the mesh runs.
+   One rank checks no collective across cards: the 4-rank collectives are
+   held to the JAX package on the CPU (``tests/test_torch_parallel.py``).
 
 Every failure raises, and the script then exits non-zero without the result
 line. The line before the last is ``{"kernels": [...]}``; the last is
@@ -692,12 +715,13 @@ MO_K2_SHAPES = [(MO_M, MO_M, MO_D), (MO_M, MO_B, MO_D), (MO_M, MO_NEW, MO_D)]
 # Both are sampled by run_hmc: HMC_BURNIN steps adapting the step size by
 # dual averaging toward HMC_TARGET, then HMC_SAMPLES kept samples, each step
 # HMC_LEAPFROG leapfrog steps; requests are the natural-gradient point's
-# NG_B held-out points. 60 kept samples, 100 until phase 24 came: on a host
-# whose HMC step took 148 ms (NVIDIA H100 80GB HBM3, 700 W; 100-116 ms on
-# others) the whole run took 472.6 s. The checks read the first kept
-# sample, which the cut leaves as it was.
+# NG_B held-out points. 20 kept samples: 100 until phase 24 came (on a host
+# whose HMC step took 148 ms, NVIDIA H100 80GB HBM3, 700 W, 100-116 ms on
+# others, the whole run took 472.6 s), 60 until phase 26 came (the whole
+# run then took 436.2 s). The checks read the first kept sample, which the
+# cuts leave as it was; the posterior predictive averages the kept ones.
 HMC_GPMC_N = 4096
-HMC_BURNIN, HMC_SAMPLES, HMC_LEAPFROG = 100, 60, 10
+HMC_BURNIN, HMC_SAMPLES, HMC_LEAPFROG = 100, 20, 10
 HMC_STEP, HMC_TARGET = 0.01, 0.75
 HMC_PRIOR = (0.0, 1.0)  # LogNormal(loc, scale) of the variance and the lengthscales
 HMC_SEEDS = {"chain": SEED + 50, "state": SEED + 51, "momentum": SEED + 52, "conditional": SEED + 53,
@@ -921,6 +945,15 @@ CT_ORDER = (False, True, True, False)
 CT_STEPS = 10  # training steps of each run
 CT_SEED = SEED + 90  # the steps' batch draws and CGLB's fixed v
 CT_SPARSE = (("SGPR", "SquaredExponential"), ("CGLB", "Matern52"))
+
+# Phase 26: phase 25's paths (and phase 19's main model, phase 5's requests)
+# through a one-rank mesh and without one, from one state, each pair equal
+# to the bit: every collective of one rank is a copy.
+MS_STEPS = 10  # training steps of each run
+MS_ORDER = (True, False, False, True)  # with the mesh or not: each mode twice, interleaved
+MS_PROFILE_STEPS = 3  # steps under torch.profiler each way, on the latent-split path
+MS_AB_STEPS = 12  # steps each way, the two trainers in turn, on the host-bound paths
+MS_REQUEST = 8192
 
 
 def log(*args):
@@ -6219,7 +6252,269 @@ def contracts_phases(launches):
         ct_export(model, post, launches)
 
 
-# Phases 5-25 in the order they run, as groups that share their data: a
+@contextlib.contextmanager
+def ms_group():
+    """An NCCL process group of world size 1 on a ``FileStore`` in a
+    temporary directory of the build's, destroyed after."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from gpflow_tpu_torch.ops.cuda_build import BUILD_DIR
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as root:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(root, "store"), 1), rank=0,
+                                world_size=1)
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+
+
+def ms_warm(mesh):
+    """One all-reduce on each of the mesh's groups, so that NCCL makes its
+    communicators outside sync debug mode "error"."""
+    import torch.distributed as dist
+
+    for name in mesh.mesh_dim_names:
+        dist.all_reduce(torch.zeros(1, device=mesh.device_type), group=mesh.get_group(name))
+    torch.cuda.synchronize()
+
+
+def ms_same(what, got, want, how="with a one-rank mesh and without"):
+    assert len(got) == len(want), f"mesh {what}: {len(got)} outputs against {len(want)}"
+    for j, (a, b) in enumerate(zip(got, want)):
+        assert a.shape == b.shape and torch.equal(a, b), f"mesh {what}: output {j} differs ({how})"
+    log(f"mesh {what}: {how}, {len(want)} outputs equal to the bit")
+
+
+def ms_training(what, build, mesh, staged, batch, expected, launches, smi, host_bound=False):
+    """(a), (b) and (e): MS_STEPS steps of a trainer from ``build(mesh)``
+    and from ``build(None)`` in the order MS_ORDER, each as phase 25 runs
+    them (sync debug mode "error", each step's batch drawn by its own
+    seeded generator); every run's losses and trained parameters equal to
+    the bit, the launch counts ``expected`` in each; ms per step both ways
+    by CUDA events (medians of steps 2-MS_STEPS of both runs of a mode).
+    A ``host_bound`` path runs once each way, untimed, and its two trainers
+    are returned: ``ms_in_turn`` times them, their steps in turn."""
+    runs, ms, trainers = [], {True: [], False: []}, {}
+    for use_mesh in (True, False) if host_bound else MS_ORDER:
+        trainer = trainers[use_mesh] = build(mesh if use_mesh else None)
+        trainer.stage_data(staged)
+        (losses, step_ms, _), counts = counted(lambda: ct_steps(trainer, MS_STEPS, batch))
+        expect_launches(f"mesh {what} {'with' if use_mesh else 'without'} the mesh", counts, expected, launches)
+        assert bool(torch.isfinite(losses).all()), f"mesh {what}: non-finite loss"
+        trainer.finalize()
+        runs.append([losses] + [p.unconstrained.detach().clone() for p in trainer.model.trainable_variables])
+        ms[use_mesh] += step_ms[1:]
+    for run in runs[1:]:
+        ms_same(what, run, runs[0], how=f"{len(runs)} runs, with a one-rank mesh and without")
+    if host_bound:
+        return trainers
+    ms = {k: float(np.median(v)) for k, v in ms.items()}
+    log(f"time: mesh {what}: {ms[True]:.3f} ms per step with a one-rank mesh, {ms[False]:.3f} ms without "
+        f"({100 * (ms[True] / ms[False] - 1):+.1f}%; CUDA events, medians of steps 2-{MS_STEPS} of two runs each, "
+        f"order {'/'.join('mesh' if m else 'plain' for m in MS_ORDER)}); {smi}")
+
+
+def ms_in_turn(what, trainers, batch, smi):
+    """``trainers``, one with the mesh and one without (by ``True`` and
+    ``False``, from ``ms_training``), on a host-bound path: MS_AB_STEPS
+    steps of each, one of one and one of the other in turn (the host's
+    speed drifts over seconds, and steps taken in turn share its drift),
+    ms per step by CUDA events."""
+    marks = []
+    for i in range(MS_AB_STEPS):
+        for use_mesh in (True, False) if i % 2 == 0 else (False, True):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            trainers[use_mesh].run_steps_sampled(1, batch, generator=torch.Generator(device="cuda").manual_seed(CT_SEED + i))
+            end.record()
+            marks.append((use_mesh, start, end))
+    torch.cuda.synchronize()
+    ab = {m: float(np.median([s.elapsed_time(e) for u, s, e in marks if u == m])) for m in (True, False)}
+    log(f"time in turn: mesh {what}: {ab[True]:.3f} ms per step with a one-rank mesh, {ab[False]:.3f} ms without "
+        f"({100 * (ab[True] / ab[False] - 1):+.1f}%; CUDA events, medians of {MS_AB_STEPS} steps each, "
+        f"the two trainers' steps in turn); {smi}")
+
+
+def ms_profile(what, trainers, batch, smi):
+    """MS_PROFILE_STEPS steps of each of ``trainers`` (as ``ms_in_turn``
+    takes them) under ``torch.profiler``: each step's device busy time,
+    kernels and collectives (``record_param_comms``, one a collective) and
+    the host time of a collective's record; then what the mesh adds a step:
+    the kernels by name, and the host (self CPU) time of the operations
+    that only the mesh runs (the collectives and their autograd nodes). The
+    host times are the profiler's, which it inflates."""
+    from torch.profiler import ProfilerActivity, profile
+
+    kernels_by_name, host_by_op = {}, {}
+    for use_mesh in (True, False):
+        trainer = trainers[use_mesh]
+
+        def run():
+            for i in range(MS_PROFILE_STEPS):
+                trainer.run_steps_sampled(1, batch, generator=torch.Generator(device="cuda").manual_seed(CT_SEED + i))
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        kernels = [e for e in events if str(getattr(e, "device_type", "")).endswith("CUDA")
+                   and getattr(e, "self_device_time_total", 0) > 0 and not getattr(e, "is_user_annotation", False)]
+        kernels_by_name[use_mesh] = {e.key: e.count / MS_PROFILE_STEPS for e in kernels}
+        host_by_op[use_mesh] = {e.key: e.self_cpu_time_total / 1e3 / MS_PROFILE_STEPS for e in events
+                                if not str(getattr(e, "device_type", "")).endswith("CUDA")}
+        comms = [e for e in events if e.key == "record_param_comms"]
+        n_comms = sum(e.count for e in comms)
+        comm_us = sum(e.cpu_time_total for e in comms) / max(n_comms, 1)
+        log(f"profile: mesh {what} {'with' if use_mesh else 'without'} the mesh: device busy "
+            f"{sum(e.self_device_time_total for e in kernels) / 1e3 / MS_PROFILE_STEPS:.3f} ms, "
+            f"{sum(e.count for e in kernels) / MS_PROFILE_STEPS:.0f} kernels and {n_comms / MS_PROFILE_STEPS:.0f} "
+            f"collectives a step, {comm_us:.0f} µs of host time a collective's record (under the profiler); {smi}")
+
+    def added(by_key):
+        keys = set(by_key[True]) | set(by_key[False])
+        return {k: by_key[True].get(k, 0.0) - by_key[False].get(k, 0.0) for k in keys}
+
+    more_kernels = {k: d for k, d in added(kernels_by_name).items() if d}
+    top = sorted(more_kernels.items(), key=lambda kv: -abs(kv[1]))[:8]
+    log(f"profile: mesh {what}: the mesh adds {sum(more_kernels.values()):+.0f} kernels a step: "
+        + "; ".join(f"{d:+.0f} {k[:60]}" for k, d in top))
+    own = {k: v for k, v in host_by_op[True].items() if k not in host_by_op[False]}
+    top = sorted(own.items(), key=lambda kv: -kv[1])[:8]
+    log(f"profile: mesh {what}: host (self CPU) time a step under the profiler {sum(host_by_op[True].values()):.3f} ms "
+        f"with the mesh, {sum(host_by_op[False].values()):.3f} ms without; {sum(own.values()):.3f} ms of it in "
+        f"operations that only the mesh runs: " + "; ".join(f"{v:.3f} ms {k[:50]}" for k, v in top) + f"; {smi}")
+
+
+def ms_flagship(mesh, launches, smi):
+    from gpflow_tpu_torch.parallel import DataParallelTrainer
+
+    X, Y, Z = make_training_data(SEED)
+    staged = (torch.from_numpy(X).cuda(), torch.from_numpy(Y).cuda())
+    for kernel in TRAIN_KERNELS:
+        expected = {"K1": 2 * MS_STEPS, "K2": 2 * MS_STEPS if kernel == "Matern52" else 0}
+        ms_training(f"flagship SVGP step {kernel} (M={M}, B={B}, D={D})",
+                    lambda m: DataParallelTrainer(training_model(kernel, Z, torch.float32, "cuda"), mesh=m),
+                    mesh, staged, B, expected, launches, smi)
+
+
+def ms_natgrad(mesh, launches, smi):
+    from gpflow_tpu_torch.parallel import DataParallelTrainer, adam
+
+    X, Y, Z, _, _ = make_ng_data()
+    staged = (torch.from_numpy(X).cuda(), torch.from_numpy(Y).cuda())
+    what = f"Bernoulli SVGP fused natural-gradient step Matern52 (M={NG_M}, B={NG_B})"
+    build = lambda m: DataParallelTrainer(ng_model("Matern52", Z, torch.float32), adam(1e-2), mesh=m,  # noqa: E731
+                                          natgrad_gamma=NG_GAMMA, natgrad_fused=True)
+    trainers = ms_training(what, build, mesh, staged, NG_B, {"K1": 2 * MS_STEPS, "K2": 2 * MS_STEPS}, launches,
+                           smi, host_bound=True)
+    ms_in_turn(what, trainers, NG_B, smi)
+
+
+def ms_sparse(mesh, launches):
+    """(c): phase 25's SGPR and matrix-free CGLB (a fixed v), value and
+    gradient under sync debug mode "error", the rows kept whole and split
+    over the one-rank mesh by ``shard_internal_data``."""
+    from gpflow_tpu_torch.parallel import shard_internal_data
+
+    data, Z, _, _ = make_sparse_data()
+    v = torch.from_numpy(0.1 * np.random.RandomState(CT_SEED).randn(1, SP_N).astype(np.float32)).cuda()
+    objective = lambda m: sparse_value_and_grad(m, lambda mm: mm.training_loss())  # noqa: E731
+    nc = -(-SP_N // SP_CHUNK)
+    for cls, kernel in CT_SPARSE:
+        kwargs = {"matrix_free_chunk": SP_CHUNK, "v_grad_optimization": True} if cls == "CGLB" else {}
+        expected = {"K1": 2 + 2 * nc, "K2": 2 + nc} if cls == "CGLB" else {"K1": 2, "K2": 0}
+        runs = {}
+        for split in (True, False):
+            model = sparse_model(cls, data, Z, torch.float32, kernel=kernel, **kwargs)
+            if cls == "CGLB":
+                model.aux_vec.assign(v)
+            if split:
+                shard_internal_data(model, mesh)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                (value, grads), counts = counted(lambda: objective(model))
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            expect_launches(f"mesh {cls} {kernel} {'split' if split else 'whole'}", counts, expected, launches)
+            runs[split] = [value] + list(grads.values())
+        ms_same(f"{cls} {kernel} N={SP_N} M={SP_M} value and gradient", runs[True], runs[False])
+
+
+def ms_serving(mesh, launches):
+    """(d) and (f): ``sharded_predict_f`` of MS_REQUEST points of the
+    flagship (phase 5's values) against ``predict_f``, under sync debug mode
+    "error"; then the same points as a numpy array."""
+    from gpflow_tpu_torch.parallel import sharded_predict_f
+
+    values, _ = make_values(SEED)
+    model = build_model(values, torch.float32)
+    Xnp = (np.random.RandomState(SEED + 101).rand(MS_REQUEST, D) * 4.0).astype(np.float32)
+    X = torch.from_numpy(Xnp).cuda()
+    outs = {}
+    with torch.no_grad():
+        for split in (True, False):
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out, counts = counted(lambda: sharded_predict_f(model, X, mesh) if split else model.predict_f(X))
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            expect_launches(f"mesh request of {MS_REQUEST} {'split' if split else 'whole'}", counts,
+                            {"K1": 2, "K2": 0}, launches)
+            outs[split] = list(out)
+        ms_same(f"sharded_predict_f of {MS_REQUEST} points", outs[True], outs[False])
+        out, counts = counted(lambda: model.predict_f(Xnp))
+        expect_launches(f"mesh numpy request of {MS_REQUEST}", counts, {"K1": 2, "K2": 0}, launches)
+        assert all(t.device == X.device for t in out), "a numpy request's outputs are not on the model's device"
+        ms_same(f"request of {MS_REQUEST} points (F3)", list(out), outs[False], how="numpy and tensor requests")
+
+
+def ms_latent(launches, smi):
+    """(e): phase 19's main model with ``latent_axis`` on a
+    {"data": 1, "latent": 1} mesh."""
+    from gpflow_tpu_torch.parallel import DataParallelTrainer, adam, make_mesh
+
+    grid = make_mesh(shape={"data": 1, "latent": 1})
+    ms_warm(grid)
+    (X, Y), _, Zs, W = make_mo_data()
+    staged = (torch.from_numpy(X).cuda(), torch.from_numpy(Y).cuda())
+    per_step = mo_launches("lmc")
+    what = f"multioutput SVGP step, {MO_L} latent GPs (M={MO_M}, B={MO_B}, D={MO_D})"
+    build = lambda m: DataParallelTrainer(mo_model("lmc", Zs, W, torch.float32), adam(1e-2), mesh=m,  # noqa: E731
+                                          latent_axis="latent" if m is not None else None)
+    trainers = ms_training(what, build, grid, staged, MO_B, {k: MS_STEPS * v for k, v in per_step.items()},
+                           launches, smi, host_bound=True)
+    ms_in_turn(what, trainers, MO_B, smi)
+    ms_profile(what, trainers, MO_B, smi)
+
+
+def mesh_phases(launches):
+    """Phase 26: the one-rank mesh."""
+    import torch.distributed as dist
+
+    from gpflow_tpu_torch.parallel import make_mesh
+
+    _, smi = card_check()
+    with ms_group():
+        mesh = make_mesh()
+        ms_warm(mesh)
+        log(f"mesh: {mesh} over a {dist.get_backend()} group of world size {dist.get_world_size()}")
+        for part, run in (("flagship", lambda: ms_flagship(mesh, launches, smi)),
+                          ("natural gradients", lambda: ms_natgrad(mesh, launches, smi)),
+                          ("sparse", lambda: ms_sparse(mesh, launches)),
+                          ("serving", lambda: ms_serving(mesh, launches)),
+                          ("latent axis", lambda: ms_latent(launches, smi))):
+            t0 = time.perf_counter()
+            run()
+            log(f"time: mesh {part}: {time.perf_counter() - t0:.1f} s")
+
+
+# Phases 5-26 in the order they run, as groups that share their data: a
 # selection runs each group that holds a selected phase.
 PHASE_GROUPS = (
     (range(5, 9), svgp_phases),
@@ -6235,6 +6530,7 @@ PHASE_GROUPS = (
     (range(23, 24), serving_phases),
     (range(24, 25), tools_phases),
     (range(25, 26), contracts_phases),
+    (range(26, 27), mesh_phases),
 )
 
 
@@ -6246,7 +6542,7 @@ def parse_args(argv=None):
 
     parser = argparse.ArgumentParser(description="Drives gpflow_tpu_torch's main paths on one CUDA card.")
     parser.add_argument("--phases", help="the phases to run after the build and the kernel checks of phases 1-4, "
-                                         "as numbers and ranges among 5-25 (e.g. 5-8,21); by default every phase")
+                                         "as numbers and ranges among 5-26 (e.g. 5-8,21); by default every phase")
     parser.add_argument("--k1-host-us", metavar="ROOT",
                         help="only build K1 from the checkout at ROOT and print the host time of one K1 call "
                              "at (1, 1, 8) with that checkout's package (phase 23's measurement)")
@@ -6262,7 +6558,7 @@ def parse_args(argv=None):
             parser.error(f"--phases: {part!r} is not a number or a range")
     unknown = selected - {n for numbers, _ in PHASE_GROUPS for n in numbers}
     if unknown or not selected:
-        parser.error(f"--phases: no phase {sorted(unknown)}; phases 5-25 can be selected")
+        parser.error(f"--phases: no phase {sorted(unknown)}; phases 5-26 can be selected")
     args.phases = selected
     return args
 

@@ -15,8 +15,9 @@ Bayesian models GPMC and SGPMC with parameter priors, sampled by
 statistics of ``expectations`` (with ``conditionals.uncertain_conditional``),
 and serves them, also as exported artifacts (``utilities.serving``), with
 ``utilities.training_loop``, ``monitor``, ``utilities.print_summary`` and
-``utilities.profile`` around them (the multi-GPU mesh of ``parallel`` is
-not ported: ROADMAP.md). Shape contracts
+``utilities.profile`` around them, and splits them over the ranks of a
+``torch.distributed`` mesh (``parallel``). Public entry points take numpy
+arrays as well as tensors. Shape contracts
 (``utilities.check_shapes``) are off unless switched on. On a CUDA device, covariance matrices come from the hand-written
 kernel K1 and the gradients of the exponential and Matern families from K2
 (``gpflow_tpu_torch.ops.pallas_distance``).

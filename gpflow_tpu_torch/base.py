@@ -14,6 +14,7 @@ values, and ``capture_parameter_reads`` lists the Parameters a block reads.
 from __future__ import annotations
 
 import enum
+import itertools
 from typing import TYPE_CHECKING, Any, Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -72,10 +73,18 @@ class Module(nn.Module):
         return getattr(self, "_name", None) or type(self).__name__.lower()
 
     @property
+    def all_parameters(self) -> Tuple["Parameter", ...]:
+        """Every Parameter under this module, trainable or not, in
+        registration order: the JAX package's ``Module.parameters``
+        (``gpflow_tpu/base.py:718-723``), whose name here is torch's
+        ``nn.Module.parameters()``, which ``torch.optim`` uses."""
+        return tuple(m for m in self.modules() if isinstance(m, Parameter))
+
+    @property
     def trainable_parameters(self) -> Tuple["Parameter", ...]:
         """The trainable Parameters under this module, in registration order
         (``gpflow_tpu/base.py:725-731``)."""
-        return tuple(m for m in self.modules() if isinstance(m, Parameter) and m.trainable)
+        return tuple(p for p in self.all_parameters if p.trainable)
 
     @property
     def trainable_variables(self) -> Tuple["Parameter", ...]:
@@ -129,6 +138,47 @@ def _to_tensor(value: Any, dtype: Any, device: Optional[torch.device] = None) ->
     return torch.tensor(arr, dtype=as_torch_dtype(dtype), device=device)
 
 
+def _module_device(module: nn.Module) -> torch.device:
+    """The device of a module's first parameter or buffer, else
+    ``config.default_device()``."""
+    for t in itertools.chain(module.parameters(), module.buffers()):
+        return t.device
+    return default_device()
+
+
+def input_to_tensor(module: nn.Module, value: Any) -> Any:
+    """An argument of a public entry point as the computation takes it
+    (``TensorType`` admits numpy arrays): a numpy array or a Python scalar
+    becomes a tensor on the module's device, floating values (and Python
+    scalars) in ``default_float()`` and integer or boolean arrays in their
+    own dtype, as ``data_input_to_tensor`` builds a model's data; a tensor,
+    a Parameter or None passes through as it is, with no copy, no move and
+    no host synchronisation. Tuples and lists are walked."""
+    if value is None or isinstance(value, (torch.Tensor, Parameter)):
+        return value
+    if isinstance(value, (tuple, list)):
+        items = [input_to_tensor(module, v) for v in value]
+        return type(value)(*items) if hasattr(value, "_fields") else type(value)(items)
+    arr = np.asarray(value)
+    floating = isinstance(value, (int, float)) or np.issubdtype(arr.dtype, np.floating)
+    dtype = default_float() if floating else as_torch_dtype(arr.dtype)
+    return torch.as_tensor(arr, dtype=dtype, device=_module_device(module))
+
+
+def _validate_declared_shape(
+    actual: Tuple[int, ...], declared: Optional[Sequence[Optional[int]]], name: str, kind: str
+) -> None:
+    """Checks a shape against a declared one whose None entries match any
+    size (``gpflow_tpu/base.py:449-468``)."""
+    if declared is None:
+        return
+    declared = tuple(declared)
+    if len(declared) != len(actual) or any(d is not None and int(d) != a for d, a in zip(declared, actual)):
+        raise ValueError(
+            f"Parameter {name!r}: declared {kind} shape {declared} does not match actual shape {actual}."
+        )
+
+
 def _validate_finite(value: torch.Tensor, name: str) -> None:
     if not bool(torch.all(torch.isfinite(value))):
         raise ValueError(f"Parameter {name!r}: assigned value contains NaN or Inf")
@@ -144,8 +194,13 @@ class Parameter(Module):
     ``prior`` (a ``priors.Prior`` or None) is evaluated on the constrained
     value or, with ``prior_on=PriorOn.UNCONSTRAINED``, on the unconstrained
     one. Built from another Parameter, the new one inherits its
-    ``trainable``, ``prior`` and ``prior_on`` unless they are given.
+    ``trainable``, ``prior`` and ``prior_on`` unless they are given. A
+    Parameter of a model split over a mesh carries a read rule
+    (``_read_hook``, set by ``parallel/``) that each read of ``value``
+    applies to the unconstrained tensor.
     """
+
+    _read_hook: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
 
     def __init__(
         self,
@@ -157,20 +212,48 @@ class Parameter(Module):
         trainable: Optional[bool] = None,
         dtype: Any = None,
         name: Optional[str] = None,
+        unconstrained_value: Any = None,
+        unconstrained_shape: Optional[Sequence[Optional[int]]] = None,
+        constrained_shape: Optional[Sequence[Optional[int]]] = None,
+        shape: Optional[Sequence[Optional[int]]] = None,
     ) -> None:
+        """``unconstrained_value`` builds the Parameter from its
+        unconstrained value instead of ``value`` (pass None as ``value``);
+        ``unconstrained_shape`` and ``constrained_shape`` (or ``shape`` for
+        both) declare shapes, None matching any size, which the value must
+        have (``gpflow_tpu/base.py:187-250``)."""
         super().__init__()
         if isinstance(value, Parameter):
             trainable = value.trainable if trainable is None else trainable
             prior = value.prior if prior is None else prior
             prior_on = value.prior_on if prior_on is None else prior_on
-        self.transform = transform if transform is not None else Identity()
+        self._transform = transform if transform is not None else Identity()
         self.prior = prior
         self.prior_on = PriorOn.CONSTRAINED if prior_on is None else prior_on
         self._name = name or "parameter"
-        unconstrained = self.transform.inverse(_to_tensor(value, dtype, default_device()))
+        if unconstrained_value is not None:
+            if value is not None:
+                raise ValueError(
+                    "Pass either `value` or `unconstrained_value` to Parameter, "
+                    "not both (the `value` would be silently ignored)."
+                )
+            unconstrained = _to_tensor(unconstrained_value, dtype, default_device())
+        else:
+            unconstrained = self.transform.inverse(_to_tensor(value, dtype, default_device()))
         _validate_finite(unconstrained, self.name)
+        if shape is not None:
+            if unconstrained_shape is not None or constrained_shape is not None:
+                raise ValueError("Cannot set both `shape` and `unconstrained_shape` or `constrained_shape`.")
+            unconstrained_shape = constrained_shape = shape
+        _validate_declared_shape(tuple(unconstrained.shape), unconstrained_shape, self.name, "unconstrained")
+        constrained = tuple(self.transform.forward_shape(unconstrained.shape))
+        _validate_declared_shape(constrained, constrained_shape, self.name, "constrained")
         self._trainable = True if trainable is None else bool(trainable)
         self.unconstrained = nn.Parameter(unconstrained, requires_grad=self._trainable)
+
+    @property
+    def transform(self) -> Bijector:
+        return self._transform
 
     @property
     def trainable(self) -> bool:
@@ -190,10 +273,21 @@ class Parameter(Module):
         self._prior_on = PriorOn(value)
 
     @property
+    def unconstrained_variable(self) -> torch.Tensor:
+        """The unconstrained tensor, under the JAX package's name
+        (``gpflow_tpu/base.py:277-280``)."""
+        if _PARAM_READ_CAPTURE:
+            _PARAM_READ_CAPTURE[-1].append(self)
+        return self.unconstrained
+
+    @property
     def value(self) -> torch.Tensor:
         if _PARAM_READ_CAPTURE:
             _PARAM_READ_CAPTURE[-1].append(self)
-        return self.transform.forward(self.unconstrained)
+        u = self.unconstrained
+        if self._read_hook is not None:
+            u = self._read_hook(u)
+        return self.transform.forward(u)
 
     @property
     def shape(self) -> torch.Size:
@@ -206,6 +300,10 @@ class Parameter(Module):
         return self.unconstrained.dtype
 
     @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    @property
     def device(self) -> torch.device:
         return self.unconstrained.device
 
@@ -213,6 +311,12 @@ class Parameter(Module):
         """A copy of the constrained value (never a view of the parameter's
         storage, which the optimizer updates in place)."""
         return np.array(self.value.detach().cpu())
+
+    def __array__(self, dtype: Any = None, copy: Optional[bool] = None) -> np.ndarray:
+        """``np.asarray(parameter)``: the constrained value, as ``numpy()``
+        gives it (``gpflow_tpu/base.py:358-360``)."""
+        arr = self.numpy()
+        return arr.astype(dtype) if dtype is not None else arr
 
     def _prepare_assign(self, value: Any) -> torch.Tensor:
         """The unconstrained tensor for a constrained ``value``, checked,

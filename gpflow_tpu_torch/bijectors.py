@@ -46,6 +46,17 @@ class Bijector:
         """The shape of ``forward(x)`` for an x of ``shape``."""
         return shape
 
+    def forward_np(self, x: np.ndarray) -> np.ndarray:
+        """``forward`` of a numpy array, as a numpy array of its dtype
+        (``gpflow_tpu/bijectors.py:57-61``)."""
+        with torch.no_grad():
+            return self.forward(torch.as_tensor(np.asarray(x))).numpy()
+
+    def inverse_np(self, y: np.ndarray) -> np.ndarray:
+        """``inverse`` of a numpy array, as a numpy array of its dtype."""
+        with torch.no_grad():
+            return self.inverse(torch.as_tensor(np.asarray(y))).numpy()
+
     @property
     def name(self) -> str:
         return type(self).__name__.lower()

@@ -159,14 +159,15 @@ class Config:
     if set, else from the float type, so ``Config(float=torch.float32)`` gets
     1e-4."""
 
-    float: torch.dtype = _field(_Values.FLOAT)
+    # the JAX package's fields in its order (``gpflow_tpu/config/__config__.py:119-139``), then the device
     int: torch.dtype = _field(_Values.INT)
-    device: Union[str, torch.device] = "cuda"
+    float: torch.dtype = _field(_Values.FLOAT)
     jitter: Optional[float] = None
+    positive_bijector: str = _field(_Values.POSITIVE_BIJECTOR)
     positive_minimum: float = _field(_Values.POSITIVE_MINIMUM)
     likelihood_positive_minimum: float = _field(_Values.LIKELIHOOD_POSITIVE_MINIMUM)
-    positive_bijector: str = _field(_Values.POSITIVE_BIJECTOR)
     summary_fmt: Optional[str] = _field(_Values.SUMMARY_FMT)
+    device: Union[str, torch.device] = "cuda"
 
     def __post_init__(self) -> None:
         object.__setattr__(self, "float", as_torch_dtype(self.float))

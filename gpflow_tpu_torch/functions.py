@@ -13,7 +13,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .base import Module, Parameter
+from .base import Module, Parameter, input_to_tensor
 from .config import default_device, default_float
 from .utilities.shapes import check_shapes, inherit_check_shapes
 
@@ -42,6 +42,9 @@ class Function(Module):
     )
     def forward(self, X: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError("Implement the forward method for this mean function")
+
+    def __call__(self, X: Any, *args: Any, **kwargs: Any) -> torch.Tensor:
+        return super().__call__(input_to_tensor(self, X), *args, **kwargs)
 
     def __add__(self, other: "Function") -> "Function":
         return Additive(self, other)

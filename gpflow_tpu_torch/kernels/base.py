@@ -16,7 +16,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..base import Module, Parameter
+from ..base import Module, Parameter, input_to_tensor
 from ..utilities.shapes import check_shapes
 
 __all__ = [
@@ -156,6 +156,7 @@ class Kernel(Module, metaclass=abc.ABCMeta):
     ) -> torch.Tensor:
         if (not full_cov) and (X2 is not None):
             raise ValueError("Ambiguous inputs: `not full_cov` and `X2` are not compatible.")
+        X, X2 = input_to_tensor(self, X), input_to_tensor(self, X2)
         if not presliced:
             X, X2 = self.slice(X, X2)
         if not full_cov:
@@ -216,12 +217,15 @@ class ReducingCombination(Combination):
         full_cov: bool = True,
         presliced: bool = False,
     ) -> torch.Tensor:
+        X, X2 = input_to_tensor(self, X), input_to_tensor(self, X2)
         return self._reduce([k(X, X2, full_cov=full_cov, presliced=presliced) for k in self.kernels])
 
     def K(self, X: torch.Tensor, X2: Optional[torch.Tensor] = None) -> torch.Tensor:
+        X, X2 = input_to_tensor(self, X), input_to_tensor(self, X2)
         return self._reduce([k.K(X, X2) for k in self.kernels])
 
     def K_diag(self, X: torch.Tensor) -> torch.Tensor:
+        X = input_to_tensor(self, X)
         return self._reduce([k.K_diag(X) for k in self.kernels])
 
     @property

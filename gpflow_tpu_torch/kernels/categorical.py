@@ -7,7 +7,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from ..base import Parameter
+from ..base import Parameter, input_to_tensor
 from ..config import default_int
 from ..utilities.misc import set_trainable
 from ..utilities.shapes import inherit_check_shapes
@@ -75,6 +75,7 @@ class Categorical(Kernel):
 
     @inherit_check_shapes
     def K(self, X: torch.Tensor, X2: Optional[torch.Tensor] = None) -> torch.Tensor:
+        X, X2 = input_to_tensor(self, X), input_to_tensor(self, X2)
         return self.wrapped_kernel.K(
             self._concat_inputs_with_latents(X),
             self._concat_inputs_with_latents(X2) if X2 is not None else None,
@@ -82,4 +83,5 @@ class Categorical(Kernel):
 
     @inherit_check_shapes
     def K_diag(self, X: torch.Tensor) -> torch.Tensor:
+        X = input_to_tensor(self, X)
         return self.wrapped_kernel.K_diag(self._concat_inputs_with_latents(X))

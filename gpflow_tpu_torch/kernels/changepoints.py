@@ -6,7 +6,7 @@ from typing import Any, Optional, Sequence
 import torch
 from torch import nn
 
-from ..base import Parameter
+from ..base import Parameter, input_to_tensor
 from ..bijectors import positive
 from ..utilities.shapes import check_shapes, inherit_check_shapes
 from .base import Combination, Kernel
@@ -74,6 +74,7 @@ class ChangePoints(Combination):
 
     @inherit_check_shapes
     def K(self, X: torch.Tensor, X2: Optional[torch.Tensor] = None) -> torch.Tensor:
+        X, X2 = input_to_tensor(self, X), input_to_tensor(self, X2)
         self._check_1d(X)
         sig_X = self._sigmoids(X)  # [batch..., N, 1, Ncp]
         batch, N, Ncp = X.shape[:-2], X.shape[-2], sig_X.shape[-1]
@@ -97,6 +98,7 @@ class ChangePoints(Combination):
 
     @inherit_check_shapes
     def K_diag(self, X: torch.Tensor) -> torch.Tensor:
+        X = input_to_tensor(self, X)
         self._check_1d(X)
         batch, N = X.shape[:-2], X.shape[-2]
         sig_X = self._sigmoids(X).reshape(batch + (N, -1))  # [batch..., N, Ncp]

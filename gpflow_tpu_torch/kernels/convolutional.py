@@ -15,7 +15,7 @@ from typing import Any, Optional, Sequence
 import numpy as np
 import torch
 
-from ..base import Parameter
+from ..base import Parameter, input_to_tensor
 from ..config import default_float
 from ..utilities.shapes import check_shapes, inherit_check_shapes
 from .base import Kernel
@@ -80,6 +80,7 @@ class Convolutional(Kernel):
 
     @inherit_check_shapes
     def K(self, X: torch.Tensor, X2: Optional[torch.Tensor] = None) -> torch.Tensor:
+        X, X2 = input_to_tensor(self, X), input_to_tensor(self, X2)
         Xp = self.get_patches(X)  # [batch..., N, P, S]
         w = self.weights.value
         W2 = w[:, None] * w[None, :]  # [P, P]
@@ -99,6 +100,7 @@ class Convolutional(Kernel):
 
     @inherit_check_shapes
     def K_diag(self, X: torch.Tensor) -> torch.Tensor:
+        X = input_to_tensor(self, X)
         Xp = self.get_patches(X)  # [batch..., N, P, S]
         rank = Xp.ndim - 3
         P = Xp.shape[-2]

@@ -9,7 +9,7 @@ from typing import Any, Optional
 
 import torch
 
-from ..base import Parameter
+from ..base import Parameter, input_to_tensor
 from ..bijectors import positive
 from ..utilities.shapes import check_shapes, inherit_check_shapes
 from .base import ActiveDims, Kernel
@@ -35,12 +35,14 @@ class Linear(Kernel):
 
     @inherit_check_shapes
     def K(self, X: torch.Tensor, X2: Optional[torch.Tensor] = None) -> torch.Tensor:
+        X, X2 = input_to_tensor(self, X), input_to_tensor(self, X2)
         if X2 is None:
             return torch.matmul(X * self.variance.value, X.mT)
         return torch.tensordot(X * self.variance.value, X2, dims=([-1], [-1]))
 
     @inherit_check_shapes
     def K_diag(self, X: torch.Tensor) -> torch.Tensor:
+        X = input_to_tensor(self, X)
         return torch.sum(torch.square(X) * self.variance.value, dim=-1)
 
 

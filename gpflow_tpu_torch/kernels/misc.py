@@ -7,7 +7,7 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
-from ..base import Parameter
+from ..base import Parameter, input_to_tensor
 from ..bijectors import positive
 from ..utilities.shapes import check_shapes, inherit_check_shapes
 from .base import ActiveDims, Kernel
@@ -82,6 +82,7 @@ class ArcCosine(Kernel):
 
     @inherit_check_shapes
     def K(self, X: torch.Tensor, X2: Optional[torch.Tensor] = None) -> torch.Tensor:
+        X, X2 = input_to_tensor(self, X), input_to_tensor(self, X2)
         X_denominator = torch.sqrt(self._diag_weighted_product(X))  # [batch..., N]
         if X2 is None:
             X2_denominator = X_denominator[..., None, :]  # [batch..., 1, N]
@@ -102,6 +103,7 @@ class ArcCosine(Kernel):
 
     @inherit_check_shapes
     def K_diag(self, X: torch.Tensor) -> torch.Tensor:
+        X = input_to_tensor(self, X)
         X_product = self._diag_weighted_product(X)
         const = (1.0 / math.pi) * self._J(torch.zeros((), dtype=X_product.dtype, device=X_product.device))
         return self.variance.value * const * X_product ** self.order
@@ -146,6 +148,7 @@ class Coregion(Kernel):
 
     @inherit_check_shapes
     def K(self, X: torch.Tensor, X2: Optional[torch.Tensor] = None) -> torch.Tensor:
+        X, X2 = input_to_tensor(self, X), input_to_tensor(self, X2)
         B = self.output_covariance()  # [O, O]
         Xi, v1 = self._indices(X)  # [batch..., N]
         if X2 is None:
@@ -161,6 +164,7 @@ class Coregion(Kernel):
 
     @inherit_check_shapes
     def K_diag(self, X: torch.Tensor) -> torch.Tensor:
+        X = input_to_tensor(self, X)
         Xi, valid = self._indices(X)
         out = self.output_variance()[Xi]
         return torch.where(valid, out, torch.full_like(out, float("nan")))

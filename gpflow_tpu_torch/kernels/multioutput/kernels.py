@@ -18,7 +18,7 @@ from typing import Any, Optional, Sequence, Tuple
 
 import torch
 
-from ...base import Parameter
+from ...base import Parameter, input_to_tensor
 from ...utilities.shapes import check_shapes, inherit_check_shapes
 from ..base import Combination, Kernel
 
@@ -94,6 +94,7 @@ class MultioutputKernel(Kernel):
         full_output_cov: bool = True,
         presliced: bool = False,
     ) -> torch.Tensor:
+        X, X2 = input_to_tensor(self, X), input_to_tensor(self, X2)
         if not presliced:
             X, X2 = self.slice(X, X2)
         if not full_cov and X2 is not None:
@@ -124,6 +125,7 @@ class SharedIndependent(MultioutputKernel):
     def K(
         self, X: torch.Tensor, X2: Optional[torch.Tensor] = None, full_output_cov: bool = True
     ) -> torch.Tensor:
+        X, X2 = input_to_tensor(self, X), input_to_tensor(self, X2)
         K = self.kernel.K(X, X2)
         if full_output_cov:
             return _tile_output_diag(K, self.output_dim, X.ndim - 1)
@@ -131,6 +133,7 @@ class SharedIndependent(MultioutputKernel):
 
     @inherit_check_shapes
     def K_diag(self, X: torch.Tensor, full_output_cov: bool = True) -> torch.Tensor:
+        X = input_to_tensor(self, X)
         K = self.kernel.K_diag(X)  # [batch..., N]
         Ks = K.unsqueeze(-1).expand(K.shape + (self.output_dim,))
         if full_output_cov:
@@ -157,6 +160,7 @@ class SeparateIndependent(MultioutputKernel, Combination):
     def K(
         self, X: torch.Tensor, X2: Optional[torch.Tensor] = None, full_output_cov: bool = True
     ) -> torch.Tensor:
+        X, X2 = input_to_tensor(self, X), input_to_tensor(self, X2)
         Ks = torch.stack([k.K(X, X2) for k in self.kernels], dim=0)  # [P, ...]
         if not full_output_cov:
             return Ks
@@ -168,6 +172,7 @@ class SeparateIndependent(MultioutputKernel, Combination):
 
     @inherit_check_shapes
     def K_diag(self, X: torch.Tensor, full_output_cov: bool = False) -> torch.Tensor:
+        X = input_to_tensor(self, X)
         stacked = torch.stack([k.K_diag(X) for k in self.kernels], dim=-1)  # [batch..., N, P]
         if full_output_cov:
             return stacked[..., :, None] * torch.eye(len(self.kernels), dtype=stacked.dtype, device=stacked.device)
@@ -213,6 +218,7 @@ class LinearCoregionalization(IndependentLatent, Combination):
     def K(
         self, X: torch.Tensor, X2: Optional[torch.Tensor] = None, full_output_cov: bool = True
     ) -> torch.Tensor:
+        X, X2 = input_to_tensor(self, X), input_to_tensor(self, X2)
         Kxx = self.Kgg(X, X2)  # [L, batch..., N, (batch2...,) N2]
         W = self.W.value  # [P, L]
         P, L = W.shape
@@ -231,6 +237,7 @@ class LinearCoregionalization(IndependentLatent, Combination):
 
     @inherit_check_shapes
     def K_diag(self, X: torch.Tensor, full_output_cov: bool = True) -> torch.Tensor:
+        X = input_to_tensor(self, X)
         K = torch.stack([k.K_diag(X) for k in self.kernels], dim=-1)  # [batch..., N, L]
         W = self.W.value
         if full_output_cov:

@@ -12,7 +12,7 @@ from typing import Any, Optional
 
 import torch
 
-from ..base import Parameter
+from ..base import Parameter, input_to_tensor
 from ..bijectors import positive
 from ..utilities.ops import difference_matrix
 from ..utilities.shapes import check_shapes, inherit_check_shapes
@@ -53,10 +53,12 @@ class Periodic(Kernel):
 
     @inherit_check_shapes
     def K_diag(self, X: torch.Tensor) -> torch.Tensor:
+        X = input_to_tensor(self, X)
         return self.base_kernel.K_diag(X)
 
     @inherit_check_shapes
     def K(self, X: torch.Tensor, X2: Optional[torch.Tensor] = None) -> torch.Tensor:
+        X, X2 = input_to_tensor(self, X), input_to_tensor(self, X2)
         r = math.pi * difference_matrix(X, X2) / self.period.value
         scaled_sine = torch.sin(r) / self.base_kernel.lengthscales.value
         if hasattr(self.base_kernel, "K_r"):

@@ -5,7 +5,7 @@ from typing import Any, Optional
 
 import torch
 
-from ..base import Parameter
+from ..base import Parameter, input_to_tensor
 from ..bijectors import positive
 from ..utilities.shapes import check_shapes, inherit_check_shapes
 from .base import ActiveDims, Kernel
@@ -26,6 +26,7 @@ class Static(Kernel):
 
     @inherit_check_shapes
     def K_diag(self, X: torch.Tensor) -> torch.Tensor:
+        X = input_to_tensor(self, X)
         variance = self.variance.value
         return torch.ones(X.shape[:-1], dtype=variance.dtype, device=X.device) * variance
 
@@ -36,6 +37,7 @@ class White(Static):
 
     @inherit_check_shapes
     def K(self, X: torch.Tensor, X2: Optional[torch.Tensor] = None) -> torch.Tensor:
+        X, X2 = input_to_tensor(self, X), input_to_tensor(self, X2)
         if X2 is None:
             d = self.K_diag(X)
             return d[..., :, None] * torch.eye(X.shape[-2], dtype=d.dtype, device=d.device)
@@ -47,6 +49,7 @@ class Constant(Static):
 
     @inherit_check_shapes
     def K(self, X: torch.Tensor, X2: Optional[torch.Tensor] = None) -> torch.Tensor:
+        X, X2 = input_to_tensor(self, X), input_to_tensor(self, X2)
         if X2 is None:
             shape = X.shape[:-2] + (X.shape[-2], X.shape[-2])
         else:

@@ -16,9 +16,9 @@ import math
 
 import torch
 
-from ..base import Parameter
+from ..base import Parameter, input_to_tensor
 from ..bijectors import positive
-from ..ops.pallas_distance import pallas_available, stationary_kernel_matrix
+from ..ops.pallas_distance import _routes_to_kernel, stationary_kernel_matrix
 from ..utilities.ops import difference_matrix, square_distance
 from ..utilities.shapes import check_shapes, inherit_check_shapes
 from .base import Kernel
@@ -66,6 +66,7 @@ class Stationary(Kernel):
 
     @inherit_check_shapes
     def K_diag(self, X: torch.Tensor) -> torch.Tensor:
+        X = input_to_tensor(self, X)
         variance = self.variance.value
         return torch.full(X.shape[:-1], 1.0, dtype=variance.dtype, device=X.device) * variance
 
@@ -76,8 +77,9 @@ class IsotropicStationary(Stationary):
 
     @inherit_check_shapes
     def K(self, X: torch.Tensor, X2: Optional[torch.Tensor] = None) -> torch.Tensor:
+        X, X2 = input_to_tensor(self, X), input_to_tensor(self, X2)
         family = _PALLAS_EXACT_TYPES.get(type(self))
-        if (family is not None and pallas_available(X)
+        if (family is not None and _routes_to_kernel(X)
                 and X.ndim == 2 and (X2 is None or X2.ndim == 2)):
             Z = X if X2 is None else X2
             alpha = self.alpha.value if family == "rq" else None
@@ -123,6 +125,7 @@ class AnisotropicStationary(Stationary):
 
     @inherit_check_shapes
     def K(self, X: torch.Tensor, X2: Optional[torch.Tensor] = None) -> torch.Tensor:
+        X, X2 = input_to_tensor(self, X), input_to_tensor(self, X2)
         return self.K_d(self.scaled_difference_matrix(X, X2))
 
     @check_shapes(

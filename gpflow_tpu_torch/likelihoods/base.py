@@ -18,7 +18,7 @@ from typing import Any, Callable, Dict, Iterable, Optional, Sequence, Union
 import torch
 from torch import nn
 
-from ..base import MeanAndVariance, Module
+from ..base import MeanAndVariance, Module, input_to_tensor
 from ..config import default_device
 from ..quadrature import GaussianQuadrature, NDiagGHQuadrature, ndiag_mc
 from ..quadrature.gauss_hermite import canonical_device
@@ -58,6 +58,7 @@ class Likelihood(Module, abc.ABC):
     )
     def log_prob(self, X: torch.Tensor, F: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
         """log p(Y | X, F) -> [batch...]."""
+        X, F, Y = input_to_tensor(self, (X, F, Y))
         return self._log_prob(X, F, Y)
 
     @abc.abstractmethod
@@ -75,6 +76,7 @@ class Likelihood(Module, abc.ABC):
     )
     def conditional_mean(self, X: torch.Tensor, F: torch.Tensor) -> torch.Tensor:
         """E[Y | X, F] -> [batch..., observation_dim]."""
+        X, F = input_to_tensor(self, (X, F))
         return self._conditional_mean(X, F)
 
     @check_shapes(
@@ -90,6 +92,7 @@ class Likelihood(Module, abc.ABC):
     )
     def conditional_variance(self, X: torch.Tensor, F: torch.Tensor) -> torch.Tensor:
         """var[Y | X, F] -> [batch..., observation_dim]."""
+        X, F = input_to_tensor(self, (X, F))
         return self._conditional_variance(X, F)
 
     @check_shapes(
@@ -109,6 +112,7 @@ class Likelihood(Module, abc.ABC):
         self, X: torch.Tensor, Fmu: torch.Tensor, Fvar: torch.Tensor
     ) -> MeanAndVariance:
         """Mean and variance of Y under q(f) = N(Fmu, Fvar)."""
+        X, Fmu, Fvar = input_to_tensor(self, (X, Fmu, Fvar))
         return self._predict_mean_and_var(X, Fmu, Fvar)
 
     @abc.abstractmethod
@@ -133,6 +137,7 @@ class Likelihood(Module, abc.ABC):
         self, X: torch.Tensor, Fmu: torch.Tensor, Fvar: torch.Tensor, Y: torch.Tensor
     ) -> torch.Tensor:
         """log int p(Y | f) q(f) df -> [batch...]."""
+        X, Fmu, Fvar, Y = input_to_tensor(self, (X, Fmu, Fvar, Y))
         return self._predict_log_density(X, Fmu, Fvar, Y)
 
     @abc.abstractmethod
@@ -157,6 +162,7 @@ class Likelihood(Module, abc.ABC):
         self, X: torch.Tensor, Fmu: torch.Tensor, Fvar: torch.Tensor, Y: torch.Tensor
     ) -> torch.Tensor:
         """int log p(Y | f) q(f) df -> [batch...] (``base.py:152-168``)."""
+        X, Fmu, Fvar, Y = input_to_tensor(self, (X, Fmu, Fvar, Y))
         return self._variational_expectations(X, Fmu, Fvar, Y)
 
     @abc.abstractmethod

@@ -32,7 +32,8 @@ from typing import Any, Callable, Optional, Tuple, Union
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..base import MeanAndVariance, Parameter
+from .._sharding import WHOLE, rows_of, share_blocks
+from ..base import MeanAndVariance, Parameter, input_to_tensor
 from ..config import default_device, default_float
 from ..kernels import Kernel
 from ..posteriors import sgpr_conditional
@@ -98,22 +99,29 @@ class CGLB(SGPR):
 
     def _kmat_operator(self) -> KOperator:
         """K + sigma^2 I: the dense [N, N] matrix in the default mode, a
-        matvec v [R, N] -> v (K + sigma^2 I) in the matrix-free mode."""
+        matvec v [R, N] -> v (K + sigma^2 I) in the matrix-free mode. Where
+        the rows are split over ranks, always a matvec from this rank's
+        columns of v to its columns of the product, in blocks of
+        ``matrix_free_chunk`` columns (one block in the dense mode): each
+        block is K(X, x_block) against every rank's columns of v."""
         x, _ = self.data
         sigma_sq = self.likelihood.variance.value
-        if self._matrix_free_chunk is None:
+        rows = rows_of(self)
+        if self._matrix_free_chunk is None and rows is WHOLE:
             return add_noise_cov(self.kernel.K(x), sigma_sq)
 
-        chunk = self._matrix_free_chunk
+        chunk = self._matrix_free_chunk or x.shape[0]
         kernel = self.kernel
+        x_all = rows.gather(x)
 
         def mv(v: torch.Tensor) -> torch.Tensor:
+            v_all = rows.gather(v, dim=-1)
             parts = []
             for start in range(0, x.shape[0], chunk):
                 # the backward builds the block again instead of keeping it:
                 # kept, the blocks would add up to the [N, N] matrix (under
                 # no_grad the checkpoint saves nothing and just calls)
-                parts.append(checkpoint(_block_matvec, kernel, x, x[start:start + chunk], v,
+                parts.append(checkpoint(_block_matvec, kernel, x_all, x[start:start + chunk], v_all,
                                         use_reentrant=False, preserve_rng_state=False))
             return torch.cat(parts, dim=-1) + sigma_sq * v
 
@@ -128,11 +136,12 @@ class CGLB(SGPR):
         LB = common.LB
         AAT = common.AAT
         x, y = self.data
-        num_data, output_dim = (float(s) for s in y.shape)
+        rows = rows_of(self)
+        num_data, output_dim = float(y.shape[0] * rows.size), float(y.shape[1])
         sigma_sq = self.likelihood.variance.value
 
         kdiag = self.kernel(x, full_cov=False)
-        trace = torch.sum(kdiag) / sigma_sq - torch.sum(torch.diagonal(AAT))
+        trace = rows.sum(torch.sum(kdiag)) / sigma_sq - torch.sum(torch.diagonal(AAT))
         logdet_b = torch.sum(torch.log(torch.diagonal(LB)))
         logsigma_sq = num_data * torch.log(sigma_sq)
         logtrace = num_data * torch.log(1 + trace / num_data)
@@ -146,20 +155,23 @@ class CGLB(SGPR):
         -0.5 y^T (K + s2 I)^-1 y through the auxiliary vector v
         (``cglb.py:116-169``)."""
         x, y = self.data
+        rows = rows_of(self)
         err = y - self.mean_function(x)
         sigma_sq = self.likelihood.variance.value
         K = self._kmat_operator()
 
         preconditioner = NystromPreconditioner(common.A, common.LB, sigma_sq)
+        share_blocks(self, preconditioner)
         err_t = err.mT
 
         v_init = self.aux_vec
         if not v_init.trainable:
             v, self.cg_iterations = _cglb_conjugate_gradient(
-                K, err_t, v_init.value, preconditioner, self._cg_tolerance, self._max_cg_iters, self._restart_cg_iters
+                K, err_t, rows.local(v_init.value, dim=-1), preconditioner, self._cg_tolerance,
+                self._max_cg_iters, self._restart_cg_iters
             )
         else:
-            v = v_init.value
+            v = rows.local(v_init.value, dim=-1)
 
         Kv = K(v) if callable(K) else v @ K
         r = err_t - Kv
@@ -171,15 +183,16 @@ class CGLB(SGPR):
         # 0 and adding the exact s2 ||v||^2, and clamping r^T Q^-1 r >= 0, only
         # ever lowers the bound; in float64 both clamps change nothing.
         sq = sigma_sq.to(v.dtype)
-        v_norm_sq = torch.sum(torch.square(v), dim=-1)  # [R]
-        vKv_kernel = torch.clamp(torch.sum(v * Kv, dim=-1) - sq * v_norm_sq, min=0.0)
-        lb = torch.sum(v * err_t) - 0.5 * torch.sum(vKv_kernel + sq * v_norm_sq)
+        v_norm_sq = rows.sum(torch.sum(torch.square(v), dim=-1))  # [R]
+        vKv_kernel = torch.clamp(rows.sum(torch.sum(v * Kv, dim=-1)) - sq * v_norm_sq, min=0.0)
+        lb = rows.sum(torch.sum(v * err_t)) - 0.5 * torch.sum(vKv_kernel + sq * v_norm_sq)
         ub = lb + 0.5 * torch.sum(torch.clamp(error_bound_cols, min=0.0))
 
         if not v_init.trainable:
             with torch.no_grad():
                 # the warm start of the next CG run; a non-finite v (a NaN
                 # trial point of L-BFGS) keeps the old one, with no host sync
+                v = rows.gather(v, dim=-1)
                 v_init._set_unconstrained(torch.where(torch.isfinite(v).all(), v, v_init.unconstrained))
 
         return -ub
@@ -196,9 +209,11 @@ class CGLB(SGPR):
         and the SGPR variance (``cglb.py:171-232``). With ``cg_tolerance`` set,
         the CG first runs from ``aux_vec`` to that tolerance; v is not written
         back."""
+        Xnew = input_to_tensor(self, Xnew)
         assert_params_false(self.predict_f, full_output_cov=full_output_cov)
 
         x, y = self.data
+        rows = rows_of(self)
         err = y - self.mean_function(x)
         ksf = self.kernel(Xnew, x)
         sigma_sq = self.likelihood.variance.value
@@ -209,17 +224,18 @@ class CGLB(SGPR):
         common = self._common_calculation()
         A, LB, L = common.A, common.LB, common.L
 
-        v = self.aux_vec.value
+        v = rows.local(self.aux_vec.value, dim=-1)
         if cg_tolerance is not None:
             preconditioner = NystromPreconditioner(A, LB, sigma_sq)
+            share_blocks(self, preconditioner)
             v, self.cg_iterations = _cglb_conjugate_gradient(
                 kmat, err.mT, v, preconditioner, cg_tolerance, self._max_cg_iters, self._restart_cg_iters
             )
 
-        cg_mean = ksf @ v.mT
+        cg_mean = rows.sum(ksf @ v.mT)
         res = err - (kmat(v).mT if callable(kmat) else kmat @ v.mT)
 
-        c = torch.linalg.solve_triangular(LB, A @ res, upper=False) / sigma
+        c = torch.linalg.solve_triangular(LB, rows.sum(A @ res), upper=False) / sigma
         sgpr_mean, var = sgpr_conditional(self.kernel, self.inducing_variable, self.num_latent_gps, L, LB, c, Xnew,
                                           full_cov)
 
@@ -234,6 +250,7 @@ class CGLB(SGPR):
         full_output_cov: bool = False,
         cg_tolerance: Optional[float] = 1e-3,
     ) -> MeanAndVariance:
+        Xnew = input_to_tensor(self, Xnew)
         assert_params_false(self.predict_y, full_cov=full_cov, full_output_cov=full_output_cov)
         f_mean, f_var = self.predict_f(
             Xnew, full_cov=full_cov, full_output_cov=full_output_cov, cg_tolerance=cg_tolerance
@@ -248,6 +265,7 @@ class CGLB(SGPR):
         full_output_cov: bool = False,
         cg_tolerance: Optional[float] = 1e-3,
     ) -> torch.Tensor:
+        data = input_to_tensor(self, data)
         assert_params_false(self.predict_log_density, full_cov=full_cov, full_output_cov=full_output_cov)
         x, y = data
         f_mean, f_var = self.predict_f(
@@ -282,13 +300,14 @@ class NystromPreconditioner:
         A = self.A
         LB = self.LB
 
+        rows = rows_of(self)
         vt = v.mT
-        Av = A @ vt
+        Av = rows.sum(A @ vt)
         LBinvAv = torch.linalg.solve_triangular(LB, Av, upper=False)
         LBinvtLBinvAv = torch.linalg.solve_triangular(LB.mT, LBinvAv, upper=True)
 
         rv = vt - A.mT @ LBinvtLBinvAv
-        vtrv = torch.sum(rv * vt, dim=0)  # [R]
+        vtrv = rows.sum(torch.sum(rv * vt, dim=0))  # [R]
         return rv.mT / sigma_sq, vtrv / sigma_sq
 
 
@@ -303,6 +322,7 @@ def _cglb_conjugate_gradient(
 ) -> Tuple[torch.Tensor, int]:
     """``cglb_conjugate_gradient`` and its iteration count."""
     mv = K if callable(K) else (lambda p: p @ K)
+    rows = rows_of(preconditioner)  # where the rows are split, the vectors are this rank's columns
     with torch.no_grad():
         v = initial.detach().clone()
         r = b - mv(v)
@@ -313,7 +333,7 @@ def _cglb_conjugate_gradient(
         # a NaN compares False and stops the loop, as in the JAX package
         while i < max_steps and 0.5 * float(torch.max(rz)) > cg_tolerance:
             Ap = mv(p)
-            denom = torch.sum(p * Ap, dim=-1)  # [R]
+            denom = rows.sum(torch.sum(p * Ap, dim=-1))  # [R]
             # per-column step size [R, 1]; a converged column (p ~ 0, denom
             # ~ 0) takes a zero step instead of 0/0
             gamma = torch.where(denom > 0, rz / denom, torch.zeros_like(denom))[..., None]

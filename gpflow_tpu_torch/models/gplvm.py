@@ -16,7 +16,8 @@ import numpy as np
 import torch
 
 from .. import kernels as kernels_module
-from ..base import InputData, MeanAndVariance, Module, OutputData, Parameter, RegressionData
+from .._sharding import rows_of
+from ..base import InputData, MeanAndVariance, Module, OutputData, Parameter, RegressionData, input_to_tensor
 from ..bijectors import positive
 from ..config import default_float, default_jitter
 from ..covariances import Kuf, Kuu
@@ -196,19 +197,25 @@ class BayesianGPLVM(GPModel, InternalDataTrainingLossMixin):
         """psi1 [N, M] and psi2 summed over N [M, M]."""
         kernel_and_iv = (self.kernel, self.inducing_variable)
         psi1 = expectation(pX, kernel_and_iv)
-        psi2 = torch.sum(expectation(pX, kernel_and_iv, kernel_and_iv), dim=0)
+        psi2 = rows_of(self).sum(torch.sum(expectation(pX, kernel_and_iv, kernel_and_iv), dim=0))
         return psi1, psi2
+
+    def _q_x(self) -> DiagonalGaussian:
+        """q(X) over this rank's rows (all rows where they are not split)."""
+        rows = rows_of(self)
+        return DiagonalGaussian(rows.local(self.X_data_mean.value), rows.local(self.X_data_var.value))
 
     @check_shapes("return: []")
     def elbo(self) -> torch.Tensor:
         """The collapsed bound with the psi statistics, minus the KL of
         q(X) from the prior (``gplvm.py:174-221``)."""
         Y_data = self.data
+        rows = rows_of(self)
 
-        pX = DiagonalGaussian(self.X_data_mean.value, self.X_data_var.value)
+        pX = self._q_x()
 
         num_inducing = self.inducing_variable.num_inducing
-        psi0 = torch.sum(expectation(pX, self.kernel))
+        psi0 = rows.sum(torch.sum(expectation(pX, self.kernel)))
         psi1, psi2 = self._psi_statistics(pX)
         L = cholesky(Kuu(self.inducing_variable, self.kernel, jitter=default_jitter()))
         sigma2 = self.likelihood.variance.value
@@ -218,7 +225,7 @@ class BayesianGPLVM(GPModel, InternalDataTrainingLossMixin):
         B = AAT + torch.eye(num_inducing, dtype=AAT.dtype, device=AAT.device)
         LB = cholesky(B)
         log_det_B = 2.0 * torch.sum(torch.log(torch.diagonal(LB)))
-        c = _solve_lower(LB, A @ Y_data) / sigma2
+        c = _solve_lower(LB, rows.sum(A @ Y_data)) / sigma2
 
         # KL[q(x) || p(x)]
         dX_data_var = self.X_data_var.value
@@ -231,10 +238,10 @@ class BayesianGPLVM(GPModel, InternalDataTrainingLossMixin):
             (torch.square(self.X_data_mean.value - self.X_prior_mean) + dX_data_var) / self.X_prior_var
         )
 
-        ND = float(Y_data.numel())
+        ND = float(Y_data.numel() * rows.size)
         bound = -0.5 * ND * torch.log(2 * math.pi * sigma2)
         bound = bound - 0.5 * D * log_det_B
-        bound = bound - 0.5 * torch.sum(torch.square(Y_data)) / sigma2
+        bound = bound - 0.5 * rows.sum(torch.sum(torch.square(Y_data))) / sigma2
         bound = bound + 0.5 * torch.sum(torch.square(c))
         bound = bound - 0.5 * D * (psi0 / sigma2 - torch.sum(torch.diagonal(AAT)))
         return bound - KL
@@ -246,9 +253,10 @@ class BayesianGPLVM(GPModel, InternalDataTrainingLossMixin):
         """The SGPR prediction with the psi statistics in place of Kuf and
         Kuf Kfu (``gplvm.py:223-265``): mean [N, P], variance [N, P] or,
         with ``full_cov``, [P, N, N]."""
+        Xnew = input_to_tensor(self, Xnew)
         assert_params_false(self.predict_f, full_output_cov=full_output_cov)
 
-        pX = DiagonalGaussian(self.X_data_mean.value, self.X_data_var.value)
+        pX = self._q_x()
 
         Y_data = self.data
         num_inducing = self.inducing_variable.num_inducing
@@ -261,7 +269,7 @@ class BayesianGPLVM(GPModel, InternalDataTrainingLossMixin):
         AAT = _psi2_projection(L, psi2) / sigma2
         B = AAT + torch.eye(num_inducing, dtype=AAT.dtype, device=AAT.device)
         LB = cholesky(B)
-        c = _solve_lower(LB, A @ Y_data) / sigma2
+        c = _solve_lower(LB, rows_of(self).sum(A @ Y_data)) / sigma2
         tmp1 = _solve_lower(L, Kus)
         tmp2 = _solve_lower(LB, tmp1)
         mean = tmp2.mT @ c

@@ -13,7 +13,7 @@ from typing import Optional
 
 import torch
 
-from ..base import MeanAndVariance, Parameter
+from ..base import MeanAndVariance, Parameter, input_to_tensor
 from ..conditionals import conditional
 from ..config import default_device, default_float, default_jitter
 from ..functions import MeanFunction
@@ -82,6 +82,7 @@ class GPMC(GPModel, InternalDataTrainingLossMixin):
     ) -> MeanAndVariance:
         """p(F* | F = L V) through the dense ``conditional``, whitened
         (``gpmc.py:75-84``)."""
+        Xnew = input_to_tensor(self, Xnew)
         assert_params_false(self.predict_f, full_output_cov=full_output_cov)
         X_data, _Y_data = self.data
         mu, var = conditional(Xnew, X_data, self.kernel, self.V.value, full_cov=full_cov, q_sqrt=None, white=True)

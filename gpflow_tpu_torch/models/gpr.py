@@ -15,7 +15,8 @@ from typing import Any, Optional
 import torch
 
 from .. import posteriors
-from ..base import MeanAndVariance, Parameter
+from .._sharding import kernel_rows, rows_of
+from ..base import MeanAndVariance, Parameter, input_to_tensor
 from ..conditionals.util import _use_inv_solve, base_conditional
 from ..functions import MeanFunction
 from ..kernels import Kernel
@@ -60,9 +61,11 @@ class GPR_deprecated(GPModel, InternalDataTrainingLossMixin):
 
     def _data_tensors(self) -> RegressionData:
         """(X, Y) as tensors: a GPLVM's X is a Parameter, read as its
-        constrained value."""
+        constrained value. Where the rows are split over ranks, the whole
+        data: each rank's rows gathered (a GPLVM's X is whole everywhere)."""
         X, Y = self.data
-        return (X.value if isinstance(X, Parameter) else X), Y
+        rows = rows_of(self)
+        return (X.value if isinstance(X, Parameter) else rows.gather(X)), rows.gather(Y)
 
     @check_shapes(
         "return: []",
@@ -81,7 +84,7 @@ class GPR_deprecated(GPModel, InternalDataTrainingLossMixin):
         matmul and a blocked triangular inverse); otherwise the Cholesky and
         the triangular solve are differentiated by autograd."""
         X, Y = self._data_tensors()
-        K = self.kernel(X)
+        K = kernel_rows(self, self.kernel, X)
         ks = add_likelihood_noise_cov(K, self.likelihood, X)
         m = self.mean_function(X)
         if _use_inv_solve():
@@ -96,6 +99,7 @@ class GPR_deprecated(GPModel, InternalDataTrainingLossMixin):
     ) -> MeanAndVariance:
         """Posterior mean and covariance of f at Xnew, from K(X) + sigma^2 I,
         K(Xnew) and K(X, Xnew) on every call."""
+        Xnew = input_to_tensor(self, Xnew)
         assert_params_false(self.predict_f, full_output_cov=full_output_cov)
         X, Y = self._data_tensors()
         err = Y - self.mean_function(X)
@@ -130,6 +134,7 @@ class GPR_with_posterior(GPR_deprecated):
     ) -> MeanAndVariance:
         """The fused route: K(X) + sigma^2 I, its Cholesky and K(X, Xnew) on
         every call."""
+        Xnew = input_to_tensor(self, Xnew)
         return self.posterior(posteriors.PrecomputeCacheType.NOCACHE).fused_predict_f(
             Xnew, full_cov=full_cov, full_output_cov=full_output_cov
         )

@@ -6,7 +6,7 @@ from typing import Any, Optional, Tuple
 
 import torch
 
-from ..base import MeanAndVariance, Module
+from ..base import MeanAndVariance, Module, input_to_tensor
 from ..conditionals.util import sample_mvn
 from ..config import default_device, default_float
 from ..functions import MeanFunction, Zero
@@ -131,6 +131,7 @@ class GPModel(BayesianModel):
         """Draws from the posterior of the latent functions at Xnew
         (``gpflow_tpu/models/model.py:110-137``), through ``sample_mvn`` with
         ``generator``."""
+        Xnew = input_to_tensor(self, Xnew)
         if full_cov and full_output_cov:
             raise NotImplementedError(
                 "The combination of both `full_cov` and `full_output_cov` is not supported."
@@ -150,6 +151,7 @@ class GPModel(BayesianModel):
         self, Xnew: torch.Tensor, full_cov: bool = False, full_output_cov: bool = False
     ) -> MeanAndVariance:
         """Mean and variance of held-out data at Xnew."""
+        Xnew = input_to_tensor(self, Xnew)
         if full_cov or full_output_cov:
             raise NotImplementedError(
                 f"{type(self).__name__}.predict_y does not currently support: "
@@ -166,6 +168,7 @@ class GPModel(BayesianModel):
     ) -> torch.Tensor:
         """log p(Y | X) of held-out data (X [N, D], Y [N, P]) -> [N]
         (``gpflow_tpu/models/model.py:155-164``)."""
+        data = input_to_tensor(self, data)
         assert_params_false(self.predict_log_density, full_cov=full_cov, full_output_cov=full_output_cov)
         X, Y = data
         f_mean, f_var = self.predict_f(X, full_cov=full_cov, full_output_cov=full_output_cov)

@@ -13,7 +13,7 @@ from typing import Any, Optional
 
 import torch
 
-from ..base import MeanAndVariance, Parameter
+from ..base import MeanAndVariance, Parameter, input_to_tensor
 from ..conditionals import conditional
 from ..config import default_device, default_float
 from ..functions import MeanFunction
@@ -78,6 +78,7 @@ class SGPMC(GPModel, InternalDataTrainingLossMixin):
     ) -> MeanAndVariance:
         """p(F* | U = L V) through the sparse ``conditional``, whitened
         (``sgpmc.py:70-84``)."""
+        Xnew = input_to_tensor(self, Xnew)
         mu, var = conditional(
             Xnew, self.inducing_variable, self.kernel, self.V.value,
             full_cov=full_cov, q_sqrt=None, white=True, full_output_cov=full_output_cov,

@@ -20,7 +20,8 @@ from typing import Any, NamedTuple, Optional, Tuple
 import torch
 
 from .. import posteriors
-from ..base import MeanAndVariance
+from .._sharding import rows_of, share_blocks
+from ..base import MeanAndVariance, input_to_tensor
 from ..config import default_jitter
 from ..covariances import Kuf, Kuu
 from ..functions import MeanFunction
@@ -78,6 +79,7 @@ class SGPRBase_deprecated(GPModel, InternalDataTrainingLossMixin):
         """The Titsias (2014) upper bound on the log marginal likelihood
         (``sgpr.py:67-107``)."""
         X_data, Y_data = self.data
+        rows = rows_of(self)
 
         sigma_sq = self.likelihood.variance_at(X_data).squeeze(-1)  # [N]
         sigma = torch.sqrt(sigma_sq)
@@ -92,26 +94,26 @@ class SGPRBase_deprecated(GPModel, InternalDataTrainingLossMixin):
         A = torch.linalg.solve_triangular(L, kuf, upper=False)
 
         A_sigma = torch.linalg.solve_triangular(L, kuf / sigma, upper=False)
-        AAT_sigma = A_sigma @ A_sigma.mT
+        AAT_sigma = rows.sum(A_sigma @ A_sigma.mT)
         B = I + AAT_sigma
         LB = cholesky(B)
 
         # the trace bound (Titsias' presentation)
-        c = torch.sum(Kdiag) - torch.sum(torch.square(A))
+        c = rows.sum(torch.sum(Kdiag) - torch.sum(torch.square(A)))
 
         cn_var = sigma_sq + c
         cn_std = torch.sqrt(cn_var)
 
-        const = -0.5 * torch.sum(torch.log(2 * math.pi * sigma_sq))
+        const = -0.5 * rows.sum(torch.sum(torch.log(2 * math.pi * sigma_sq)))
         logdet = -torch.sum(torch.log(torch.diagonal(LB)))
 
         A_cn = torch.linalg.solve_triangular(L, kuf / cn_std, upper=False)
-        AAT_cn = A_cn @ A_cn.mT
+        AAT_cn = rows.sum(A_cn @ A_cn.mT)
 
         err = Y_data - self.mean_function(X_data)
         LC = cholesky(I + AAT_cn)
-        v = torch.linalg.solve_triangular(LC, A_cn @ (err / cn_std[:, None]), upper=False)
-        quad = -0.5 * torch.sum(torch.square(err / cn_std[:, None])) + 0.5 * torch.sum(torch.square(v))
+        v = torch.linalg.solve_triangular(LC, rows.sum(A_cn @ (err / cn_std[:, None])), upper=False)
+        quad = -0.5 * rows.sum(torch.sum(torch.square(err / cn_std[:, None]))) + 0.5 * torch.sum(torch.square(v))
 
         return const + logdet + quad
 
@@ -157,7 +159,7 @@ class SGPR_deprecated(SGPRBase_deprecated):
         L = cholesky(kuu)
 
         A = torch.linalg.solve_triangular(L, kuf / sigma, upper=False)
-        AAT = A @ A.mT
+        AAT = rows_of(self).sum(A @ A.mT)
         B = add_noise_cov(AAT, 1.0)
         LB = cholesky(B)
 
@@ -176,12 +178,13 @@ class SGPR_deprecated(SGPRBase_deprecated):
         outdim = float(y.shape[1])
         kdiag = self.kernel(x, full_cov=False)
 
-        trace_k = torch.sum(kdiag / sigma_sq)
+        rows = rows_of(self)
+        trace_k = rows.sum(torch.sum(kdiag / sigma_sq))
         trace_q = torch.sum(torch.diagonal(AAT))
         trace = trace_k - trace_q
 
         half_logdet_b = torch.sum(torch.log(torch.diagonal(LB)))
-        log_sigma_sq = torch.sum(torch.log(sigma_sq))
+        log_sigma_sq = rows.sum(torch.sum(torch.log(sigma_sq)))
 
         return -outdim * (half_logdet_b + 0.5 * log_sigma_sq + 0.5 * trace)
 
@@ -197,10 +200,11 @@ class SGPR_deprecated(SGPRBase_deprecated):
         x, y = self.data
         err = (y - self.mean_function(x)) / sigma[..., None]
 
-        Aerr = A @ err
+        rows = rows_of(self)
+        Aerr = rows.sum(A @ err)
         c = torch.linalg.solve_triangular(LB, Aerr, upper=False)
 
-        err_inner_prod = torch.sum(torch.square(err))
+        err_inner_prod = rows.sum(torch.sum(torch.square(err)))
         c_inner_prod = torch.sum(torch.square(c))
 
         return -0.5 * (err_inner_prod - c_inner_prod)
@@ -211,7 +215,7 @@ class SGPR_deprecated(SGPRBase_deprecated):
     def elbo(self) -> torch.Tensor:
         """The collapsed evidence lower bound (``sgpr.py:197-206``)."""
         common = self._common_calculation()
-        num_data, output_dim = (float(s) for s in self.data[1].shape)
+        num_data, output_dim = float(self.data[1].shape[0] * rows_of(self).size), float(self.data[1].shape[1])
         const = -0.5 * num_data * output_dim * math.log(2 * math.pi)
         logdet = self.logdet_term(common)
         quad = self.quad_term(common)
@@ -223,12 +227,15 @@ class SGPR_deprecated(SGPRBase_deprecated):
     ) -> MeanAndVariance:
         """The posterior of f at Xnew, from Kuu, Kuf and K(Z, Xnew) on every
         call (``sgpr.py:208-245``)."""
+        Xnew = input_to_tensor(self, Xnew)
         assert_params_false(self.predict_f, full_output_cov=full_output_cov)
 
         X_data, Y_data = self.data
         err = Y_data - self.mean_function(X_data)
         common = self._common_calculation()
-        c = torch.linalg.solve_triangular(common.LB, common.A @ (err / common.sigma[..., None]), upper=False)
+        c = torch.linalg.solve_triangular(
+            common.LB, rows_of(self).sum(common.A @ (err / common.sigma[..., None])), upper=False
+        )
         mean, var = posteriors.sgpr_conditional(
             self.kernel, self.inducing_variable, self.num_latent_gps, common.L, common.LB, c, Xnew, full_cov
         )
@@ -249,7 +256,8 @@ class SGPR_deprecated(SGPRBase_deprecated):
         var = self.likelihood.variance_at(X_data).squeeze(-1)
         std = torch.sqrt(var)
         scaled_kuf = kuf / std
-        sig = kuu + scaled_kuf @ scaled_kuf.mT
+        rows = rows_of(self)
+        sig = kuu + rows.sum(scaled_kuf @ scaled_kuf.mT)
         sig_sqrt = cholesky(sig)
 
         sig_sqrt_kuu = torch.linalg.solve_triangular(sig_sqrt, kuu, upper=False)
@@ -257,7 +265,7 @@ class SGPR_deprecated(SGPRBase_deprecated):
         cov = sig_sqrt_kuu.mT @ sig_sqrt_kuu
         err = Y_data - self.mean_function(X_data)
         scaled_err = err / std[..., None]
-        mu = sig_sqrt_kuu.mT @ torch.linalg.solve_triangular(sig_sqrt, scaled_kuf @ scaled_err, upper=False)
+        mu = sig_sqrt_kuu.mT @ torch.linalg.solve_triangular(sig_sqrt, rows.sum(scaled_kuf @ scaled_err), upper=False)
 
         return mu, cov
 
@@ -292,10 +300,11 @@ class GPRFITC(SGPRBase_deprecated):
         diagQff = torch.sum(torch.square(V), 0)
         nu = Kdiag - diagQff + sigma_sq
 
-        B = add_noise_cov((V / nu) @ V.mT, 1.0)
+        rows = rows_of(self)
+        B = add_noise_cov(rows.sum((V / nu) @ V.mT), 1.0)
         L = cholesky(B)
         beta = err / nu[:, None]  # [N, R]
-        alpha = V @ beta  # [M, R]
+        alpha = rows.sum(V @ beta)  # [M, R]
 
         gamma = torch.linalg.solve_triangular(L, alpha, upper=False)  # [M, R]
 
@@ -315,12 +324,13 @@ class GPRFITC(SGPRBase_deprecated):
         the determinant lemma (``sgpr.py:318-334``)."""
         err, nu, _Luu, L, _alpha, _beta, gamma = self.common_terms()
 
-        mahalanobisTerm = -0.5 * torch.sum(torch.square(err) / nu[:, None]) + 0.5 * torch.sum(
+        rows = rows_of(self)
+        mahalanobisTerm = -0.5 * rows.sum(torch.sum(torch.square(err) / nu[:, None])) + 0.5 * torch.sum(
             torch.square(gamma)
         )
 
         constantTerm = -0.5 * self.num_data * math.log(2.0 * math.pi)
-        logDeterminantTerm = -0.5 * torch.sum(torch.log(nu)) - torch.sum(torch.log(torch.diagonal(L)))
+        logDeterminantTerm = -0.5 * rows.sum(torch.sum(torch.log(nu))) - torch.sum(torch.log(torch.diagonal(L)))
         logNormalizingTerm = constantTerm + logDeterminantTerm
 
         return mahalanobisTerm + logNormalizingTerm * self.num_latent_gps
@@ -330,6 +340,7 @@ class GPRFITC(SGPRBase_deprecated):
         self, Xnew: torch.Tensor, full_cov: bool = False, full_output_cov: bool = False
     ) -> MeanAndVariance:
         """``sgpr.py:336-363``."""
+        Xnew = input_to_tensor(self, Xnew)
         assert_params_false(self.predict_f, full_output_cov=full_output_cov)
 
         _, _, Luu, L, _, _, gamma = self.common_terms()
@@ -364,21 +375,26 @@ class SGPR_with_posterior(SGPR_deprecated):
     ) -> posteriors.SGPRPosterior:
         """The posterior, with its (L, LB, c, alpha) cache computed unless
         NOCACHE."""
-        return posteriors.SGPRPosterior(
+        posterior = posteriors.SGPRPosterior(
             kernel=self.kernel,
             data=self.data,
             inducing_variable=self.inducing_variable,
             likelihood=self.likelihood,
             num_latent_gps=self.num_latent_gps,
             mean_function=self.mean_function,
-            precompute_cache=precompute_cache,
+            precompute_cache=None,
         )
+        share_blocks(self, posterior)  # a split model's posterior sums its A A^T and A err over the ranks
+        if precompute_cache is not None:
+            posterior.update_cache(precompute_cache)
+        return posterior
 
     @inherit_check_shapes
     def predict_f(
         self, Xnew: torch.Tensor, full_cov: bool = False, full_output_cov: bool = False
     ) -> MeanAndVariance:
         """The fused route: Kuu, Kuf and the two Choleskys on every call."""
+        Xnew = input_to_tensor(self, Xnew)
         return self.posterior(posteriors.PrecomputeCacheType.NOCACHE).fused_predict_f(
             Xnew, full_cov=full_cov, full_output_cov=full_output_cov
         )

@@ -11,7 +11,8 @@ import numpy as np
 import torch
 
 from .. import kullback_leiblers, posteriors
-from ..base import MeanAndVariance, Parameter
+from .._sharding import latents_of, rows_of, share_blocks
+from ..base import MeanAndVariance, Parameter, input_to_tensor
 from ..bijectors import positive, triangular
 from ..conditionals import conditional
 from ..config import default_float
@@ -104,12 +105,17 @@ class SVGP_deprecated(GPModel, ExternalDataTrainingLossMixin):
         """ELBO = num_data / B * sum(variational expectations) - KL on a batch
         (X [B, D], Y [B, P]), through ``predict_f``
         (``gpflow_tpu/models/svgp.py:109-122``)."""
+        data = input_to_tensor(self, data)
         X, Y = data
-        kl = self.prior_kl()
+        # where the batch rows or the latent GPs are split over ranks (see
+        # ``parallel.DataParallelTrainer``): X and Y are this rank's rows, the
+        # KL is over this rank's latent GPs, and both sums are all-reduced
+        rows = rows_of(self)
+        kl = latents_of(self).sum(self.prior_kl())
         f_mean, f_var = self.predict_f(X, full_cov=False, full_output_cov=False)
         var_exp = self.likelihood.variational_expectations(X, f_mean, f_var, Y)
-        scale = 1.0 if self.num_data is None else self.num_data / X.shape[0]
-        return torch.sum(var_exp) * scale - kl
+        scale = 1.0 if self.num_data is None else self.num_data / (X.shape[0] * rows.size)
+        return rows.sum(torch.sum(var_exp)) * scale - kl
 
     @inherit_check_shapes
     def predict_f(
@@ -117,6 +123,7 @@ class SVGP_deprecated(GPModel, ExternalDataTrainingLossMixin):
     ) -> MeanAndVariance:
         """Through ``conditionals.conditional``: Kuu, its Cholesky and Kuf on
         every call."""
+        Xnew = input_to_tensor(self, Xnew)
         mu, var = conditional(
             Xnew,
             self.inducing_variable,
@@ -137,22 +144,29 @@ class SVGP_with_posterior(SVGP_deprecated):
         self,
         precompute_cache: posteriors.PrecomputeCacheType = posteriors.PrecomputeCacheType.TENSOR,
     ) -> posteriors.BasePosterior:
-        """The posterior, with its (alpha, Qinv) cache computed unless NOCACHE."""
-        return posteriors.create_posterior(
+        """The posterior, with its (alpha, Qinv) cache computed unless NOCACHE.
+        Where the latent GPs are split over ranks, q_mu and q_sqrt are this
+        rank's and the posterior conditions those, then gathers."""
+        posterior = posteriors.create_posterior(
             self.kernel,
             self.inducing_variable,
             self.q_mu,
             self.q_sqrt,
             whiten=self.whiten,
             mean_function=self.mean_function,
-            precompute_cache=precompute_cache,
+            precompute_cache=None,
         )
+        share_blocks(self, posterior)
+        if precompute_cache is not None:
+            posterior.update_cache(precompute_cache)
+        return posterior
 
     @inherit_check_shapes
     def predict_f(
         self, Xnew: torch.Tensor, full_cov: bool = False, full_output_cov: bool = False
     ) -> MeanAndVariance:
         """The fused route: Kuu, its Cholesky and Kuf on every call."""
+        Xnew = input_to_tensor(self, Xnew)
         return self.posterior(posteriors.PrecomputeCacheType.NOCACHE).fused_predict_f(
             Xnew, full_cov=full_cov, full_output_cov=full_output_cov
         )

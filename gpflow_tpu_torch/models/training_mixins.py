@@ -9,7 +9,7 @@ from typing import Callable, Iterator, Tuple, TypeVar, Union
 
 import torch
 
-from ..base import InputData, OutputData, RegressionData
+from ..base import InputData, OutputData, RegressionData, input_to_tensor
 from ..utilities.shapes import check_shapes
 
 __all__ = ["Data", "ExternalDataTrainingLossMixin", "InternalDataTrainingLossMixin"]
@@ -46,7 +46,7 @@ class ExternalDataTrainingLossMixin:
     )
     def training_loss(self, data: RegressionData) -> torch.Tensor:
         """The loss on one batch (X [N, D], Y [N, P])."""
-        return self._training_loss(data)
+        return self._training_loss(input_to_tensor(self, data))
 
     def training_loss_closure(
         self,

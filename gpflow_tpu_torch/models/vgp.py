@@ -18,7 +18,8 @@ from typing import Optional
 import torch
 
 from .. import posteriors
-from ..base import MeanAndVariance, Parameter
+from .._sharding import kernel_rows, rows_of
+from ..base import MeanAndVariance, Parameter, input_to_tensor
 from ..bijectors import positive, triangular
 from ..conditionals import conditional
 from ..config import default_device, default_float, default_jitter
@@ -40,6 +41,13 @@ __all__ = [
     "VGP_with_posterior",
     "update_vgp_data",
 ]
+
+
+def _whole_data(model: GPModel) -> RegressionData:
+    """The model's (X, Y); where its rows are split over ranks, every rank's
+    rows gathered."""
+    rows = rows_of(model)
+    return tuple(rows.gather(a) for a in model.data)
 
 
 def _eye(n: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
@@ -87,10 +95,10 @@ class VGP_deprecated(GPModel, InternalDataTrainingLossMixin):
     def elbo(self) -> torch.Tensor:
         """E_q[log p(Y | F)] - KL[q(V) || p(V)] in the whitened
         parametrization (``gpflow_tpu/models/vgp.py:76-95``)."""
-        X_data, Y_data = self.data
+        X_data, Y_data = _whole_data(self)
         KL = gauss_kl(self.q_mu.value, self.q_sqrt.value)
 
-        K = self.kernel(X_data)
+        K = kernel_rows(self, self.kernel, X_data)
         L = cholesky(K + default_jitter() * _eye(self.num_data, K.dtype, K.device))
         fmean = L @ self.q_mu.value + self.mean_function(X_data)  # [N, P]
         q_sqrt_dnn = torch.tril(self.q_sqrt.value)  # [P, N, N]
@@ -106,8 +114,9 @@ class VGP_deprecated(GPModel, InternalDataTrainingLossMixin):
     ) -> MeanAndVariance:
         """The fused route through ``conditionals.conditional``: K(X), its
         Cholesky and K(X, Xnew) on every call."""
+        Xnew = input_to_tensor(self, Xnew)
         assert_params_false(self.predict_f, full_output_cov=full_output_cov)
-        X_data, _Y_data = self.data
+        X_data, _Y_data = _whole_data(self)
         mu, var = conditional(
             Xnew,
             X_data,
@@ -128,7 +137,7 @@ class VGP_with_posterior(VGP_deprecated):
         precompute_cache: posteriors.PrecomputeCacheType = posteriors.PrecomputeCacheType.TENSOR,
     ) -> posteriors.VGPPosterior:
         """The posterior, with its (Lm,) cache computed unless NOCACHE."""
-        X_data, _Y_data = self.data
+        X_data, _Y_data = _whole_data(self)
         return posteriors.VGPPosterior(
             self.kernel,
             X_data,
@@ -142,6 +151,7 @@ class VGP_with_posterior(VGP_deprecated):
     def predict_f(
         self, Xnew: torch.Tensor, full_cov: bool = False, full_output_cov: bool = False
     ) -> MeanAndVariance:
+        Xnew = input_to_tensor(self, Xnew)
         return self.posterior(posteriors.PrecomputeCacheType.NOCACHE).fused_predict_f(
             Xnew, full_cov=full_cov, full_output_cov=full_output_cov
         )
@@ -225,10 +235,10 @@ class VGPOpperArchambeau(GPModel, InternalDataTrainingLossMixin):
     def elbo(self) -> torch.Tensor:
         """E_q[log p(Y | F)] - KL[q(F) || p(F)] with A = I + Lambda K Lambda
         (``gpflow_tpu/models/vgp.py:207-241``)."""
-        X_data, Y_data = self.data
+        X_data, Y_data = _whole_data(self)
         q_alpha, q_lambda = self.q_alpha.value, self.q_lambda.value
 
-        K = self.kernel(X_data)
+        K = kernel_rows(self, self.kernel, X_data)
         K_alpha = K @ q_alpha
         f_mean = K_alpha + self.mean_function(X_data)
 
@@ -259,9 +269,10 @@ class VGPOpperArchambeau(GPModel, InternalDataTrainingLossMixin):
     ) -> MeanAndVariance:
         """q(F*) = N(K_{*f} alpha + mean, K_** - K_{*f} [K + diag(lambda^-2)]^-1 K_{f*})
         (``gpflow_tpu/models/vgp.py:243-266``)."""
+        Xnew = input_to_tensor(self, Xnew)
         assert_params_false(self.predict_f, full_output_cov=full_output_cov)
 
-        X_data, _ = self.data
+        X_data, _ = _whole_data(self)
         Kx = self.kernel(X_data, Xnew)
         K = self.kernel(X_data)
 

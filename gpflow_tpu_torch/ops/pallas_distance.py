@@ -7,7 +7,7 @@ public names keep the JAX package's, where K1 and K2 are Pallas kernels).
 the lengthscales, h one of ``PALLAS_FAMILIES``. The backward expresses every
 gradient as matmuls against the VJP weight ``W = g * variance * h'(d2)``:
 
-* where ``pallas_available`` holds, K1 computes K and, for the exponential
+* where ``_routes_to_kernel`` holds, K1 computes K and, for the exponential
   and Matern families, K2 computes W: CUDA C++ kernels for Hopper
   (``gpflow_tpu_torch/csrc/stationary_k1.cu``, ``stationary_k2.cu``), built
   with nvcc on first use and loaded with ctypes, each launched as
@@ -37,10 +37,11 @@ import ctypes
 import dataclasses
 import math
 import os
-from typing import Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from ..config import as_torch_dtype
 from ..utilities.ops import square_distance
 from .cuda_build import load_library
 
@@ -152,21 +153,38 @@ def get_pallas_enabled() -> Optional[bool]:
     return _state["enabled"]
 
 
-def pallas_available(X: torch.Tensor) -> bool:
-    """True where K1 and K2 serve ``X``: never for float64; else as the
-    switch says; where it is None (auto), as ``GPFLOW_TPU_PALLAS`` says if
-    set ("0", "false" and "False" turn the kernels off, any other value on),
-    and otherwise for a CUDA tensor (``gpflow_tpu/ops/pallas_distance.py:57-75``).
-    A CPU tensor let through raises at the kernel's wrapper."""
-    if X.dtype not in _KERNEL_DTYPES:
-        return False
+def _switch() -> Optional[bool]:
+    """The switch where set, else ``GPFLOW_TPU_PALLAS`` where set ("0",
+    "false" and "False" turn the kernels off, any other value on), else None."""
     enabled = _state["enabled"]
     if enabled is not None:
         return bool(enabled)
     env = os.environ.get("GPFLOW_TPU_PALLAS")
     if env is not None:
         return env not in ("0", "false", "False")
-    return X.is_cuda
+    return None
+
+
+def pallas_available(dtype: Any) -> bool:
+    """True where K1 and K2 serve inputs of ``dtype`` (a torch or numpy
+    dtype): never for float64; else as the switch or ``GPFLOW_TPU_PALLAS``
+    says, and otherwise where a CUDA device is present, as the JAX package
+    asks for the TPU backend (``gpflow_tpu/ops/pallas_distance.py:57-75``).
+    Which tensor takes the kernel is ``_routes_to_kernel``'s rule."""
+    if as_torch_dtype(dtype) not in _KERNEL_DTYPES:
+        return False
+    switch = _switch()
+    return torch.cuda.is_available() if switch is None else switch
+
+
+def _routes_to_kernel(X: torch.Tensor) -> bool:
+    """The rule of the kernels' callers: ``pallas_available`` for X's dtype,
+    where auto (neither switch nor environment set) only for a CUDA tensor.
+    A CPU tensor let through by the switch raises at the kernel's wrapper."""
+    if X.dtype not in _KERNEL_DTYPES:
+        return False
+    switch = _switch()
+    return X.is_cuda if switch is None else switch
 
 
 def _tail_value(family: str, d2: torch.Tensor, alpha: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -502,8 +520,8 @@ def stationary_forward(
     variance: torch.Tensor,
     alpha: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """K1 where ``pallas_available(Xs)``, else the plain version."""
-    if pallas_available(Xs):
+    """K1 where ``_routes_to_kernel(Xs)``, else the plain version."""
+    if _routes_to_kernel(Xs):
         return stationary_forward_cuda(family, Xs, Zs, variance, alpha)
     return stationary_forward_plain(family, Xs, Zs, variance, alpha)
 
@@ -515,8 +533,8 @@ def stationary_wgrad(
     variance: torch.Tensor,
     g: torch.Tensor,
 ) -> torch.Tensor:
-    """K2 where ``pallas_available(Xs)``, else the plain version."""
-    if pallas_available(Xs):
+    """K2 where ``_routes_to_kernel(Xs)``, else the plain version."""
+    if _routes_to_kernel(Xs):
         return stationary_wgrad_cuda(family, Xs, Zs, variance, g.contiguous())
     return stationary_wgrad_plain(family, Xs, Zs, variance, g)
 
@@ -628,7 +646,7 @@ def stationary_kernel_matrix(
     Xs = (X / lengthscales).contiguous()
     Zs = (Z / lengthscales).contiguous()
     variance = torch.as_tensor(variance)
-    on_kernel = pallas_available(Xs)
+    on_kernel = _routes_to_kernel(Xs)
     if on_kernel:
         variance = variance.reshape(1).to(torch.float32)
     if family == "rq":

@@ -212,12 +212,16 @@ class NaturalGradient:
         mu_transform: Bijector,
         sqrt_transform: Bijector,
         xi_transform: XiTransform,
+        agree: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """The new (mean, varsqrt) and the acceptance flag, a boolean device
         tensor (``natgrad.py:358-406``), for a step of ``self.gamma``. Where
         the step leaves the negative-definite cone a conversion's Cholesky is
         NaN; the step is then rejected and the values are returned unchanged,
-        branch-free."""
+        branch-free. Where the latent GPs are split over ranks, each rank
+        converts its own and ``agree`` makes the flag the ranks' AND, so that
+        a step is taken or rejected for all latent GPs together, as in the
+        JAX package."""
         with torch.no_grad():
             q_mu_value, q_sqrt_value = q_mu_value.detach(), q_sqrt_value.detach()
             dL_dmean = mu_transform.forward(q_mu_grad)
@@ -239,6 +243,8 @@ class NaturalGradient:
                 xi1 - self.gamma * nat_dL_xi1.detach(), xi2 - self.gamma * nat_dL_xi2.detach()
             )
             ok = torch.isfinite(mean_new).all() & torch.isfinite(varsqrt_new).all()
+            if agree is not None:
+                ok = agree(ok)
             mean_new = torch.where(ok, mean_new, q_mu_value)
             varsqrt_new = torch.where(ok, varsqrt_new, q_sqrt_value)
         return mean_new, varsqrt_new, ok
@@ -256,6 +262,7 @@ class NaturalGradient:
         q_mu: Parameter,
         q_sqrt: Parameter,
         xi_transform: Optional[XiTransform] = None,
+        agree: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     ) -> torch.Tensor:
         """One natural-gradient step on (q_mu, q_sqrt) from the gradients of
         their unconstrained tensors (``natgrad.py:408-440``), written in
@@ -269,7 +276,8 @@ class NaturalGradient:
                 "supported (same restriction as the reference implementation)."
             )
         mean_new, varsqrt_new, ok = self._natgrad_values_with_ok(
-            q_mu_grad, q_sqrt_grad, q_mu.value, q_sqrt.value, q_mu.transform, q_sqrt.transform, xi_transform
+            q_mu_grad, q_sqrt_grad, q_mu.value, q_sqrt.value, q_mu.transform, q_sqrt.transform, xi_transform,
+            agree,
         )
         with torch.no_grad():
             q_mu._set_unconstrained(q_mu.transform.inverse(mean_new))

@@ -35,7 +35,8 @@ from typing import Any, Optional, Tuple, Type, Union
 import torch
 
 from . import kernels
-from .base import MeanAndVariance, Module, Parameter
+from ._sharding import WHOLE, latents_of, rows_of
+from .base import MeanAndVariance, Module, Parameter, input_to_tensor
 from .conditionals.util import (
     base_conditional,
     base_conditional_with_lm,
@@ -188,6 +189,7 @@ class AbstractPosterior(Module, ABC):
         self, Xnew: torch.Tensor, full_cov: bool = False, full_output_cov: bool = False
     ) -> MeanAndVariance:
         """Mean and covariance at Xnew, mean function included, without the cache."""
+        Xnew = input_to_tensor(self, Xnew)
         mean, cov = self._conditional_fused(Xnew, full_cov=full_cov, full_output_cov=full_output_cov)
         return self._add_mean_function(Xnew, mean), cov
 
@@ -217,6 +219,7 @@ class AbstractPosterior(Module, ABC):
         self, Xnew: torch.Tensor, full_cov: bool = False, full_output_cov: bool = False
     ) -> MeanAndVariance:
         """Mean and covariance at Xnew, mean function included, from the cache."""
+        Xnew = input_to_tensor(self, Xnew)
         if self.cache is None:
             raise ValueError(
                 "Cache has not been precomputed yet. Call update_cache first or use fused_predict_f"
@@ -246,6 +249,7 @@ class AbstractPosterior(Module, ABC):
 
     def predict_mean(self, Xnew: torch.Tensor) -> torch.Tensor:
         """Predictive mean only; the fused route where there is no cache."""
+        Xnew = input_to_tensor(self, Xnew)
         if self.cache is None:
             mean, _ = self.fused_predict_f(Xnew)
         else:
@@ -439,6 +443,7 @@ class IndependentPosterior(BasePosterior):
 
     def predict_mean(self, Xnew: torch.Tensor) -> torch.Tensor:
         """mean = Kuf^T alpha from the cache, skipping the O(M^2 N) Qinv term."""
+        Xnew = input_to_tensor(self, Xnew)
         if self.cache is None:
             return super().predict_mean(Xnew)
         alpha, _ = self.cache
@@ -507,6 +512,7 @@ class GPRPosterior(AbstractPosterior):
     def predict_mean(self, Xnew: torch.Tensor) -> torch.Tensor:
         """mean = Kmn^T alpha with alpha from the cache: the [N, Nnew] Kmn and
         one matvec, no solve."""
+        Xnew = input_to_tensor(self, Xnew)
         if self.cache is None:
             return super().predict_mean(Xnew)
         alpha = self.cache[2]
@@ -628,9 +634,10 @@ class SGPRPosterior(AbstractPosterior):
 
         L = cholesky(kuu)
         A = torch.linalg.solve_triangular(L, kuf / sigma, upper=False)
-        B = torch.matmul(A, A.mT) + torch.eye(A.shape[0], dtype=A.dtype, device=A.device)
+        rows = rows_of(self)
+        B = rows.sum(torch.matmul(A, A.mT)) + torch.eye(A.shape[0], dtype=A.dtype, device=A.device)
         LB = cholesky(B)
-        Aerr = torch.matmul(A, err / sigma[..., None])
+        Aerr = rows.sum(torch.matmul(A, err / sigma[..., None]))
         c = torch.linalg.solve_triangular(LB, Aerr, upper=False)
         return L, LB, c
 
@@ -652,6 +659,7 @@ class SGPRPosterior(AbstractPosterior):
     def predict_mean(self, Xnew: torch.Tensor) -> torch.Tensor:
         """mean = Kus^T alpha with alpha from the cache: the [M, M] solves act
         on the [M, P] vector c, not on the [M, Nnew] Kus."""
+        Xnew = input_to_tensor(self, Xnew)
         if self.cache is None:
             return super().predict_mean(Xnew)
         alpha = self.cache[3]
@@ -735,36 +743,57 @@ class IndependentPosteriorMultiOutput(IndependentPosterior):
     """Independent outputs or latent GPs (``posteriors.py:823-858``): shared
     inducing points and a shared kernel through ``base_conditional`` with one
     [M, M] Kuu; otherwise each output on its own Kuu [P, M, M] and Kuf
-    [P, M, N], as one batched conditional."""
+    [P, M, N], as one batched conditional. Where the latent GPs are split
+    over ranks (q_mu and q_sqrt then hold this rank's), each rank conditions
+    its own and the marginals are gathered before any mixing."""
 
     @inherit_check_shapes
     def _conditional_fused(
         self, Xnew: torch.Tensor, full_cov: bool = False, full_output_cov: bool = False
     ) -> MeanAndVariance:
-        if isinstance(self.X_data, SharedIndependentInducingVariables) and isinstance(
-            self.kernel, kernels.SharedIndependent
-        ):
+        latents = latents_of(self)
+        fmean, fvar = self._latent_conditional(Xnew, full_cov, latents.start)
+        if latents is not WHOLE:
+            fmean = latents.gather(fmean, dim=-1)
+            fvar = latents.gather(fvar, dim=-3 if full_cov else -1)
+        return self._post_process_mean_and_cov(fmean, fvar, full_cov, full_output_cov)
+
+    def _latent_conditional(self, Xnew: torch.Tensor, full_cov: bool, start: int = 0) -> MeanAndVariance:
+        """The marginals, before any mixing, of the latent GPs that q_mu
+        holds: all of them, or where they are split over ranks this rank's,
+        ``start`` onwards. One [M, M] Kuu where the kernel and the inducing
+        points are shared; otherwise each latent GP on its own kernel and
+        inducing variable, stacked into one batched conditional."""
+        shared_iv = isinstance(self.X_data, SharedIndependentInducingVariables)
+        if shared_iv and isinstance(self.kernel, kernels.SharedIndependent):
             Knn = self.kernel.kernel(Xnew, full_cov=full_cov)
             Kmm = Kuu(self.X_data, self.kernel, jitter=default_jitter())  # [M, M]
             Kmn = Kuf(self.X_data, self.kernel, Xnew)  # [M, N]
-            fmean, fvar = base_conditional(
+            return base_conditional(
                 Kmn, Kmm, Knn, self.q_mu, full_cov=full_cov, q_sqrt=self.q_sqrt, white=self.whiten
             )
+        count = self.q_mu.shape[-1]
+        if isinstance(self.kernel, kernels.Combination):
+            kernel_list = list(self.kernel.kernels)[start:start + count]
         else:
-            Kmms = Kuu(self.X_data, self.kernel, jitter=default_jitter())  # [P, M, M]
-            Kmns = Kuf(self.X_data, self.kernel, Xnew)  # [P, M, N]
-            if isinstance(self.kernel, kernels.Combination):
-                kernel_list = list(self.kernel.kernels)
-            else:
-                kernel_list = [self.kernel.kernel] * len(self.X_data.inducing_variable_list)
-            Knns = torch.stack([k.K(Xnew) if full_cov else k.K_diag(Xnew) for k in kernel_list], dim=0)
-            fmean, fvar = separate_independent_conditional_implementation(
-                Kmns, Kmms, Knns, self.q_mu, q_sqrt=self.q_sqrt, full_cov=full_cov, white=self.whiten,
+            kernel_list = [self.kernel.kernel] * count
+        if shared_iv:
+            iv_list = [self.X_data.inducing_variable] * count
+        else:
+            iv_list = list(self.X_data.inducing_variable_list)[start:start + count]
+        if not len(kernel_list) == len(iv_list) == count:
+            raise ValueError(
+                f"{count} latent GPs in q_mu, but {len(kernel_list)} kernels and {len(iv_list)} "
+                f"inducing variables from latent GP {start} on"
             )
-            if full_cov:
-                # [P, batch..., N, N] -> batch-leading, as the shared branch gives it
-                fvar = torch.movedim(fvar, 0, -3)
-        return self._post_process_mean_and_cov(fmean, fvar, full_cov, full_output_cov)
+        Kmms = torch.stack([Kuu(iv, k, jitter=default_jitter()) for iv, k in zip(iv_list, kernel_list)])  # [L, M, M]
+        Kmns = torch.stack([Kuf(iv, k, Xnew) for iv, k in zip(iv_list, kernel_list)])  # [L, M, N]
+        Knns = torch.stack([k.K(Xnew) if full_cov else k.K_diag(Xnew) for k in kernel_list], dim=0)
+        fmean, fvar = separate_independent_conditional_implementation(
+            Kmns, Kmms, Knns, self.q_mu, q_sqrt=self.q_sqrt, full_cov=full_cov, white=self.whiten,
+        )
+        # [L, batch..., N, N] -> batch-leading, as the shared branch gives it
+        return fmean, torch.movedim(fvar, 0, -3) if full_cov else fvar
 
 
 class LinearCoregionalizationPosterior(IndependentPosteriorMultiOutput):

@@ -7,6 +7,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from .base import Module
 from .utilities.shapes import check_shapes, register_get_shape
 
 __all__ = [
@@ -18,8 +19,9 @@ __all__ = [
 ]
 
 
-class ProbabilityDistribution:
-    """Base of the input distributions; ``shape`` is [N, D]-style."""
+class ProbabilityDistribution(Module):
+    """Base of the input distributions; ``shape`` is [N, D]-style. A
+    ``Module``, as in the JAX package, holding tensors and no Parameters."""
 
     @property
     def shape(self) -> Optional[Tuple[int, ...]]:
@@ -34,6 +36,7 @@ class Gaussian(ProbabilityDistribution):
         "cov: [N, D, D]",
     )
     def __init__(self, mu: torch.Tensor, cov: torch.Tensor) -> None:
+        super().__init__()
         self.mu = mu
         self.cov = cov
 
@@ -50,6 +53,7 @@ class DiagonalGaussian(ProbabilityDistribution):
         "cov: [N, D]",
     )
     def __init__(self, mu: torch.Tensor, cov: torch.Tensor) -> None:
+        super().__init__()
         self.mu = mu
         self.cov = cov
 
@@ -69,6 +73,7 @@ class MarkovGaussian(ProbabilityDistribution):
         "cov: [2, N_plus_1, D, D]",
     )
     def __init__(self, mu: torch.Tensor, cov: torch.Tensor) -> None:
+        super().__init__()
         self.mu = mu
         self.cov = cov
 

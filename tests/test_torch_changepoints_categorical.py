@@ -298,7 +298,7 @@ def _k1_route_on_the_cpu(monkeypatch):
             return plain(family, Xs, Zs, variance, alpha)
         return torch.as_tensor(variance).to(torch.float32) * pd._tail_value(family, pd._direct_d2(Xs, Zs), alpha)
 
-    monkeypatch.setattr(kernels.stationaries, "pallas_available", lambda X: X.dtype == torch.float32)
+    monkeypatch.setattr(kernels.stationaries, "_routes_to_kernel", lambda X: X.dtype == torch.float32)
     monkeypatch.setattr(pd, "stationary_forward_plain", direct)
 
 

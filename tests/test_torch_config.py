@@ -268,7 +268,8 @@ def test_kernel_switch_reads_the_environment(switch, env, dtype, expected):
         with mock.patch.dict("os.environ", environ):
             if env is None:
                 os.environ.pop("GPFLOW_TPU_PALLAS", None)
-            assert pd.pallas_available(torch.zeros(2, 2, dtype=dtype)) is expected
+            assert pd.pallas_available(dtype) is expected
+            assert pd._routes_to_kernel(torch.zeros(2, 2, dtype=dtype)) is expected
     finally:
         pd.set_pallas_enabled(before)
 
@@ -299,9 +300,9 @@ def test_environment_in_one_process():
         " if k != 'device'}}\n"
         "X = torch.zeros(2, 2)\n"
         "out['tiers'] = [torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,\n"
-        "                torch.get_float32_matmul_precision(), get_enable_check_shapes(), pd.pallas_available(X)]\n"
+        "                torch.get_float32_matmul_precision(), get_enable_check_shapes(), pd.pallas_available(X.dtype)]\n"
         "pd.set_pallas_enabled(True)\n"
-        "out['tiers'] += [pd.pallas_available(X), pd.pallas_available(X.double())]\n"
+        "out['tiers'] += [pd.pallas_available(X.dtype), pd.pallas_available(torch.float64)]\n"
         "config.set_default_float(torch.float64)\n"
         "out['jitter after float64'] = config.default_jitter()\n"
         "out['positive'] = repr(gt.bijectors.positive())\n"

@@ -43,13 +43,9 @@ SLICE_MODULES = (
     "models.training_mixins", "optimizers.natgrad", "posteriors", "quadrature.base", "quadrature.gauss_hermite",
     "utilities.misc", "utilities.model_utils", "utilities.ops",
 )
-# Modules of the JAX package that the port does not hold, each with its reason.
-MODULE_EXCLUSIONS = {
-    "parallel.mesh": "the device mesh: what it does exists only across devices, and the port runs on one "
-                     "card (ROADMAP, 'Not now')",
-    "parallel.sharded": "row-sharded data with a psum and latent-sharded [L, M, M] state, likewise across "
-                        "devices only",
-}
+# Modules of the JAX package that the port does not hold, each with its reason
+# (none: the mesh and the sharded data came last).
+MODULE_EXCLUSIONS: dict = {}
 # Contracts of the JAX package that the port does not carry, each with its reason.
 EXCLUSIONS = {
     ("posteriors", "_DeltaDist.__init__"): "the port holds q_mu and q_sqrt on the posterior, without the "

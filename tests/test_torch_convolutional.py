@@ -195,7 +195,7 @@ def test_kuf_flattened_route_matches_the_batched_route(base):
 
 
 def test_kuu_and_kuf_reach_the_k1_route_and_k_diag_does_not(monkeypatch):
-    """With ``pallas_available`` forced true on the CPU and
+    """With ``_routes_to_kernel`` forced true on the CPU and
     ``stationary_kernel_matrix`` recorded: Kuu and Kuf each make one 2-D
     call (K1 on the card), K(X) one; K_diag and K(X, X2) take the batched
     plain path."""
@@ -206,7 +206,7 @@ def test_kuu_and_kuf_reach_the_k1_route_and_k_diag_does_not(monkeypatch):
         calls.append((family, tuple(X.shape), tuple(Z.shape)))
         return real(X, Z, lengthscales, variance, family, alpha=alpha)
 
-    monkeypatch.setattr(stationaries, "pallas_available", lambda X: True)
+    monkeypatch.setattr(stationaries, "_routes_to_kernel", lambda X: True)
     monkeypatch.setattr(stationaries, "stationary_kernel_matrix", recording)
     k = _conv(gpflow_tpu_torch, "Matern52", 1)
     iv = inducing_variables.InducingPatches(_patches_Z(1))

@@ -88,9 +88,9 @@ def test_kernel_matrix_rejects_unknown_family_and_rq_without_alpha():
 
 
 def test_only_cuda_f32_or_bf16_routes_to_the_kernel():
-    assert not pd.pallas_available(torch.zeros(2, 2, dtype=torch.float32))
-    assert not pd.pallas_available(torch.zeros(2, 2, dtype=torch.float64))
-    assert not pd.pallas_available(torch.zeros(2, 2, dtype=torch.bfloat16))
+    assert not pd.pallas_available(torch.float32) and not pd._routes_to_kernel(torch.zeros(2, 2, dtype=torch.float32))
+    assert not pd.pallas_available(torch.float64) and not pd._routes_to_kernel(torch.zeros(2, 2, dtype=torch.float64))
+    assert not pd.pallas_available(torch.bfloat16) and not pd._routes_to_kernel(torch.zeros(2, 2, dtype=torch.bfloat16))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -198,6 +198,8 @@ def test_import_leaves_jax_out():
         "from gpflow_tpu_torch import monitor, quadrature, experimental, default_float, __version__\n"
         "import gpflow_tpu_torch.logdensities, gpflow_tpu_torch.likelihoods.utils, gpflow_tpu_torch.likelihoods.base\n"
         "import gpflow_tpu_torch.likelihoods.scalar_continuous, gpflow_tpu_torch.quadrature.gauss_hermite\n"
+        "import gpflow_tpu_torch.parallel.mesh, gpflow_tpu_torch.parallel.sharded, gpflow_tpu_torch._sharding\n"
+        "from gpflow_tpu_torch.parallel import make_mesh, make_hybrid_mesh, shard_internal_data, sharded_predict_f\n"
         "import gpflow_tpu_torch.quadrature.base, gpflow_tpu_torch.utilities.model_utils, gpflow_tpu_torch.utilities.ops\n"
         "import gpflow_tpu_torch.models.training_mixins, gpflow_tpu_torch.models.model, gpflow_tpu_torch.models.gpr\n"
         "import gpflow_tpu_torch.models.sgpr, gpflow_tpu_torch.models.cglb, gpflow_tpu_torch.models.gplvm\n"
@@ -344,7 +346,7 @@ def test_the_switch_sends_cpu_tensors_to_the_plain_version(switch):
     X = torch.from_numpy(np.random.RandomState(4).rand(5, 2).astype(np.float32))
     pd.set_pallas_enabled(switch)
     try:
-        assert not pd.pallas_available(X)
+        assert not pd.pallas_available(X.dtype) and not pd._routes_to_kernel(X)
         K = pd.stationary_forward("matern52", X, X, torch.tensor(1.3))
         W = pd.stationary_wgrad("matern52", X, X, torch.tensor(1.3), torch.ones(5, 5))
     finally:
@@ -358,7 +360,7 @@ def test_the_forced_switch_raises_on_a_cpu_tensor(dtype):
     X = torch.zeros(4, 2, dtype=dtype)
     pd.set_pallas_enabled(True)
     try:
-        assert pd.get_pallas_enabled() is True and pd.pallas_available(X)
+        assert pd.get_pallas_enabled() is True and pd.pallas_available(X.dtype) and pd._routes_to_kernel(X)
         with pytest.raises(ValueError, match="CUDA tensors"):
             pd.stationary_forward("rbf", X, X, torch.tensor([1.0]))
         with pytest.raises(ValueError, match="CUDA tensors"):
@@ -375,7 +377,7 @@ def test_float64_never_reaches_the_kernels(switch):
     X = torch.zeros(3, 2, dtype=torch.float64)
     pd.set_pallas_enabled(switch)
     try:
-        assert not pd.pallas_available(X)
+        assert not pd.pallas_available(X.dtype) and not pd._routes_to_kernel(X)
         assert pd.stationary_forward("rbf", X, X, torch.tensor(1.0, dtype=torch.float64)).dtype == torch.float64
     finally:
         pd.set_pallas_enabled(None)

@@ -162,7 +162,7 @@ def test_anisotropic_ard_lengthscales_are_unconstrained():
 
 
 def test_k1_routing_by_exact_type(monkeypatch):
-    """Which kernels' K reaches K1, with ``pallas_available`` forced true on
+    """Which kernels' K reaches K1, with ``_routes_to_kernel`` forced true on
     the CPU and ``stationary_kernel_matrix`` recorded: the SquaredExponential
     terms of a Sum and a Product do; a Periodic, a Cosine, the Linear and
     static terms and a user's subclass do not."""
@@ -173,7 +173,7 @@ def test_k1_routing_by_exact_type(monkeypatch):
         calls.append(family)
         return real(X, Z, lengthscales, variance, family, alpha=alpha)
 
-    monkeypatch.setattr(stationaries, "pallas_available", lambda X: True)
+    monkeypatch.setattr(stationaries, "_routes_to_kernel", lambda X: True)
     monkeypatch.setattr(stationaries, "stationary_kernel_matrix", recording)
 
     class MySE(kernels.SquaredExponential):

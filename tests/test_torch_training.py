@@ -409,9 +409,10 @@ def test_set_trainable_freezes_parameters():
 @pytest.mark.parametrize("kwargs", [{"mesh": object()}, {"natgrad_gamma": 0.1}, {"natgrad_fused": True},
                                     {"latent_axis": "latent"}])
 def test_trainer_mesh_and_natgrad_raise(kwargs):
-    # the mesh and the latent axis are not ported; natural gradients are:
-    # a gamma builds a trainer, and fusing without one raises the JAX
-    # package's ValueError
+    # a mesh must be a DeviceMesh (tests/test_torch_parallel.py drives real
+    # ones), and a latent axis needs a mesh that has it, as in the JAX
+    # package; a gamma builds a trainer, and fusing without one raises the
+    # JAX package's ValueError
     _, pm, _ = _models("SquaredExponential", True, False)
     if "natgrad_gamma" in kwargs:
         trainer = DataParallelTrainer(pm, **kwargs)
@@ -419,6 +420,9 @@ def test_trainer_mesh_and_natgrad_raise(kwargs):
     elif "natgrad_fused" in kwargs:
         with pytest.raises(ValueError, match="requires natgrad_gamma"):
             DataParallelTrainer(pm, **kwargs)
+    elif "mesh" in kwargs:
+        with pytest.raises(TypeError, match="DeviceMesh"):
+            DataParallelTrainer(pm, **kwargs)
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        with pytest.raises(ValueError, match="not an axis of the mesh"):
             DataParallelTrainer(pm, **kwargs)

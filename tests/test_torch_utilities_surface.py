@@ -52,21 +52,13 @@ from gpflow_tpu_torch.utilities.shapes import _shape_of
 config.set_default_device("cpu")  # the port builds on the card unless asked for the CPU
 
 JAX_ROOT = Path(gpflow_tpu.__file__).parent
-# JAX modules with no counterpart in the port, each with its reason
-NOT_PORTED = {
-    "gpflow_tpu.parallel.mesh": "a device mesh needs more than one GPU (ROADMAP.md, 'Not now')",
-    "gpflow_tpu.parallel.sharded": "sharded training and prediction need more than one GPU (ROADMAP.md, 'Not now')",
-}
+# JAX modules with no counterpart in the port, each with its reason (none
+# since the mesh and the sharded data were ported)
+NOT_PORTED: dict = {}
 # names of a ported module's __all__ that the port's lacks, each with its
 # reason (the private back-compat Pallas aliases of
 # gpflow_tpu/ops/pallas_distance.py are not in its __all__ and need none)
-EXCLUDED = {
-    "gpflow_tpu.parallel": {
-        name: "re-exported from parallel/mesh.py or parallel/sharded.py, which need more than one GPU"
-        for name in ("make_hybrid_mesh", "make_mesh", "replicated", "shard_batch", "shard_internal_data",
-                     "sharded_predict_f")
-    },
-}
+EXCLUDED: dict = {}
 
 
 def _jax_modules():
