@@ -9,7 +9,7 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
 
 With ``--phases`` the script runs the build and the kernel checks of phases
 1-4, then each group of phases that holds a selected one (5-8, 9-10, 11-12,
-13-16, and 17 to 26 alone), then the record's kernel timings; without it,
+13-16, and 17 to 27 alone), then the record's kernel timings; without it,
 every phase. ``--k1-host-us`` builds K1 from the checkout at ROOT and prints
 phase 23's host time of one K1 call with that checkout's package, three
 times, and nothing else: run it on two checkouts in one call to compare.
@@ -346,11 +346,26 @@ on the card where the CPU would take minutes. Phases:
    the host time of the operations that only the mesh runs.
    One rank checks no collective across cards: the 4-rank collectives are
    held to the JAX package on the CPU (``tests/test_torch_parallel.py``).
+27. numpy at the functional API (slice 17): at the flagship's width
+   (M = 2048, B = 8192, D = 8, float32, SquaredExponential) ``conditional``
+   with numpy Xnew, q_mu and q_sqrt, ``Kuu`` of inducing points built from
+   numpy, ``Kuf`` of numpy Xnew, ``gauss_kl`` of numpy q_mu and q_sqrt and
+   a Parameter in arithmetic with numpy on either side, each equal to the
+   bit to its tensor route, on the card, with the same K1 launches; the
+   tensor routes under sync debug mode "error", the numpy routes' syncs
+   counted (no more than their uploads: a numpy array is copied from
+   pageable host memory, which synchronises). In a process of its own,
+   started beside the build of phase 2, a subset of the JAX package's
+   jax-free tests runs on the port through the alias of
+   ``tests/test_torch_reference_plugin.py`` with the card as the default
+   device, in float64: every test passes or fails as its row of that
+   file's table of differences says.
 
 Every failure raises, and the script then exits non-zero without the result
 line. The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
 """
+import atexit
 import contextlib
 import dataclasses
 import json
@@ -768,9 +783,12 @@ HMC_DH_MOMENTA = 3
 # within 5 Monte-Carlo standard errors (+1e-3) of the analytic mean, the
 # effective sample size estimated from the lag-1 autocorrelation, and the
 # mean ratio of sample to analytic variance within 25%, as in the oracle.
-# 300 kept, 500 until phase 24 came (least ESS 267-326 at 500, so ~160 now;
-# the mean's limit scales with it, and the ratio averages every dimension).
-HMC_ORACLE_SAMPLES, HMC_ORACLE_BURNIN = 300, 300
+# 200 kept after 300, 500 after 300 until phase 24 came (least ESS 267-326
+# at 500), 300 after 300 until phase 27 came (least ESS 167-200, the chains
+# 12.0 and 21.8 s, NVIDIA H100 80GB HBM3, 700 W); the mean's limit scales
+# with the ESS, and the ratio averages every dimension. 200 after 200 failed
+# GPMC's mean (1.29 of its limit, least ESS 102): the step still adapts.
+HMC_ORACLE_SAMPLES, HMC_ORACLE_BURNIN = 200, 300
 # sample_conditional on phase 19's LinearCoregionalization (L = 4, P = 7,
 # M = 1024) at the 4449 request points, full_cov=False: HMC_COND_SAMPLES
 # draws, whose mean must lie within HMC_COND_Z standard errors of the
@@ -954,6 +972,19 @@ MS_ORDER = (True, False, False, True)  # with the mesh or not: each mode twice, 
 MS_PROFILE_STEPS = 3  # steps under torch.profiler each way, on the latent-split path
 MS_AB_STEPS = 12  # steps each way, the two trainers in turn, on the host-bound paths
 MS_REQUEST = 8192
+
+# Phase 27: the JAX package's test files that run on the card through the
+# alias, in a process of its own (no JAX there; --noconftest).
+RF_FILES = (
+    "tests/gpflow_tpu/test_logdensities.py",
+    "tests/gpflow_tpu/test_functions_depth.py",
+    "tests/gpflow_tpu/covariances/test_covariances.py",
+    "tests/gpflow_tpu/test_inducing_variables.py",
+    "tests/gpflow_tpu/posteriors/test_predict_mean.py",
+    "tests/gpflow_tpu/models/test_model_predict.py",
+)
+RF_TIMEOUT = 300
+RF_RUNS = []  # phase 27's run of them, started beside the build (it launches no kernel)
 
 
 def log(*args):
@@ -6514,7 +6545,113 @@ def mesh_phases(launches):
             log(f"time: mesh {part}: {time.perf_counter() - t0:.1f} s")
 
 
-# Phases 5-26 in the order they run, as groups that share their data: a
+def rf_reference_run():
+    """Starts phase 27's subset of the JAX package's tests on the port with
+    the card as the default device, in float64 (which no kernel serves);
+    returns the process and the run's report path. The process is killed
+    at exit if it still runs."""
+    import tempfile
+
+    from tests import test_torch_reference_plugin as reference
+
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "gpflow_tpu_torch", "_build")
+    os.makedirs(build, exist_ok=True)
+    workdir = tempfile.mkdtemp(prefix="reference_", dir=build)
+    report = os.path.join(workdir, "outcomes.json")
+    env = {**os.environ, **reference.SERIAL, reference.DEVICE_VARIABLE: "cuda", reference.REPORT_VARIABLE: report}
+    with open(os.path.join(workdir, "output.txt"), "w") as output:  # no pipe to fill while the build runs
+        proc = subprocess.Popen([*reference.command(RF_FILES), f"--basetemp={os.path.join(workdir, 'tmp')}"],
+                                cwd=reference.REPO, env=env, stdout=output, stderr=subprocess.STDOUT,
+                                stdin=subprocess.DEVNULL)
+    atexit.register(lambda: proc.poll() is None and (proc.kill(), proc.wait()))
+    return proc, report
+
+
+def rf_reference_check(proc, report):
+    """Phase 27's subset: every committed node of ``RF_FILES`` ran and
+    passed, or failed as its row of the table of differences says."""
+    from tests import test_torch_reference_plugin as reference
+
+    try:
+        proc.wait(timeout=RF_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    with open(os.path.join(os.path.dirname(report), "output.txt")) as f:
+        out = f.read()
+    tail = "\n".join(out.splitlines()[-40:])
+    assert os.path.exists(report), f"the reference run wrote no report (exit code {proc.returncode}):\n{tail}"
+    with open(report) as f:
+        outcomes = json.load(f)
+    nodes = reference.committed_nodes(RF_FILES)
+    bad = [reason[-1500:] for reason in map(lambda node: reference.mismatch(node, outcomes), nodes) if reason]
+    log(f"reference: {len(nodes)} JAX tests of {len(RF_FILES)} files on the card, {len(bad)} not as expected; "
+        f"{out.strip().splitlines()[-1] if out.strip() else ''}")
+    assert not bad, "\n".join(bad[:10])
+    assert sorted(outcomes) == sorted(nodes), "the run's nodes are not the committed ones"
+
+
+def rf_pair(what, numpy_route, tensor_route, uploads, launches, expected):
+    """One entry point's numpy route against its tensor route: equal to the
+    bit, on the card, with the same K1 launches (``expected``); the tensor
+    route under sync debug mode "error", the numpy route's syncs counted."""
+    want, want_counts = counted(lambda: without_syncs(tensor_route))
+    (got, syncs), got_counts = counted(lambda: count_syncs(numpy_route))
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    assert len(got) == len(want), what
+    for g, w in zip(got, want):
+        assert isinstance(g, torch.Tensor) and g.device.type == "cuda", f"{what}: {type(g)} on {g.device}"
+        assert g.dtype == w.dtype and torch.equal(g, w), f"{what}: the numpy route differs from the tensor route"
+    log(f"numpy route {what}: equal to the bit to the tensor route on {got[0].device}, shapes "
+        f"{[tuple(g.shape) for g in got]}; {syncs} host syncs for {uploads} uploads")
+    assert syncs <= uploads, f"{what}: {syncs} host syncs for {uploads} uploads"
+    expect_launches(f"{what} (tensor route)", want_counts, expected, launches)
+    expect_launches(f"{what} (numpy route)", got_counts, expected, launches)
+
+
+def reference_phases(launches):
+    """Phase 27: numpy at the functional API on the card, and the JAX
+    package's tests of ``RF_FILES`` on the port beside it."""
+    from gpflow_tpu_torch.conditionals import conditional
+    from gpflow_tpu_torch.covariances import Kuf, Kuu
+    from gpflow_tpu_torch.inducing_variables import InducingPoints
+    from gpflow_tpu_torch.kullback_leiblers import gauss_kl
+
+    t0 = time.perf_counter()
+    proc, report = RF_RUNS.pop() if RF_RUNS else rf_reference_run()
+    values, X = make_values(SEED)
+    model = build_model(values, torch.float32)
+    kernel, iv = model.kernel, model.inducing_variable
+    Xnew_np = X[:B]
+    q_mu_np, q_sqrt_np, Z_np = values[".q_mu"], values[".q_sqrt"], values[".inducing_variable.Z"]
+    Xnew, q_mu, q_sqrt = (torch.as_tensor(a, device="cuda") for a in (Xnew_np, q_mu_np, q_sqrt_np))
+    iv_np, iv_t = InducingPoints(Z_np), InducingPoints(torch.as_tensor(Z_np, device="cuda"))
+    torch.cuda.synchronize()
+    jitter = 1e-4
+    k1 = lambda n: {"K1": n, "K2": 0}  # noqa: E731
+    with torch.no_grad():
+        rf_pair("conditional (M=2048, B=8192, D=8)",
+                lambda: conditional(Xnew_np, iv, kernel, q_mu_np, q_sqrt=q_sqrt_np, white=True),
+                lambda: conditional(Xnew, iv, kernel, q_mu, q_sqrt=q_sqrt, white=True), 3, launches, k1(2))
+        rf_pair("Kuu of inducing points built from numpy (M=2048, D=8)",
+                lambda: Kuu(iv_np, kernel, jitter=jitter), lambda: Kuu(iv_t, kernel, jitter=jitter), 0,
+                launches, k1(1))
+        rf_pair("Kuf of numpy Xnew (M=2048, B=8192, D=8)", lambda: Kuf(iv, kernel, Xnew_np),
+                lambda: Kuf(iv, kernel, Xnew), 1, launches, k1(1))
+        rf_pair("gauss_kl of numpy q_mu and q_sqrt (M=2048)", lambda: gauss_kl(q_mu_np, q_sqrt_np),
+                lambda: gauss_kl(q_mu, q_sqrt), 2, launches, k1(0))
+        rf_pair("Parameter arithmetic with numpy on either side (B=8192, D=8)",
+                lambda: (kernel.variance * Xnew_np, Xnew_np - kernel.lengthscales),
+                lambda: (kernel.variance.value * Xnew, Xnew - kernel.lengthscales.value), 2, launches, k1(0))
+    log(f"time: numpy routes: {time.perf_counter() - t0:.1f} s")
+    rf_reference_check(proc, report)
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("gpflow_tpu", "jax", "jaxlib"))
+    assert not loaded, f"the script loaded {loaded[:5]}"
+
+
+# Phases 5-27 in the order they run, as groups that share their data: a
 # selection runs each group that holds a selected phase.
 PHASE_GROUPS = (
     (range(5, 9), svgp_phases),
@@ -6531,6 +6668,7 @@ PHASE_GROUPS = (
     (range(24, 25), tools_phases),
     (range(25, 26), contracts_phases),
     (range(26, 27), mesh_phases),
+    (range(27, 28), reference_phases),
 )
 
 
@@ -6542,7 +6680,7 @@ def parse_args(argv=None):
 
     parser = argparse.ArgumentParser(description="Drives gpflow_tpu_torch's main paths on one CUDA card.")
     parser.add_argument("--phases", help="the phases to run after the build and the kernel checks of phases 1-4, "
-                                         "as numbers and ranges among 5-26 (e.g. 5-8,21); by default every phase")
+                                         "as numbers and ranges among 5-27 (e.g. 5-8,21); by default every phase")
     parser.add_argument("--k1-host-us", metavar="ROOT",
                         help="only build K1 from the checkout at ROOT and print the host time of one K1 call "
                              "at (1, 1, 8) with that checkout's package (phase 23's measurement)")
@@ -6558,7 +6696,7 @@ def parse_args(argv=None):
             parser.error(f"--phases: {part!r} is not a number or a range")
     unknown = selected - {n for numbers, _ in PHASE_GROUPS for n in numbers}
     if unknown or not selected:
-        parser.error(f"--phases: no phase {sorted(unknown)}; phases 5-26 can be selected")
+        parser.error(f"--phases: no phase {sorted(unknown)}; phases 5-27 can be selected")
     args.phases = selected
     return args
 
@@ -6586,6 +6724,8 @@ def main(phases=None):
     log(smi)
     from gpflow_tpu_torch import config
 
+    if phases is None or 27 in phases:
+        RF_RUNS.append(rf_reference_run())
     for kernel, (ready_s, nvcc_s) in build_kernels().items():
         log(f"build: {kernel} library ready in {ready_s:.2f} s (nvcc {nvcc_s:.2f} s; 0 means built earlier)")
 

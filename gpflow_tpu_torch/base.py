@@ -14,6 +14,8 @@ values, and ``capture_parameter_reads`` lists the Parameters a block reads.
 from __future__ import annotations
 
 import enum
+import functools
+import inspect
 import itertools
 from typing import TYPE_CHECKING, Any, Callable, List, Optional, Sequence, Tuple, Union
 
@@ -146,23 +148,120 @@ def _module_device(module: nn.Module) -> torch.device:
     return default_device()
 
 
+def _as_tensor(value: Any, device: torch.device) -> torch.Tensor:
+    """A numpy array, numpy scalar, Python number or nested list as a tensor
+    on ``device``: floating values (and Python numbers) in
+    ``default_float()``, integer and boolean arrays in their own dtype. A
+    Python number is filled on the device, which a copy from the host
+    would make wait (a numpy array is copied)."""
+    if isinstance(value, (int, float)):
+        return torch.full((), value, dtype=default_float(), device=device)
+    arr = np.asarray(value)
+    dtype = default_float() if np.issubdtype(arr.dtype, np.floating) else as_torch_dtype(arr.dtype)
+    if not arr.flags.writeable or any(s < 0 for s in arr.strides):  # torch shares neither
+        arr = arr.copy()
+    return torch.as_tensor(arr, dtype=dtype, device=device)
+
+
 def input_to_tensor(module: nn.Module, value: Any) -> Any:
     """An argument of a public entry point as the computation takes it
     (``TensorType`` admits numpy arrays): a numpy array or a Python scalar
     becomes a tensor on the module's device, floating values (and Python
     scalars) in ``default_float()`` and integer or boolean arrays in their
     own dtype, as ``data_input_to_tensor`` builds a model's data; a tensor,
-    a Parameter or None passes through as it is, with no copy, no move and
-    no host synchronisation. Tuples and lists are walked."""
-    if value is None or isinstance(value, (torch.Tensor, Parameter)):
+    a module (a Parameter among them) or None passes through as it is, with
+    no copy, no move and no host synchronisation. Tuples and lists are
+    walked."""
+    if value is None or isinstance(value, (torch.Tensor, nn.Module)):
         return value
     if isinstance(value, (tuple, list)):
         items = [input_to_tensor(module, v) for v in value]
         return type(value)(*items) if hasattr(value, "_fields") else type(value)(items)
-    arr = np.asarray(value)
-    floating = isinstance(value, (int, float)) or np.issubdtype(arr.dtype, np.floating)
-    dtype = default_float() if floating else as_torch_dtype(arr.dtype)
-    return torch.as_tensor(arr, dtype=dtype, device=_module_device(module))
+    return _as_tensor(value, _module_device(module))
+
+
+def _call_device(values: Sequence[Any]) -> torch.device:
+    """Where a function's converted arguments go: the device of its first
+    tensor (or Parameter) argument, else of its first module argument that
+    holds one, else ``config.default_device()``."""
+    for v in values:
+        if isinstance(v, (torch.Tensor, Parameter)):
+            return v.device
+        if isinstance(v, (tuple, list)):
+            for w in v:
+                if isinstance(w, (torch.Tensor, Parameter)):
+                    return w.device
+    for v in values:
+        if isinstance(v, nn.Module) and "_parameters" in v.__dict__:  # not a module being built
+            for t in itertools.chain(v.parameters(), v.buffers()):
+                return t.device
+    return default_device()
+
+
+def _array_to_tensor(value: Any, device: torch.device) -> Any:
+    """One array argument as a tensor on ``device`` (a Parameter as its
+    constrained value, with its gradient; tuples and lists walked)."""
+    if isinstance(value, Parameter):
+        return value.value
+    if value is None or isinstance(value, (torch.Tensor, nn.Module)):
+        return value
+    if isinstance(value, (tuple, list)):
+        items = [_array_to_tensor(v, device) for v in value]
+        return type(value)(*items) if hasattr(value, "_fields") else type(value)(items)
+    return _as_tensor(value, device)
+
+
+def array_inputs(*names: str) -> Callable[[Callable[..., Any]], Callable[..., Any]]:
+    """Decorates a public function whose arguments ``names`` are arrays, as
+    the JAX package's functions take any array: each of them given as a
+    numpy array, numpy scalar, Python number or list becomes a tensor, on
+    the device of the call's first tensor argument (else of its first
+    module argument, else ``config.default_device()``), floating values in
+    ``default_float()`` and integer arrays in their own dtype, as
+    ``input_to_tensor`` converts them; a Parameter gives its constrained
+    value. A tensor passes through with no copy and no host
+    synchronisation."""
+
+    def decorator(fn: Callable[..., Any]) -> Callable[..., Any]:
+        params = list(inspect.signature(fn).parameters)
+        unknown = set(names) - set(params)
+        if unknown:
+            raise ValueError(f"array_inputs: {fn.__qualname__} has no argument(s) {sorted(unknown)}")
+        positions = [i for i, n in enumerate(params) if n in names]
+        keywords = frozenset(names)
+
+        @functools.wraps(fn)
+        def wrapper(*args: Any, **kwargs: Any) -> Any:
+            given = [i for i in positions if i < len(args)]
+            named = keywords.intersection(kwargs)
+            if all(isinstance(args[i], torch.Tensor) for i in given) and all(
+                isinstance(kwargs[k], torch.Tensor) for k in named
+            ):
+                return fn(*args, **kwargs)
+            device = _call_device((*args, *kwargs.values()))
+            args = list(args)
+            for i in given:
+                args[i] = _array_to_tensor(args[i], device)
+            for k in named:
+                kwargs[k] = _array_to_tensor(kwargs[k], device)
+            return fn(*args, **kwargs)
+
+        return wrapper
+
+    return decorator
+
+
+def numpy_to_tensors(args: Sequence[Any], kwargs: dict) -> Tuple[Sequence[Any], dict]:
+    """A dispatcher's arguments with each numpy array or numpy scalar as a
+    tensor, by the rule of ``array_inputs``; every other argument (tensors,
+    modules, Python options) as it is. A call without numpy returns its
+    arguments untouched."""
+    if not any(isinstance(v, (np.ndarray, np.generic)) for v in (*args, *kwargs.values())):
+        return args, kwargs
+    values = (*args, *kwargs.values())
+    device = _call_device(values)
+    convert = lambda v: _as_tensor(v, device) if isinstance(v, (np.ndarray, np.generic)) else v  # noqa: E731
+    return [convert(v) for v in args], {k: convert(v) for k, v in kwargs.items()}
 
 
 def _validate_declared_shape(
@@ -317,6 +416,84 @@ class Parameter(Module):
         gives it (``gpflow_tpu/base.py:358-360``)."""
         arr = self.numpy()
         return arr.astype(dtype) if dtype is not None else arr
+
+    # -- the constrained value in arithmetic (``gpflow_tpu/base.py:362-442``) ---
+    # Each operator works on ``value``, so the result carries the gradient.
+    # numpy defers to the reflected operator (``np.ones(2) - p`` is a
+    # tensor), as it does for a tensor. ``==`` and ``!=`` stay identity-based,
+    # unlike the JAX package's elementwise ones: torch's own code compares
+    # modules with ``==`` (``in``, set and dict membership).
+    __array_priority__ = 1000
+
+    def _operand(self, o: Any) -> Any:
+        """The other operand: a Parameter's value, a tensor or a Python
+        number as it is (torch applies a number with no host-to-device
+        copy), a numpy array through ``input_to_tensor``."""
+        if isinstance(o, Parameter):
+            return o.value
+        if isinstance(o, (torch.Tensor, int, float)):
+            return o
+        return input_to_tensor(self, o)
+
+    def __getitem__(self, item: Any) -> torch.Tensor:
+        return self.value[item]
+
+    def __len__(self) -> int:
+        return len(self.value)
+
+    def __neg__(self) -> torch.Tensor:
+        return -self.value
+
+    def __abs__(self) -> torch.Tensor:
+        return torch.abs(self.value)
+
+    def __add__(self, o: Any) -> torch.Tensor:
+        return self.value + self._operand(o)
+
+    def __radd__(self, o: Any) -> torch.Tensor:
+        return self._operand(o) + self.value
+
+    def __sub__(self, o: Any) -> torch.Tensor:
+        return self.value - self._operand(o)
+
+    def __rsub__(self, o: Any) -> torch.Tensor:
+        return self._operand(o) - self.value
+
+    def __mul__(self, o: Any) -> torch.Tensor:
+        return self.value * self._operand(o)
+
+    def __rmul__(self, o: Any) -> torch.Tensor:
+        return self._operand(o) * self.value
+
+    def __truediv__(self, o: Any) -> torch.Tensor:
+        return self.value / self._operand(o)
+
+    def __rtruediv__(self, o: Any) -> torch.Tensor:
+        return self._operand(o) / self.value
+
+    def __pow__(self, o: Any) -> torch.Tensor:
+        return self.value ** self._operand(o)
+
+    def __rpow__(self, o: Any) -> torch.Tensor:
+        return self._operand(o) ** self.value
+
+    def __matmul__(self, o: Any) -> torch.Tensor:
+        return self.value @ self._operand(o)
+
+    def __rmatmul__(self, o: Any) -> torch.Tensor:
+        return self._operand(o) @ self.value
+
+    def __lt__(self, o: Any) -> torch.Tensor:
+        return self.value < self._operand(o)
+
+    def __le__(self, o: Any) -> torch.Tensor:
+        return self.value <= self._operand(o)
+
+    def __gt__(self, o: Any) -> torch.Tensor:
+        return self.value > self._operand(o)
+
+    def __ge__(self, o: Any) -> torch.Tensor:
+        return self.value >= self._operand(o)
 
     def _prepare_assign(self, value: Any) -> torch.Tensor:
         """The unconstrained tensor for a constrained ``value``, checked,

@@ -9,8 +9,9 @@ without touching them.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Optional, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,8 +32,30 @@ __all__ = [
 ]
 
 
+def _array_argument(method: Callable[[Any, Any], torch.Tensor]) -> Callable[[Any, Any], torch.Tensor]:
+    """A bijector's method that takes numpy arrays and Python numbers as the
+    JAX package's does, converted by ``base.array_inputs``'s rule (imported
+    at the first such call: ``base`` imports this module)."""
+
+    @functools.wraps(method)
+    def wrapper(self: Any, x: Any) -> torch.Tensor:
+        if not isinstance(x, torch.Tensor):
+            from .base import _array_to_tensor, _call_device
+
+            x = _array_to_tensor(x, _call_device((x,)))
+        return method(self, x)
+
+    return wrapper
+
+
 @dataclasses.dataclass(frozen=True)
 class Bijector:
+    def __init_subclass__(cls, **kwargs: Any) -> None:
+        super().__init_subclass__(**kwargs)
+        for name in ("forward", "inverse", "forward_log_det_jacobian"):
+            if name in cls.__dict__:
+                setattr(cls, name, _array_argument(cls.__dict__[name]))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 

@@ -9,7 +9,7 @@ from typing import Optional
 
 import torch
 
-from ..base import MeanAndVariance
+from ..base import MeanAndVariance, array_inputs
 from ..config import default_jitter
 from ..covariances import Kuu
 from ..expectations import expectation
@@ -28,6 +28,7 @@ def _solve_lower(L: torch.Tensor, B: torch.Tensor, left_transpose: bool = False)
     return torch.linalg.solve_triangular(L.mT if left_transpose else L, B, upper=left_transpose)
 
 
+@array_inputs("Xnew_mu", "Xnew_var", "q_mu", "q_sqrt")
 @check_shapes(
     "Xnew_mu: [batch..., N, Din]",
     "Xnew_var: [batch..., N, n, n]",

@@ -21,7 +21,7 @@ from typing import Dict, Iterator, Optional, Union
 
 import torch
 
-from ..base import MeanAndVariance
+from ..base import MeanAndVariance, array_inputs
 from ..config import default_jitter
 from ..ops.linalg import chol_and_inverse, cholesky, triangular_inverse
 from ..quadrature.gauss_hermite import canonical_device
@@ -72,6 +72,7 @@ def _use_inv_solve() -> bool:
     return bool(_inv_solve_state and _inv_solve_state[0])
 
 
+@array_inputs("Kmn", "Kmm", "Knn", "f", "q_sqrt")
 @check_shapes(
     "Kmn: [M, batch..., N]",
     "Kmm: [M, M]",
@@ -110,6 +111,7 @@ def base_conditional(
     )
 
 
+@array_inputs("Kmn", "Lm", "Knn", "f", "q_sqrt", "Lm_inv")
 @check_shapes(
     "Kmn: [M, batch..., N]",
     "Lm: [M, M]",
@@ -206,6 +208,7 @@ def default_generator(device: Union[str, torch.device]) -> torch.Generator:
     return _default_generators[key]
 
 
+@array_inputs("mean", "cov")
 @check_shapes(
     "mean: [batch..., N, D]",
     "cov: [batch..., N, D, D] if full_cov",
@@ -254,6 +257,7 @@ def _sample_mvn_with_eps(
     return samples
 
 
+@array_inputs("fvar")
 @check_shapes(
     "fvar: [batch..., P, N, N] if full_cov",
     "fvar: [batch..., N, P] if not full_cov",
@@ -275,6 +279,7 @@ def expand_independent_outputs(
     return fvar
 
 
+@array_inputs("Kmn", "Kmm", "Knn", "f", "q_sqrt")
 @check_shapes(
     "Kmn: [M, L, N, P]",
     "Kmm: [L, M, M]",
@@ -342,6 +347,7 @@ def independent_interdomain_conditional(
     return fmean, fvar
 
 
+@array_inputs("Kmn", "Kmm", "Knn", "f", "q_sqrt")
 @check_shapes(
     "Kmn: [M, N, P]",
     "Kmm: [M, M]",
@@ -368,6 +374,7 @@ def fully_correlated_conditional(
     return mean.squeeze(0), var.squeeze(0)
 
 
+@array_inputs("Kmn", "Kmm", "Knn", "f", "q_sqrt")
 @check_shapes(
     "Kmn: [M, N, P]",
     "Kmm: [M, M]",
@@ -436,6 +443,7 @@ def fully_correlated_conditional_repeat(
     return fmean, fvar
 
 
+@array_inputs("A")
 @check_shapes(
     "A: [left..., right...]",
     "return: [right..., left...]",
@@ -447,6 +455,7 @@ def rollaxis_left(A: torch.Tensor, num_rolls: int) -> torch.Tensor:
     return A.permute(tuple(range(num_rolls, rank)) + tuple(range(num_rolls)))
 
 
+@array_inputs("A")
 @check_shapes(
     "A: [left..., right...]",
     "return: [right..., left...]",
@@ -458,6 +467,7 @@ def rollaxis_right(A: torch.Tensor, num_rolls: int) -> torch.Tensor:
     return A.permute(tuple(range(rank - num_rolls, rank)) + tuple(range(rank - num_rolls)))
 
 
+@array_inputs("W", "g_mean", "g_var")
 @check_shapes(
     "W: [P, L]",
     "g_mean: [batch..., N, L]",
@@ -493,6 +503,7 @@ def mix_latent_gp(
     return f_mean, f_var
 
 
+@array_inputs("Kmns", "Kmms", "Knns", "f", "q_sqrt")
 @check_shapes(
     "Kmns: [P, M, batch..., N]",
     "Kmms: [P, M, M]",

@@ -68,6 +68,7 @@ class Convolutional(Kernel):
         """[batch..., N, W H C] images -> [batch..., N, C ow oh, S] patches,
         channel-major as ``convolutional.py:48-73`` takes them, in the
         weights' dtype (the JAX package casts to the default float)."""
+        X = input_to_tensor(self, X)
         batch, N = X.shape[:-2], X.shape[-2]
         C = self.colour_channels
         W, H = self.image_shape

@@ -5,6 +5,7 @@ from typing import Optional
 
 import torch
 
+from .base import array_inputs
 from .config import default_jitter
 from .covariances import Kuu
 from .inducing_variables import InducingVariables
@@ -45,6 +46,7 @@ def _prior_kl_default(
     return gauss_kl(q_mu, q_sqrt, K)
 
 
+@array_inputs("q_mu", "q_sqrt", "K", "K_cholesky")
 @check_shapes(
     "q_mu: [M, L]",
     "q_sqrt: [M, L] | [L, M, M]",

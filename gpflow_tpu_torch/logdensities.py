@@ -5,8 +5,10 @@ from __future__ import annotations
 import math
 from typing import Union
 
+import numpy as np
 import torch
 
+from .base import _as_tensor, array_inputs
 from .utilities.shapes import check_shapes
 
 __all__ = [
@@ -23,6 +25,7 @@ __all__ = [
 ]
 
 
+@array_inputs("x", "mu", "var")
 @check_shapes(
     "x: [broadcast shape...]",
     "mu: [broadcast shape...]",
@@ -34,6 +37,7 @@ def gaussian(x: torch.Tensor, mu: torch.Tensor, var: torch.Tensor) -> torch.Tens
     return -0.5 * (math.log(2.0 * math.pi) + torch.log(var) + torch.square(mu - x) / var)
 
 
+@array_inputs("x", "mu", "var")
 @check_shapes(
     "x: [broadcast shape...]",
     "mu: [broadcast shape...]",
@@ -46,6 +50,7 @@ def lognormal(x: torch.Tensor, mu: torch.Tensor, var: torch.Tensor) -> torch.Ten
     return gaussian(lnx, mu, var) - lnx
 
 
+@array_inputs("x", "p")
 @check_shapes(
     "x: [broadcast shape...]",
     "p: [broadcast shape...]",
@@ -56,6 +61,7 @@ def bernoulli(x: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     return torch.log(torch.where(x > 0.5, p, 1.0 - p))
 
 
+@array_inputs("x", "lam")
 @check_shapes(
     "x: [broadcast shape...]",
     "lam: [broadcast shape...]",
@@ -66,6 +72,7 @@ def poisson(x: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
     return x * torch.log(lam) - lam - torch.lgamma(x + 1.0)
 
 
+@array_inputs("x", "scale")
 @check_shapes(
     "x: [broadcast shape...]",
     "scale: [broadcast shape...]",
@@ -76,6 +83,7 @@ def exponential(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return -x / scale - torch.log(scale)
 
 
+@array_inputs("x", "shape", "scale")
 @check_shapes(
     "x: [broadcast shape...]",
     "shape: [broadcast shape...]",
@@ -87,6 +95,7 @@ def gamma(x: torch.Tensor, shape: torch.Tensor, scale: torch.Tensor) -> torch.Te
     return -shape * torch.log(scale) - torch.lgamma(shape) + (shape - 1.0) * torch.log(x) - x / scale
 
 
+@array_inputs("x", "mean", "scale")
 @check_shapes(
     "x: [broadcast shape...]",
     "mean: [broadcast shape...]",
@@ -99,7 +108,10 @@ def student_t(
 ) -> torch.Tensor:
     """log Student-t density with ``df`` degrees of freedom (``logdensities.py:98-108``).
     A Python ``df`` stays on the host: copying it to the device would make
-    the host wait for the device."""
+    the host wait for the device. A numpy ``df`` becomes a tensor on x's
+    device, as the other arguments do."""
+    if isinstance(df, (np.ndarray, np.generic)):
+        df = _as_tensor(df, x.device)
     if isinstance(df, torch.Tensor):
         log_gamma_ratio = torch.lgamma((df + 1.0) * 0.5) - torch.lgamma(df * 0.5)
         log_df = torch.log(df)
@@ -145,6 +157,7 @@ def _betaln(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.where(b < 8, small_b, large_b)
 
 
+@array_inputs("x", "alpha", "bet")
 @check_shapes(
     "x: [broadcast shape...]",
     "alpha: [broadcast shape...]",
@@ -159,6 +172,7 @@ def beta(x: torch.Tensor, alpha: torch.Tensor, bet: torch.Tensor) -> torch.Tenso
     return (alpha - 1.0) * torch.log(x) + (bet - 1.0) * torch.log1p(-x) - _betaln(alpha, bet)
 
 
+@array_inputs("x", "mu", "sigma")
 @check_shapes(
     "x: [broadcast shape...]",
     "mu: [broadcast shape...]",
@@ -170,6 +184,7 @@ def laplace(x: torch.Tensor, mu: torch.Tensor, sigma: torch.Tensor) -> torch.Ten
     return -torch.abs(mu - x) / sigma - torch.log(2.0 * sigma)
 
 
+@array_inputs("x", "mu", "L")
 @check_shapes(
     "x: [D, broadcast R]",
     "mu: [D, broadcast R]",

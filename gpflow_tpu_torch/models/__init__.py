@@ -21,11 +21,11 @@ __all__ = [
     "BayesianModel",
     "CGLB",
     "ExternalDataTrainingLossMixin",
-    "GPMC",
     "GPLVM",
+    "GPMC",
     "GPModel",
-    "GPRFITC",
     "GPR",
+    "GPRFITC",
     "GPR_deprecated",
     "GPR_with_posterior",
     "InternalDataTrainingLossMixin",

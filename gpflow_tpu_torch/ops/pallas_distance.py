@@ -46,9 +46,9 @@ from ..utilities.ops import square_distance
 from .cuda_build import load_library
 
 __all__ = [
+    "LaunchPlan",
     "PALLAS_FAMILIES",
     "WGRAD_FAMILIES",
-    "LaunchPlan",
     "get_pallas_enabled",
     "k1_library",
     "k2_library",

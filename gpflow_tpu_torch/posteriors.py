@@ -87,6 +87,46 @@ def _value(x: Any) -> Optional[torch.Tensor]:
     return x.value if isinstance(x, Parameter) else x
 
 
+class _QDistribution(Module):
+    """q(u)'s parametrisation (``gpflow_tpu/posteriors.py:88-121``): a
+    Parameter stays a Parameter, so the posterior reads its live value."""
+
+
+class _DeltaDist(_QDistribution):
+    @check_shapes(
+        "q_mu: [M, L]",
+    )
+    def __init__(self, q_mu: Any) -> None:
+        super().__init__()
+        self.q_mu = q_mu
+
+    @property
+    def q_sqrt(self) -> None:
+        return None
+
+
+class _DiagNormal(_QDistribution):
+    @check_shapes(
+        "q_mu: [M, L]",
+        "q_sqrt: [M, L]",
+    )
+    def __init__(self, q_mu: Any, q_sqrt: Any) -> None:
+        super().__init__()
+        self.q_mu = q_mu
+        self.q_sqrt = q_sqrt
+
+
+class _MvNormal(_QDistribution):
+    @check_shapes(
+        "q_mu: [M, L]",
+        "q_sqrt: [L, M, M]",
+    )
+    def __init__(self, q_mu: Any, q_sqrt: Any) -> None:
+        super().__init__()
+        self.q_mu = q_mu
+        self.q_sqrt = q_sqrt
+
+
 class PrecomputeCacheType(enum.Enum):
     """TENSOR precomputes the cache into tensors; VARIABLE is accepted for the
     JAX package's API and behaves as TENSOR (``posteriors.py:105-113``);
@@ -158,7 +198,7 @@ class AbstractPosterior(Module, ABC):
     ) -> None:
         super().__init__()
         self.kernel = kernel
-        self.X_data = X_data
+        self.X_data = input_to_tensor(kernel, X_data)
         self.cache = cache
         self.mean_function = mean_function
         self._precompute_cache: Optional[PrecomputeCacheType] = None
@@ -304,14 +344,14 @@ class BasePosterior(AbstractPosterior):
         "return: [N, P]",
     )
     def q_mu(self) -> torch.Tensor:
-        return _value(self._q_mu)
+        return _value(self._q_dist.q_mu)
 
     @property
     @check_shapes(
         "return: [N, P] | [P, N, N]",
     )
     def q_sqrt(self) -> Optional[torch.Tensor]:
-        return _value(self._q_sqrt)
+        return _value(self._q_dist.q_sqrt)
 
     @check_shapes(
         "q_mu: [N, P]",
@@ -319,11 +359,16 @@ class BasePosterior(AbstractPosterior):
     )
     def _set_qdist(self, q_mu: Any, q_sqrt: Any) -> None:
         """Holds q(u)'s mean [M, L] and its square root: None, [M, L]
-        (diagonal) or [L, M, M] (lower triangular). The JAX package wraps
-        them in a ``_DeltaDist``, ``_DiagNormal`` or ``_MvNormal`` by the
-        rank of q_sqrt, whose contracts this one's alternatives hold."""
-        self._q_mu = q_mu
-        self._q_sqrt = q_sqrt
+        (diagonal) or [L, M, M] (lower triangular), in a ``_DeltaDist``,
+        ``_DiagNormal`` or ``_MvNormal`` by the rank of q_sqrt; numpy
+        becomes tensors on the kernel's device."""
+        q_mu, q_sqrt = input_to_tensor(self.kernel, q_mu), input_to_tensor(self.kernel, q_sqrt)
+        if q_sqrt is None:
+            self._q_dist: _QDistribution = _DeltaDist(q_mu)
+        elif len(q_sqrt.shape) == 2:
+            self._q_dist = _DiagNormal(q_mu, q_sqrt)
+        else:
+            self._q_dist = _MvNormal(q_mu, q_sqrt)
 
     @check_shapes(
         "return[0]: [M, L] | [L, M, 1]",
@@ -488,7 +533,7 @@ class GPRPosterior(AbstractPosterior):
     ) -> None:
         X, Y = data
         super().__init__(kernel, X, mean_function=mean_function)
-        self.Y_data = Y
+        self.Y_data = input_to_tensor(kernel, Y)
         self.likelihood = likelihood
         if precompute_cache is not None:
             self.update_cache(precompute_cache)
@@ -598,7 +643,7 @@ class SGPRPosterior(AbstractPosterior):
     ) -> None:
         X, Y = data
         super().__init__(kernel, X, mean_function=mean_function)
-        self.Y_data = Y
+        self.Y_data = input_to_tensor(kernel, Y)
         self.likelihood = likelihood
         self.inducing_variable = inducing_variable
         self.num_latent_gps = num_latent_gps
@@ -695,8 +740,8 @@ class VGPPosterior(AbstractPosterior):
         precompute_cache: Optional[PrecomputeCacheType],
     ) -> None:
         super().__init__(kernel, X, mean_function=mean_function)
-        self.q_mu = q_mu
-        self.q_sqrt = q_sqrt
+        self.q_mu = input_to_tensor(kernel, q_mu)
+        self.q_sqrt = input_to_tensor(kernel, q_sqrt)
         self.white = white
         if precompute_cache is not None:
             self.update_cache(precompute_cache)

@@ -14,6 +14,7 @@ import math
 import torch
 
 from . import logdensities
+from .base import array_inputs
 
 __all__ = [
     "Beta",
@@ -48,6 +49,7 @@ class Prior:
                         f"{type(self).__name__}.{f.name} must be a Python scalar; got {type(v).__name__}"
                     ) from e
 
+    @array_inputs("x")
     def log_prob(self, x: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 
@@ -61,6 +63,7 @@ class Normal(Prior):
     loc: float = 0.0
     scale: float = 1.0
 
+    @array_inputs("x")
     def log_prob(self, x: torch.Tensor) -> torch.Tensor:
         return logdensities.gaussian(x, _const(x, self.loc), _const(x, self.scale) ** 2)
 
@@ -70,6 +73,7 @@ class LogNormal(Prior):
     loc: float = 0.0
     scale: float = 1.0
 
+    @array_inputs("x")
     def log_prob(self, x: torch.Tensor) -> torch.Tensor:
         return logdensities.lognormal(x, _const(x, self.loc), _const(x, self.scale) ** 2)
 
@@ -79,6 +83,7 @@ class Gamma(Prior):
     concentration: float = 1.0
     rate: float = 1.0  # log_prob uses scale = 1 / rate
 
+    @array_inputs("x")
     def log_prob(self, x: torch.Tensor) -> torch.Tensor:
         return logdensities.gamma(x, _const(x, self.concentration), 1.0 / _const(x, self.rate))
 
@@ -87,6 +92,7 @@ class Gamma(Prior):
 class Exponential(Prior):
     rate: float = 1.0
 
+    @array_inputs("x")
     def log_prob(self, x: torch.Tensor) -> torch.Tensor:
         return logdensities.exponential(x, 1.0 / _const(x, self.rate))
 
@@ -96,6 +102,7 @@ class Beta(Prior):
     concentration1: float = 1.0
     concentration0: float = 1.0
 
+    @array_inputs("x")
     def log_prob(self, x: torch.Tensor) -> torch.Tensor:
         return logdensities.beta(x, _const(x, self.concentration1), _const(x, self.concentration0))
 
@@ -105,6 +112,7 @@ class Laplace(Prior):
     loc: float = 0.0
     scale: float = 1.0
 
+    @array_inputs("x")
     def log_prob(self, x: torch.Tensor) -> torch.Tensor:
         return logdensities.laplace(x, _const(x, self.loc), _const(x, self.scale))
 
@@ -115,6 +123,7 @@ class StudentT(Prior):
     loc: float = 0.0
     scale: float = 1.0
 
+    @array_inputs("x")
     def log_prob(self, x: torch.Tensor) -> torch.Tensor:
         return logdensities.student_t(x, _const(x, self.loc), _const(x, self.scale), self.df)
 
@@ -125,6 +134,7 @@ class HalfNormal(Prior):
 
     scale: float = 1.0
 
+    @array_inputs("x")
     def log_prob(self, x: torch.Tensor) -> torch.Tensor:
         density = math.log(2.0) + logdensities.gaussian(x, _const(x, 0.0), _const(x, self.scale) ** 2)
         return torch.where(x >= 0, density, -math.inf)
@@ -137,6 +147,7 @@ class Uniform(Prior):
     low: float = 0.0
     high: float = 1.0
 
+    @array_inputs("x")
     def log_prob(self, x: torch.Tensor) -> torch.Tensor:
         inside = (x >= self.low) & (x <= self.high)
         return torch.where(inside, -torch.log(_const(x, self.high - self.low)), -math.inf)

@@ -7,7 +7,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .base import Module
+from .base import Module, array_inputs
 from .utilities.shapes import check_shapes, register_get_shape
 
 __all__ = [
@@ -31,6 +31,7 @@ class ProbabilityDistribution(Module):
 class Gaussian(ProbabilityDistribution):
     """mu: [N, D], cov: [N, D, D]."""
 
+    @array_inputs("mu", "cov")
     @check_shapes(
         "mu: [N, D]",
         "cov: [N, D, D]",
@@ -48,6 +49,7 @@ class Gaussian(ProbabilityDistribution):
 class DiagonalGaussian(ProbabilityDistribution):
     """mu: [N, D], the covariances' diagonals cov: [N, D]."""
 
+    @array_inputs("mu", "cov")
     @check_shapes(
         "mu: [N, D]",
         "cov: [N, D]",
@@ -68,6 +70,7 @@ class MarkovGaussian(ProbabilityDistribution):
     and cov[1] those between consecutive steps. Its shape is (N, D), so
     that a contract binds N as it does for a Gaussian."""
 
+    @array_inputs("mu", "cov")
     @check_shapes(
         "mu: [N_plus_1, D]",
         "cov: [2, N_plus_1, D, D]",

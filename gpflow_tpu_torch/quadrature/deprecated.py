@@ -18,6 +18,7 @@ from typing import Any, Callable, Iterable, List, Optional, Sequence, Tuple, Uni
 import numpy as np
 import torch
 
+from ..base import array_inputs
 from ..config import default_float
 from ..utilities.shapes import check_shapes
 from .gauss_hermite import NDiagGHQuadrature, gh_points_and_weights
@@ -53,6 +54,7 @@ def mvhermgauss(H: int, D: int) -> Tuple[np.ndarray, np.ndarray]:
     return x, w
 
 
+@array_inputs("Fmu", "Fvar")
 @check_shapes(
     "Ys.values(): [N...]",
 )
@@ -102,6 +104,7 @@ def ndiagquad(
     return result.reshape(shape)
 
 
+@array_inputs("Fmu", "Fvar", "epsilon")
 @check_shapes(
     "Fmu: [N, Din]",
     "Fvar: [N, Din]",
@@ -145,6 +148,7 @@ def ndiag_mc(
     return [eval_func(f) for f in funcs]
 
 
+@array_inputs("means", "covs")
 @check_shapes(
     "means: [N, Din]",
     "covs: [N, Din, Din]",

@@ -14,8 +14,8 @@ from .base import GaussianQuadrature
 
 __all__ = [
     "DeviceGrid",
-    "canonical_device",
     "NDiagGHQuadrature",
+    "canonical_device",
     "gh_points_and_weights",
     "list_to_flat_grid",
     "ndgh_points_and_weights",

@@ -22,6 +22,8 @@ OptimizerFactory = Callable[[Sequence[torch.nn.Parameter]], torch.optim.Optimize
 
 
 def _to_default(x: Any, dtype: torch.dtype) -> torch.Tensor:
+    if isinstance(x, Parameter):
+        x = x.value
     if isinstance(x, torch.Tensor):
         return x.to(dtype)
     return torch.as_tensor(x, dtype=dtype, device=default_device())

@@ -1,5 +1,6 @@
-"""Multiple dispatch on argument types, ported unchanged from
-``gpflow_tpu/utilities/multipledispatch.py`` (pure Python).
+"""Multiple dispatch on argument types, ported from
+``gpflow_tpu/utilities/multipledispatch.py`` (pure Python); a call turns
+numpy arguments into tensors first.
 
 Resolution rule: among registered signatures whose types all match via
 ``isinstance``, pick the one with the smallest total MRO distance (most
@@ -8,6 +9,8 @@ specific). Ties broken by registration order.
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, Optional, Tuple, Type, Union
+
+from ..base import numpy_to_tensors
 
 __all__ = ["AnyCallable", "Dispatcher", "Types"]
 
@@ -27,6 +30,11 @@ def _mro_distance(obj_type: Type[Any], target: Type[Any]) -> Optional[int]:
 
 
 class Dispatcher:
+    """A call takes numpy where the JAX package's takes any array: each
+    numpy argument becomes a tensor before dispatch
+    (``base.numpy_to_tensors``), so that no registered implementation
+    converts again."""
+
     def __init__(self, name: str) -> None:
         self.name = name
         self.funcs: Dict[Tuple[Type[Any], ...], Callable[..., Any]] = {}
@@ -113,6 +121,7 @@ class Dispatcher:
         # 3-type registration is reachable even when a 2-type signature
         # registered first (round-2 review: n_args came from whichever
         # signature happened to be first).
+        args, kwargs = numpy_to_tensors(args, kwargs)
         arities = sorted({len(sig) for sig in self.funcs}, reverse=True)
         last_err: Optional[NotImplementedError] = None
         for n in arities:

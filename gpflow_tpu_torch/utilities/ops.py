@@ -6,7 +6,8 @@ from typing import Any, Callable, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from ..config import default_device, default_float
+from ..base import array_inputs
+from ..config import as_torch_dtype, default_device, default_float
 from .shapes import check_shapes
 
 __all__ = [
@@ -27,12 +28,13 @@ def eye(num: int, value: Union[torch.Tensor, float] = 1.0, dtype: Any = None) ->
     """value * I_num (``gpflow_tpu/utilities/ops.py:28-34``), in ``dtype``
     (default: ``default_float()``), on ``value``'s device if it is a tensor,
     else on ``config.default_device()``."""
-    dtype = dtype if dtype is not None else default_float()
+    dtype = as_torch_dtype(dtype) if dtype is not None else default_float()
     if isinstance(value, torch.Tensor):
         return value.to(dtype) * torch.eye(num, dtype=dtype, device=value.device)
     return value * torch.eye(num, dtype=dtype, device=default_device())
 
 
+@array_inputs("a", "b")
 @check_shapes(
     "a: [a_shape...]",
     "b: [b_shape...]",
@@ -47,6 +49,7 @@ def broadcasting_elementwise(
     return flatres.reshape(a.shape + b.shape)
 
 
+@array_inputs("X", "X2")
 @check_shapes(
     "X: [batch..., N, D]",
     "X2: [batch2..., N2, D]",
@@ -73,6 +76,7 @@ def square_distance(X: torch.Tensor, X2: Optional[torch.Tensor]) -> torch.Tensor
     return dist
 
 
+@array_inputs("X", "X2")
 @check_shapes(
     "X: [batch..., N, D]",
     "X2: [batch2..., N2, D]",

@@ -38,7 +38,7 @@ from torch import nn
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from .. import ops as _ops  # noqa: F401  (registers the kernel ops that the programs call)
-from ..config import default_float
+from ..config import as_torch_dtype, default_float
 from .traversal import freeze
 
 __all__ = ["ServedModel", "export_serving", "load_serving"]
@@ -178,7 +178,7 @@ def export_serving(
     if not platforms or set(platforms) != {device.type}:
         raise ValueError(f"platforms {list(platforms)}: an artifact serves on its model's device type "
                          f"only, here ({device.type!r},)")
-    dtype = dtype if dtype is not None else default_float()
+    dtype = as_torch_dtype(dtype) if dtype is not None else default_float()
     if bucket_sizes is not None:
         if batch_size is not None:
             raise ValueError("pass either batch_size or bucket_sizes, not both")

@@ -17,7 +17,9 @@ exported with the checks on serves every batch size, and a malformed request
 fails before any kernel matrix is computed."""
 import importlib
 import inspect
+import pathlib
 import pkgutil
+import re
 
 import jax
 import jax.numpy as jnp
@@ -47,15 +49,7 @@ SLICE_MODULES = (
 # (none: the mesh and the sharded data came last).
 MODULE_EXCLUSIONS: dict = {}
 # Contracts of the JAX package that the port does not carry, each with its reason.
-EXCLUSIONS = {
-    ("posteriors", "_DeltaDist.__init__"): "the port holds q_mu and q_sqrt on the posterior, without the "
-                                           "JAX package's q-distribution classes; BasePosterior._set_qdist's "
-                                           "'q_mu: [N, P]' holds this contract",
-    ("posteriors", "_DiagNormal.__init__"): "likewise: _set_qdist's first alternative, 'q_sqrt: [N, P]', is "
-                                            "'q_sqrt: [M, L]' beside q_mu's [M, L]",
-    ("posteriors", "_MvNormal.__init__"): "likewise: _set_qdist's second alternative, 'q_sqrt: [P, N, N]', is "
-                                          "'q_sqrt: [L, M, M]'",
-}
+EXCLUSIONS: dict = {}
 INHERIT = "inherit_check_shapes"
 
 
@@ -846,3 +840,42 @@ def test_a_malformed_call_fails_before_any_kernel_matrix(monkeypatch, checks_on)
     assert calls == []
     model.predict_f(bad[:, :D])
     assert calls  # the valid request does reach the kernel
+
+
+# --- the decorated sites, counted as the JAX package's coverage test counts them ---
+
+# The areas of ``tests/gpflow_tpu/utilities/test_contract_coverage.py:22-36``,
+# each globbed under both packages' roots.
+CONTRACT_AREAS = {
+    "posteriors": ["posteriors.py"],
+    "models": ["models/*.py"],
+    "kernels": ["kernels/*.py", "kernels/multioutput/*.py"],
+    "optimizers": ["optimizers/*.py"],
+    "utilities": ["utilities/*.py", "bijectors.py"],
+    "inducing_variables": ["inducing_variables/**/*.py"],
+    "likelihoods": ["likelihoods/*.py"],
+    "conditionals": ["conditionals/**/*.py"],
+    "expectations": ["expectations/*.py"],
+    "all": ["**/*.py"],
+}
+_DECORATED = re.compile(r"^\s*@_?(?:check_shapes|inherit_check_shapes)\b", re.MULTILINE)
+
+
+def _sites(package, patterns):
+    root = pathlib.Path(importlib.import_module(package).__file__).parent
+    return sum(
+        len(_DECORATED.findall(path.read_text()))
+        for pattern in patterns
+        for path in sorted(root.glob(pattern))
+        if path.name != "shapes.py" and "_build" not in path.parts
+    )
+
+
+@pytest.mark.parametrize("area", sorted(CONTRACT_AREAS))
+def test_the_port_decorates_as_many_sites_as_the_jax_package(area):
+    """The JAX package's area floors, counted over the port: the port's
+    decorated sites in each area at least the JAX package's own count
+    (posteriors 39, 429 in all, since the q-distribution classes came)."""
+    jax_sites = _sites("gpflow_tpu", CONTRACT_AREAS[area])
+    assert jax_sites > 0
+    assert _sites("gpflow_tpu_torch", CONTRACT_AREAS[area]) >= jax_sites
