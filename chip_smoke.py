@@ -9,7 +9,7 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
 
 With ``--phases`` the script runs the build and the kernel checks of phases
 1-4, then each group of phases that holds a selected one (5-8, 9-10, 11-12,
-13-16, and 17 to 27 alone), then the record's kernel timings; without it,
+13-16, and 17 to 28 alone), then the record's kernel timings; without it,
 every phase. ``--k1-host-us`` builds K1 from the checkout at ROOT and prints
 phase 23's host time of one K1 call with that checkout's package, three
 times, and nothing else: run it on two checkouts in one call to compare.
@@ -360,6 +360,17 @@ on the card where the CPU would take minutes. Phases:
    ``tests/test_torch_reference_plugin.py`` with the card as the default
    device, in float64: every test passes or fails as its row of that
    file's table of differences says.
+28. the JAX package's tests that import jax or optax, translated onto the
+   port (``tests/test_torch_translated_<stem>.py``, the files of
+   ``tests/test_torch_translated_map.json``), with the card as the default
+   device, in processes of their own started after the build: every test
+   passes, or fails as the strict xfail of its deviation row expects (a
+   test that skips itself may skip); each process's default device was
+   "cuda"; their K1 and K2 launches are logged, and K1's must be above 0
+   (``test_gplvm_f32.py``'s float32 BayesianGPLVM reaches K1). The other
+   files run in float64, which no kernel serves; ``test_error_envelopes.py``
+   holds that rule on CUDA tensors. The sizes are the JAX tests' own: the
+   phase holds the JAX package's claims on the card and measures no speed.
 
 Every failure raises, and the script then exits non-zero without the result
 line. The line before the last is ``{"kernels": [...]}``; the last is
@@ -985,6 +996,12 @@ RF_FILES = (
 )
 RF_TIMEOUT = 300
 RF_RUNS = []  # phase 27's run of them, started beside the build (it launches no kernel)
+
+# Phase 28: the translated JAX test files (those of the map), split over
+# TR_PROCESSES pytest processes, each with the card as the default device.
+TR_MAP = "tests/test_torch_translated_map.json"
+TR_PROCESSES = 6
+TR_TIMEOUT = 600
 
 
 def log(*args):
@@ -6651,7 +6668,102 @@ def reference_phases(launches):
     assert not loaded, f"the script loaded {loaded[:5]}"
 
 
-# Phases 5-27 in the order they run, as groups that share their data: a
+def tr_files():
+    """Phase 28's files: the translation of each JAX file of the map with a
+    row that is not queued, and the status of each translated test by its
+    file and name."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, TR_MAP)) as f:
+        rows = json.load(f)
+    status = {}
+    for row in rows:
+        if row["status"] != "queued":
+            stem = os.path.basename(row["file"])[len("test_"):]
+            status[(f"tests/test_torch_translated_{stem}", row["test"])] = row["status"]
+    return sorted({path for path, _ in status}), status
+
+
+def tr_run(files):
+    """Starts phase 28's processes on ``files`` (each file, the longest
+    first, to the process with the fewest bytes of files yet); returns each
+    process with its report and state paths. Each is killed at exit if it
+    still runs."""
+    import tempfile
+
+    from tests import test_torch_reference_plugin as reference
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    shares = [[0, []] for _ in range(TR_PROCESSES)]
+    for size, path in sorted(((os.path.getsize(os.path.join(root, f)), f) for f in files), reverse=True):
+        share = min(shares, key=lambda s: s[0])
+        share[0] += size
+        share[1].append(path)
+    build = os.path.join(root, "gpflow_tpu_torch", "_build")
+    os.makedirs(build, exist_ok=True)
+    runs = []
+    for i, (_, files) in enumerate(shares):
+        workdir = tempfile.mkdtemp(prefix=f"translated{i}_", dir=build)
+        report, state = os.path.join(workdir, "outcomes.json"), os.path.join(workdir, "state.json")
+        env = {**os.environ, **reference.SERIAL, reference.DEVICE_VARIABLE: "cuda",
+               reference.REPORT_VARIABLE: report, reference.STATE_VARIABLE: state}
+        with open(os.path.join(workdir, "output.txt"), "w") as output:
+            proc = subprocess.Popen([*reference.command(files),
+                                     f"--basetemp={os.path.join(workdir, 'tmp')}"],
+                                    cwd=reference.REPO, env=env, stdout=output, stderr=subprocess.STDOUT,
+                                    stdin=subprocess.DEVNULL)
+        atexit.register(lambda proc=proc: proc.poll() is None and (proc.kill(), proc.wait()))
+        runs.append((proc, report, state))
+    return runs
+
+
+def translated_phases(launches):
+    """Phase 28: the translated JAX test files on the card. Every test
+    passes, or fails as its deviation row's strict xfail expects, or skips
+    itself; every translated row ran; each process built on "cuda"; K1
+    launched in them."""
+    t0 = time.perf_counter()
+    files, status = tr_files()
+    runs = tr_run(files)
+    outcomes, counts, bad, devices = {}, {"K1": 0, "K2": 0}, [], []
+    for proc, report, state in runs:
+        try:
+            proc.wait(timeout=TR_TIMEOUT)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        with open(os.path.join(os.path.dirname(report), "output.txt")) as f:
+            out = f.read()
+        tail = "\n".join(out.splitlines()[-40:])
+        assert os.path.exists(report) and os.path.exists(state), \
+            f"a translated run wrote no report (exit code {proc.returncode}):\n{tail}"
+        with open(state) as f:
+            st = json.load(f)
+        devices.append(st["default_device"])
+        for k in counts:
+            counts[k] += st["launch_counts"][k]
+        with open(report) as f:
+            outcomes.update(json.load(f))
+        log(f"translated: {out.strip().splitlines()[-1] if out.strip() else ''}; launches {st['launch_counts']}")
+    for node, entry in sorted(outcomes.items()):
+        path, _, name = node.partition("::")
+        row = status.get((path, name.split("[")[0]))
+        expected = ("passed", "skipped") if row == "translated" else ("xfailed",)
+        if row is None or entry["outcome"] not in expected:
+            bad.append(f"{node}: {entry['outcome']} (map: {row})\n{entry['message'][-1500:]}")
+    ran = {(node.partition("::")[0], node.partition("::")[2].split("[")[0]) for node in outcomes}
+    missing = sorted(set(status) - ran)
+    launches["translated JAX tests (phase 28)"] = counts
+    log(f"translated: {len(outcomes)} tests of {len(files)} files on the card, {len(bad)} not as "
+        f"the map says, {len(missing)} rows that did not run; K1 {counts['K1']}, K2 {counts['K2']} launches; "
+        f"{time.perf_counter() - t0:.1f} s")
+    assert not bad, "\n".join(bad[:10])
+    assert not missing, f"rows that did not run: {missing[:10]}"
+    assert devices == ["cuda"] * len(runs), f"the translated runs built on {devices}"
+    assert counts["K1"] > 0, f"the translated float32 tests launched no K1: {counts}"
+
+
+# Phases 5-28 in the order they run, as groups that share their data: a
 # selection runs each group that holds a selected phase.
 PHASE_GROUPS = (
     (range(5, 9), svgp_phases),
@@ -6669,6 +6781,7 @@ PHASE_GROUPS = (
     (range(25, 26), contracts_phases),
     (range(26, 27), mesh_phases),
     (range(27, 28), reference_phases),
+    (range(28, 29), translated_phases),
 )
 
 
@@ -6680,7 +6793,7 @@ def parse_args(argv=None):
 
     parser = argparse.ArgumentParser(description="Drives gpflow_tpu_torch's main paths on one CUDA card.")
     parser.add_argument("--phases", help="the phases to run after the build and the kernel checks of phases 1-4, "
-                                         "as numbers and ranges among 5-27 (e.g. 5-8,21); by default every phase")
+                                         "as numbers and ranges among 5-28 (e.g. 5-8,21); by default every phase")
     parser.add_argument("--k1-host-us", metavar="ROOT",
                         help="only build K1 from the checkout at ROOT and print the host time of one K1 call "
                              "at (1, 1, 8) with that checkout's package (phase 23's measurement)")
@@ -6696,7 +6809,7 @@ def parse_args(argv=None):
             parser.error(f"--phases: {part!r} is not a number or a range")
     unknown = selected - {n for numbers, _ in PHASE_GROUPS for n in numbers}
     if unknown or not selected:
-        parser.error(f"--phases: no phase {sorted(unknown)}; phases 5-27 can be selected")
+        parser.error(f"--phases: no phase {sorted(unknown)}; phases 5-28 can be selected")
     args.phases = selected
     return args
 

@@ -17,6 +17,7 @@ outputs; ``mix_latent_gp`` the moments of f = W g.
 from __future__ import annotations
 
 import contextlib
+import os
 from typing import Dict, Iterator, Optional, Union
 
 import torch
@@ -45,12 +46,13 @@ __all__ = [
     "set_inv_solve",
 ]
 
-_inv_solve_state: list = []  # [] = off (the default); [bool] = set explicitly
+_inv_solve_state: list = []  # [] = the environment's setting; [bool] = set explicitly
 
 
 def set_inv_solve(value: Optional[bool]) -> None:
     """Turns the INV_SOLVE route on (True) or off (False); None restores the
-    default, off. Read at every call of the conditionals."""
+    default, ``GPFLOW_TPU_INV_SOLVE`` (off unless set to other than "0",
+    "false" or "False"). Read at every call of the conditionals."""
     _inv_solve_state.clear()
     if value is not None:
         _inv_solve_state.append(bool(value))
@@ -69,7 +71,9 @@ def inv_solve(value: bool = True) -> Iterator[None]:
 
 
 def _use_inv_solve() -> bool:
-    return bool(_inv_solve_state and _inv_solve_state[0])
+    if _inv_solve_state:
+        return _inv_solve_state[0]
+    return os.environ.get("GPFLOW_TPU_INV_SOLVE", "0") not in ("0", "false", "False")
 
 
 @array_inputs("Kmn", "Kmm", "Knn", "f", "q_sqrt")

@@ -101,6 +101,7 @@ class Kernel(Module, metaclass=abc.ABCMeta):
         a [N, D] diagonal is first expanded to full matrices
         (``gpflow_tpu/kernels/base.py:93-105``). List dims are taken as
         views, as in ``slice``, never by a list index."""
+        cov = input_to_tensor(self, cov)
         if cov.ndim == 2:
             cov = torch.diag_embed(cov)
         dims = self.active_dims

@@ -62,6 +62,7 @@ class Stationary(Kernel):
         "return: [batch..., N, D]",
     )
     def scale(self, X: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        X = input_to_tensor(self, X)
         return X / self.lengthscales.value if X is not None else X
 
     @inherit_check_shapes

@@ -16,7 +16,7 @@ from typing import Any, Optional, Union
 import numpy as np
 import torch
 
-from ..base import MeanAndVariance, Module, Parameter
+from ..base import MeanAndVariance, Module, Parameter, input_to_tensor
 from ..bijectors import Sigmoid
 from ..config import default_int
 from ..priors import Beta as BetaPrior
@@ -82,6 +82,7 @@ class RobustMax(Module):
         "return: [batch..., latent_dim]",
     )
     def forward(self, F: torch.Tensor) -> torch.Tensor:
+        F = input_to_tensor(self, F)
         # argmax over the latent (last) axis, which admits leading batch dims
         one_hot = _one_hot(torch.argmax(F, dim=-1), self.num_classes, F.dtype)
         return one_hot * (1.0 - self.epsilon.value) + (1.0 - one_hot) * self.eps_k1
@@ -98,6 +99,7 @@ class RobustMax(Module):
         "return: [batch...]",
     )
     def safe_sqrt(self, val: torch.Tensor) -> torch.Tensor:
+        val = input_to_tensor(self, val)
         return torch.sqrt(torch.clamp(val, min=1e-10))
 
     @check_shapes(
@@ -121,6 +123,7 @@ class RobustMax(Module):
         product of the other latents' CDFs, each squashed into
         [1e-6, 1 - 1e-6] (``multiclass.py:101-141``). mu, var [N, C] ->
         [N, 1]."""
+        Y, mu, var = input_to_tensor(self, (Y, mu, var))
         Yi = Y.reshape(-1).to(default_int())
         gh_x = torch.as_tensor(gh_x, dtype=mu.dtype, device=mu.device)
         gh_w = torch.as_tensor(gh_w, dtype=mu.dtype, device=mu.device)

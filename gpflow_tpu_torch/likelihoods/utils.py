@@ -5,11 +5,13 @@ import math
 
 import torch
 
+from ..base import array_inputs
 from ..utilities.shapes import check_shapes
 
 __all__ = ["inv_probit"]
 
 
+@array_inputs("x")
 @check_shapes(
     "x: [batch...]",
     "return: [batch...]",

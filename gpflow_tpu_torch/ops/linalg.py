@@ -32,9 +32,12 @@ from typing import Tuple
 
 import torch
 
+from ..base import array_inputs
+
 __all__ = ["chol_and_inverse", "cholesky", "cholesky_mm", "mvn_logp", "sym_jitter", "triangular_inverse"]
 
 
+@array_inputs("A")
 def sym_jitter(A: torch.Tensor) -> torch.Tensor:
     """Symmetrizes ``A`` and, below float64, adds a diagonal jitter of 1e-5
     times the mean absolute diagonal (``gpflow_tpu/ops/linalg.py:42-56``)."""
@@ -150,12 +153,14 @@ class _CholAndInverse(torch.autograd.Function):
         return 0.5 * torch.matmul(Linv.mT, torch.matmul(P + P.mT, Linv))
 
 
+@array_inputs("L")
 def triangular_inverse(L: torch.Tensor) -> torch.Tensor:
     """Inverse of a lower-triangular [..., M, M] matrix; its backward is two
     matmuls."""
     return _TriangularInverse.apply(L)
 
 
+@array_inputs("K")
 def chol_and_inverse(K: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(L, L^-1) for a symmetric positive-definite [..., M, M] K: one
     Cholesky and one [M, M] triangular solve forward, matmuls backward. Both
@@ -208,6 +213,7 @@ class _MvnLogp(torch.autograd.Function):
         return dks, -bscaled
 
 
+@array_inputs("K")
 def cholesky_mm(K: torch.Tensor) -> torch.Tensor:
     """``cholesky(K)`` of one large [n, n] K, whose backward computes
     ``L^-1`` once (the blocked recursive doubling where the shape allows it)
@@ -217,6 +223,7 @@ def cholesky_mm(K: torch.Tensor) -> torch.Tensor:
     return _CholeskyMM.apply(K)
 
 
+@array_inputs("ks", "d")
 def mvn_logp(ks: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     """[R] log densities log N(d[:, r] | 0, ks) for ks [n, n] and d [n, R].
 

@@ -19,7 +19,7 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
-from ..base import Parameter
+from ..base import Parameter, array_inputs
 from ..bijectors import Bijector
 from ..ops.linalg import cholesky as _cholesky
 from ..ops.linalg import sym_jitter as _sym_jitter
@@ -299,6 +299,7 @@ def swap_dimensions(
     [N, D]; with ``swap=False`` they are [D, N, 1] (``natgrad.py:450-470``)."""
 
     @functools.wraps(method)
+    @array_inputs("a_nd", "b_dnn")
     @check_shapes(
         "a_nd: [N, D] if swap",
         "a_nd: [D, N, 1] if not swap",

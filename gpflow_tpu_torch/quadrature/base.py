@@ -8,6 +8,7 @@ from typing import Any, Callable, List, Tuple, Union
 
 import torch
 
+from ..base import numpy_to_tensors
 from ..utilities.shapes import check_shapes
 
 __all__ = ["GaussianQuadrature"]
@@ -43,7 +44,9 @@ class GaussianQuadrature(abc.ABC):
         """sum_i W_i fun(X_i, ...) (``quadrature/base.py:36-52``). ``fun``
         maps [N_quad, batch..., dim] to [N_quad, batch..., d']; the extra
         arguments broadcast against the leading quadrature axis. A list of
-        functions gives a list of results."""
+        functions gives a list of results. numpy ``mean``, ``var`` and extra
+        arguments become tensors by the rule of ``base.numpy_to_tensors``."""
+        (mean, var, *args), kwargs = numpy_to_tensors((mean, var, *args), kwargs)
         X, W = self._build_X_W(mean, var)
         if isinstance(fun, Iterable) and not callable(fun):
             return [torch.sum(f(X, *args, **kwargs) * W, dim=0) for f in fun]
@@ -61,7 +64,9 @@ class GaussianQuadrature(abc.ABC):
         *args: Any,
         **kwargs: Any,
     ) -> Union[torch.Tensor, List[torch.Tensor]]:
-        """log sum_i exp(fun(X_i, ...) + log W_i) (``quadrature/base.py:58-71``)."""
+        """log sum_i exp(fun(X_i, ...) + log W_i) (``quadrature/base.py:58-71``),
+        with numpy converted as in ``__call__``."""
+        (mean, var, *args), kwargs = numpy_to_tensors((mean, var, *args), kwargs)
         X, W = self._build_X_W(mean, var)
         logW = torch.log(W)
         if isinstance(fun, Iterable) and not callable(fun):

@@ -62,12 +62,18 @@ def square_distance(X: torch.Tensor, X2: Optional[torch.Tensor]) -> torch.Tensor
 
     X: [..., N, D], X2: [..., M, D] or None -> [..., N, ..., M] (or
     [..., N, N]). As in the JAX package, the leading dims of X and X2 cross,
-    and the result is not clamped at zero.
+    and the result is not clamped at zero. With X2 None on the card the
+    diagonal is exactly 0.
     """
     if X2 is None:
         Xs = torch.sum(torch.square(X), dim=-1, keepdim=True)
         dist = -2.0 * torch.matmul(X, X.mT)
         dist += Xs + Xs.mT
+        if dist.is_cuda:
+            # ||x - x||^2 is 0, but on the card cuBLAS's product and the row
+            # sums round apart by ~eps |x|^2, which the kernels of
+            # r = sqrt(d2) turn into ~1e-8 of the diagonal in float64
+            dist.diagonal(dim1=-2, dim2=-1).zero_()
         return dist
     Xs = torch.sum(torch.square(X), dim=-1)  # [batch..., N]
     X2s = torch.sum(torch.square(X2), dim=-1)  # [batch2..., M]

@@ -14,6 +14,12 @@ CPU in float64 from the same seeded numpy inputs, unconverted.
   its first module, else ``config.default_device()`` (the ``meta`` device
   stands for the card here); a tensor passes through untouched; integer
   arrays keep their dtype.
+* F8-F14: numpy at the quadrature objects (and so every quadrature
+  likelihood), at ``RobustMax``, ``likelihoods.utils.inv_probit``,
+  ``ops.linalg``, the natural-gradient parameterisations, the kernels'
+  ``scale`` and ``slice_cov``; and ``GPFLOW_TPU_INV_SOLVE`` read per call.
+  Each numpy route gives the JAX package's value to 1e-12 of the largest
+  entry and the port's tensor route to the bit.
 * F7: the dtype setters, ``Parameter``, ``Config``, ``eye``,
   ``to_default_float`` and ``pallas_available`` take a numpy dtype, a torch
   dtype or a name; the getters return torch dtypes (a written deviation).
@@ -327,3 +333,98 @@ def test_numpy_float32_inputs_take_the_default_float():
 
 def test_jax_reference_runs_in_float64():
     assert jax.config.read("jax_enable_x64")
+
+
+# --- F8-F13: numpy where the numpy sweep found the port raising ---------------------
+
+def _tensors(value):
+    """The same inputs as float64 tensors on the CPU: the port's tensor route."""
+    if isinstance(value, np.ndarray):
+        return torch.as_tensor(value, dtype=torch.float64)
+    return value
+
+
+_GH = np.polynomial.hermite.hermgauss(7)
+_FMU, _FVAR, _Y = rng.randn(N, 1), rng.rand(N, 1) + 0.1, rng.randn(N, 1)
+_F3, _VAR3 = rng.randn(N, 3), rng.rand(N, 3) + 0.1
+_LABELS = rng.randint(0, 3, (N, 1)).astype(float)
+_L = np.linalg.cholesky(_spd(M, 11))
+_NAT2 = -0.5 * np.linalg.inv(_spd(M, 12))[None].repeat(L, 0)
+_ETA2 = _spd(M, 13)[None].repeat(L, 0) + Q_MU.T[:, :, None] * Q_MU.T[:, None, :]
+_COV = _spd(D, 14)[None].repeat(N, 0)
+SWEEP_CASES = {
+    # F8: the quadrature objects, and a quadrature likelihood through them
+    "NDiagGHQuadrature": lambda m, a: m.quadrature.NDiagGHQuadrature(1, 20)(lambda x: x ** 2, a(_FMU), a(_FVAR)),
+    "NDiagGHQuadrature.logspace": lambda m, a: m.quadrature.NDiagGHQuadrature(1, 20).logspace(
+        lambda x, Y: -0.5 * (x - Y) ** 2, a(_FMU), a(_FVAR), a(_Y)),
+    "NDiagGHQuadrature_2d_kwargs": lambda m, a: m.quadrature.NDiagGHQuadrature(2, 6)(
+        lambda x, Y: x * Y, a(X), a(X ** 2 + 0.1), Y=a(_Y)),
+    "Poisson.quadrature": lambda m, a: (lambda lik: lik.quadrature(
+        lik._quadrature_log_prob, a(_FMU), a(_FVAR), X=a(X), Y=a(np.abs(np.round(_Y)))))(m.likelihoods.Poisson()),
+    # F9: RobustMax
+    "RobustMax": lambda m, a: m.likelihoods.RobustMax(3)(a(_F3)),
+    "RobustMax.safe_sqrt": lambda m, a: m.likelihoods.RobustMax(3).safe_sqrt(a(_VAR3 - 0.3)),
+    "RobustMax.prob_is_largest": lambda m, a: m.likelihoods.RobustMax(3).prob_is_largest(
+        a(_LABELS), a(_F3), a(_VAR3), a(_GH[0]), a(_GH[1])),
+    # F10
+    "inv_probit": lambda m, a: m.likelihoods.utils.inv_probit(a(_F3)),
+    # F11: ops.linalg
+    "sym_jitter": lambda m, a: m.ops.linalg.sym_jitter(a(KMM)),
+    "triangular_inverse": lambda m, a: m.ops.linalg.triangular_inverse(a(_L)),
+    "chol_and_inverse": lambda m, a: m.ops.linalg.chol_and_inverse(a(KMM)),
+    "cholesky_mm": lambda m, a: m.ops.linalg.cholesky_mm(a(KMM)),
+    "mvn_logp": lambda m, a: m.ops.linalg.mvn_logp(a(KMM), a(Q_MU)),
+    # F12: the natural-gradient parameterisations
+    "natural_to_meanvarsqrt": lambda m, a: m.optimizers.natgrad.natural_to_meanvarsqrt(a(Q_MU), a(_NAT2)),
+    "meanvarsqrt_to_natural": lambda m, a: m.optimizers.natgrad.meanvarsqrt_to_natural(a(Q_MU), a(Q_SQRT)),
+    "natural_to_expectation": lambda m, a: m.optimizers.natgrad.natural_to_expectation(a(Q_MU), a(_NAT2)),
+    "expectation_to_natural": lambda m, a: m.optimizers.natgrad.expectation_to_natural(a(Q_MU), a(_ETA2)),
+    "expectation_to_meanvarsqrt": lambda m, a: m.optimizers.natgrad.expectation_to_meanvarsqrt(a(Q_MU), a(_ETA2)),
+    "meanvarsqrt_to_expectation": lambda m, a: m.optimizers.natgrad.meanvarsqrt_to_expectation(a(Q_MU), a(Q_SQRT)),
+    "XiSqrtMeanVar.naturals_to_xi": lambda m, a: m.optimizers.XiSqrtMeanVar.naturals_to_xi(a(Q_MU), a(_NAT2)),
+    "XiNat.xi_to_meanvarsqrt": lambda m, a: m.optimizers.XiNat.xi_to_meanvarsqrt(a(Q_MU), a(_NAT2)),
+    # F13: the kernels' scaling and slicing helpers
+    "Matern32.scale": lambda m, a: m.kernels.Matern32(lengthscales=[0.5, 2.0]).scale(a(X)),
+    "RBF.scaled_squared_euclid_dist": lambda m, a: m.kernels.RBF(lengthscales=0.7).scaled_squared_euclid_dist(
+        a(X), a(Z)),
+    "Cosine.scaled_difference_matrix": lambda m, a: m.kernels.Cosine(lengthscales=[0.5, 2.0]).scaled_difference_matrix(
+        a(X), a(Z)),
+    "slice_cov_full": lambda m, a: m.kernels.Linear(active_dims=[1]).slice_cov(a(_COV)),
+    "slice_cov_diag": lambda m, a: m.kernels.SquaredExponential(active_dims=slice(0, 1)).slice_cov(a(X ** 2)),
+}
+
+
+def _bits(got, want):
+    if isinstance(want, (tuple, list)):
+        for g, w in zip(got, want):
+            _bits(g, w)
+        return
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", sorted(SWEEP_CASES))
+def test_numpy_route_equals_jax_and_the_tensor_route(case):
+    numpy_route = SWEEP_CASES[case](gt, lambda v: v)
+    _close(numpy_route, SWEEP_CASES[case](gj, lambda v: v))
+    _bits(numpy_route, SWEEP_CASES[case](gt, _tensors))
+
+
+# --- F14: GPFLOW_TPU_INV_SOLVE ----------------------------------------------------------
+
+def test_inv_solve_variable_is_read_per_call(monkeypatch):
+    """As the JAX package's ``_use_inv_solve``: with no explicit setting the
+    variable chooses the route at each call; ``set_inv_solve`` beats it."""
+    util = gt.conditionals.util
+    Kmn, Knn = rng.randn(M, 3 * M), rng.rand(3 * M) + 1.0
+    monkeypatch.delenv("GPFLOW_TPU_INV_SOLVE", raising=False)
+    solve = util.base_conditional(Kmn, KMM, Knn, Q_MU)
+    with util.inv_solve():
+        inverse = util.base_conditional(Kmn, KMM, Knn, Q_MU)
+    monkeypatch.setenv("GPFLOW_TPU_INV_SOLVE", "1")
+    assert util._use_inv_solve() and gj.conditionals.util._use_inv_solve()
+    _bits(util.base_conditional(Kmn, KMM, Knn, Q_MU), inverse)
+    with util.inv_solve(False):
+        _bits(util.base_conditional(Kmn, KMM, Knn, Q_MU), solve)
+    monkeypatch.setenv("GPFLOW_TPU_INV_SOLVE", "false")
+    assert not util._use_inv_solve() and not gj.conditionals.util._use_inv_solve()
+    _close(inverse, gj.conditionals.util.base_conditional(Kmn, KMM, Knn, Q_MU))

@@ -13,7 +13,11 @@ its own, with ``--noconftest`` (``tests/conftest.py`` imports jax), it:
 * defines the ``rng`` fixture as ``tests/conftest.py`` does;
 * deselects the tests marked ``slow``, as tier-1 does;
 * writes each test's outcome by node id to the JSON file named by
-  ``GPFLOW_TPU_TORCH_REFERENCE_REPORT``, where one is named.
+  ``GPFLOW_TPU_TORCH_REFERENCE_REPORT``, where one is named ("xfailed" for
+  a test that fails as its strict xfail mark expects);
+* writes the process's default device and kernel launch counts at its end
+  to the JSON file named by ``GPFLOW_TPU_TORCH_REFERENCE_STATE``, where one
+  is named.
 
 One shim, and no other: ``np.asarray`` of a tensor reads it through
 ``.detach().cpu()``. The port's entry points return tensors that may carry
@@ -54,6 +58,7 @@ PORT = "gpflow_tpu_torch"
 REPO = pathlib.Path(__file__).resolve().parent.parent
 DEVICE_VARIABLE = "GPFLOW_TPU_TORCH_REFERENCE_DEVICE"
 REPORT_VARIABLE = "GPFLOW_TPU_TORCH_REFERENCE_REPORT"
+STATE_VARIABLE = "GPFLOW_TPU_TORCH_REFERENCE_STATE"
 NODES_FILE = pathlib.Path(__file__).with_name("test_torch_reference_nodes.json")
 
 # The JAX package's test files that import neither jax nor optax, but two.
@@ -234,6 +239,9 @@ def pytest_runtest_makereport(item, call):
     if report.failed:
         entry["outcome"] = "failed"
         entry["message"] += f"[{report.when}] {report.longreprtext[-4000:]}\n"
+    elif report.skipped and hasattr(report, "wasxfail"):
+        entry["outcome"] = "xfailed"
+        entry["message"] = report.wasxfail
     elif report.skipped and entry["outcome"] == "passed":
         entry["outcome"] = "skipped"
         entry["message"] = str(report.longrepr[-1]) if isinstance(report.longrepr, tuple) else report.longreprtext
@@ -244,6 +252,13 @@ def pytest_unconfigure(config):
     if path and hasattr(config, "_reference_outcomes"):
         written = config._reference_collected if config.option.collectonly else config._reference_outcomes
         pathlib.Path(path).write_text(json.dumps(written, indent=0, sort_keys=True))
+    path = os.environ.get(STATE_VARIABLE)
+    if path:
+        from gpflow_tpu_torch.config import default_device
+        from gpflow_tpu_torch.ops.pallas_distance import launch_counts
+
+        state = {"default_device": str(default_device()), "launch_counts": dict(launch_counts)}
+        pathlib.Path(path).write_text(json.dumps(state))
 
 
 @pytest.fixture

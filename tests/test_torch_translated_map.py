@@ -1,0 +1,186 @@
+"""The map of the JAX package's test files that import jax or optax onto the
+port: one row per ``def test_*`` of each file, found by ``ast`` without
+importing it, in ``tests/test_torch_translated_map.json``. A row's status is
+
+* ``translated``: a test of the same name in the file's translation,
+  ``tests/test_torch_translated_<stem>.py``;
+* ``deviation:<name>``: translated too, but marked ``deviation(<name>)``
+  (a strict xfail), where ``<name>`` is a deviation of ROADMAP Queue 3 listed
+  in ``test_torch_translated_support.DEVIATIONS``;
+* ``queued``: not translated yet; only in the files of ``QUEUED``, which
+  ROADMAP item R1 lists in this order.
+
+A row may carry a ``note`` naming the port's counterpart of a private JAX
+name that its translation uses. ``python -m tests.test_torch_translated_map``
+writes the map anew from the files and the translations, keeping the notes.
+"""
+import ast
+import json
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+
+from . import test_torch_translated_support as support
+from .test_torch_reference_plugin import _IMPORTS_JAX, JAX_TEST_DIRS, REPO, SERIAL
+
+MAP_FILE = pathlib.Path(__file__).with_name("test_torch_translated_map.json")
+
+# The files left for a later slice, in ROADMAP item R1's order.
+QUEUED = [
+    "tests/gpflow_tpu/optimizers/test_scipy.py",
+    "tests/gpflow_tpu/test_scipy_helpers.py",
+    "tests/gpflow_tpu/optimizers/test_mcmc.py",
+    "tests/gpflow_tpu/optimizers/test_mcmc_helper.py",
+    "tests/gpflow_tpu/models/test_hmc_conjugate_oracle.py",
+    "tests/gpflow_tpu/models/test_cglb_mcmc.py",
+    "tests/gpflow_tpu/utilities/test_bijectors.py",
+    "tests/gpflow_tpu/utilities/test_misc_utils.py",
+    "tests/gpflow_tpu/utilities/test_shapes.py",
+    "tests/gpflow_tpu/utilities/test_traversal.py",
+    "tests/gpflow_tpu/utilities/test_bucketing.py",
+    "tests/gpflow_tpu/test_pallas_ops.py",
+    "tests/gpflow_tpu/test_base.py",
+    "tests/integration/test_bo_posteriors.py",
+    "tests/integration/test_dynamic_shapes.py",
+    "tests/gpflow_tpu/test_parallel.py",
+]
+
+# A JAX file's imports that a translation must not keep.
+_IMPORTS_REFERENCE = re.compile(r"^\s*(import|from) (jax|optax|gpflow_tpu)\b", re.M)
+
+
+def jax_files():
+    """The JAX package's test files that import jax or optax, relative to
+    the repository's root."""
+    return sorted(
+        str(path.relative_to(REPO))
+        for d in JAX_TEST_DIRS
+        for path in (REPO / d).rglob("test_*.py")
+        if _IMPORTS_JAX.search(path.read_text())
+    )
+
+
+def translation(jax_file):
+    """The translated file of ``jax_file``, relative to the root."""
+    return f"tests/test_torch_translated_{pathlib.Path(jax_file).stem[len('test_'):]}.py"
+
+
+def jax_test_names(path):
+    """The ``def test_*`` names of a file, in order, by ``ast``."""
+    tree = ast.parse((REPO / path).read_text())
+    return [
+        node.name
+        for node in ast.walk(tree)
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)) and node.name.startswith("test_")
+    ]
+
+
+def deviation_marks(path):
+    """The deviation each test of a translated file is marked with, by name."""
+    marks = {}
+    for node in ast.walk(ast.parse((REPO / path).read_text())):
+        if isinstance(node, ast.FunctionDef) and node.name.startswith("test_"):
+            for d in node.decorator_list:
+                if isinstance(d, ast.Call) and getattr(d.func, "id", None) == "deviation":
+                    marks[node.name] = d.args[0].value
+    return marks
+
+
+def read_map():
+    return json.loads(MAP_FILE.read_text())
+
+
+def translated_files():
+    return sorted({translation(row["file"]) for row in read_map() if row["status"] != "queued"})
+
+
+# --- the checks ------------------------------------------------------------------
+
+
+def test_every_function_has_exactly_one_row():
+    rows = read_map()
+    keys = [(row["file"], row["test"]) for row in rows]
+    assert len(keys) == len(set(keys))
+    expected = [(f, name) for f in jax_files() for name in dict.fromkeys(jax_test_names(f))]
+    assert sorted(keys) == sorted(expected)
+
+
+def test_queued_only_in_the_queued_files():
+    rows = read_map()
+    queued = {row["file"] for row in rows if row["status"] == "queued"}
+    assert queued <= set(QUEUED)
+    assert set(QUEUED) <= set(jax_files())
+    for row in rows:
+        assert row["status"] in ("translated", "queued") or row["status"].startswith("deviation:"), row
+
+
+def test_each_row_matches_its_translation():
+    rows = read_map()
+    names, marks = {}, {}
+    for path in translated_files():
+        assert (REPO / path).exists(), path
+        names[path], marks[path] = jax_test_names(path), deviation_marks(path)
+    for row in rows:
+        if row["status"] == "queued":
+            continue
+        path = translation(row["file"])
+        assert row["test"] in names[path], row
+        mark = marks[path].get(row["test"])
+        if row["status"] == "translated":
+            assert mark is None, row
+        else:
+            assert mark == row["status"][len("deviation:"):], row
+            assert mark in support.DEVIATIONS, row
+
+
+def test_each_deviation_is_in_the_roadmap():
+    text = (REPO / "ROADMAP.md").read_text()
+    queue3 = text[text.index("### Queue 3"):text.index("## Recent")].lower()
+    used = {row["status"][len("deviation:"):] for row in read_map() if row["status"].startswith("deviation:")}
+    for name in used:
+        assert name.lower() in queue3, name
+
+
+@pytest.mark.parametrize("path", translated_files())
+def test_no_translation_imports_the_reference(path):
+    text = (REPO / path).read_text()
+    assert not _IMPORTS_REFERENCE.search(text), path
+
+
+def test_every_translated_row_is_collected(tmp_path):
+    report = tmp_path / "collected.json"
+    done = subprocess.run(
+        [sys.executable, "-m", "pytest", *translated_files(), "--collect-only", "-q", "--noconftest",
+         "-p", "tests.test_torch_reference_plugin", "-p", "no:cacheprovider", "-p", "no:randomly",
+         "-p", "no:xdist"],
+        cwd=REPO, capture_output=True, text=True, timeout=600, stdin=subprocess.DEVNULL,
+        env={**os.environ, **SERIAL, "GPFLOW_TPU_TORCH_REFERENCE_REPORT": str(report)},
+    )
+    assert done.returncode == 0, done.stdout[-3000:] + done.stderr[-3000:]
+    collected = {node.split("[")[0] for node in json.loads(report.read_text())}
+    for row in read_map():
+        if row["status"] != "queued":
+            assert f"{translation(row['file'])}::{row['test']}" in collected, row
+
+
+if __name__ == "__main__":
+    # Writes the map anew: a JAX file's tests are translated where its
+    # translation exists, else queued; the deviation marks and the notes of
+    # the committed map are kept.
+    notes = {(r["file"], r["test"]): r["note"] for r in read_map() if "note" in r} if MAP_FILE.exists() else {}
+    rows = []
+    for f in jax_files():
+        path = translation(f)
+        present = (REPO / path).exists()
+        marks = deviation_marks(path) if present else {}
+        for name in dict.fromkeys(jax_test_names(f)):
+            status = ("deviation:" + marks[name] if name in marks else "translated") if present else "queued"
+            row = {"file": f, "test": name, "status": status}
+            if (f, name) in notes:
+                row["note"] = notes[(f, name)]
+            rows.append(row)
+    MAP_FILE.write_text(json.dumps(rows, indent=1) + "\n")
