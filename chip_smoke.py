@@ -381,6 +381,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -997,11 +998,40 @@ RF_FILES = (
 RF_TIMEOUT = 300
 RF_RUNS = []  # phase 27's run of them, started beside the build (it launches no kernel)
 
-# Phase 28: the translated JAX test files (those of the map), split over
-# TR_PROCESSES pytest processes, each with the card as the default device.
+# Phase 28: the translated JAX test files (those of the map), each process
+# with the card as the default device, all started early and waited for after
+# the kernel checks, before any timed phase (TR_RUNS): the files that launch no
+# kernel beside the build, each of TR_ALONE in a process of its own and the
+# others in TR_PROCESSES, all but the longest (TR_ALONE's first) niced so that
+# nvcc and that file keep their cores; the files that launch K1 or K2
+# (TR_LAUNCHES's) in one process once the libraries are built. The phase reads
+# and checks their outcomes and times the kernels at their shapes.
 TR_MAP = "tests/test_torch_translated_map.json"
-TR_PROCESSES = 6
+TR_PROCESSES = 4
 TR_TIMEOUT = 600
+TR_NICE = 5
+# The launches each translated file makes on the card, by kernel; every other
+# file launches none. The float32 Bayesian GPLVM launches K1 twice; the JAX
+# package's own kernel tests launch K1 at (8, 8, 1), (16, 24, 3), (100, 130, 5),
+# (20, 20, 2), (33, 21, 4) for each of the six families and (17, 13, 3) for rq,
+# and K2 at (14, 11, 3) for the four families it serves.
+TR_LAUNCHES = {
+    "tests/test_torch_translated_gplvm_f32.py": {"K1": 2, "K2": 0},
+    "tests/test_torch_translated_pallas_ops.py": {"K1": 11, "K2": 4},
+}
+# The shapes of those launches, timed after the tests: K1 (family, N, M, D), K2 likewise.
+TR_K1_TIMED = ([("rbf", 8, 8, 1), ("rbf", 16, 24, 3), ("rbf", 100, 130, 5), ("rbf", 20, 20, 2)]
+               + [(f, 33, 21, 4) for f in ("rbf", "exponential", "matern12", "matern32", "matern52", "rq")]
+               + [("rq", 17, 13, 3)])
+TR_K2_TIMED = [(f, 14, 11, 3) for f in ("exponential", "matern12", "matern32", "matern52")]
+# The translated kernel test that must keep its own math, with no launch.
+TR_NO_LAUNCH = "tests/test_torch_translated_pallas_ops.py::test_subclass_override_not_routed_to_pallas"
+# The translated file whose tests run on 8 gloo ranks of the host's CPU.
+TR_RANKS_FILE = "tests/test_torch_translated_parallel.py"
+# The files that take a process each: the longest, its HMC chains a host-bound
+# loop of launches on the card (~85 s), and the ranks' file.
+TR_ALONE = ("tests/test_torch_translated_mcmc.py", TR_RANKS_FILE)
+TR_RUNS = []  # the processes started before the kernel checks
 
 
 def log(*args):
@@ -1565,10 +1595,11 @@ def time_k1(n, m, iters=50, d=D, family="rbf"):
         Xs, Zs = ((rng.randn(k, d) / np.sqrt(d)).astype(np.float32) for k in (n, m))
     Xs, Zs = torch.from_numpy(Xs).cuda(), torch.from_numpy(Zs).cuda()
     var = torch.tensor([1.0], device="cuda")
+    alpha = torch.tensor([1.0], device="cuda") if family == "rq" else None
     fns = {"plain": pd.stationary_forward_plain, "k1": pd.stationary_forward_cuda}
     got = {"plain": [], "k1": []}
     for which in ("plain", "k1", "k1", "plain"):
-        got[which].append(device_ms(lambda: fns[which](family, Xs, Zs, var), iters))
+        got[which].append(device_ms(lambda: fns[which](family, Xs, Zs, var, alpha), iters))
     k1, plain = min(got["k1"]), min(got["plain"])
     gbs = n * m * 4 / (k1 * 1e-3) / 1e9
     bound_ms, bound_by = kernel_bound_ms("K1", n, m, d)
@@ -6668,10 +6699,26 @@ def reference_phases(launches):
     assert not loaded, f"the script loaded {loaded[:5]}"
 
 
+def tr_slow(root, path):
+    """The test names of a translated file that are marked ``slow`` (by the
+    module's ``pytestmark`` or their own decorator), which the plugin
+    deselects as tier-1 does."""
+    import ast
+
+    with open(os.path.join(root, path)) as f:
+        tree = ast.parse(f.read())
+    slow = lambda node: isinstance(node, ast.Attribute) and node.attr == "slow"  # noqa: E731
+    tests = [n for n in ast.walk(tree) if isinstance(n, ast.FunctionDef) and n.name.startswith("test_")]
+    if any(isinstance(n, ast.Assign) and any(getattr(t, "id", None) == "pytestmark" for t in n.targets)
+           and slow(n.value) for n in tree.body):
+        return {n.name for n in tests}
+    return {n.name for n in tests if any(slow(d) for d in n.decorator_list)}
+
+
 def tr_files():
     """Phase 28's files: the translation of each JAX file of the map with a
-    row that is not queued, and the status of each translated test by its
-    file and name."""
+    row that is not queued; the status of each translated test by its file
+    and name; and the rows whose test is marked slow."""
     root = os.path.dirname(os.path.abspath(__file__))
     with open(os.path.join(root, TR_MAP)) as f:
         rows = json.load(f)
@@ -6680,20 +6727,36 @@ def tr_files():
         if row["status"] != "queued":
             stem = os.path.basename(row["file"])[len("test_"):]
             status[(f"tests/test_torch_translated_{stem}", row["test"])] = row["status"]
-    return sorted({path for path, _ in status}), status
+    files = sorted({path for path, _ in status})
+    slow = {(path, name) for path in files for name in tr_slow(root, path)}
+    return files, status, slow
 
 
-def tr_run(files):
-    """Starts phase 28's processes on ``files`` (each file, the longest
-    first, to the process with the fewest bytes of files yet); returns each
-    process with its report and state paths. Each is killed at exit if it
-    still runs."""
+def tr_start_early():
+    """Starts the translated files that launch no kernel (see ``TR_ALONE``)."""
+    files = [f for f in tr_files()[0] if f not in TR_LAUNCHES and f not in TR_ALONE]
+    runs = tr_run([TR_ALONE[0]], 1, "alone")
+    for path in TR_ALONE[1:]:
+        runs += tr_run([path], 1, "alone", TR_NICE)
+    return runs + tr_run(files, TR_PROCESSES, "early", TR_NICE)
+
+
+def tr_start_kernels():
+    """Starts the translated files that launch K1 or K2, in one process."""
+    return tr_run(sorted(TR_LAUNCHES), 1, "kernels")
+
+
+def tr_run(files, processes, tag, nice=0):
+    """Starts ``processes`` pytest processes on ``files`` (each file, the
+    longest first, to the process with the fewest bytes of files yet), at
+    ``nice``; returns each process with its report and state paths. Each is
+    killed at exit if it still runs."""
     import tempfile
 
     from tests import test_torch_reference_plugin as reference
 
     root = os.path.dirname(os.path.abspath(__file__))
-    shares = [[0, []] for _ in range(TR_PROCESSES)]
+    shares = [[0, []] for _ in range(processes)]
     for size, path in sorted(((os.path.getsize(os.path.join(root, f)), f) for f in files), reverse=True):
         share = min(shares, key=lambda s: s[0])
         share[0] += size
@@ -6702,29 +6765,33 @@ def tr_run(files):
     os.makedirs(build, exist_ok=True)
     runs = []
     for i, (_, files) in enumerate(shares):
-        workdir = tempfile.mkdtemp(prefix=f"translated{i}_", dir=build)
+        workdir = tempfile.mkdtemp(prefix=f"{tag}{i}_", dir=build)
         report, state = os.path.join(workdir, "outcomes.json"), os.path.join(workdir, "state.json")
         env = {**os.environ, **reference.SERIAL, reference.DEVICE_VARIABLE: "cuda",
                reference.REPORT_VARIABLE: report, reference.STATE_VARIABLE: state}
         with open(os.path.join(workdir, "output.txt"), "w") as output:
-            proc = subprocess.Popen([*reference.command(files),
+            proc = subprocess.Popen([*reference.command(files), "--durations=3",
                                      f"--basetemp={os.path.join(workdir, 'tmp')}"],
                                     cwd=reference.REPO, env=env, stdout=output, stderr=subprocess.STDOUT,
-                                    stdin=subprocess.DEVNULL)
+                                    stdin=subprocess.DEVNULL, preexec_fn=(lambda: os.nice(nice)) if nice else None)
         atexit.register(lambda proc=proc: proc.poll() is None and (proc.kill(), proc.wait()))
         runs.append((proc, report, state))
     return runs
 
 
 def translated_phases(launches):
-    """Phase 28: the translated JAX test files on the card. Every test
-    passes, or fails as its deviation row's strict xfail expects, or skips
-    itself; every translated row ran; each process built on "cuda"; K1
-    launched in them."""
+    """Phase 28: the translated JAX test files on the card, from the
+    processes that ``main`` started (``TR_RUNS``; started here where it did
+    not). Every test passes, or fails as its deviation row's strict xfail
+    expects, or skips itself; every translated row ran but those marked slow, which no row
+    of them did; each process built on "cuda"; each file launched K1 and K2
+    as ``TR_LAUNCHES`` says, at the shapes logged, and K2 too: the JAX
+    package's own kernel tests hold K1 and K2 to their tolerances."""
     t0 = time.perf_counter()
-    files, status = tr_files()
-    runs = tr_run(files)
-    outcomes, counts, bad, devices = {}, {"K1": 0, "K2": 0}, [], []
+    files, status, slow = tr_files()
+    runs = list(TR_RUNS) or tr_start_early() + tr_start_kernels()
+    TR_RUNS.clear()
+    outcomes, counts, bad, devices, by_test = {}, {"K1": 0, "K2": 0}, [], [], {}
     for proc, report, state in runs:
         try:
             proc.wait(timeout=TR_TIMEOUT)
@@ -6742,9 +6809,23 @@ def translated_phases(launches):
         devices.append(st["default_device"])
         for k in counts:
             counts[k] += st["launch_counts"][k]
+        by_test.update(st["launches_by_test"])
         with open(report) as f:
             outcomes.update(json.load(f))
-        log(f"translated: {out.strip().splitlines()[-1] if out.strip() else ''}; launches {st['launch_counts']}")
+        slowest = [line.strip() for line in out.splitlines() if re.match(r"^\d+\.\d+s (call|setup|teardown) ", line)]
+        log(f"translated: {out.strip().splitlines()[-1] if out.strip() else ''}; launches {st['launch_counts']}; "
+            f"slowest: {'; '.join(slowest)}")
+    by_file = {}
+    for node, records in sorted(by_test.items()):
+        for kernel, family, n, m, d in records:
+            per = by_file.setdefault(node.partition("::")[0], {"K1": 0, "K2": 0, "shapes": {}})
+            per[kernel] += 1
+            shape = f"{kernel} {family} ({n}, {m}, {d})"
+            per["shapes"][shape] = per["shapes"].get(shape, 0) + 1
+    for path, per in sorted(by_file.items()):
+        log(f"translated launches: {path}: K1 {per['K1']}, K2 {per['K2']}: "
+            + ", ".join(f"{k} x{v}" for k, v in sorted(per["shapes"].items())))
+    log(f"translated: {TR_RANKS_FILE}'s tests ran on 8 gloo ranks of the host's CPU (the machine has one card)")
     for node, entry in sorted(outcomes.items()):
         path, _, name = node.partition("::")
         row = status.get((path, name.split("[")[0]))
@@ -6752,15 +6833,29 @@ def translated_phases(launches):
         if row is None or entry["outcome"] not in expected:
             bad.append(f"{node}: {entry['outcome']} (map: {row})\n{entry['message'][-1500:]}")
     ran = {(node.partition("::")[0], node.partition("::")[2].split("[")[0]) for node in outcomes}
-    missing = sorted(set(status) - ran)
-    launches["translated JAX tests (phase 28)"] = counts
+    missing = sorted(set(status) - ran - slow)
     log(f"translated: {len(outcomes)} tests of {len(files)} files on the card, {len(bad)} not as "
-        f"the map says, {len(missing)} rows that did not run; K1 {counts['K1']}, K2 {counts['K2']} launches; "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"the map says, {len(missing)} rows that did not run, {len(slow)} rows marked slow and deselected "
+        f"as tier-1 deselects them ({', '.join(f'{p}::{n}' for p, n in sorted(slow))}); "
+        f"K1 {counts['K1']}, K2 {counts['K2']} launches; {time.perf_counter() - t0:.1f} s")
     assert not bad, "\n".join(bad[:10])
     assert not missing, f"rows that did not run: {missing[:10]}"
+    assert not (ran & slow), f"rows marked slow that ran: {sorted(ran & slow)}"
     assert devices == ["cuda"] * len(runs), f"the translated runs built on {devices}"
-    assert counts["K1"] > 0, f"the translated float32 tests launched no K1: {counts}"
+    recorded = {k: sum(per[k] for per in by_file.values()) for k in ("K1", "K2")}
+    assert recorded == counts, f"the recorded launches {recorded} are not the counted ones {counts}"
+    for path in files:
+        per = by_file.get(path, {"K1": 0, "K2": 0})
+        expected = TR_LAUNCHES.get(path, {"K1": 0, "K2": 0})
+        assert {k: per[k] for k in ("K1", "K2")} == expected, f"{path}: launches {per}, expected {expected}"
+    assert TR_NO_LAUNCH not in by_test, f"{TR_NO_LAUNCH} launched {by_test[TR_NO_LAUNCH]}"
+    expected = {k: sum(e[k] for e in TR_LAUNCHES.values()) for k in ("K1", "K2")}
+    expect_launches("translated JAX tests (phase 28)", counts, expected, launches)
+    assert counts["K1"] > 0 and counts["K2"] > 0, f"the translated tests launched K1 or K2 no time: {counts}"
+    for family, n, m, d in TR_K1_TIMED:
+        time_k1(n, m, d=d, family=family)
+    for family, n, m, d in TR_K2_TIMED:
+        time_k2(n, m, family=family, d=d)
 
 
 # Phases 5-28 in the order they run, as groups that share their data: a
@@ -6839,10 +6934,21 @@ def main(phases=None):
 
     if phases is None or 27 in phases:
         RF_RUNS.append(rf_reference_run())
+    if phases is None or 28 in phases:
+        TR_RUNS.extend(tr_start_early())
     for kernel, (ready_s, nvcc_s) in build_kernels().items():
         log(f"build: {kernel} library ready in {ready_s:.2f} s (nvcc {nvcc_s:.2f} s; 0 means built earlier)")
 
+    if TR_RUNS:
+        TR_RUNS.extend(tr_start_kernels())
     errs = {"K1": check_k1(), "K2": max(check_k2(), check_k2_coincident())}
+    if TR_RUNS:
+        # they share the host's cores and the card: let them end before any phase is timed
+        t0 = time.perf_counter()
+        for proc, _, _ in TR_RUNS:
+            proc.wait(timeout=TR_TIMEOUT)
+        log(f"time: phase 28's processes, started before the kernel checks, ended {time.perf_counter() - t0:.1f} s "
+            "after them")
 
     config.set_default_float(torch.float32)  # and with it the float32 jitter, 1e-4
     launches = {}  # path -> launch counts of its run

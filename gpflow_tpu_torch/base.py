@@ -17,7 +17,7 @@ import enum
 import functools
 import inspect
 import itertools
-from typing import TYPE_CHECKING, Any, Callable, List, Optional, Sequence, Tuple, Union
+from typing import TYPE_CHECKING, Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -67,6 +67,10 @@ class PriorOn(enum.Enum):
     UNCONSTRAINED = "unconstrained"
 
 
+# The attributes that ``nn.Module.__init__`` sets: its registries and hooks.
+_NN_MODULE_STATE = frozenset(vars(nn.Module()))
+
+
 class Module(nn.Module):
     """Base class of kernels, likelihoods, inducing variables and models."""
 
@@ -79,8 +83,32 @@ class Module(nn.Module):
         """Every Parameter under this module, trainable or not, in
         registration order: the JAX package's ``Module.parameters``
         (``gpflow_tpu/base.py:718-723``), whose name here is torch's
-        ``nn.Module.parameters()``, which ``torch.optim`` uses."""
-        return tuple(m for m in self.modules() if isinstance(m, Parameter))
+        ``nn.Module.parameters()``, which ``torch.optim`` uses. A Parameter
+        or Module held in a list, tuple or dict attribute, at any depth, is
+        found too, as the JAX package's pytree flattening finds it; it comes
+        after its module's registered ones."""
+        found: Dict[int, Parameter] = {}
+
+        def contained(value: Any) -> None:
+            if isinstance(value, nn.Module):
+                visit(value)
+            elif isinstance(value, (list, tuple)):
+                for v in value:
+                    contained(v)
+            elif isinstance(value, dict):
+                for v in value.values():
+                    contained(v)
+
+        def visit(module: nn.Module) -> None:
+            for m in module.modules():
+                if isinstance(m, Parameter):
+                    found.setdefault(id(m), m)
+                for key, value in vars(m).items():
+                    if key not in _NN_MODULE_STATE and isinstance(value, (list, tuple, dict)):
+                        contained(value)
+
+        visit(self)
+        return tuple(found.values())
 
     @property
     def trainable_parameters(self) -> Tuple["Parameter", ...]:
@@ -292,8 +320,9 @@ class Parameter(Module):
     the Parameter, mirrored in the unconstrained tensor's ``requires_grad``.
     ``prior`` (a ``priors.Prior`` or None) is evaluated on the constrained
     value or, with ``prior_on=PriorOn.UNCONSTRAINED``, on the unconstrained
-    one. Built from another Parameter, the new one inherits its
-    ``trainable``, ``prior`` and ``prior_on`` unless they are given. A
+    one. Built from another Parameter, the new one takes its constrained
+    value and inherits its ``transform``, ``trainable``, ``prior``,
+    ``prior_on`` and ``name`` unless they are given. A
     Parameter of a model split over a mesh carries a read rule
     (``_read_hook``, set by ``parallel/``) that each read of ``value``
     applies to the unconstrained tensor.
@@ -323,9 +352,12 @@ class Parameter(Module):
         have (``gpflow_tpu/base.py:187-250``)."""
         super().__init__()
         if isinstance(value, Parameter):
+            transform = value.transform if transform is None else transform
             trainable = value.trainable if trainable is None else trainable
             prior = value.prior if prior is None else prior
             prior_on = value.prior_on if prior_on is None else prior_on
+            name = value.name if name is None else name
+            value = value.value.detach()
         self._transform = transform if transform is not None else Identity()
         self.prior = prior
         self.prior_on = PriorOn.CONSTRAINED if prior_on is None else prior_on
@@ -342,7 +374,8 @@ class Parameter(Module):
         _validate_finite(unconstrained, self.name)
         if shape is not None:
             if unconstrained_shape is not None or constrained_shape is not None:
-                raise ValueError("Cannot set both `shape` and `unconstrained_shape` or `constrained_shape`.")
+                # an AssertionError, as the JAX package's assert raises
+                raise AssertionError("Cannot set both `shape` and `unconstrained_shape` or `constrained_shape`.")
             unconstrained_shape = constrained_shape = shape
         _validate_declared_shape(tuple(unconstrained.shape), unconstrained_shape, self.name, "unconstrained")
         constrained = tuple(self.transform.forward_shape(unconstrained.shape))

@@ -119,6 +119,23 @@ class _ParameterCodec:
             return np.zeros((0,), dtype=np.float64)
         return self.pack(np.concatenate([np.asarray(a, dtype=np.float64).reshape(-1) for a in arrays]))
 
+    def decode_torch(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """The FULL-layout tensor -> views shaped like the parameters (the
+        counterpart of the JAX package's ``decode_jax``)."""
+        out, i = [], 0
+        for shape, size in zip(self.shapes, self.full_sizes):
+            out.append(x[i:i + size].view(shape))
+            i += size
+        return out
+
+    def encode_torch(self, tensors: Sequence[torch.Tensor], dtype: torch.dtype) -> torch.Tensor:
+        """Tensors shaped like the parameters -> one FULL-layout tensor of
+        ``dtype``, so that the gradient is one download (the counterpart of
+        ``encode_jax``)."""
+        if not tensors:
+            return torch.zeros((0,), dtype=dtype)
+        return torch.cat([t.to(dtype).reshape(-1) for t in tensors])
+
     def decode(self, x: np.ndarray) -> List[np.ndarray]:
         """The packed vector -> float64 arrays shaped like the parameters."""
         x_full = self.unpack(np.asarray(x, dtype=np.float64))
@@ -301,10 +318,8 @@ class Scipy:
                 requires = [t.requires_grad for t in tensors]
                 try:
                     with torch.no_grad():
-                        j = 0
-                        for t, size in zip(tensors, codec.full_sizes):
-                            t.copy_(x_dev[j:j + size].view(t.shape))
-                            j += size
+                        for t, value in zip(tensors, codec.decode_torch(x_dev)):
+                            t.copy_(value)
                     for t in tensors:
                         t.requires_grad_(True)
                     loss = closure()
@@ -314,10 +329,8 @@ class Scipy:
                         t.requires_grad_(flag)
                 if unused[0] is None:
                     unused[0] = [i for i, g in enumerate(grads) if g is None]
-                flat = [loss.detach().reshape(1).to(torch.float64)]
-                flat += [(torch.zeros_like(t) if g is None else g).reshape(-1).to(torch.float64)
-                         for t, g in zip(tensors, grads)]
-                return torch.cat(flat).cpu().numpy()
+                grads = [torch.zeros_like(t) if g is None else g for t, g in zip(tensors, grads)]
+                return codec.encode_torch([loss.detach(), *grads], torch.float64).cpu().numpy()
 
             if cache_key is not None and self.compile_cache_size > 0:
                 while len(self.compile_cache) >= self.compile_cache_size:

@@ -149,6 +149,15 @@ def make_hybrid_mesh(
     return _device_mesh(ranks.reshape(-1).tolist(), sizes, names)
 
 
+def _holds_this_rank(mesh: DeviceMesh) -> bool:
+    """True where this process's rank is one of the mesh's. Every rank runs
+    the same program (SPMD), so a mesh over some of the ranks is built on
+    all of them; a rank that it leaves out runs a path over it whole, with
+    no collective, as without a mesh, where the JAX package's single
+    controller sees the mesh's result."""
+    return mesh.get_coordinate() is not None
+
+
 def replicated(mesh: DeviceMesh) -> Tuple[Placement, ...]:
     """DTensor placements that replicate a tensor over every mesh axis."""
     return tuple(Replicate() for _ in range(mesh.ndim))

@@ -25,7 +25,7 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from .._sharding import Blocks, ReadHook
 from ..base import Module, Parameter, input_to_tensor
-from .mesh import DEFAULT_AXIS, make_mesh
+from .mesh import DEFAULT_AXIS, _holds_this_rank, make_mesh
 
 __all__ = ["shard_internal_data", "sharded_predict_f"]
 
@@ -47,7 +47,8 @@ def shard_internal_data(
     (SPMD). A Parameter in the data (the GPLVM's latent X) stays whole on
     every rank. The number of rows must divide evenly over the axis, as
     the JAX package's sharding requires. Each read of a Parameter of the
-    model then carries the gradient rule of ``_sharding``."""
+    model then carries the gradient rule of ``_sharding``. On a rank that
+    the mesh leaves out the model keeps its rows (``_holds_this_rank``)."""
     data = getattr(model, "data", None)
     if data is None:
         raise ValueError(
@@ -58,6 +59,8 @@ def shard_internal_data(
     if not isinstance(model, _splittable()):
         raise NotImplementedError(f"shard_internal_data: {type(model).__name__}'s objective has no row reductions")
     mesh = mesh if mesh is not None else make_mesh(axis_name=axis_name)
+    if not _holds_this_rank(mesh):
+        return model
     tensors = [data] if isinstance(data, torch.Tensor) else [a for a in data if not isinstance(a, Parameter)]
     if tensors[0].device.type != mesh.device_type:
         raise ValueError(f"the model's data is on {tensors[0].device.type}, the mesh is over {mesh.device_type}")
@@ -94,10 +97,11 @@ def sharded_predict_f(
     posterior (anything with ``predict_f(Xnew, **kwargs)``). The number of
     points must divide evenly over the axis. A full covariance couples the
     rows: with ``full_cov`` or ``full_output_cov`` every rank predicts all
-    of them."""
+    of them, as does a rank that the mesh leaves out."""
     mesh = mesh if mesh is not None else make_mesh(axis_name=axis_name)
     Xnew = input_to_tensor(model, Xnew)
-    if predict_kwargs.get("full_cov") or predict_kwargs.get("full_output_cov"):
+    if (predict_kwargs.get("full_cov") or predict_kwargs.get("full_output_cov")
+            or not _holds_this_rank(mesh)):
         return model.predict_f(Xnew, **predict_kwargs)
     rows = Blocks.over(mesh.get_group(axis_name), Xnew.shape[0], "the number of points")
     mean, var = model.predict_f(rows.local(Xnew), **predict_kwargs)

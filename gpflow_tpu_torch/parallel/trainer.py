@@ -42,7 +42,7 @@ from .._sharding import Blocks, with_layout
 from ..base import Module, Parameter
 from ..optimizers.natgrad import NaturalGradient
 from ..posteriors import IndependentPosteriorMultiOutput, PrecomputeCacheType
-from .mesh import DEFAULT_AXIS
+from .mesh import DEFAULT_AXIS, _holds_this_rank
 
 __all__ = ["DataParallelTrainer", "OptimizerFactory", "adam"]
 
@@ -67,7 +67,9 @@ class DataParallelTrainer:
     :param mesh: a ``DeviceMesh`` from ``make_mesh``; its ``axis_name`` axis
         splits each batch's rows. None (the default) trains on the device
         that holds the model's parameters, with no collective: the JAX
-        package's default is a mesh over every device.
+        package's default is a mesh over every device. A rank that the mesh
+        leaves out trains as with None (``_holds_this_rank``), and its
+        ``save_state`` writes nothing.
     :param donate: accepted for the JAX package's signature: the steps
         already update the parameters and the optimizer state in place.
     :param natgrad_gamma: if set, the model's q_mu and full-covariance q_sqrt
@@ -102,6 +104,11 @@ class DataParallelTrainer:
             )
         if mesh is not None and not isinstance(mesh, DeviceMesh):
             raise TypeError(f"mesh must be a DeviceMesh (see make_mesh), got {type(mesh).__name__}")
+        # a rank that the mesh leaves out trains the whole batch with no collective
+        self._outside = mesh is not None and not _holds_this_rank(mesh)
+        names = (axis_name,) if mesh is None else tuple(mesh.mesh_dim_names or ())
+        if self._outside:
+            mesh = None
         self.model = model
         self.mesh = mesh
         self.axis_name = axis_name
@@ -131,7 +138,6 @@ class DataParallelTrainer:
         # latent-split Parameter -> (this rank's block of its unconstrained tensor, the latent dimension)
         self._split: Dict[int, Tuple[torch.nn.Parameter, int]] = {}
         self._groups: Tuple[Any, ...] = ()  # the mesh's groups but the latent axis's
-        names = (axis_name,) if mesh is None else tuple(mesh.mesh_dim_names or ())
         if latent_axis is not None and latent_axis not in names:
             raise ValueError(
                 f"latent_axis {latent_axis!r} is not an axis of the mesh "
@@ -457,7 +463,7 @@ class DataParallelTrainer:
         where missing). On a mesh every rank gathers, the mesh's first rank
         writes, and every rank returns once the file is written."""
         host = self.state_dict()
-        writer = self.mesh is None or dist.get_rank() == int(self.mesh.mesh.reshape(-1)[0])
+        writer = not self._outside and (self.mesh is None or dist.get_rank() == int(self.mesh.mesh.reshape(-1)[0]))
         if writer:
             np.savez(path if path.endswith(".npz") else path + ".npz", **host)
         if self.mesh is not None:

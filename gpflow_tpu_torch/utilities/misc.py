@@ -54,9 +54,8 @@ def set_trainable(model: Union[Module, Parameter, Iterable[Union[Module, Paramet
     (``gpflow_tpu/utilities/misc.py:40``); a frozen Parameter's
     unconstrained tensor has ``requires_grad=False``."""
     if isinstance(model, Module):
-        for p in model.modules():
-            if isinstance(p, Parameter):
-                p.trainable = flag
+        for p in model.all_parameters:
+            p.trainable = flag
         return
     for m in model:
         set_trainable(m, flag)

@@ -102,6 +102,7 @@ def difference_matrix(X: torch.Tensor, X2: Optional[torch.Tensor]) -> torch.Tens
     return diff.reshape(X.shape[:-1] + X2.shape[:-1] + (X.shape[-1],))
 
 
+@array_inputs("tensor")
 @check_shapes(
     "tensor: [any...]",
     "return: [transposed_any...]",

@@ -14,10 +14,11 @@ CPU in float64 from the same seeded numpy inputs, unconverted.
   its first module, else ``config.default_device()`` (the ``meta`` device
   stands for the card here); a tensor passes through untouched; integer
   arrays keep their dtype.
-* F8-F14: numpy at the quadrature objects (and so every quadrature
+* F8-F14, F16: numpy at the quadrature objects (and so every quadrature
   likelihood), at ``RobustMax``, ``likelihoods.utils.inv_probit``,
   ``ops.linalg``, the natural-gradient parameterisations, the kernels'
-  ``scale`` and ``slice_cov``; and ``GPFLOW_TPU_INV_SOLVE`` read per call.
+  ``scale`` and ``slice_cov``, ``utilities.ops.leading_transpose``; and
+  ``GPFLOW_TPU_INV_SOLVE`` read per call.
   Each numpy route gives the JAX package's value to 1e-12 of the largest
   entry and the port's tensor route to the bit.
 * F7: the dtype setters, ``Parameter``, ``Config``, ``eye``,
@@ -335,7 +336,7 @@ def test_jax_reference_runs_in_float64():
     assert jax.config.read("jax_enable_x64")
 
 
-# --- F8-F13: numpy where the numpy sweep found the port raising ---------------------
+# --- F8-F13, F16: numpy where the numpy sweep (F16: a translated test) found the port raising
 
 def _tensors(value):
     """The same inputs as float64 tensors on the CPU: the port's tensor route."""
@@ -352,6 +353,7 @@ _L = np.linalg.cholesky(_spd(M, 11))
 _NAT2 = -0.5 * np.linalg.inv(_spd(M, 12))[None].repeat(L, 0)
 _ETA2 = _spd(M, 13)[None].repeat(L, 0) + Q_MU.T[:, :, None] * Q_MU.T[:, None, :]
 _COV = _spd(D, 14)[None].repeat(N, 0)
+_A4 = np.random.RandomState(16).randn(2, 3, 4, 5)
 SWEEP_CASES = {
     # F8: the quadrature objects, and a quadrature likelihood through them
     "NDiagGHQuadrature": lambda m, a: m.quadrature.NDiagGHQuadrature(1, 20)(lambda x: x ** 2, a(_FMU), a(_FVAR)),
@@ -391,6 +393,10 @@ SWEEP_CASES = {
         a(X), a(Z)),
     "slice_cov_full": lambda m, a: m.kernels.Linear(active_dims=[1]).slice_cov(a(_COV)),
     "slice_cov_diag": lambda m, a: m.kernels.SquaredExponential(active_dims=slice(0, 1)).slice_cov(a(X ** 2)),
+    # F16 (found by the translated test_shapes.py): leading_transpose
+    "leading_transpose": lambda m, a: m.utilities.ops.leading_transpose(a(_A4), [..., -1, -2]),
+    "leading_transpose_leading_dim": lambda m, a: m.utilities.ops.leading_transpose(
+        a(_A4), [..., -1, -2], leading_dim=1),
 }
 
 

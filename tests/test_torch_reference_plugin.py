@@ -17,7 +17,8 @@ its own, with ``--noconftest`` (``tests/conftest.py`` imports jax), it:
   a test that fails as its strict xfail mark expects);
 * writes the process's default device and kernel launch counts at its end
   to the JSON file named by ``GPFLOW_TPU_TORCH_REFERENCE_STATE``, where one
-  is named.
+  is named, with each launch's kernel, family and shape (N, M, D) by the
+  test that made it (``_record_launches``).
 
 One shim, and no other: ``np.asarray`` of a tensor reads it through
 ``.detach().cpu()``. The port's entry points return tensors that may carry
@@ -220,6 +221,37 @@ def pytest_configure(config):
     torch.Tensor.__array__ = lambda t, *a, **k: as_array(t.detach().cpu(), *a, **k)
     config._reference_outcomes = {}
     config._reference_collected = []
+    config._reference_launches = _record_launches() if os.environ.get(STATE_VARIABLE) else {}
+
+
+# The node id of the test that runs, for ``_record_launches``.
+_RUNNING = [None]
+
+
+def _record_launches():
+    """Wraps the kernels' CUDA wrappers so that each launch is recorded as
+    [kernel, family, N, M, D] under the running test's node id; returns the
+    records."""
+    from gpflow_tpu_torch.ops import pallas_distance as pd
+
+    records = {}
+    for kernel, name in (("K1", "stationary_forward_cuda"), ("K2", "stationary_wgrad_cuda")):
+        def recording(family, Xs, Zs, *args, _launch=getattr(pd, name), _kernel=kernel):
+            before = pd.launch_counts[_kernel]
+            out = _launch(family, Xs, Zs, *args)
+            if pd.launch_counts[_kernel] > before:
+                records.setdefault(_RUNNING[0], []).append([_kernel, family, Xs.shape[0], Zs.shape[0], Xs.shape[1]])
+            return out
+
+        setattr(pd, name, recording)
+    return records
+
+
+@pytest.hookimpl(hookwrapper=True)
+def pytest_runtest_protocol(item, nextitem):
+    _RUNNING[0] = item.nodeid
+    yield
+    _RUNNING[0] = None
 
 
 def pytest_collection_modifyitems(config, items):
@@ -257,7 +289,8 @@ def pytest_unconfigure(config):
         from gpflow_tpu_torch.config import default_device
         from gpflow_tpu_torch.ops.pallas_distance import launch_counts
 
-        state = {"default_device": str(default_device()), "launch_counts": dict(launch_counts)}
+        state = {"default_device": str(default_device()), "launch_counts": dict(launch_counts),
+                 "launches_by_test": config._reference_launches}
         pathlib.Path(path).write_text(json.dumps(state))
 
 

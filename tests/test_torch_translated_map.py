@@ -8,7 +8,10 @@ importing it, in ``tests/test_torch_translated_map.json``. A row's status is
   (a strict xfail), where ``<name>`` is a deviation of ROADMAP Queue 3 listed
   in ``test_torch_translated_support.DEVIATIONS``;
 * ``queued``: not translated yet; only in the files of ``QUEUED``, which
-  ROADMAP item R1 lists in this order.
+  is empty since every file is translated.
+
+A translated test marked ``slow`` (``slow_tests``) is deselected by the
+plugin, as tier-1 deselects it, and phase 28 does not run it.
 
 A row may carry a ``note`` naming the port's counterpart of a private JAX
 name that its translation uses. ``python -m tests.test_torch_translated_map``
@@ -29,25 +32,9 @@ from .test_torch_reference_plugin import _IMPORTS_JAX, JAX_TEST_DIRS, REPO, SERI
 
 MAP_FILE = pathlib.Path(__file__).with_name("test_torch_translated_map.json")
 
-# The files left for a later slice, in ROADMAP item R1's order.
-QUEUED = [
-    "tests/gpflow_tpu/optimizers/test_scipy.py",
-    "tests/gpflow_tpu/test_scipy_helpers.py",
-    "tests/gpflow_tpu/optimizers/test_mcmc.py",
-    "tests/gpflow_tpu/optimizers/test_mcmc_helper.py",
-    "tests/gpflow_tpu/models/test_hmc_conjugate_oracle.py",
-    "tests/gpflow_tpu/models/test_cglb_mcmc.py",
-    "tests/gpflow_tpu/utilities/test_bijectors.py",
-    "tests/gpflow_tpu/utilities/test_misc_utils.py",
-    "tests/gpflow_tpu/utilities/test_shapes.py",
-    "tests/gpflow_tpu/utilities/test_traversal.py",
-    "tests/gpflow_tpu/utilities/test_bucketing.py",
-    "tests/gpflow_tpu/test_pallas_ops.py",
-    "tests/gpflow_tpu/test_base.py",
-    "tests/integration/test_bo_posteriors.py",
-    "tests/integration/test_dynamic_shapes.py",
-    "tests/gpflow_tpu/test_parallel.py",
-]
+# The files left for a later slice, in ROADMAP item R1's order: none since
+# every file of item R1 is translated.
+QUEUED = []
 
 # A JAX file's imports that a translation must not keep.
 _IMPORTS_REFERENCE = re.compile(r"^\s*(import|from) (jax|optax|gpflow_tpu)\b", re.M)
@@ -77,6 +64,24 @@ def jax_test_names(path):
         for node in ast.walk(tree)
         if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)) and node.name.startswith("test_")
     ]
+
+
+def _is_slow_mark(node):
+    return isinstance(node, ast.Attribute) and node.attr == "slow"
+
+
+def slow_tests(path):
+    """The ``def test_*`` names of a file that are marked ``slow``, by the
+    module's ``pytestmark`` or their own decorator; tier-1 and phase 28
+    deselect them."""
+    tree = ast.parse((REPO / path).read_text())
+    whole = any(isinstance(node, ast.Assign) and any(getattr(t, "id", None) == "pytestmark" for t in node.targets)
+                and _is_slow_mark(node.value) for node in tree.body)
+    return {name for name in jax_test_names(path)} if whole else {
+        node.name for node in ast.walk(tree)
+        if isinstance(node, ast.FunctionDef) and node.name.startswith("test_")
+        and any(_is_slow_mark(d) for d in node.decorator_list)
+    }
 
 
 def deviation_marks(path):
@@ -137,6 +142,16 @@ def test_each_row_matches_its_translation():
             assert mark in support.DEVIATIONS, row
 
 
+def test_every_jax_file_is_translated():
+    """Every JAX test file that imports jax or optax has its translation,
+    and no row of the map is queued."""
+    rows = read_map()
+    assert not QUEUED
+    assert not [row for row in rows if row["status"] == "queued"]
+    for f in jax_files():
+        assert (REPO / translation(f)).exists(), f
+
+
 def test_each_deviation_is_in_the_roadmap():
     text = (REPO / "ROADMAP.md").read_text()
     queue3 = text[text.index("### Queue 3"):text.index("## Recent")].lower()
@@ -162,9 +177,13 @@ def test_every_translated_row_is_collected(tmp_path):
     )
     assert done.returncode == 0, done.stdout[-3000:] + done.stderr[-3000:]
     collected = {node.split("[")[0] for node in json.loads(report.read_text())}
+    slow = {(path, name) for path in translated_files() for name in slow_tests(path)}
     for row in read_map():
-        if row["status"] != "queued":
-            assert f"{translation(row['file'])}::{row['test']}" in collected, row
+        path = translation(row["file"])
+        if (path, row["test"]) in slow:
+            assert f"{path}::{row['test']}" not in collected, row  # deselected, as tier-1 deselects it
+        elif row["status"] != "queued":
+            assert f"{path}::{row['test']}" in collected, row
 
 
 if __name__ == "__main__":
