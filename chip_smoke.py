@@ -9,7 +9,7 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
 
 With ``--phases`` the script runs the build and the kernel checks of phases
 1-4, then each group of phases that holds a selected one (5-8, 9-10, 11-12,
-13-16, and 17 to 28 alone), then the record's kernel timings; without it,
+13-16, and 17 to 29 alone), then the record's kernel timings; without it,
 every phase. ``--k1-host-us`` builds K1 from the checkout at ROOT and prints
 phase 23's host time of one K1 call with that checkout's package, three
 times, and nothing else: run it on two checkouts in one call to compare.
@@ -387,8 +387,21 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 
-import numpy as np
-import torch
+# Where Python runs with PYTHONDONTWRITEBYTECODE and torch ships no bytecode
+# for its tracing code, every process compiles it anew (on the H100's host
+# ~8 s to import torch, ~11 s more at the first trace, more with phase 28's
+# processes beside it). This process writes its bytecode under the build
+# directory, before it starts the others, which read it there (run as a
+# script from a checkout only: an import leaves the importer as it is).
+_HERE = os.path.dirname(os.path.abspath(__file__))
+if __name__ == "__main__" and os.path.isdir(os.path.join(_HERE, "gpflow_tpu_torch")):
+    sys.pycache_prefix = os.path.join(_HERE, "gpflow_tpu_torch", "_build", "pycache")
+    sys.dont_write_bytecode = False
+    os.environ["PYTHONPYCACHEPREFIX"] = sys.pycache_prefix
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 SEED = 0
 N_DATA, M, D, B = 1_000_000, 2048, 8, 8192  # bench.py:51
@@ -985,6 +998,18 @@ MS_PROFILE_STEPS = 3  # steps under torch.profiler each way, on the latent-split
 MS_AB_STEPS = 12  # steps each way, the two trainers in turn, on the host-bound paths
 MS_REQUEST = 8192
 
+# Phase 29: the compile layer (``gpflow_tpu_torch/_compile.py``): each path
+# traced and eager from one state, equal to the bit with the same launches,
+# the traced side tracing once; each mode twice, interleaved, for the times.
+JT_ORDER = (False, True, True, False)  # traced or not
+JT_STEPS = 10  # trainer steps of each run
+JT_GPR_ITERS = 4  # L-BFGS iterations of the GPR at N = 8192, each way
+JT_EVALS = 3  # timed L-BFGS evaluations of the GPR at N = 16384, each way, in turns
+JT_LOOP_STEPS = 10  # training_loop steps of each run
+# The whole run's launches of phases 5-28, each path's count as asserted
+# (PERF.md section 6): phase 29 adds its own, which it asserts path by path.
+LAUNCHES_5_TO_28 = {"K1": 7554, "K2": 4440}
+
 # Phase 27: the JAX package's test files that run on the card through the
 # alias, in a process of its own (no JAX there; --noconftest).
 RF_FILES = (
@@ -1029,8 +1054,10 @@ TR_NO_LAUNCH = "tests/test_torch_translated_pallas_ops.py::test_subclass_overrid
 # The translated file whose tests run on 8 gloo ranks of the host's CPU.
 TR_RANKS_FILE = "tests/test_torch_translated_parallel.py"
 # The files that take a process each: the longest, its HMC chains a host-bound
-# loop of launches on the card (~85 s), and the ranks' file.
-TR_ALONE = ("tests/test_torch_translated_mcmc.py", TR_RANKS_FILE)
+# loop of launches on the card (~85 s), the ranks' file, and the baseline
+# configurations, whose heteroskedastic case steps natural gradients 80 times
+# through a new closure each, each step traced anew as the JAX package's.
+TR_ALONE = ("tests/test_torch_translated_mcmc.py", TR_RANKS_FILE, "tests/test_torch_translated_baseline_configs.py")
 TR_RUNS = []  # the processes started before the kernel checks
 
 
@@ -2027,7 +2054,10 @@ def ng_minimize(data, Z, launches):
     hypers = [p.unconstrained for p in model.trainable_parameters if p is not model.q_mu and p is not model.q_sqrt]
     adam_opt = torch.optim.Adam(hypers, lr=1e-2, betas=(0.9, 0.999), eps=1e-8)
     natgrad_opt = NaturalGradient(gamma=NG_GAMMA)
-    idx = torch.randint(0, NG_N, (2 * NG_MINIMIZE_ITERS + 1, NG_B), device="cuda",
+    # the batches drawn: the traced step's first call draws twice, as the JAX package's (a trace
+    # that finds the Parameters the loss reads, then the traced one), every later call once, and
+    # each Adam step once; the last batch is the fixed one
+    idx = torch.randint(0, NG_N, (2 * NG_MINIMIZE_ITERS + 2, NG_B), device="cuda",
                         generator=torch.Generator(device="cuda").manual_seed(SEED + 14))
     fixed = (X[idx[-1]], Y[idx[-1]])
     loss_fn = model.training_loss_closure(iter([(X[i], Y[i]) for i in idx[:-1]]))
@@ -2459,8 +2489,10 @@ def cglb_train(model, loss0, launches):
         iters.append(model.cg_iterations)
         return loss
 
+    # compile=False: CGLB's objective is declared untraced (its CG loop reads the residual on
+    # the host), and a closure over it does not carry the declaration as a bound method does
     t0 = time.perf_counter()
-    res, counts = counted(lambda: Scipy().minimize(closure, model.trainable_variables,
+    res, counts = counted(lambda: Scipy().minimize(closure, model.trainable_variables, compile=False,
                                                    options={"maxiter": SP_CGLB_MAXITER},
                                                    nonfinite_penalty=SP_PENALTY))
     seconds = time.perf_counter() - t0
@@ -6733,9 +6765,11 @@ def tr_files():
 
 
 def tr_start_early():
-    """Starts the translated files that launch no kernel (see ``TR_ALONE``)."""
+    """Starts the translated files that launch no kernel but the longest,
+    ``TR_ALONE``'s first, which ``main`` starts before the others (see
+    ``TR_ALONE``)."""
     files = [f for f in tr_files()[0] if f not in TR_LAUNCHES and f not in TR_ALONE]
-    runs = tr_run([TR_ALONE[0]], 1, "alone")
+    runs = []
     for path in TR_ALONE[1:]:
         runs += tr_run([path], 1, "alone", TR_NICE)
     return runs + tr_run(files, TR_PROCESSES, "early", TR_NICE)
@@ -6789,7 +6823,7 @@ def translated_phases(launches):
     package's own kernel tests hold K1 and K2 to their tolerances."""
     t0 = time.perf_counter()
     files, status, slow = tr_files()
-    runs = list(TR_RUNS) or tr_start_early() + tr_start_kernels()
+    runs = list(TR_RUNS) or tr_run([TR_ALONE[0]], 1, "alone") + tr_start_early() + tr_start_kernels()
     TR_RUNS.clear()
     outcomes, counts, bad, devices, by_test = {}, {"K1": 0, "K2": 0}, [], [], {}
     for proc, report, state in runs:
@@ -6858,7 +6892,201 @@ def translated_phases(launches):
         time_k2(n, m, family=family, d=d)
 
 
-# Phases 5-28 in the order they run, as groups that share their data: a
+def jt_mode(traced):
+    return "traced" if traced else "eager"
+
+
+def jt_eager(trainer):
+    """The trainer with its step run eagerly, as on a mesh: ``_step_on``
+    in the place of its traced step."""
+    trainer._traced = lambda model, batch, gamma: trainer._step_on(batch)
+    return trainer
+
+
+def jt_same(what, runs, order):
+    """Every run's outputs (a list of tensors) equal to the first run's, to
+    the bit and in shape."""
+    for i, outs in enumerate(runs[1:], 1):
+        assert len(outs) == len(runs[0]), f"{what}: run {i} gave {len(outs)} outputs, run 0 {len(runs[0])}"
+        for j, (a, b) in enumerate(zip(outs, runs[0])):
+            assert a.shape == b.shape and torch.equal(a, b), \
+                f"{what}: output {j} of run {i} ({jt_mode(order[i])}) differs from run 0's ({jt_mode(order[0])})"
+    log(f"compile {what}: {len(runs)} runs ({', '.join(jt_mode(t) for t in order)}) equal to the bit, "
+        f"{len(runs[0])} outputs each")
+
+
+def jt_training(what, build, staged, batch, expected, launches, smi):
+    """JT_STEPS steps (phase 25's ``ct_steps``: ``run_steps_sampled(1)``
+    with seeded draws, under sync debug mode "error") of a fresh trainer
+    from ``build()``, traced and eager in JT_ORDER: the losses and the
+    trained parameters equal to the bit, the launch counts ``expected`` in
+    each run, one trace in each traced run (its first step); the median ms
+    per step of steps 2 to JT_STEPS each way, by CUDA events and on the
+    host clock."""
+    runs, ms, host_ms, first = [], {False: [], True: []}, {False: [], True: []}, {False: [], True: []}
+    for i, traced in enumerate(JT_ORDER):
+        trainer = build()
+        if not traced:
+            jt_eager(trainer)
+        trainer.stage_data(staged)
+        (losses, step_ms, step_host), counts = counted(lambda: ct_steps(trainer, JT_STEPS, batch))
+        expect_launches(f"compile {what} run {i} ({jt_mode(traced)})", counts, expected, launches)
+        if traced:
+            assert trainer._traced.trace_count == 1, f"{what}: {trainer._traced.trace_count} traces"
+        assert bool(torch.isfinite(losses).all()), f"compile {what}: non-finite loss"
+        runs.append([losses] + [p.unconstrained.detach().clone() for p in trainer.model.trainable_variables])
+        ms[traced] += step_ms[1:]
+        host_ms[traced] += step_host[1:]
+        first[traced].append(step_host[0])
+    jt_same(what, runs, JT_ORDER)
+    ms = {t: float(np.median(v)) for t, v in ms.items()}
+    host_ms = {t: float(np.median(v)) for t, v in host_ms.items()}
+    log(f"time: compile {what}: {ms[False]:.3f} ms per step eager, {ms[True]:.3f} ms traced "
+        f"({100 * (ms[True] / ms[False] - 1):+.1f}%; CUDA events); host {host_ms[False]:.3f} and {host_ms[True]:.3f} ms "
+        f"to enqueue a step; medians of steps 2-{JT_STEPS} of two runs each way; the first step's host ms "
+        f"{first[False]} eager, {first[True]} traced (the trace); {smi}")
+
+
+def jt_gpr_fit(launches):
+    """The GPR at N = 8192 (Matern52, so that K2 launches) fit by
+    ``Scipy().minimize`` for JT_GPR_ITERS iterations, traced (the default,
+    over ``training_loss_closure()``) and eager (``compile=False`` over
+    ``training_loss``), from one start: the iterates, the objective and the
+    evaluations equal to the bit, K1 and K2 once per evaluation each way,
+    one trace for all the traced evaluations."""
+    from gpflow_tpu_torch.optimizers import Scipy
+
+    data = make_gpr_data()[0][GPR_NS[0]]
+    runs, order = [], (True, False)
+    for traced in order:
+        model = gpr_model("Matern52", data, torch.float32)
+        opt = Scipy()
+        closure = model.training_loss_closure() if traced else model.training_loss
+        res, counts = counted(lambda: opt.minimize(closure, model.trainable_variables, compile=traced,
+                                                   options={"maxiter": JT_GPR_ITERS}, nonfinite_penalty=GPR_PENALTY))
+        expect_launches(f"compile GPR N={GPR_NS[0]} Scipy fit ({jt_mode(traced)})", counts,
+                        {"K1": int(res.nfev), "K2": int(res.nfev)}, launches)
+        evaluate = next(iter(opt.compile_cache.values()))[0]
+        if traced:
+            assert evaluate.traced.trace_count == 1, f"GPR fit: {evaluate.traced.trace_count} traces"
+        runs.append([torch.from_numpy(np.asarray(res.x)), torch.tensor([float(res.fun), res.nfev, res.nit])])
+        log(f"compile GPR N={GPR_NS[0]} Scipy fit ({jt_mode(traced)}): loss {float(res.fun):.6e}, nit {res.nit}, "
+            f"nfev {res.nfev}")
+    jt_same(f"GPR N={GPR_NS[0]} Scipy fit", runs, order)
+
+
+def jt_gpr_evaluations(launches, smi):
+    """JT_EVALS evaluations of ``Scipy``'s L-BFGS function of the GPR at
+    N = 16384 (Matern52) at its start, traced and eager in turns after one
+    of each (the trace): equal to the bit, K1 and K2 once each; the median
+    ms of an evaluation each way on the host clock (an evaluation ends in
+    its download)."""
+    from gpflow_tpu_torch.optimizers import Scipy
+
+    data = make_gpr_data()[0][GPR_NS[1]]
+    model = gpr_model("Matern52", data, torch.float32)
+    x0 = Scipy().initial_parameters(model.trainable_variables)
+    funcs = {traced: Scipy().eval_func(model.training_loss, model.trainable_variables, compile=traced)
+             for traced in (False, True)}
+    outs, ms = {False: [], True: []}, {False: [], True: []}
+    for k in range(JT_EVALS + 1):
+        for traced in (False, True) if k % 2 == 0 else (True, False):
+            t0 = time.perf_counter()
+            out, counts = counted(lambda: funcs[traced](x0))
+            if k:
+                ms[traced].append(1e3 * (time.perf_counter() - t0))
+            expect_launches(f"compile GPR N={GPR_NS[1]} evaluation {k} ({jt_mode(traced)})", counts,
+                            {"K1": 1, "K2": 1}, launches)
+            outs[traced].append(torch.from_numpy(np.concatenate([np.ravel(out[0]), out[1]])))
+    jt_same(f"GPR N={GPR_NS[1]} evaluation", outs[False] + outs[True], (False,) * len(outs[False]) + (True,) * len(outs[True]))
+    log(f"time: compile GPR N={GPR_NS[1]} L-BFGS evaluation: {np.median(ms[False]):.3f} ms eager, "
+        f"{np.median(ms[True]):.3f} ms traced (host clock, medians of {JT_EVALS}, in turns); {smi}")
+
+
+def jt_training_loop(launches, smi):
+    """``training_loop`` on the flagship SVGP (phase 7's model with Matern52,
+    one batch of B rows of its data) under sync debug mode "error", eager
+    (``compile=False`` over an eager closure) and traced (``use_scan=True``
+    over the traced closure, one trace a call), 1 + JT_LOOP_STEPS steps each
+    way from one start: the histories and the trained values equal to the
+    bit, Kuu and Kuf (K1) and their gradients (K2) every step; a step's ms
+    by CUDA events recorded after each optimizer step (the optimizer from a
+    factory, Adam as by default), the median of steps 2 to the last, and
+    the first step's on the host clock (in the traced run, with its trace)."""
+    from gpflow_tpu_torch import _compile
+    from gpflow_tpu_torch.parallel import adam
+    from gpflow_tpu_torch.utilities import training_loop
+
+    X, Y, Z = make_training_data(SEED)
+    batch = (torch.from_numpy(X[:B]).cuda(), torch.from_numpy(Y[:B]).cuda())
+    runs, ms, first = [], {}, {}
+    for i, traced in enumerate((False, True)):
+        model = training_model("Matern52", Z, torch.float32, "cuda")
+        closure = model.training_loss_closure(batch, compile=traced)
+        options = {"use_scan": True} if traced else {}
+        events, marks = [], []
+
+        def factory(params):
+            opt = adam(1e-2)(params)
+            step = opt.step
+
+            def timed_step(*args, **kwargs):
+                out = step(*args, **kwargs)
+                events.append(torch.cuda.Event(enable_timing=True))
+                events[-1].record()
+                marks.append(time.perf_counter())
+                return out
+
+            opt.step = timed_step
+            return opt
+
+        traces = sum(_compile.trace_counts.values())
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t0 = time.perf_counter()
+            history, counts = counted(lambda: training_loop(closure, optimizer=factory,
+                                                            var_list=model.trainable_variables,
+                                                            maxiter=1 + JT_LOOP_STEPS, **options))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        expect_launches(f"compile training_loop run {i} ({jt_mode(traced)})", counts,
+                        {"K1": 2 * (1 + JT_LOOP_STEPS), "K2": 2 * (1 + JT_LOOP_STEPS)}, launches)
+        traces = sum(_compile.trace_counts.values()) - traces
+        assert traces == int(traced), f"training_loop ({jt_mode(traced)}): {traces} traces"
+        assert bool(torch.isfinite(history).all()), "training_loop: non-finite loss"
+        runs.append([history] + [p.unconstrained.detach().clone() for p in model.trainable_variables])
+        ms[traced] = float(np.median([events[k].elapsed_time(events[k + 1]) for k in range(len(events) - 1)]))
+        first[traced] = 1e3 * (marks[0] - t0)
+    jt_same("training_loop", runs, (False, True))
+    log(f"time: compile training_loop step (M={M}, B={B}, Matern52): {ms[False]:.3f} ms eager, {ms[True]:.3f} ms "
+        f"traced (CUDA events between optimizer steps, medians of steps 2-{1 + JT_LOOP_STEPS}); the first step "
+        f"{first[False]:.1f} ms eager, {first[True]:.1f} ms traced, its trace included (host clock); {smi}")
+
+
+def compile_phases(launches):
+    """Phase 29: the compile layer, traced against eager."""
+    from gpflow_tpu_torch.parallel import DataParallelTrainer, adam
+
+    _, smi = card_check()
+    log(f"compile: torch {torch.__version__}, CUDA {torch.version.cuda}; traces by make_fx with fake tensors")
+    X, Y, Z = make_training_data(SEED)
+    staged = (torch.from_numpy(X).cuda(), torch.from_numpy(Y).cuda())
+    jt_training(f"flagship SVGP step Matern52 (M={M}, B={B})",
+                lambda: DataParallelTrainer(training_model("Matern52", Z, torch.float32, "cuda")),
+                staged, B, {"K1": 2 * JT_STEPS, "K2": 2 * JT_STEPS}, launches, smi)
+    X, Y, Z, _, _ = make_ng_data()
+    staged = (torch.from_numpy(X).cuda(), torch.from_numpy(Y).cuda())
+    jt_training(f"Bernoulli SVGP fused natural-gradient step Matern52 (M={NG_M}, B={NG_B})",
+                lambda: DataParallelTrainer(ng_model("Matern52", Z, torch.float32), adam(1e-2),
+                                            natgrad_gamma=NG_GAMMA, natgrad_fused=True),
+                staged, NG_B, {"K1": 2 * JT_STEPS, "K2": 2 * JT_STEPS}, launches, smi)
+    jt_gpr_fit(launches)
+    jt_gpr_evaluations(launches, smi)
+    jt_training_loop(launches, smi)
+
+
+# Phases 5-29 in the order they run, as groups that share their data: a
 # selection runs each group that holds a selected phase.
 PHASE_GROUPS = (
     (range(5, 9), svgp_phases),
@@ -6877,6 +7105,7 @@ PHASE_GROUPS = (
     (range(26, 27), mesh_phases),
     (range(27, 28), reference_phases),
     (range(28, 29), translated_phases),
+    (range(29, 30), compile_phases),
 )
 
 
@@ -6888,7 +7117,7 @@ def parse_args(argv=None):
 
     parser = argparse.ArgumentParser(description="Drives gpflow_tpu_torch's main paths on one CUDA card.")
     parser.add_argument("--phases", help="the phases to run after the build and the kernel checks of phases 1-4, "
-                                         "as numbers and ranges among 5-28 (e.g. 5-8,21); by default every phase")
+                                         "as numbers and ranges among 5-29 (e.g. 5-8,21); by default every phase")
     parser.add_argument("--k1-host-us", metavar="ROOT",
                         help="only build K1 from the checkout at ROOT and print the host time of one K1 call "
                              "at (1, 1, 8) with that checkout's package (phase 23's measurement)")
@@ -6904,7 +7133,7 @@ def parse_args(argv=None):
             parser.error(f"--phases: {part!r} is not a number or a range")
     unknown = selected - {n for numbers, _ in PHASE_GROUPS for n in numbers}
     if unknown or not selected:
-        parser.error(f"--phases: no phase {sorted(unknown)}; phases 5-28 can be selected")
+        parser.error(f"--phases: no phase {sorted(unknown)}; phases 5-29 can be selected")
     args.phases = selected
     return args
 
@@ -6930,13 +7159,23 @@ def main(phases=None):
     then the timings of the record line."""
     name, smi = card_check()
     log(smi)
-    from gpflow_tpu_torch import config
+    from gpflow_tpu_torch import _compile, config
 
-    if phases is None or 27 in phases:
-        RF_RUNS.append(rf_reference_run())
-    if phases is None or 28 in phases:
-        TR_RUNS.extend(tr_start_early())
-    for kernel, (ready_s, nvcc_s) in build_kernels().items():
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        build = pool.submit(build_kernels)
+        if phases is None or 28 in phases:  # the longest, which traces nothing, at once
+            TR_RUNS.extend(tr_run([TR_ALONE[0]], 1, "alone"))
+        # beside the build: the tracing code loaded, and its bytecode written, before the
+        # processes that read it start
+        t0 = time.perf_counter()
+        _compile.jit(lambda x: x + 1)(torch.ones(2))
+        log(f"time: the first trace of the process, the tracing code loaded: {time.perf_counter() - t0:.1f} s")
+        if phases is None or 27 in phases:
+            RF_RUNS.append(rf_reference_run())
+        if phases is None or 28 in phases:
+            TR_RUNS.extend(tr_start_early())
+        built = build.result()
+    for kernel, (ready_s, nvcc_s) in built.items():
         log(f"build: {kernel} library ready in {ready_s:.2f} s (nvcc {nvcc_s:.2f} s; 0 means built earlier)")
 
     if TR_RUNS:
@@ -6974,6 +7213,11 @@ def main(phases=None):
     log(f"launches by path: {launches}")
     if phases is None:
         assert total["K1"] > 0 and total["K2"] > 0, f"a kernel of the paths never launched: {total}"
+        # phases 5-28 as before the compile layer; phase 29's paths asserted one by one
+        phase29 = {k: sum(c[k] for what, c in launches.items() if what.startswith("compile ")) for k in total}
+        earlier = {k: total[k] - phase29[k] for k in total}
+        log(f"launches: phases 5-28 {earlier}, phase 29 {phase29}, in all {total}")
+        assert earlier == LAUNCHES_5_TO_28, f"phases 5-28 launched {earlier}, not {LAUNCHES_5_TO_28}"
     else:
         log(f"phases {sorted(phases)} only: launches {total}")
         assert total["K1"] + total["K2"] > 0, f"the selected phases launched no kernel: {total}"

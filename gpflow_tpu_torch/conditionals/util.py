@@ -22,6 +22,7 @@ from typing import Dict, Iterator, Optional, Union
 
 import torch
 
+from .._compile import randn
 from ..base import MeanAndVariance, array_inputs
 from ..config import default_jitter
 from ..ops.linalg import chol_and_inverse, cholesky, triangular_inverse
@@ -240,7 +241,7 @@ def sample_mvn(
         eps_shape = mean.shape[:-2] + (S,) + mean.shape[-2:]  # [..., S, N, D]
     if generator is None:
         generator = default_generator(mean.device)
-    eps = torch.randn(eps_shape, generator=generator, dtype=mean.dtype, device=mean.device)
+    eps = randn(eps_shape, generator=generator, dtype=mean.dtype, device=mean.device)
     return _sample_mvn_with_eps(mean, cov, full_cov, eps, num_samples)
 
 

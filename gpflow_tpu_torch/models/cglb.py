@@ -32,6 +32,7 @@ from typing import Any, Callable, Optional, Tuple, Union
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from .._compile import TraceError, is_tracing
 from .._sharding import WHOLE, rows_of, share_blocks
 from ..base import MeanAndVariance, Parameter, input_to_tensor
 from ..config import default_device, default_float
@@ -53,7 +54,15 @@ def _block_matvec(kernel: Kernel, x: torch.Tensor, xc: torch.Tensor, v: torch.Te
 
 class CGLB(SGPR):
     """SGPR with a tighter, Jensen-corrected log-determinant bound and a
-    CG-estimated quadratic term (``gpflow_tpu/models/cglb.py:30-263``)."""
+    CG-estimated quadratic term (``gpflow_tpu/models/cglb.py:30-263``).
+
+    Its objective is not traced: the conjugate-gradient loop is driven from
+    the host, one read of the residual per iteration, where the JAX package
+    traces a ``lax.while_loop`` (``gpflow_tpu/models/cglb.py:322-370``).
+    ``Scipy`` and ``training_loss_closure`` run it eagerly."""
+
+    untraced = ("CGLB's conjugate-gradient loop is driven from the host (one read of the residual per "
+                "iteration), so its objective runs eagerly")
 
     @check_shapes(
         "data[0]: [N, D]",
@@ -321,6 +330,8 @@ def _cglb_conjugate_gradient(
     restart_cg_step: int,
 ) -> Tuple[torch.Tensor, int]:
     """``cglb_conjugate_gradient`` and its iteration count."""
+    if is_tracing():
+        raise TraceError(f"jit: {CGLB.untraced}; call it with compile=False")
     mv = K if callable(K) else (lambda p: p @ K)
     rows = rows_of(preconditioner)  # where the rows are split, the vectors are this rank's columns
     with torch.no_grad():

@@ -1,14 +1,19 @@
 """Training-loss mixins (counterpart of ``gpflow_tpu/models/training_mixins.py``).
 
-``compile=True`` is accepted for the JAX package's signature and changes
-nothing: losses run eagerly. ``torch.compile`` is not put around them because
-the covariance kernels are launched through ctypes, which it cannot trace."""
+``training_loss_closure(compile=True)`` (the default) returns a closure
+backed by ``_compile.jit`` over the whole model: its tensors and the
+batch are the trace's inputs and its structure and statics the key, so the
+loss is traced once (for minibatches, once per batch shape) and replayed at
+every later call, its gradient carried back to the model's parameters
+through autograd (``gpflow_tpu/models/training_mixins.py:34-75``). A model
+class that declares ``untraced`` (CGLB) gets the eager loss."""
 from __future__ import annotations
 
 from typing import Callable, Iterator, Tuple, TypeVar, Union
 
 import torch
 
+from .._compile import jit, untraced_reason
 from ..base import InputData, OutputData, RegressionData, input_to_tensor
 from ..utilities.shapes import check_shapes
 
@@ -30,9 +35,14 @@ class InternalDataTrainingLossMixin:
         return self._training_loss()
 
     def training_loss_closure(self, *, compile: bool = True) -> LossClosure:
-        """A zero-argument loss closure: the bound ``training_loss``."""
-        del compile
-        return self.training_loss
+        """A zero-argument loss closure: with ``compile``, the traced loss of
+        the model; else the bound ``training_loss``."""
+        if not compile or untraced_reason(self.training_loss) is not None:
+            return self.training_loss
+        loss = jit(_internal_loss)
+        closure = lambda: loss(self)  # noqa: E731
+        closure.traced = loss
+        return closure
 
 
 class ExternalDataTrainingLossMixin:
@@ -55,9 +65,26 @@ class ExternalDataTrainingLossMixin:
         compile: bool = True,
     ) -> LossClosure:
         """A zero-argument loss closure. ``data`` is either a fixed (X, Y)
-        pair or an iterator of minibatches, of which each call takes the next."""
-        del compile
+        pair or an iterator of minibatches, of which each call takes the
+        next. With ``compile`` one trace serves every batch of one shape."""
+        training_loss = self.training_loss
+        traced = None
+        if compile and untraced_reason(self.training_loss) is None:
+            traced = jit(_external_loss)
+            training_loss = lambda batch: traced(self, batch)  # noqa: E731
+        # an iterator is a stream of minibatches; any other (X, Y) pair is fixed data
         if hasattr(data, "__next__"):
-            return lambda: self.training_loss(next(data))
-        data = tuple(data)
-        return lambda: self.training_loss(data)
+            closure = lambda: training_loss(next(data))  # noqa: E731
+        else:
+            data = tuple(data)
+            closure = lambda: training_loss(data)  # noqa: E731
+        closure.traced = traced
+        return closure
+
+
+def _internal_loss(model: InternalDataTrainingLossMixin) -> torch.Tensor:
+    return model._training_loss()
+
+
+def _external_loss(model: ExternalDataTrainingLossMixin, batch: RegressionData) -> torch.Tensor:
+    return model._training_loss(batch)

@@ -10,16 +10,33 @@ pushed forward through ``naturals_to_xi`` by a JVP (``torch.func.jvp``).
 The conversions' Choleskys go through ``ops.linalg.cholesky``, which gives
 NaN and never raises: a step that leaves the negative-definite cone is
 rejected on the device (``torch.where``), with no host synchronisation.
+
+With ``compile=True`` (the default) a step is replayed from traces, as the
+JAX package's ``_compiled_steps`` (``gpflow_tpu/optimizers/natgrad.py:205-320``):
+per (loss_fn, variables, xi transforms), at most 16 kept, a first call
+finds the other Parameters the loss reads (a run of it on fake tensors)
+and traces the loss and its gradient with those and the variables as
+inputs; every tensor constant of that trace (a minibatch, a batch drawn
+from an iterator) becomes an input too, and the step (the gradient, the
+conversions, the rejection, the new unconstrained values, with gamma an
+input so that it can be annealed) is traced once over them, and kept for
+every closure whose loss traces alike. So the closure runs twice in a first
+call, as in the JAX package. Every later call runs the loss once more on
+fake tensors, which launches nothing, for this call's constants (one
+iterator draw), and replays the step; constants of another signature trace
+the loss again, which runs the closure a second time in that call.
 """
 from __future__ import annotations
 
 import abc
 import functools
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
+import types
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
-from ..base import Parameter, array_inputs
+from .._compile import constants_of, draws, lift_constants, trace
+from ..base import Parameter, array_inputs, capture_parameter_reads, functionalize
 from ..bijectors import Bijector
 from ..ops.linalg import cholesky as _cholesky
 from ..ops.linalg import sym_jitter as _sym_jitter
@@ -156,13 +173,16 @@ class NaturalGradient:
     """Natural-gradient descent on q(u) = N(q_mu, q_sqrt q_sqrt^T) with the
     full-covariance q_sqrt [L, M, M] (``natgrad.py:159-440``); ``q_diag`` is
     not supported. ``gamma`` is read at every step, so it can be annealed.
-    ``compile`` is accepted for the JAX package's signature and changes
-    nothing: steps run eagerly, as ``training_loss_closure`` does."""
+    ``compile`` replays each step from traces (see the module's docstring);
+    without it the step runs eagerly."""
 
     def __init__(self, gamma: float, xi_transform: Optional[XiTransform] = None, compile: bool = True) -> None:
         self.gamma = gamma
         self.xi_transform = xi_transform if xi_transform is not None else XiNat()
         self.compile = compile
+        self._compiled_steps: Dict[Any, _CompiledStep] = {}
+        # the traced steps by the trace of the loss they replay (``_CompiledStep._step_for``)
+        self._traced_steps: Dict[Any, Tuple[Tuple[Any, ...], Any]] = {}
 
     def get_config(self) -> Dict[str, Any]:
         """A plain dict for checkpoint metadata (``natgrad.py:176-179``)."""
@@ -178,7 +198,50 @@ class NaturalGradient:
         of them (``natgrad.py:185-203``). The gradient is taken with
         ``torch.autograd.grad``, so no ``.grad`` of any tensor changes."""
         parameters = [(v[0], v[1], (v[2] if len(v) > 2 else None)) for v in var_list]
-        self._natgrad_steps(loss_fn, parameters)
+        if self.compile:
+            self._compiled_step(loss_fn, parameters)
+        else:
+            self._natgrad_steps(loss_fn, parameters)
+
+    def _compiled_step(
+        self,
+        loss_fn: LossClosure,
+        parameters: Sequence[Tuple[Parameter, Parameter, Optional[XiTransform]]],
+    ) -> None:
+        """``minimize``'s step replayed from its traces (``natgrad.py:205-320``)."""
+        for _, q_sqrt, _ in parameters:
+            if q_sqrt.value.ndim != 3:
+                raise ValueError(
+                    "NaturalGradient only supports the full-covariance parametrization "
+                    "q_sqrt: [L, M, M] (q_diag=True is not supported)."
+                )
+        variables = tuple(p for q_mu, q_sqrt, _ in parameters for p in (q_mu, q_sqrt))
+        xis = tuple(xi if xi is not None else self.xi_transform for _, _, xi in parameters)
+        try:
+            key: Tuple[Any, ...] = (_closure_key(loss_fn), tuple(id(v) for v in variables),
+                                    tuple(type(x) for x in xis))
+            entry = self._compiled_steps.get(key)
+        except TypeError:
+            key = (id(loss_fn), tuple(id(v) for v in variables), tuple(type(x) for x in xis))
+            entry = self._compiled_steps.get(key)
+            if entry is not None and entry.loss_fn is not loss_fn:
+                entry = None
+        current = [v.unconstrained for v in variables]
+        if entry is None:
+            entry = _CompiledStep(self, loss_fn, variables, xis)
+            if len(self._compiled_steps) >= 16:  # bound the growth for per-call closures
+                self._compiled_steps.pop(next(iter(self._compiled_steps)))
+            self._compiled_steps[key] = entry
+            step, specs, constants = entry.first
+        else:
+            # this call's data (one iterator draw)
+            step, specs, constants = entry.prepare(current)
+        # filled on the device: a copy from the host would synchronise
+        gamma = torch.full((), self.gamma, dtype=current[0].dtype, device=current[0].device)
+        with torch.no_grad():
+            new_values = step(*current, *[p.unconstrained for p in entry.others], *draws(specs), *constants, gamma)
+            for v, value in zip(variables, new_values):
+                v._set_unconstrained(value)
 
     @check_shapes(
         "parameters[all][0]: [N, D]",
@@ -213,6 +276,7 @@ class NaturalGradient:
         sqrt_transform: Bijector,
         xi_transform: XiTransform,
         agree: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+        gamma: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """The new (mean, varsqrt) and the acceptance flag, a boolean device
         tensor (``natgrad.py:358-406``), for a step of ``self.gamma``. Where
@@ -221,7 +285,10 @@ class NaturalGradient:
         branch-free. Where the latent GPs are split over ranks, each rank
         converts its own and ``agree`` makes the flag the ranks' AND, so that
         a step is taken or rejected for all latent GPs together, as in the
-        JAX package."""
+        JAX package. ``gamma`` (a tensor in a traced step) replaces
+        ``self.gamma``."""
+        if gamma is None:
+            gamma = self.gamma
         with torch.no_grad():
             q_mu_value, q_sqrt_value = q_mu_value.detach(), q_sqrt_value.detach()
             dL_dmean = mu_transform.forward(q_mu_grad)
@@ -240,7 +307,7 @@ class NaturalGradient:
         with torch.no_grad():
             xi1, xi2 = xi_transform.meanvarsqrt_to_xi(q_mu_value, q_sqrt_value)
             mean_new, varsqrt_new = xi_transform.xi_to_meanvarsqrt(
-                xi1 - self.gamma * nat_dL_xi1.detach(), xi2 - self.gamma * nat_dL_xi2.detach()
+                xi1 - gamma * nat_dL_xi1.detach(), xi2 - gamma * nat_dL_xi2.detach()
             )
             ok = torch.isfinite(mean_new).all() & torch.isfinite(varsqrt_new).all()
             if agree is not None:
@@ -283,6 +350,121 @@ class NaturalGradient:
             q_mu._set_unconstrained(q_mu.transform.inverse(mean_new))
             q_sqrt._set_unconstrained(q_sqrt.transform.inverse(varsqrt_new))
         return ok
+
+
+def _signature(t: torch.Tensor) -> Tuple[Any, ...]:
+    return (tuple(t.shape), t.dtype, t.device, t.stride())
+
+
+def _closure_key(fn: Any) -> Any:
+    """What ``_compiled_steps`` keys a loss closure by: the closure itself,
+    compared by equality (a bound method, a fresh object at each access,
+    equals the last one), or for a plain function its code, the objects it
+    closes over and its defaults, so that a lambda made anew at each call
+    over the same objects (``lambda: -m.elbo(data)`` in a loop) finds the
+    traces of the first; each call runs its loss again anyway. The first
+    closure, kept by its entry, keeps those objects and so their ids."""
+    if not isinstance(fn, types.FunctionType):
+        return fn
+    try:
+        cells = tuple(id(c.cell_contents) for c in fn.__closure__ or ())
+    except ValueError:  # a cell not bound yet
+        return fn
+    return (fn.__code__, cells, id(fn.__globals__), tuple(map(id, fn.__defaults__ or ())),
+            tuple(map(id, (fn.__kwdefaults__ or {}).values())))
+
+
+class _CompiledStep:
+    """The traces of one (loss_fn, variables, xi transforms): the loss and
+    its gradient over (variables, others, draws, constants), and the step
+    over (variables, others, draws, constants, gamma) from ``_step_for``,
+    shared by the closures whose losses trace alike. A later call runs the
+    loss on fake tensors without a graph (``constants_of``) for its data and
+    replays the last step where that data has the last trace's signature;
+    else it traces the loss again, which runs the closure a second time."""
+
+    def __init__(self, opt: NaturalGradient, loss_fn: LossClosure, variables: Sequence[Parameter],
+                 xis: Sequence[XiTransform]) -> None:
+        self.loss_fn = loss_fn
+        self._opt, self._xis = opt, tuple(xis)
+        self._transforms = tuple(v.transform for v in variables)
+        self._name = f"NaturalGradient[{getattr(loss_fn, '__qualname__', type(loss_fn).__name__)}]"
+        current = [v.unconstrained for v in variables]
+        # which other Parameters does the loss read? (one run of the closure)
+        plain = functionalize(loss_fn, variables)
+        with capture_parameter_reads() as reads:
+            constants_of(lambda *u: plain(u), current, self._name)
+        self.others = tuple(p for p in reads.parameters if all(p is not v for v in variables))
+        self._n = len(variables)
+        self._loss_of = functionalize(loss_fn, tuple(variables) + self.others)
+        self.first = self._traced(current)
+
+    def _value_and_grad(self, *leaves: torch.Tensor) -> List[torch.Tensor]:
+        with torch.enable_grad():
+            loss = self._loss_of(leaves)
+            grads = torch.autograd.grad(loss, leaves[:self._n])
+        return [loss.detach(), *grads]
+
+    def _traced(self, current: Sequence[torch.Tensor]) -> Tuple[Any, List[Tuple[Any, ...]], List[torch.Tensor]]:
+        """The loss and its gradient traced (one run of the closure), its
+        constants lifted to inputs: the step, its draws' specs and the
+        constants, kept for the next call."""
+        inputs = list(current) + [p.unconstrained for p in self.others]
+        vg = trace(self._value_and_grad, inputs, self._name)
+        constants = lift_constants(vg)
+        self._last = (self._step_for(vg, inputs, constants), vg.draw_specs, constants)
+        return self._last
+
+    def prepare(self, current: Sequence[torch.Tensor]) -> Tuple[Any, List[Tuple[Any, ...]], List[torch.Tensor]]:
+        """This call's step, draws' specs and constants: the loss run on fake
+        tensors gives the tensors it reads in the order the last trace holds
+        them (its forward's first; a constant that only the backward reads
+        comes from that trace); another signature of them, or of the draws,
+        traces the loss again."""
+        inputs = list(current) + [p.unconstrained for p in self.others]
+        read, specs = constants_of(lambda *leaves: self._loss_of(leaves), inputs, self._name)
+        step, last_specs, constants = self._last
+        same = len(read) <= len(constants) and all(_signature(a) == _signature(b) for a, b in zip(read, constants))
+        same = same and len(specs) == len(last_specs) and all(
+            a[0] is b[0] and a[1:] == b[1:] for a, b in zip(specs, last_specs))
+        if not same:
+            return self._traced(current)
+        return step, specs, read + constants[len(read):]
+
+    def _step_for(self, vg: "torch.fx.GraphModule", inputs: List[torch.Tensor],
+                  constants: List[torch.Tensor]) -> "torch.fx.GraphModule":
+        """The step over a trace of the loss: kept by the optimizer under
+        what the trace is (its code, the inputs' and constants' signatures,
+        the objects it holds, such as a generator) and the transforms it
+        converts with; traced over ``vg`` where none is kept."""
+        examples = [torch.empty(shape, dtype=dtype, device=device) for _, shape, dtype, device in vg.draw_specs]
+        meta = tuple(map(_signature, (*inputs, *examples, *constants)))
+        held = tuple(getattr(vg, n.target) for n in vg.graph.nodes if n.op == "get_attr")
+        key = (vg.code, meta, tuple(map(id, held)), tuple(map(id, self._transforms)), tuple(map(type, self._xis)))
+        kept = self._opt._traced_steps.get(key)
+        if kept is not None and all(a is b for a, b in zip(kept[0], held + self._transforms)):
+            return kept[1]
+        n, opt, transforms, xis = self._n, self._opt, self._transforms, self._xis
+
+        def step_body(*args: torch.Tensor) -> List[torch.Tensor]:
+            unconstrained, gamma = args[:n], args[-1]
+            grads = vg(*args[:-1])[1:]
+            new_values = []
+            for i, xi in enumerate(xis):
+                mu_t, sqrt_t = transforms[2 * i], transforms[2 * i + 1]
+                mean_new, varsqrt_new, _ = opt._natgrad_values_with_ok(
+                    grads[2 * i], grads[2 * i + 1], mu_t.forward(unconstrained[2 * i]),
+                    sqrt_t.forward(unconstrained[2 * i + 1]), mu_t, sqrt_t, xi, gamma=gamma,
+                )
+                new_values += [mu_t.inverse(mean_new), sqrt_t.inverse(varsqrt_new)]
+            return new_values
+
+        gamma = torch.full((), opt.gamma, dtype=inputs[0].dtype, device=inputs[0].device)
+        step = trace(step_body, inputs + examples + constants + [gamma], self._name)
+        if len(opt._traced_steps) >= 16:
+            opt._traced_steps.pop(next(iter(opt._traced_steps)))
+        opt._traced_steps[key] = (held + self._transforms, step)
+        return step
 
 
 # ---------------------------------------------------------------------------

@@ -3,11 +3,18 @@
 The trainable Parameters' unconstrained values are packed into one flat
 float64 vector for ``scipy.optimize.minimize`` (L-BFGS-B by default), and the
 optimum is unpacked back into them. Each evaluation crosses between host and
-device once each way: one upload of the flat vector, copied into every
-parameter's unconstrained tensor under ``no_grad``, and one download of
-``cat([loss, flat gradient])``. The gradient comes from
-``torch.autograd.grad``; there is nothing to compile, so ``compile`` is
-accepted for the JAX package's signature and the loss runs eagerly.
+device once each way: one upload of the flat vector and one download of
+``cat([loss, flat gradient])``. With ``compile=True`` (the default) the
+function from the flat vector to that download, decoding and encoding
+included, is traced once by ``_compile.jit`` and replayed at every later
+evaluation; ``compile_cache`` keeps such functions across ``minimize``
+calls under the JAX package's key and bound
+(``gpflow_tpu/optimizers/scipy.py:224-454``). Everything the closure reads
+besides ``variables`` is a constant of the trace, by reference. A closure
+of a model class that declares ``untraced`` (CGLB), and ``compile=False``,
+run eagerly: the flat vector is copied into every parameter's
+unconstrained tensor under ``no_grad`` and the closure runs. The gradient
+comes from ``torch.autograd.grad`` either way.
 
 A variable that no gradient reaches (autograd returns None for it, as for a
 variable read only through ``.detach()``) raises, unless
@@ -27,7 +34,8 @@ import numpy as np
 import scipy.optimize
 import torch
 
-from ..base import Parameter
+from .._compile import jit, untraced_reason
+from ..base import Parameter, functionalize
 from ..bijectors import TriangularMask
 from ..monitor.base import Monitor
 
@@ -194,8 +202,8 @@ class Scipy:
             ``(step, variables, values)``, where ``values`` are the current
             unconstrained arrays, after they were assigned to ``variables``;
             a ``monitor.Monitor`` is called with the step alone.
-        :param compile: accepted for the JAX package's signature; the loss
-            runs eagerly either way.
+        :param compile: trace the loss-and-gradient evaluation once and
+            replay it (see the module's docstring).
         :param allow_unused_variables: warn instead of raising where no
             gradient reaches a variable.
         :param track_loss_history: record the loss at each iteration in
@@ -308,30 +316,11 @@ class Scipy:
             self.compile_cache.move_to_end(cache_key)
             flat_value_and_grad, unused = hit
         else:
-            tensors = [v.unconstrained for v in variables]
-            unused = [None]  # filled by the first evaluation: indices no gradient reaches
-
-            def flat_value_and_grad(x_full: np.ndarray) -> np.ndarray:
-                """[loss, flat gradient] in the full layout, float64 on the
-                host: one upload and one download."""
-                x_dev = torch.from_numpy(x_full).to(tensors[0].device)
-                requires = [t.requires_grad for t in tensors]
-                try:
-                    with torch.no_grad():
-                        for t, value in zip(tensors, codec.decode_torch(x_dev)):
-                            t.copy_(value)
-                    for t in tensors:
-                        t.requires_grad_(True)
-                    loss = closure()
-                    grads = torch.autograd.grad(loss, tensors, allow_unused=True)
-                finally:
-                    for t, flag in zip(tensors, requires):
-                        t.requires_grad_(flag)
-                if unused[0] is None:
-                    unused[0] = [i for i, g in enumerate(grads) if g is None]
-                grads = [torch.zeros_like(t) if g is None else g for t, g in zip(tensors, grads)]
-                return codec.encode_torch([loss.detach(), *grads], torch.float64).cpu().numpy()
-
+            unused = [None]  # filled by the first evaluation (or trace): indices no gradient reaches
+            if compile and untraced_reason(closure) is None:
+                flat_value_and_grad = _traced_value_and_grad(closure, variables, codec, unused)
+            else:
+                flat_value_and_grad = _eager_value_and_grad(closure, variables, codec, unused)
             if cache_key is not None and self.compile_cache_size > 0:
                 while len(self.compile_cache) >= self.compile_cache_size:
                     self.compile_cache.popitem(last=False)  # evict the oldest
@@ -414,6 +403,68 @@ class Scipy:
             raise ValueError("to_tensors and values should have same length")
         for target, value in zip(to_tensors, values):
             target._set_unconstrained(torch.as_tensor(np.asarray(value)))
+
+
+def _eager_value_and_grad(
+    closure: LossClosure, variables: Sequence[Parameter], codec: _ParameterCodec, unused: list
+) -> Callable[[np.ndarray], np.ndarray]:
+    """[loss, flat gradient] in the full layout, float64 on the host, from
+    the closure run eagerly on the parameters' own tensors: one upload and
+    one download."""
+    tensors = [v.unconstrained for v in variables]
+
+    def flat_value_and_grad(x_full: np.ndarray) -> np.ndarray:
+        x_dev = torch.from_numpy(x_full).to(tensors[0].device)
+        requires = [t.requires_grad for t in tensors]
+        try:
+            with torch.no_grad():
+                for t, value in zip(tensors, codec.decode_torch(x_dev)):
+                    t.copy_(value)
+            for t in tensors:
+                t.requires_grad_(True)
+            loss = closure()
+            grads = torch.autograd.grad(loss, tensors, allow_unused=True)
+        finally:
+            for t, flag in zip(tensors, requires):
+                t.requires_grad_(flag)
+        if unused[0] is None:
+            unused[0] = [i for i, g in enumerate(grads) if g is None]
+        grads = [torch.zeros_like(t) if g is None else g for t, g in zip(tensors, grads)]
+        return codec.encode_torch([loss.detach(), *grads], torch.float64).cpu().numpy()
+
+    return flat_value_and_grad
+
+
+def _traced_value_and_grad(
+    closure: LossClosure, variables: Sequence[Parameter], codec: _ParameterCodec, unused: list
+) -> Callable[[np.ndarray], np.ndarray]:
+    """The same function with the device's part traced once and replayed:
+    the flat float64 vector is decoded into the variables' dtypes inside
+    the trace, the closure runs on those values in the variables' place
+    (``functionalize``), and the loss and the gradients are encoded into
+    one float64 vector inside it too (``gpflow_tpu/optimizers/scipy.py:390-410``).
+    The trace records which variables no gradient reaches."""
+    dtypes = [v.dtype for v in variables]
+    device = variables[0].device
+    loss_of = functionalize(closure, variables)
+
+    def device_value_and_grad(x: torch.Tensor) -> torch.Tensor:
+        with torch.enable_grad():
+            values = [u.to(d).detach().requires_grad_(True) for u, d in zip(codec.decode_torch(x), dtypes)]
+            loss = loss_of(values)
+            grads = torch.autograd.grad(loss, values, allow_unused=True)
+        if unused[0] is None:
+            unused[0] = [i for i, g in enumerate(grads) if g is None]
+        grads = [torch.zeros_like(u) if g is None else g for u, g in zip(values, grads)]
+        return codec.encode_torch([loss.detach(), *grads], torch.float64)
+
+    traced = jit(device_value_and_grad, cache_size=1)
+
+    def flat_value_and_grad(x_full: np.ndarray) -> np.ndarray:
+        return traced(torch.from_numpy(x_full).to(device)).cpu().numpy()
+
+    flat_value_and_grad.traced = traced
+    return flat_value_and_grad
 
 
 def _unconstrained_numpy(p: Parameter) -> np.ndarray:

@@ -9,6 +9,13 @@ natural-gradient step instead, and the optimizer handles the rest. The steps
 of ``run_steps`` and ``run_steps_sampled`` are queued without waiting for
 the device: no loss, Cholesky failure or rejected natural-gradient step is
 read on the host inside them, and the losses come back as one device tensor.
+Without a mesh the part of a step before the optimizer's update (the loss,
+the gradients, the natural-gradient step written into q_mu and q_sqrt) is
+traced once per batch signature by ``_compile.jit`` and replayed at every
+step of ``step``, ``run_steps`` and ``run_steps_sampled``
+(``gpflow_tpu/parallel/trainer.py:189-323``); the optimizer updates the
+parameters outside the trace, with ``torch.optim``'s own kernels. On a mesh
+the step runs eagerly.
 
 With a ``mesh`` (``make_mesh``), every rank of the mesh runs the trainer on
 the same global batches (SPMD). The data axis splits each batch's rows over
@@ -38,6 +45,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
+from .._compile import jit
 from .._sharding import Blocks, with_layout
 from ..base import Module, Parameter
 from ..optimizers.natgrad import NaturalGradient
@@ -147,7 +155,10 @@ class DataParallelTrainer:
         if mesh is not None:
             self._setup_mesh(mesh, names, latent_axis)
 
+        self._train_params = tuple(train_params)
         self._params = [self._leaf(p) for p in train_params]
+        # the step without a mesh, traced once per batch signature (and gamma) and replayed
+        self._traced = jit(self._model_step)
         self.device = (self._params or [self._leaf(p) for p in self._vparams])[0].device
         self._factory = optimizer if optimizer is not None else adam(1e-2)
         self.optimizer = self._factory(self._params) if self._params else None
@@ -236,19 +247,29 @@ class DataParallelTrainer:
             p.grad = g
         self.optimizer.step()
 
-    def _natgrad_step(self, vgrads: Sequence[torch.Tensor]) -> None:
+    def _natgrad_step(self, vgrads: Sequence[torch.Tensor]) -> torch.Tensor:
         """The natural-gradient step on (q_mu, q_sqrt) from the gradients of
-        their unconstrained tensors; a rejection adds one to the device
-        count. Where the latent GPs are split, the ranks take or reject the
-        step together."""
+        their unconstrained tensors; returns the acceptance flag. Where the
+        latent GPs are split, the ranks take or reject the step together."""
         q_mu, q_sqrt = self._vparams
         agree = None if self._latents is None else self._latents.all_true
-        ok = self._natgrad._natgrad_apply_gradients(vgrads[0], vgrads[1], q_mu, q_sqrt, agree=agree)
-        self._rejections += (~ok).to(torch.int64)
+        return self._natgrad._natgrad_apply_gradients(vgrads[0], vgrads[1], q_mu, q_sqrt, agree=agree)
 
     def _train_step(self, batch: Tuple[torch.Tensor, ...]) -> torch.Tensor:
-        with self._on_mesh():
-            return self._step_on(batch)
+        """One step: without a mesh the traced step replayed (``_traced``),
+        on a mesh the step run eagerly; then the optimizer's update, and a
+        rejected natural-gradient step added to the device count."""
+        if self.mesh is None:
+            gamma = None if self.natgrad_gamma is None else self._natgrad.gamma
+            loss, grads, ok = self._traced(self.model, batch, gamma)
+        else:
+            with self._on_mesh():
+                loss, grads, ok = self._step_on(batch)
+        if ok is not None:
+            self._rejections += (~ok).to(torch.int64)
+        if grads is not None:
+            self._optimizer_step(grads)
+        return loss
 
     def _grads(self, loss: torch.Tensor, leaves: Sequence[torch.Tensor]) -> Sequence[Optional[torch.Tensor]]:
         """The gradients of ``leaves``; on a mesh the global ones: this
@@ -279,28 +300,41 @@ class DataParallelTrainer:
             out[i] = with_layout(g.view(grads[i].shape), grads[i])
         return out
 
-    def _step_on(self, batch: Tuple[torch.Tensor, ...]) -> torch.Tensor:
+    def _step_on(
+        self, batch: Tuple[torch.Tensor, ...]
+    ) -> Tuple[torch.Tensor, Optional[Sequence[Optional[torch.Tensor]]], Optional[torch.Tensor]]:
+        """A step's part before the optimizer's update: the loss, the
+        optimizer's gradients (None without parameters for it) and the
+        natural-gradient step's acceptance flag (None without it), with
+        (q_mu, q_sqrt) written in place. It reads every tensor through the
+        model's Parameters, so that it traces."""
+        leaves = [self._leaf(p) for p in self._train_params]
         if not self._vparams:
             loss = self.model._training_loss(batch)
-            self._optimizer_step(self._grads(loss, self._params))
-            return loss.detach()
+            return loss.detach(), self._grads(loss, leaves), None
         vleaves = [p.unconstrained for p in self._vparams]
-        if self.natgrad_fused and self._params:
+        if self.natgrad_fused and leaves:
             # one forward and backward pass for both gradient sets
             loss = self.model._training_loss(batch)
-            grads = self._grads(loss, vleaves + self._params)
-            self._natgrad_step(grads[:2])
-            self._optimizer_step(grads[2:])
-            return loss.detach()
+            grads = self._grads(loss, vleaves + leaves)
+            return loss.detach(), grads[2:], self._natgrad_step(grads[:2])
         # the natural-gradient step at the current hyperparameters, then
         # the optimizer's gradient at the new q(u)
-        self._natgrad_step(self._grads(self.model._training_loss(batch), vleaves))
-        if not self._params:
+        ok = self._natgrad_step(self._grads(self.model._training_loss(batch), vleaves))
+        if not leaves:
             with torch.no_grad():
-                return self.model._training_loss(batch)
+                return self.model._training_loss(batch), None, ok
         loss = self.model._training_loss(batch)
-        self._optimizer_step(self._grads(loss, self._params))
-        return loss.detach()
+        return loss.detach(), self._grads(loss, leaves), ok
+
+    def _model_step(
+        self, model: Module, batch: Tuple[torch.Tensor, ...], gamma: Optional[float]
+    ) -> Tuple[torch.Tensor, Optional[Sequence[Optional[torch.Tensor]]], Optional[torch.Tensor]]:
+        """``_step_on`` as a function of the model (the trace's inputs) and
+        the batch; ``gamma``, the natural-gradient step's size that the body
+        reads, is a static of the key."""
+        del model, gamma
+        return self._step_on(batch)
 
     def _row_block(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         if self._rows is None:

@@ -4,7 +4,9 @@ the Monte-Carlo ``ndiag_mc`` and the full-covariance ``mvnquad``.
 
 ``ndiag_mc`` draws its standard normals with ``torch.randn`` from the
 ``generator`` it is given (``MonteCarloLikelihood`` passes its own, seeded
-one), or from torch's default generator of the tensors' device. The JAX
+one; inside a trace the draw is an input of the trace, drawn at each
+replay, ``_compile.randn``), or from torch's default generator of the
+tensors' device. The JAX
 package's default draw (a key counter when eager, a key folded from Fmu's
 bits under ``jit``) has no bit-for-bit counterpart; a caller that needs
 given draws passes ``epsilon``.
@@ -18,6 +20,7 @@ from typing import Any, Callable, Iterable, List, Optional, Sequence, Tuple, Uni
 import numpy as np
 import torch
 
+from .._compile import randn
 from ..base import array_inputs
 from ..config import default_float
 from ..utilities.shapes import check_shapes
@@ -127,7 +130,7 @@ def ndiag_mc(
     ``logspace`` the estimate is log mean exp f."""
     N, D = Fmu.shape[0], Fmu.shape[-1]
     if epsilon is None:
-        epsilon = torch.randn((S, N, D), generator=generator, dtype=Fmu.dtype, device=Fmu.device)
+        epsilon = randn((S, N, D), generator=generator, dtype=Fmu.dtype, device=Fmu.device)
     # a variance that rounding left at or below zero is clamped to zero;
     # double where, so the clamped branch has a zero (not a NaN) gradient
     positive = Fvar > 0

@@ -8,6 +8,7 @@ from typing import Dict, List, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from .._compile import outside_trace
 from ..config import default_device
 from ..utilities.shapes import check_shapes, inherit_check_shapes
 from .base import GaussianQuadrature
@@ -105,11 +106,12 @@ class DeviceGrid:
         device = canonical_device(device)
         key = (device, dtype)
         if key not in self._grids:
-            source = self._grids.get((device, torch.float64))
-            if source is None:
-                source = tuple(torch.as_tensor(a, dtype=torch.float64, device=device) for a in self._arrays)
-                self._grids[(device, torch.float64)] = source
-            self._grids[key] = tuple(t.to(dtype) for t in source)
+            with outside_trace():  # filled inside a trace too, the cache holds real tensors
+                source = self._grids.get((device, torch.float64))
+                if source is None:
+                    source = tuple(torch.as_tensor(a, dtype=torch.float64, device=device) for a in self._arrays)
+                    self._grids[(device, torch.float64)] = source
+                self._grids[key] = tuple(t.to(dtype) for t in source)
         return self._grids[key]
 
 

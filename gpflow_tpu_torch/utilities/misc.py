@@ -5,7 +5,8 @@ from typing import Any, Callable, Iterable, Optional, Sequence, Union
 
 import torch
 
-from ..base import Module, Parameter
+from .._compile import jit
+from ..base import Module, Parameter, functionalize
 from ..config import default_device, default_float, default_int
 from .shapes import check_shapes
 
@@ -77,6 +78,22 @@ def positive_parameter(value: Any) -> Parameter:
     return Parameter(value, transform=positive())
 
 
+def _value_and_grad(
+    closure: Callable[[], torch.Tensor], params: Sequence[Parameter]
+) -> Callable[..., Any]:
+    """The loss and its gradients with respect to ``params``' unconstrained
+    tensors, as a function of those tensors (``functionalize``)."""
+    loss_of = functionalize(closure, params)
+
+    def value_and_grad(*tensors: torch.Tensor) -> Any:
+        with torch.enable_grad():
+            loss = loss_of(tensors)
+            grads = torch.autograd.grad(loss, tensors, allow_unused=True, materialize_grads=True)
+        return loss.detach(), grads
+
+    return value_and_grad
+
+
 def training_loop(
     closure: Callable[[], torch.Tensor],
     optimizer: Optional[OptimizerFactory] = None,
@@ -101,10 +118,15 @@ def training_loop(
 
     The steps are queued without waiting for the device: no loss is read on
     the host, and the history comes back as one tensor on the loss's device.
-    ``use_scan=True`` keeps the JAX package's contract (the same history,
-    and a ``ValueError`` together with ``compile=True``) and runs the same
-    loop: torch has no scan to fuse the steps into. ``compile`` is accepted
-    and the loss runs eagerly.
+    With ``compile=True`` the loss and its gradient with respect to
+    ``var_list`` are traced once (``_compile.jit``; everything else the
+    closure reads is a constant of the trace, by reference) and replayed at
+    every step; the optimizer's update runs outside the trace, with
+    ``torch.optim``'s own kernels. ``use_scan=True`` keeps the JAX package's
+    contract (the same history, and a ``ValueError`` together with
+    ``compile=True``) and replays that one traced step ``maxiter`` times:
+    torch has no scan to fuse the steps into. Without either the loss runs
+    eagerly.
     """
     if var_list is not None:
         params = tuple(var_list)
@@ -127,14 +149,16 @@ def training_loop(
         optimizer = adam(learning_rate)
     tensors = [p.unconstrained for p in params]
     opt = optimizer(tensors)
+    value_and_grad = _value_and_grad(closure, params)
+    if compile or use_scan:
+        value_and_grad = jit(value_and_grad)
     losses = []
     for _ in range(maxiter):
-        loss = closure()
-        grads = torch.autograd.grad(loss, tensors, allow_unused=True, materialize_grads=True)
+        loss, grads = value_and_grad(*tensors)
         for t, g in zip(tensors, grads):
             t.grad = g
         opt.step()
-        losses.append(loss.detach())
+        losses.append(loss)
     for t in tensors:
         t.grad = None
     if losses:

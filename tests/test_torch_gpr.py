@@ -179,8 +179,10 @@ def test_load_jax_values_round_trips_a_gpr():
 def test_training_loss_closure_and_trainable_variables():
     X, Y, _ = _data(seed=5)
     _, pm = _models("SquaredExponential", X, Y)
-    assert pm.training_loss_closure() == pm.training_loss == pm.training_loss_closure(compile=False)
-    assert pm.training_loss_closure()().item() == pm.training_loss().item()
+    assert pm.training_loss_closure(compile=False) == pm.training_loss
+    closure = pm.training_loss_closure()  # traced once, then replayed
+    assert closure().item() == closure().item() == pm.training_loss().item()
+    assert closure.traced.trace_count == 1
     assert [p.name for p in pm.trainable_variables] == ["variance", "lengthscales", "variance"]
     assert pm.trainable_variables == pm.trainable_parameters
 

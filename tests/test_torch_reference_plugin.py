@@ -75,7 +75,6 @@ EXCLUDED_FILES = {
 DEVIATIONS = {
     "dtype getters": "config.default_float(), default_int() and Config's fields are torch dtypes",
     "parameters": "Module.parameters is torch's method; the JAX property is all_parameters",
-    "eager natural gradients": "NaturalGradient(compile=...) runs eagerly: no _compiled_steps, one draw a call",
     "serving platform": "serving artifacts name the torch platform of the model's device",
     "examples with jax": "a doc example that imports jax or optax drives the JAX package only",
 }
@@ -98,10 +97,6 @@ DIFFERENCES = {
     )},
     "tests/gpflow_tpu/utilities/test_traversal_depth.py::test_module_parameters_return_tuples_not_generators": (
         "parameters", "isinstance(params, tuple)"),
-    "tests/gpflow_tpu/test_natural_gradients.py::test_compiled_step_advances_minibatch_iterator": (
-        "eager natural gradients", "[0, 20, 0]"),
-    "tests/gpflow_tpu/test_natural_gradients.py::test_compiled_step_cache_hits_for_bound_methods": (
-        "eager natural gradients", "no attribute '_compiled_steps'"),
     "tests/gpflow_tpu/utilities/test_serving.py::test_metadata": ("serving platform", "assert 'tpu' in"),
     **{f"{_EXAMPLE}[{name}]": ("examples with jax", "") for name in (
         "classification.py", "convolutional.py", "external_mean_function.py", "gp_nn.py", "heteroskedastic.py",

@@ -156,7 +156,6 @@ def test_module_jit_and_grad():
     assert isinstance(g, _Outer)
 
 
-@deviation("eager")
 def test_module_jit_cache_stable():
     m = _Outer()
     traces = []
@@ -334,7 +333,6 @@ def test_module_mixed_containers_roundtrip():
     assert len(m.all_parameters) == 3
 
 
-@deviation("eager")
 def test_module_mixed_dict_treedef_stable_and_tree_mappable():
     """Insertion order != sorted order must not destabilize the treedef:
     tree_map over (model, grads) — the standard optimizer-update pattern —
@@ -398,7 +396,6 @@ def test_module_container_subclasses_preserved():
     assert td == td2
 
 
-@deviation("eager")
 def test_module_mixed_containers_jit_and_grad():
     m = _MixedContainers()
     traces = []
@@ -425,7 +422,6 @@ def test_module_mixed_containers_jit_and_grad():
     assert isinstance(g, _MixedContainers)
 
 
-@deviation("eager")
 @pytest.mark.parametrize("seed", range(10))
 def test_module_random_structure_roundtrip_fuzz(seed):
     """Random nested attribute structures (Parameters/arrays mixed with

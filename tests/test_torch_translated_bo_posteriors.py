@@ -1,7 +1,7 @@
 """The JAX package's ``tests/integration/test_bo_posteriors.py``, translated onto the
 port: the JAX idioms replaced one for one
 (``tests/test_torch_translated_support.py``), the same inputs, oracles,
-tolerances and test names; ``jax.jit`` over a posterior runs it eagerly (``jit``).
+tolerances and test names; ``jax.jit`` over a posterior traces it once and replays it (``jit``).
 
 BO-loop posterior integration (strategy from reference
 ``tests/gpflow/posteriors/test_bo_integration.py``): for every model family

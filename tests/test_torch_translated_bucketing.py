@@ -1,9 +1,9 @@
 """The JAX package's ``tests/gpflow_tpu/utilities/test_bucketing.py``, translated onto the
 port: the JAX idioms replaced one for one
 (``tests/test_torch_translated_support.py``), the same inputs, oracles,
-tolerances and test names; ``jax.jit`` runs eagerly (``jit``), and the trace count of
-``test_bucketize_compiles_once_per_bucket``, which stands for shapes, is a
-count of distinct input signatures.
+tolerances and test names; ``jax.jit`` is the port's trace and replay (``jit``),
+and the trace count of ``test_bucketize_compiles_once_per_bucket`` is the
+port's count of traces.
 
 Bucketed batching (the documented dynamic-shape replacement, SURVEY A.5.1).
 """

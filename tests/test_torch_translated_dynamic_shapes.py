@@ -1,9 +1,9 @@
 """The JAX package's ``tests/integration/test_dynamic_shapes.py``, translated onto the
 port: the JAX idioms replaced one for one
 (``tests/test_torch_translated_support.py``), the same inputs, oracles,
-tolerances and test names; ``jax.jit`` runs eagerly (``jit``), and the trace count of
-``test_svgp_bucketized_elbo_bounds_compiles``, which stands for shapes, is a
-count of distinct input signatures.
+tolerances and test names; ``jax.jit`` is the port's trace and replay (``jit``),
+and the trace count of ``test_svgp_bucketized_elbo_bounds_compiles`` is the
+port's count of traces.
 
 Variable-size data workloads (counterpart of reference
 ``tests/integration/test_dynamic_shapes.py``).

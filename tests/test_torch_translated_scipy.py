@@ -175,7 +175,6 @@ def test_stop_gradient_only_variable_detected_as_unused():
         )
 
 
-@deviation("eager")
 def test_compile_cache_reuses_traced_function():
     """Repeated minimize with the same closure/variables must not re-trace
     (reference scipy.py:47-70, 214-219)."""

@@ -21,10 +21,10 @@ holds the replacements:
   ``jax.value_and_grad`` and ``jax.vjp``, through ``torch.autograd.grad``
   (``argnums`` for several positional arguments; a Module argument through
   ``base.functionalize``, its gradient a module of the same treedef);
-* ``jit`` for ``jax.jit``: the function, run eagerly (the deviation
-  ``eager``); its ``on_trace`` is the signature counter, the statement a
-  JAX test runs at trace time, called once per distinct input signature
-  where the test says that its trace count stands for shapes;
+* ``jit`` for ``jax.jit``: the port's ``_compile.jit``, which traces the
+  function once per input signature and replays the trace; its
+  ``on_trace`` is the statement a JAX test runs at trace time where the
+  test says that its trace count stands for shapes, run in the traced body;
 * ``tree_flatten``, ``tree_unflatten``, ``tree_map`` and ``tree_leaves``
   for ``jax.tree_util``'s over a Module: the leaves are ``functionalize``'s
   flat values (the Parameters' unconstrained tensors), the ``TreeDef`` the
@@ -47,8 +47,7 @@ holds the replacements:
   output side of F3"), with one thread of torch's pool: the JAX tests'
   arrays are small, and the suite's other workers run beside them.
 
-A JAX test that the port cannot meet by design carries ``deviation(name)``
-(``eager`` for a claim about a trace or compile cache itself):
+A JAX test that the port cannot meet by design carries ``deviation(name)``:
 a strict xfail whose reason names a deviation of ROADMAP Queue 3 (the rows
 of ``DEVIATIONS``), so that the case fails while the deviation stands and
 fails the run once it does not.
@@ -71,7 +70,7 @@ import numpy as np
 import pytest
 import torch
 
-from gpflow_tpu_torch import config
+from gpflow_tpu_torch import _compile, config
 from gpflow_tpu_torch.base import Module, Parameter, functionalize
 from gpflow_tpu_torch.utilities.shapes import get_enable_check_shapes, set_enable_check_shapes
 
@@ -88,11 +87,6 @@ DEVIATIONS = {
     "the draws": (
         "the port draws from a torch.Generator, and nothing is traced: equal inputs do not give equal draws, "
         "and a call without a generator is never refused"
-    ),
-    # A claim about a trace or compile cache itself: the port runs eagerly.
-    "eager": (
-        "the port runs every function eagerly: nothing is traced or compiled, so a function body runs at "
-        "each call, and no trace or compile is cached or counted"
     ),
     # A Parameter's value and an entry point's result are tensors.
     "the output side of F3": (
@@ -206,42 +200,22 @@ def sgd(learning_rate):
     return _TorchOptimizer(torch.optim.SGD, learning_rate)
 
 
-def _signature(value):
-    """What a jitted function's trace is keyed on, for one argument: a
-    tensor's shape, dtype and device, a container's items, anything else
-    itself (a static argument) or its type where it does not hash."""
-    if isinstance(value, torch.Tensor):
-        return ("tensor", tuple(value.shape), value.dtype, value.device)
-    if isinstance(value, np.ndarray):
-        return ("array", value.shape, value.dtype)
-    if isinstance(value, (tuple, list)):
-        return (type(value), tuple(_signature(v) for v in value))
-    if isinstance(value, dict):
-        return (dict, tuple(sorted((k, _signature(v)) for k, v in value.items())))
-    try:
-        hash(value)
-        return value
-    except TypeError:
-        return type(value)
-
-
 def jit(fun=None, *, on_trace=None):
-    """``jax.jit``: the port runs eagerly, so the function runs at every
-    call (ROADMAP Queue 3, "eager"). Where a JAX test counts traces and says
-    that the count stands for input shapes, the statement that runs at trace
-    time becomes ``on_trace``: called with the arguments once per distinct
-    input signature, as a jitted function is traced once per signature."""
+    """``jax.jit``: the port's ``_compile.jit``, which runs the function's
+    body once per input signature, at trace time, and replays the trace at
+    every other call. Where a JAX test counts traces by a statement that
+    runs at trace time, that statement is ``on_trace``, called with the
+    arguments in the traced body."""
     if fun is None:
         return lambda f: jit(f, on_trace=on_trace)
-    seen = set()
+    if on_trace is None:
+        return _compile.jit(fun)
 
-    def wrapped(*args, **kwargs):
-        if on_trace is not None and _signature((args, kwargs)) not in seen:
-            seen.add(_signature((args, kwargs)))
-            on_trace(*args, **kwargs)
+    def traced(*args, **kwargs):
+        on_trace(*args, **kwargs)
         return fun(*args, **kwargs)
 
-    return wrapped
+    return _compile.jit(traced)
 
 
 def _leaf(value):

@@ -201,7 +201,7 @@ def _loop_pair(which):
         return jm, pm, jm.training_loss, pm.training_loss
     jm, pm, data = _svgp_pair()
     return (jm, pm, jm.training_loss_closure(data, compile=False),
-            pm.training_loss_closure(tuple(torch.from_numpy(a) for a in data)))
+            pm.training_loss_closure(tuple(torch.from_numpy(a) for a in data), compile=False))
 
 
 @pytest.mark.parametrize("use_scan", [False, True])
