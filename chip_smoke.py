@@ -124,8 +124,9 @@ on the card where the CPU would take minutes. Phases:
    control, for SquaredExponential and Matern52 (K2 on the path), on three
    data sets; the sandwich bound <= upper_bound before and after training;
    the peak memory of one value and gradient below N^2 * 4 bytes; five
-   ``Scipy`` iterations with ``nonfinite_penalty``, which must improve on
-   the objective from v = 0; adversarial v = s * 1; requests of 8192 new
+   ``Scipy`` iterations with ``nonfinite_penalty`` over the traced closure
+   (one trace; each evaluation's CG from the same ``aux_vec``), which must
+   improve on the objective from v = 0; adversarial v = s * 1; requests of 8192 new
    points (``predict_f``, ``predict_y``, ``predict_log_density``) against
    float64 from the same v and the lower-tier control; K1 and K2 launch
    counts exactly as the recorded CG iterations imply;
@@ -203,7 +204,8 @@ on the card where the CPU would take minutes. Phases:
    (Bernoulli labels, D = 8; Matern32 with ARD lengthscales and LogNormal
    priors on its variance and lengthscales): (a) SGPMC at M = 1024 over
    N = 32768 (Z frozen), ``run_hmc`` through ``SamplingHelper`` under sync
-   debug mode "error", 100 burn-in steps adapting the step size toward an
+   debug mode "error" (each step a replay of one traced step), 100 burn-in
+   steps adapting the step size toward an
    acceptance of 0.75 and 20 kept samples of 10 leapfrog steps, log
    probabilities finite, the acceptance logged; ``target_log_prob_fn`` and
    its gradient against float64 on the card at the initial state, a
@@ -371,6 +373,13 @@ on the card where the CPU would take minutes. Phases:
    files run in float64, which no kernel serves; ``test_error_envelopes.py``
    holds that rule on CUDA tensors. The sizes are the JAX tests' own: the
    phase holds the JAX package's claims on the card and measures no speed.
+29. the compile layer, traced against eager from one state, equal to the
+   bit with the same launches: the flagship and the fused natural-gradient
+   trainer steps with Adam's update inside the trace, the GPR fit by
+   ``Scipy`` and its L-BFGS evaluations, ``training_loop``, short SGPMC and
+   GPMC chains of ``run_hmc``, and the matrix-free CGLB's value and gradient
+   with its CG (a traced ``while_loop`` with a ``cond`` restart) from a
+   fixed v; the ms of both sides.
 
 Every failure raises, and the script then exits non-zero without the result
 line. The line before the last is ``{"kernels": [...]}``; the last is
@@ -987,6 +996,7 @@ TL_RTOL = 1e-5
 CT_ORDER = (False, True, True, False)
 CT_STEPS = 10  # training steps of each run
 CT_SEED = SEED + 90  # the steps' batch draws and CGLB's fixed v
+CGLB_AB_CALLS = 20  # --cglb-eager-ms: timed calls of each value and gradient
 CT_SPARSE = (("SGPR", "SquaredExponential"), ("CGLB", "Matern52"))
 
 # Phase 26: phase 25's paths (and phase 19's main model, phase 5's requests)
@@ -1006,9 +1016,12 @@ JT_STEPS = 10  # trainer steps of each run
 JT_GPR_ITERS = 4  # L-BFGS iterations of the GPR at N = 8192, each way
 JT_EVALS = 3  # timed L-BFGS evaluations of the GPR at N = 16384, each way, in turns
 JT_LOOP_STEPS = 10  # training_loop steps of each run
+JT_HMC_BURNIN, JT_HMC_SAMPLES = 5, 3  # the short chains' adapting and kept steps, each way
+JT_CG_RESTART = 2  # CGLB's CG restarts every 2 iterations, so that both branches of its restart run
+JT_CG_TIMED = 5  # timed CGLB values and gradients each way, in turns
 # The whole run's launches of phases 5-28, each path's count as asserted
 # (PERF.md section 6): phase 29 adds its own, which it asserts path by path.
-LAUNCHES_5_TO_28 = {"K1": 7554, "K2": 4440}
+LAUNCHES_5_TO_28 = {"K1": 7578, "K2": 4440}
 
 # Phase 27: the JAX package's test files that run on the card through the
 # alias, in a process of its own (no JAX there; --noconftest).
@@ -2476,26 +2489,36 @@ def cglb_sandwich(model, data, Z, what):
 
 
 def cglb_train(model, loss0, launches):
-    """Phase 15: ``Scipy().minimize`` of the matrix-free CGLB, SP_CGLB_MAXITER
-    iterations with ``nonfinite_penalty``, as ``bench.py:405-417`` runs it;
-    it must improve on the objective from v = 0. Returns the seconds per
-    evaluation and the CG iterations of each evaluation."""
+    """Phase 15: ``Scipy().minimize`` of the matrix-free CGLB's traced
+    closure, SP_CGLB_MAXITER iterations with ``nonfinite_penalty``, as
+    ``bench.py:405-417`` runs it; it must improve on the objective from
+    v = 0. Every evaluation replays one trace, whose CG starts from the
+    ``aux_vec`` of the start (a replay writes no v back, as the JAX package
+    under ``jit``); its iterations are read from ``cg_iterations`` after each
+    evaluation. Returns the seconds per evaluation and the CG iterations of
+    each evaluation."""
     from gpflow_tpu_torch.optimizers import Scipy
 
     iters = []
 
-    def closure():
-        loss = model.training_loss()
-        iters.append(model.cg_iterations)
-        return loss
+    class CountingScipy(Scipy):
+        def eval_func(self, *args, **kwargs):
+            evaluate = super().eval_func(*args, **kwargs)
 
-    # compile=False: CGLB's objective is declared untraced (its CG loop reads the residual on
-    # the host), and a closure over it does not carry the declaration as a bound method does
+            def counted_evaluation(x):
+                out = evaluate(x)
+                iters.append(model.cg_iterations)
+                return out
+
+            return counted_evaluation
+
+    opt = CountingScipy()
     t0 = time.perf_counter()
-    res, counts = counted(lambda: Scipy().minimize(closure, model.trainable_variables, compile=False,
-                                                   options={"maxiter": SP_CGLB_MAXITER},
-                                                   nonfinite_penalty=SP_PENALTY))
+    res, counts = counted(lambda: opt.minimize(model.training_loss_closure(), model.trainable_variables,
+                                               options={"maxiter": SP_CGLB_MAXITER}, nonfinite_penalty=SP_PENALTY))
     seconds = time.perf_counter() - t0
+    traces = next(iter(opt.compile_cache.values()))[0].traced.trace_count
+    assert traces == 1 and len(iters) == res.nfev, f"cglb lbfgs: {traces} traces, {len(iters)} evaluations"
     log(f"cglb lbfgs: loss {loss0:.6e} (from v = 0) -> {float(res.fun):.6e}; nit {res.nit}, nfev {res.nfev}, "
         f"non-finite evaluations {res.n_nonfinite_evals}, status {res.status} ({res.message}); CG iterations "
         f"per evaluation {iters}")
@@ -4254,18 +4277,27 @@ def hmc_timings(helpers, states, chain_seconds):
     rounds of 5), ms per HMC step from the chain, a profile of one SGPMC
     value and gradient and of one SGPMC step of HMC_LEAPFROG leapfrog steps,
     and K1 and K2 (matern32) at the path's shapes."""
-    from gpflow_tpu_torch.optimizers import run_hmc
+    from gpflow_tpu_torch._compile import jit
+    from gpflow_tpu_torch.optimizers import mcmc
 
     for what, helper in helpers.items():
         rounds = [request_ms(lambda: hmc_value_and_grad(helper, states[what]), 5, warmup=1) for _ in range(3)]
         log(f"time: {what} target value and gradient: {min(rounds):.3f} ms (rounds {[round(r, 3) for r in rounds]})")
         log(f"time: {what} HMC step of {HMC_LEAPFROG} leapfrog steps: "
-            f"{1e3 * chain_seconds[what] / (HMC_BURNIN + HMC_SAMPLES):.2f} ms (the chain: {chain_seconds[what]:.2f} s)")
+            f"{1e3 * chain_seconds[what] / (HMC_BURNIN + HMC_SAMPLES):.2f} ms (the chain: {chain_seconds[what]:.2f} s, "
+            "its step's trace included; phase 29 times a step alone)")
     sgpmc = helpers["sgpmc"]
     profile_device(lambda: hmc_value_and_grad(sgpmc, states["sgpmc"]), "sgpmc target value and gradient")
-    profile_device(lambda: run_hmc(sgpmc.target_log_prob_fn, states["sgpmc"], num_samples=1,
-                                   step_size=HMC_STEP, num_leapfrog_steps=HMC_LEAPFROG),
-                   f"one sgpmc HMC step ({HMC_LEAPFROG} values and gradients, and one at the start)")
+    # one step as run_hmc replays it: traced at the profile's warm-up call, replayed in its window
+    target, state = sgpmc.target_log_prob_fn, tuple(states["sgpmc"])
+    generator = torch.Generator(device="cuda").manual_seed(HMC_SEEDS["chain"])
+    step = jit(lambda *args: mcmc._hmc_step(target, generator, HMC_LEAPFROG, float(np.log(10.0 * HMC_STEP)), HMC_TARGET,
+                                            *args))
+    logp, g = mcmc._value_and_grad(target, state)
+    log_step = torch.full((), np.log(HMC_STEP), dtype=logp.dtype, device="cuda")
+    profile_device(lambda: step(state, g, logp, log_step, log_step, torch.zeros_like(logp),
+                                torch.zeros((5,), dtype=logp.dtype)),
+                   f"one sgpmc HMC step, a replay ({HMC_LEAPFROG} values and gradients)")
     with torch.no_grad():
         for n, m, d in HMC_K1_SHAPES:
             time_k1(n, m, iters=20, d=d, family="matern32")
@@ -6897,9 +6929,9 @@ def jt_mode(traced):
 
 
 def jt_eager(trainer):
-    """The trainer with its step run eagerly, as on a mesh: ``_step_on``
-    in the place of its traced step."""
-    trainer._traced = lambda model, batch, gamma: trainer._step_on(batch)
+    """The trainer with its step run eagerly, as on a mesh: the traced
+    step's own body (the optimizer's update inside) in its place."""
+    trainer._traced = trainer._model_step
     return trainer
 
 
@@ -7010,10 +7042,11 @@ def jt_training_loop(launches, smi):
     over the traced closure, one trace a call), 1 + JT_LOOP_STEPS steps each
     way from one start: the histories and the trained values equal to the
     bit, Kuu and Kuf (K1) and their gradients (K2) every step; a step's ms
-    by CUDA events recorded after each optimizer step (the optimizer from a
-    factory, Adam as by default), the median of steps 2 to the last, and
-    the first step's on the host clock (in the traced run, with its trace)."""
-    from gpflow_tpu_torch import _compile
+    by CUDA events recorded after each step's update (Adam, as by default,
+    inside the step: ``_optim.Update.commit`` closes a step on the host), the
+    median of steps 2 to the last, and the first step's on the host clock
+    (in the traced run, with its trace)."""
+    from gpflow_tpu_torch import _compile, _optim
     from gpflow_tpu_torch.parallel import adam
     from gpflow_tpu_torch.utilities import training_loop
 
@@ -7025,30 +7058,25 @@ def jt_training_loop(launches, smi):
         closure = model.training_loss_closure(batch, compile=traced)
         options = {"use_scan": True} if traced else {}
         events, marks = [], []
+        commit = _optim.Update.commit
 
-        def factory(params):
-            opt = adam(1e-2)(params)
-            step = opt.step
-
-            def timed_step(*args, **kwargs):
-                out = step(*args, **kwargs)
-                events.append(torch.cuda.Event(enable_timing=True))
-                events[-1].record()
-                marks.append(time.perf_counter())
-                return out
-
-            opt.step = timed_step
-            return opt
+        def timed_commit(self, *args):
+            commit(self, *args)
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+            marks.append(time.perf_counter())
 
         traces = sum(_compile.trace_counts.values())
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
+        _optim.Update.commit = timed_commit
         try:
             t0 = time.perf_counter()
-            history, counts = counted(lambda: training_loop(closure, optimizer=factory,
+            history, counts = counted(lambda: training_loop(closure, optimizer=adam(1e-2),
                                                             var_list=model.trainable_variables,
                                                             maxiter=1 + JT_LOOP_STEPS, **options))
         finally:
+            _optim.Update.commit = commit
             torch.cuda.set_sync_debug_mode(0)
         expect_launches(f"compile training_loop run {i} ({jt_mode(traced)})", counts,
                         {"K1": 2 * (1 + JT_LOOP_STEPS), "K2": 2 * (1 + JT_LOOP_STEPS)}, launches)
@@ -7059,9 +7087,117 @@ def jt_training_loop(launches, smi):
         ms[traced] = float(np.median([events[k].elapsed_time(events[k + 1]) for k in range(len(events) - 1)]))
         first[traced] = 1e3 * (marks[0] - t0)
     jt_same("training_loop", runs, (False, True))
-    log(f"time: compile training_loop step (M={M}, B={B}, Matern52): {ms[False]:.3f} ms eager, {ms[True]:.3f} ms "
-        f"traced (CUDA events between optimizer steps, medians of steps 2-{1 + JT_LOOP_STEPS}); the first step "
+    log(f"time: compile training_loop step (M={M}, B={B}, Matern52, the update inside): {ms[False]:.3f} ms eager, "
+        f"{ms[True]:.3f} ms traced (CUDA events between steps, medians of steps 2-{1 + JT_LOOP_STEPS}); the first step "
         f"{first[False]:.1f} ms eager, {first[True]:.1f} ms traced, its trace included (host clock); {smi}")
+
+
+def jt_hmc(launches, smi):
+    """A short chain of each of phase 20's models (SGPMC at M = NG_M,
+    N = NG_N; GPMC at N = HMC_GPMC_N; float32), JT_HMC_BURNIN adapting and
+    JT_HMC_SAMPLES kept steps of HMC_LEAPFROG leapfrog steps from one seed
+    under sync debug mode "error", eager (``run_hmc``'s ``jit`` the identity)
+    and traced (its default: one trace for every step): the samples
+    and log probabilities equal to the bit, one value and gradient of the
+    target per leapfrog step and one at the start each way; the ms of a step
+    each way by CUDA events recorded after each step, the median over the
+    steps but the first (the trace's)."""
+    from gpflow_tpu_torch._compile import jit
+    from gpflow_tpu_torch.optimizers import mcmc, run_hmc
+
+    X, Y, Z, _, _ = make_ng_data()
+    for cls, data in (("SGPMC", (X, Y)), ("GPMC", (X[:HMC_GPMC_N], Y[:HMC_GPMC_N]))):
+        helper, _ = hmc_helper(hmc_model(cls, data, Z, torch.float32))
+        runs, ms, order = [], {}, (False, True)
+        for traced in order:
+            events, made = [], []
+
+            def timed_jit(fun):
+                step = jit(fun) if traced else fun
+                made.append(step)
+
+                def timed(*args):
+                    out = step(*args)
+                    events.append(torch.cuda.Event(enable_timing=True))
+                    events[-1].record()
+                    return out
+
+                return timed
+
+            generator = torch.Generator(device="cuda").manual_seed(HMC_SEEDS["chain"])
+            original = mcmc.jit
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            mcmc.jit = timed_jit
+            try:
+                (samples, log_probs), counts = counted(lambda: run_hmc(
+                    helper.target_log_prob_fn, helper.current_state, num_samples=JT_HMC_SAMPLES,
+                    num_burnin_steps=JT_HMC_BURNIN, step_size=HMC_STEP, num_leapfrog_steps=HMC_LEAPFROG,
+                    generator=generator, adapt_step_size=True, target_accept=HMC_TARGET))
+            finally:
+                mcmc.jit = original
+                torch.cuda.set_sync_debug_mode(0)
+            evaluations = 1 + (JT_HMC_BURNIN + JT_HMC_SAMPLES) * HMC_LEAPFROG
+            expect_launches(f"compile {cls} chain ({jt_mode(traced)})", counts,
+                            {k: v * evaluations for k, v in hmc_launches(cls).items()}, launches)
+            if traced:
+                assert made[0].trace_count == 1, f"{cls} chain: {made[0].trace_count} traces"
+            assert bool(torch.isfinite(log_probs).all()), f"compile {cls} chain: a non-finite log probability"
+            runs.append(list(samples) + [log_probs])
+            # step k + 1 ends at events[k + 1]
+            ms[traced] = float(np.median([events[k].elapsed_time(events[k + 1]) for k in range(len(events) - 1)]))
+        jt_same(f"{cls} chain", runs, order)
+        log(f"time: compile {cls} HMC step ({HMC_LEAPFROG} leapfrog steps): {ms[False]:.3f} ms eager, "
+            f"{ms[True]:.3f} ms traced (CUDA events between steps, medians over steps 2-"
+            f"{JT_HMC_BURNIN + JT_HMC_SAMPLES}); {smi}")
+
+
+def jt_cglb(launches, smi):
+    """The matrix-free CGLB at phase 15's point (N = SP_N, M = SP_M, chunk
+    SP_CHUNK, Matern52, float32) with restarts every JT_CG_RESTART CG
+    iterations: its value and gradient, the CG running from a fixed v
+    (``aux_vec`` 0, put back before each run: an eager run writes its v
+    back), traced (``training_loss_closure()``, one trace) and eager
+    (``compile=False``) in JT_ORDER, equal to the bit with the same CG
+    iterations (read from ``cg_iterations``); K1 for Kuu, Kuf, each block
+    of every CG matvec, and each block of the bound's K v twice (forward,
+    checkpointed backward); K2 for Matern52's backward of Kuu, Kuf and each rebuilt block; then
+    JT_CG_TIMED runs each way in turns, timed on the host clock (the CG's
+    loop reads its stopping test on the host every iteration)."""
+    data, Z, _, _ = make_sparse_data()
+    model = sparse_model("CGLB", data, Z, torch.float32, kernel="Matern52", matrix_free_chunk=SP_CHUNK,
+                         restart_cg_iters=JT_CG_RESTART)
+    start = model.aux_vec.value.detach().clone()
+    closures = {True: model.training_loss_closure(), False: model.training_loss_closure(compile=False)}
+    runs, ms = [], {False: [], True: []}
+    nc = n_chunks(model)
+    for i, traced in enumerate(JT_ORDER):
+        model.aux_vec.assign(start)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (value, grads), counts = counted(lambda: sparse_value_and_grad(model, lambda m: closures[traced]()))
+        ms[traced].append(1e3 * (time.perf_counter() - t0))
+        it = model.cg_iterations
+        expected = {"K1": 2 + nc * (cg_matvecs(model, it) + 2), "K2": 2 + nc}
+        expect_launches(f"compile cglb run {i} ({jt_mode(traced)}): {it} CG iterations", counts, expected, launches)
+        assert it >= JT_CG_RESTART, f"cglb: {it} CG iterations did not reach a restart"
+        assert torch.equal(model.aux_vec.value, start) == traced, "cglb: v written back in a replay, or not eagerly"
+        runs.append([value, torch.tensor(it)] + [grads[k] for k in sorted(grads)])
+    assert closures[True].traced.trace_count == 1, f"cglb: {closures[True].traced.trace_count} traces"
+    jt_same(f"cglb value and gradient from a fixed v (N={SP_N}, M={SP_M}, chunk {SP_CHUNK})", runs, JT_ORDER)
+    first = ms[True][0]
+    ms = {False: [], True: []}
+    for k in range(JT_CG_TIMED):  # in turns, after the trace
+        for traced in (False, True) if k % 2 == 0 else (True, False):
+            model.aux_vec.assign(start)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sparse_value_and_grad(model, lambda m: closures[traced]())
+            torch.cuda.synchronize()
+            ms[traced].append(1e3 * (time.perf_counter() - t0))
+    log(f"time: compile cglb value and gradient from a fixed v, CG included (N={SP_N}, M={SP_M}, chunk {SP_CHUNK}, "
+        f"{it} CG iterations): {np.median(ms[False]):.3f} ms eager, {np.median(ms[True]):.3f} ms traced (host clock, "
+        f"medians of {JT_CG_TIMED} in turns; the traced run's first call, with its trace, {first:.1f} ms); {smi}")
 
 
 def compile_phases(launches):
@@ -7084,6 +7220,8 @@ def compile_phases(launches):
     jt_gpr_fit(launches)
     jt_gpr_evaluations(launches, smi)
     jt_training_loop(launches, smi)
+    jt_hmc(launches, smi)
+    jt_cglb(launches, smi)
 
 
 # Phases 5-29 in the order they run, as groups that share their data: a
@@ -7121,6 +7259,10 @@ def parse_args(argv=None):
     parser.add_argument("--k1-host-us", metavar="ROOT",
                         help="only build K1 from the checkout at ROOT and print the host time of one K1 call "
                              "at (1, 1, 8) with that checkout's package (phase 23's measurement)")
+    parser.add_argument("--cglb-eager-ms", metavar="ROOT",
+                        help="only build K1 and K2 from the checkout at ROOT and time, with that checkout's "
+                             "package, the matrix-free CGLB's eager value and gradient at phase 25's fixed v, "
+                             "with v trainable (no CG) and with the CG from that v")
     args = parser.parse_args(argv)
     if args.phases is None:
         return args
@@ -7152,6 +7294,71 @@ def k1_host_us_of(root):
     for _ in range(3):
         log(f"time: K1 host dispatch at (1, 1, {D}): {k1_host_us():.2f} µs per call, package "
             f"{os.path.dirname(gpflow_tpu_torch.__file__)} ({SV_HOST_CALLS} calls, one synchronisation; {name})")
+
+
+def cglb_eager_ms_of(root):
+    """``--cglb-eager-ms``: with the package of the checkout at ``root``
+    (another commit's, to compare the eager path on one card), the
+    matrix-free CGLB's value and gradient at phase 25's point (N = SP_N,
+    M = SP_M, chunk SP_CHUNK, Matern52, float32, v at phase 25's draw),
+    eagerly: (a) with v trainable, as phase 25 runs it (no CG), and (b)
+    with the CG running from that v (``aux_vec`` put back before each call:
+    an eager call writes its v back); where the package traces the CG, (b)
+    replayed too. The launches of one call of each are asserted; then
+    CGLB_AB_CALLS calls of each in turns, the host clock around each call
+    with the card synchronised before and after (medians), and the device
+    time of one call of each by ``torch.profiler``."""
+    sys.path.insert(0, os.path.abspath(root))
+    name, smi = card_check()
+    log(smi)
+    import gpflow_tpu_torch
+    from gpflow_tpu_torch import config
+
+    package = os.path.dirname(gpflow_tpu_torch.__file__)
+    config.set_default_float(torch.float32)
+    data, Z, _, _ = make_sparse_data()
+    v = torch.from_numpy(0.1 * np.random.RandomState(CT_SEED).randn(1, SP_N).astype(np.float32)).cuda()
+    fixed = sparse_model("CGLB", data, Z, torch.float32, kernel="Matern52", matrix_free_chunk=SP_CHUNK,
+                         v_grad_optimization=True)
+    fixed.aux_vec.assign(v)
+    cg = sparse_model("CGLB", data, Z, torch.float32, kernel="Matern52", matrix_free_chunk=SP_CHUNK)
+
+    def run_cg():
+        cg.aux_vec.assign(v)
+        return sparse_value_and_grad(cg, lambda m: m.training_loss())
+
+    runs = {"eager, v trainable, no CG": lambda: sparse_value_and_grad(fixed, lambda m: m.training_loss()),
+            "eager, the CG from v": run_cg}
+    if not hasattr(type(cg), "untraced"):  # the package traces the CG: (b) replayed too
+        closure = cg.training_loss_closure()
+
+        def run_traced():
+            cg.aux_vec.assign(v)
+            return sparse_value_and_grad(cg, lambda m: closure())
+
+        runs["traced, the CG from v"] = run_traced
+    nc = n_chunks(fixed)
+    for what, fn in runs.items():
+        fn()  # the warm-up: the kernels built and loaded, the trace made
+        _, counts = counted(fn)
+        iters = 0 if what.endswith("no CG") else cg.cg_iterations
+        matvecs = 0 if what.endswith("no CG") else cg_matvecs(cg, iters)
+        expect_launches(f"cglb {what} ({iters} CG iterations)", counts,
+                        {"K1": 2 + nc * (matvecs + 2), "K2": 2 + nc}, {})
+    ms = {what: [] for what in runs}
+    for k in range(CGLB_AB_CALLS):
+        for what in list(runs) if k % 2 == 0 else reversed(list(runs)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[what]()
+            torch.cuda.synchronize()
+            ms[what].append(1e3 * (time.perf_counter() - t0))
+    for what, fn in runs.items():
+        by, _ = profile_device(fn, f"cglb value and gradient, {what}", top=6)
+        iters = 0 if what.endswith("no CG") else cg.cg_iterations
+        log(f"time: cglb value and gradient, {what} (N={SP_N}, M={SP_M}, chunk {SP_CHUNK}, {iters} CG iterations): "
+            f"{np.median(ms[what]):.3f} ms (host clock, median of {CGLB_AB_CALLS} in turns; calls {[round(t, 3) for t in ms[what]]}), device busy "
+            f"{sum(by.values()):.3f} ms; package {package}; {smi}")
 
 
 def main(phases=None):
@@ -7254,5 +7461,7 @@ if __name__ == "__main__":
     options = parse_args()
     if options.k1_host_us:
         k1_host_us_of(options.k1_host_us)
+    elif options.cglb_eager_ms:
+        cglb_eager_ms_of(options.cglb_eager_ms)
     else:
         main(options.phases)

@@ -28,10 +28,24 @@ replay launches exactly what an eager call launches.
   the graph by reference: the replay reads its current contents, and a
   tensor put in its place afterwards is not seen, as a constant of a
   ``jax.jit`` trace is not.
-* **Draws.** A draw from a ``torch.Generator`` made through ``randn`` is an
-  input of the trace: each replay draws it from the generator before it
-  runs the graph, in the order of the body's draws, so that it draws
-  afresh and from the state an eager call would draw from.
+* **Draws.** A draw from a ``torch.Generator`` made through ``randn`` (a
+  standard normal) or ``rand`` (a uniform on [0, 1)) is an input of the
+  trace: each replay draws it from the generator before it runs the
+  graph, in the order of the body's draws, so that it draws afresh and
+  from the state an eager call would draw from.
+* **Loops and branches.** ``while_loop`` and ``cond`` run torch's
+  ``while_loop`` and ``cond`` operators: eagerly a loop on the host that
+  reads the predicate, in a trace one node of the graph whose bodies are
+  subgraphs (``lax.while_loop`` and ``lax.cond`` in the JAX package). What
+  the bodies read besides their carried values is passed to them as
+  ``captured`` and becomes the operator's operands; a subgraph that holds a
+  traced tensor it was not given raises ``TraceError``. The launches of the
+  bodies' kernels are counted at each replay as eagerly, per iteration.
+* **Readouts.** A value that a body computes for its caller to read
+  afterwards, outside its result (CGLB's CG iteration count), is set by
+  ``readout``: the trace returns it as an extra output and each replay sets
+  the module's attribute to the replay's tensor. Such an attribute, named
+  in the class's ``_readouts``, is no part of a key.
 * **Gradients.** A replay runs under ``torch.no_grad``. Where grad mode is
   on, an input requires grad and the result has one scalar differentiable
   output (a loss), the trace also holds that output's gradient with
@@ -44,10 +58,7 @@ replay launches exactly what an eager call launches.
   body that calls ``backward()``.
 * **No fallback.** A body that cannot be traced (it reads a value on the
   host: ``.item()``, ``bool`` of a tensor, numpy of a tensor) raises
-  ``TraceError`` with the reason; nothing quietly runs eagerly. A Module
-  class that declares ``untraced`` (CGLB, whose conjugate-gradient loop is
-  driven from the host) runs eagerly where an entry point asks
-  ``untraced_reason`` first.
+  ``TraceError`` with the reason; nothing quietly runs eagerly.
 
 A call made while a trace is being taken, or inside ``torch.export`` or a
 ``torch.func`` transform, runs ``fun`` inline, as a jitted function called
@@ -60,14 +71,15 @@ import contextlib
 import functools
 import inspect
 import threading
+import types
 from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["TraceError", "constants_of", "draws", "is_tracing", "jit", "lift_constants", "outside_trace", "randn",
-           "trace", "trace_counts", "untraced_reason"]
+__all__ = ["TraceError", "cond", "constants_of", "draws", "is_tracing", "jit", "lift_constants", "outside_trace",
+           "over_tensors", "rand", "randn", "readout", "trace", "trace_counts", "while_loop"]
 
 DEFAULT_CACHE_SIZE = 64
 
@@ -90,14 +102,6 @@ def is_tracing() -> bool:
     return getattr(_state, "depth", 0) > 0
 
 
-def untraced_reason(fun: Any) -> Optional[str]:
-    """The reason that ``fun`` (a function, or a bound method of a Module)
-    is declared untraced, else None: the ``untraced`` class attribute of
-    the Module a bound method belongs to."""
-    owner = getattr(fun, "__self__", None)
-    return getattr(owner, "untraced", None) if isinstance(owner, nn.Module) else None
-
-
 @contextlib.contextmanager
 def outside_trace() -> Iterator[None]:
     """Runs the block on real tensors, also while a trace is taken: for a
@@ -113,22 +117,178 @@ def outside_trace() -> Iterator[None]:
         yield
 
 
+_DRAWS = {"normal": torch.randn, "uniform": torch.rand}
+
+
+def _draw(kind: str, shape: Sequence[int], generator: Optional[torch.Generator], dtype: torch.dtype,
+          device: torch.device) -> torch.Tensor:
+    if generator is None or not is_tracing():
+        return _DRAWS[kind](shape, generator=generator, dtype=dtype, device=device)
+    with outside_trace():
+        marker = torch.empty(tuple(shape), dtype=dtype, device=device)  # the graph's input, once lifted
+    _state.draws[-1].append((marker, (generator, tuple(shape), dtype, device, kind)))
+    return marker
+
+
 def randn(shape: Sequence[int], *, generator: Optional[torch.Generator], dtype: torch.dtype,
           device: torch.device) -> torch.Tensor:
     """``torch.randn(shape, generator=generator, ...)``; inside a trace, with
     a generator, the draw becomes an input of the trace (see ``draws``)."""
-    if generator is None or not is_tracing():
-        return torch.randn(shape, generator=generator, dtype=dtype, device=device)
-    with outside_trace():
-        marker = torch.empty(tuple(shape), dtype=dtype, device=device)  # the graph's input, once lifted
-    _state.draws[-1].append((marker, (generator, tuple(shape), dtype, device)))
-    return marker
+    return _draw("normal", shape, generator, dtype, device)
+
+
+def rand(shape: Sequence[int], *, generator: Optional[torch.Generator], dtype: torch.dtype,
+         device: torch.device) -> torch.Tensor:
+    """``torch.rand(shape, generator=generator, ...)``, uniform on [0, 1); inside
+    a trace, with a generator, the draw becomes an input of the trace."""
+    return _draw("uniform", shape, generator, dtype, device)
 
 
 def draws(specs: Sequence[Tuple[Any, ...]]) -> List[torch.Tensor]:
-    """The draws of a trace (its ``draw_specs``), which it takes after its
-    other inputs, drawn now from their generators in the body's order."""
-    return [torch.randn(shape, generator=g, dtype=dtype, device=device) for g, shape, dtype, device in specs]
+    """The draws of a trace (its ``draw_specs``: generator, shape, dtype,
+    device and kind), which it takes after its other inputs, drawn now from
+    their generators in the body's order."""
+    return [_DRAWS[kind](shape, generator=g, dtype=dtype, device=device) for g, shape, dtype, device, kind in specs]
+
+
+def readout(module: nn.Module, name: str, value: torch.Tensor) -> None:
+    """Inside a trace: ``module.<name>`` is set to ``value`` at every replay
+    (``value``'s counterpart in the replay), for the caller to read after
+    the call. ``name`` must be among the class's ``_readouts``, which no key
+    includes. Outside ``jit`` (``trace`` alone) it is dropped."""
+    if name not in getattr(type(module), "_readouts", ()):
+        raise TraceError(f"jit: {type(module).__name__}.{name} is not among its class's _readouts")
+    _state.readouts[-1].append((module, name, value))
+
+
+# --- loops and branches -----------------------------------------------------------
+
+
+_OPAQUE = (type, types.FunctionType, types.MethodType, types.ModuleType, torch.Generator, functools.partial)
+
+
+def _capture_walk(v: Any, leaf: Callable[[torch.Tensor, Optional[Tuple[dict, str]]], Any],
+                  undo: List[Tuple[dict, str, Any]], seen: set, slot: Optional[Tuple[dict, str]] = None) -> Any:
+    """``v`` with ``leaf(t, slot)`` in each tensor's place: a Module's slots
+    and a plain object's attributes are set in place (recorded in
+    ``undo``), lists, tuples and dicts are rebuilt. ``slot`` is the (dict,
+    key) that holds the tensor, a Module's slot or a plain object's
+    attribute, or None where it lies in a list, tuple or dict, or is ``v``
+    itself."""
+    if isinstance(v, torch.Tensor):
+        return leaf(v, slot)
+    if isinstance(v, (list, tuple)):
+        items = [_capture_walk(x, leaf, undo, seen) for x in v]
+        return type(v)(*items) if hasattr(v, "_fields") else type(v)(items)
+    if isinstance(v, dict):
+        return type(v)((k, _capture_walk(x, leaf, undo, seen)) for k, x in v.items())
+    if isinstance(v, nn.Module):
+        slots = [(holder, k, a) for holder, k, a in _module_items(v)]
+    elif hasattr(v, "__dict__") and not isinstance(v, _OPAQUE):
+        slots = [(vars(v), k, a) for k, a in list(vars(v).items())]
+    else:
+        return v
+    if id(v) in seen:
+        return v
+    seen.add(id(v))
+    for holder, k, a in slots:
+        new = _capture_walk(a, leaf, undo, seen, (holder, k))
+        if new is not a:
+            undo.append((holder, k, a))
+            holder[k] = new
+    return v
+
+
+def over_tensors(fn: Callable[..., Any], n: int, captured: Tuple[Any, ...]
+                 ) -> Tuple[Callable[..., Any], List[torch.Tensor]]:
+    """``fn(*values, *captured)`` as a function of (its ``n`` values, the
+    tensors of ``captured``), and those tensors: at each call the tensors it
+    is given are put in their places in ``captured`` (a Module's slots, a
+    plain object's attributes, rebuilt containers) for the call. The form
+    that torch's loop and branch operators take, and that a checkpointed
+    block takes, whose recomputation in the backward must read the tensors
+    of its forward and not what its modules hold by then. Where every
+    tensor lies in a slot or an attribute that holds the given one already
+    (a block's forward), ``fn`` is called without the walk."""
+    leaves: List[torch.Tensor] = []
+    slots: List[Optional[Tuple[dict, str]]] = []
+    _capture_walk(captured, lambda t, slot: leaves.append(t) or slots.append(slot) or t, [], set())
+    in_place = all(slot is not None for slot in slots)
+
+    def run(*args: torch.Tensor) -> Any:
+        if in_place and all(holder[k] is t for (holder, k), t in zip(slots, args[n:])):
+            return fn(*args[:n], *captured)
+        it = iter(args[n:])
+        undo: List[Tuple[dict, str, Any]] = []
+        try:
+            swapped = _capture_walk(captured, lambda t, slot: next(it), undo, set())
+            return fn(*args[:n], *swapped)
+        finally:
+            _undo(undo)
+
+    return run, leaves
+
+
+@contextlib.contextmanager
+def _uncached() -> Iterator[None]:
+    """The trace's fake tensors without their dispatch cache: an operator's
+    bodies are run again on fake tensors, and a collective's process group,
+    an argument there, cannot be compared as a key of that cache."""
+    from torch._guards import detect_fake_mode
+
+    mode = detect_fake_mode()
+    if mode is None or not hasattr(mode, "cache_enabled"):
+        yield
+        return
+    enabled, mode.cache_enabled = mode.cache_enabled, False
+    try:
+        yield
+    finally:
+        mode.cache_enabled = enabled
+
+
+def while_loop(cond_fn: Callable[..., torch.Tensor], body_fn: Callable[..., Tuple[torch.Tensor, ...]],
+               carried: Sequence[torch.Tensor], captured: Tuple[Any, ...] = ()) -> Tuple[torch.Tensor, ...]:
+    """``while cond_fn(*carried, *captured): carried = body_fn(*carried,
+    *captured)`` through torch's ``while_loop`` operator, and the carried
+    values at the end (``jax.lax.while_loop``). ``cond_fn`` returns a bool
+    0-d tensor; ``body_fn`` returns new tensors of the carried values'
+    shapes, dtypes and strides, none of them an input. ``captured`` holds
+    everything else the two functions read that a trace computes: tensors,
+    Modules, and lists, tuples, dicts and plain objects of them, passed to
+    the functions after the carried values. Eagerly it runs as the
+    operator's own eager implementation does, a loop on the host that reads
+    the predicate once per iteration; in a trace the loop is one node of
+    the graph, whose replay runs that eager implementation."""
+    if not (is_tracing() or torch.compiler.is_compiling()):
+        values = tuple(carried)  # the operator's own eager loop, without its dispatch
+        while cond_fn(*values, *captured):
+            values = tuple(body_fn(*values, *captured))
+        return values
+    from torch._higher_order_ops.while_loop import while_loop_op
+
+    n = len(carried)
+    (cond_run, leaves), (body_run, _) = over_tensors(cond_fn, n, captured), over_tensors(body_fn, n, captured)
+    with _uncached():
+        return tuple(while_loop_op(cond_run, body_run, tuple(carried), tuple(leaves)))
+
+
+def cond(pred: torch.Tensor, true_fn: Callable[..., Any], false_fn: Callable[..., Any],
+         operands: Sequence[torch.Tensor], captured: Tuple[Any, ...] = ()) -> Any:
+    """``true_fn(*operands, *captured)`` where the bool 0-d ``pred`` holds,
+    else ``false_fn(...)``, through torch's ``cond`` operator in a trace
+    (``jax.lax.cond``; eagerly, as its eager implementation, a read of
+    ``pred`` on the host): only the taken branch runs. The branches return new
+    tensors of the same shapes, dtypes and strides, none of them an operand;
+    ``captured`` is as for ``while_loop``."""
+    if not (is_tracing() or torch.compiler.is_compiling()):
+        return (true_fn if pred else false_fn)(*operands, *captured)
+    from torch._higher_order_ops.cond import cond_op
+
+    n = len(operands)
+    (true_run, leaves), (false_run, _) = over_tensors(true_fn, n, captured), over_tensors(false_fn, n, captured)
+    with _uncached():
+        return cond_op(pred, true_run, false_run, (*operands, *leaves))
 
 
 # --- flattening -------------------------------------------------------------------
@@ -139,8 +299,9 @@ def _module_items(module: nn.Module) -> Iterator[Tuple[Any, str, Any]]:
     parameters, its buffers and its child modules, each as (the dict that
     holds it, its name, its value)."""
     attrs = module.__dict__
+    readouts = getattr(type(module), "_readouts", ())
     for k, v in list(attrs.items()):
-        if k not in _NN_STATE:
+        if k not in _NN_STATE and k not in readouts:
             yield attrs, k, v
     for registry in (module._parameters, module._buffers, module._modules):
         for k, v in list(registry.items()):
@@ -155,6 +316,7 @@ class _Flat:
         self.leaves: List[Any] = []
         self.held: List[Any] = []  # unhashable statics, kept alive while keyed by id
         self._modules: Dict[int, int] = {}
+        self.modules: List[nn.Module] = []  # in walk order
         self.structure = (self._walk(args), tuple((k, self._walk(v)) for k, v in sorted(kwargs.items())))
 
     def _walk(self, v: Any) -> Any:
@@ -169,6 +331,7 @@ class _Flat:
             if seen is not None:
                 return ("R", seen)
             self._modules[id(v)] = len(self._modules)
+            self.modules.append(v)
             return ("M", type(v), tuple((k, self._walk(a)) for _, k, a in _module_items(v)))
         if isinstance(v, (list, tuple)):
             return (type(v), tuple(self._walk(x) for x in v))
@@ -317,9 +480,10 @@ def _taking(name: str) -> Iterator[List[Tuple[torch.Tensor, Tuple[Any, ...]]]]:
     the host raises ``TraceError``."""
     _state.depth = getattr(_state, "depth", 0) + 1
     if not hasattr(_state, "draws"):
-        _state.draws = []
+        _state.draws, _state.readouts = [], []
     markers: List[Tuple[torch.Tensor, Tuple[Any, ...]]] = []
     _state.draws.append(markers)
+    _state.readouts.append([])
     try:
         yield markers
     except _host_read_errors() as exc:
@@ -332,6 +496,7 @@ def _taking(name: str) -> Iterator[List[Tuple[torch.Tensor, Tuple[Any, ...]]]]:
     finally:
         _state.depth -= 1
         _state.draws.pop()
+        _state.readouts.pop()
 
 
 def trace(fn: Callable[..., Any], inputs: Sequence[torch.Tensor], name: str) -> "torch.fx.GraphModule":
@@ -343,10 +508,37 @@ def trace(fn: Callable[..., Any], inputs: Sequence[torch.Tensor], name: str) -> 
 
     with _taking(name) as markers:
         gm = make_fx(fn, tracing_mode="fake", _allow_non_fake_inputs=True)(*inputs)
+    _check_subgraphs(gm, markers, name)
     _lift_draws(gm, markers)
     _wait_after_collectives(gm)
     trace_counts[name] += 1
     return gm
+
+
+def _subgraphs(gm: "torch.fx.GraphModule") -> List["torch.fx.GraphModule"]:
+    """The graphs of ``gm``'s loop and branch operators, at any depth."""
+    import torch.fx
+
+    return [m for m in gm.modules() if m is not gm and isinstance(m, torch.fx.GraphModule)]
+
+
+def _check_subgraphs(gm: "torch.fx.GraphModule", markers: List[Tuple[torch.Tensor, Tuple[Any, ...]]],
+                     name: str) -> None:
+    """A loop's or a branch's body that reads a traced tensor it was not
+    given (``captured``) holds that tensor as a fake constant, and one that
+    draws holds the draw's marker: neither can replay, so both raise."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    drawn = {id(marker) for marker, _ in markers}
+    for sub in _subgraphs(gm):
+        for node in sub.graph.nodes:
+            held = getattr(sub, node.target, None) if node.op == "get_attr" else None
+            if isinstance(held, FakeTensor):
+                raise TraceError(f"jit: {name} cannot be traced: the body of a loop or a branch reads a traced "
+                                 "tensor that it was not given; pass it in `captured`")
+            if id(held) in drawn:
+                raise TraceError(f"jit: {name} cannot be traced: the body of a loop or a branch draws from a "
+                                 "generator; draw before the loop")
 
 
 def constants_of(fn: Callable[..., Any], inputs: Sequence[torch.Tensor], name: str
@@ -418,20 +610,25 @@ def _wait_after_collectives(gm: "torch.fx.GraphModule") -> None:
     which launches the collective and returns its work, but not the wait
     that the synchronous call makes: each such op is followed by one, or a
     replay would read the result before the collective wrote it."""
-    graph = gm.graph
-    collectives = [n for n in graph.nodes if n.op == "call_function"
-                   and getattr(n.target, "namespace", None) == "c10d"]
-    for node in collectives:
-        with graph.inserting_after(node):
-            graph.call_function(_wait_collective, (node,))
-    if collectives:
-        gm.recompile()
+    for module in (gm, *_subgraphs(gm)):
+        graph = module.graph
+        collectives = [n for n in graph.nodes if n.op == "call_function"
+                       and getattr(n.target, "namespace", None) == "c10d"]
+        for node in collectives:
+            with graph.inserting_after(node):
+                graph.call_function(_wait_collective, (node,))
+        if collectives:
+            module.recompile()
 
 
 def lift_constants(gm: "torch.fx.GraphModule") -> List[torch.Tensor]:
     """Turns every tensor constant of ``gm`` into an input after its own
     inputs, in the graph's order, and returns the constants: the graph then
-    takes (its inputs..., the constants...)."""
+    takes (its inputs..., the constants...). A constant that a loop's or a
+    branch's body holds cannot be lifted into its operator: it raises."""
+    for sub in _subgraphs(gm):
+        if any(n.op == "get_attr" and isinstance(getattr(sub, n.target), torch.Tensor) for n in sub.graph.nodes):
+            raise TraceError("jit: the body of a loop or a branch reads a tensor constant; pass it in `captured`")
     graph = gm.graph
     placeholders = [n for n in graph.nodes if n.op == "placeholder"]
     constants: List[torch.Tensor] = []
@@ -462,7 +659,7 @@ class _Entry:
     """One signature's trace: the graph, how its flat outputs rebuild the
     result, and how the gradients it holds map to the inputs."""
 
-    __slots__ = ("gm", "spec", "n_out", "mode", "diff", "grad_of", "held", "name")
+    __slots__ = ("gm", "spec", "n_out", "mode", "diff", "grad_of", "held", "name", "readouts")
 
 
 class _FusedReplay(torch.autograd.Function):
@@ -543,7 +740,7 @@ class jit:
         entry = self.cache.get(key)
         if entry is None:
             inputs = flat.tensors()
-            entry = self._trace(args, kwargs, inputs)
+            entry = self._trace(args, kwargs, inputs, flat)
             after = _Flat(args, kwargs)  # a body may set statics up lazily (a generator)
             self._check_after(flat, after)
             key = (after.structure, _environment())
@@ -554,7 +751,7 @@ class jit:
         else:
             self.cache.move_to_end(key)
             inputs = flat.tensors()
-        return self._replay(entry, inputs)
+        return self._replay(entry, inputs, flat)
 
     def _check_after(self, before: _Flat, after: _Flat) -> None:
         from torch._subclasses.fake_tensor import FakeTensor
@@ -565,7 +762,8 @@ class jit:
         if len(before.leaves) != len(after.leaves) or any(a is not b for a, b in zip(before.leaves, after.leaves)):
             raise TraceError(f"jit: {self._name} changed the tensors its arguments hold while it was traced")
 
-    def _trace(self, args: Tuple[Any, ...], kwargs: Dict[str, Any], inputs: Sequence[torch.Tensor]) -> _Entry:
+    def _trace(self, args: Tuple[Any, ...], kwargs: Dict[str, Any], inputs: Sequence[torch.Tensor],
+               flat: _Flat) -> _Entry:
         from .base import capture_parameter_reads
 
         entry = _Entry()
@@ -586,7 +784,12 @@ class jit:
                                  "torch.autograd.grad and returns them")
             tensors: List[torch.Tensor] = []
             record["spec"] = _flatten_out(out, tensors, self._name)
-            diff = [i for i, t in enumerate(tensors) if t.requires_grad]
+            n_result = len(tensors)
+            # a readout's module: by its place among the arguments' modules, else by reference
+            readouts = _state.readouts[-1]
+            record["readouts"] = [(flat._modules.get(id(m), m), name) for m, name, _ in readouts]
+            tensors += [value for _, _, value in readouts]
+            diff = [i for i, t in enumerate(tensors[:n_result]) if t.requires_grad]
             record["mode"], record["diff"], record["grad_of"] = "plain", None, ()
             flat_out = [t.detach() if t.requires_grad else t for t in tensors]
             if not (need_grad and diff):
@@ -608,13 +811,13 @@ class jit:
 
         entry.gm = trace(body, inputs, self._name)
         self.trace_count += 1
-        entry.spec, entry.mode, entry.diff, entry.grad_of = (
-            record["spec"], record["mode"], record["diff"], record["grad_of"])
+        entry.spec, entry.mode, entry.diff, entry.grad_of, entry.readouts = (
+            record["spec"], record["mode"], record["diff"], record["grad_of"], record["readouts"])
         output = next(n for n in entry.gm.graph.nodes if n.op == "output")
         entry.n_out = len(output.args[0]) - len(entry.grad_of)
         return entry
 
-    def _replay(self, entry: _Entry, inputs: Sequence[torch.Tensor]) -> Any:
+    def _replay(self, entry: _Entry, inputs: Sequence[torch.Tensor], flat: _Flat) -> Any:
         inputs = [*inputs, *draws(entry.gm.draw_specs)]
         if entry.mode == "fused":
             outs = _FusedReplay.apply(entry, *inputs)
@@ -623,4 +826,8 @@ class jit:
         else:
             with torch.no_grad():
                 outs = entry.gm(*inputs)
-        return _unflatten_out(entry.spec, iter(outs))
+        it = iter(outs)
+        result = _unflatten_out(entry.spec, it)
+        for (where, name), value in zip(entry.readouts, it):
+            setattr(flat.modules[where] if isinstance(where, int) else where, name, value)
+        return result

@@ -3,13 +3,18 @@
 
 The quadratic term is bounded through an auxiliary vector v [R, N] that a
 preconditioned conjugate gradient (CG) moves towards (K + sigma^2 I)^-1 y.
-The CG runs under ``torch.no_grad`` and returns a detached v, as the JAX
-package's ``lax.while_loop`` under ``stop_gradient`` does, so no autograd
-graph is kept across its iterations. Its loop is driven from the host: the
-stopping test reads 0.5 max(r^T Q^-1 r) once per iteration (one
-synchronisation against one K-matvec of device work), and the restart test
-is the host's counter. The iteration count of the last CG run is kept in
-``CGLB.cg_iterations``.
+The CG is one ``while_loop`` (``_compile.while_loop``, torch's operator, as
+the JAX package's ``lax.while_loop``) whose restart is a ``cond``, so that
+only the taken branch runs its K-matvec; it runs under ``torch.no_grad``
+and returns a detached v, as the JAX package's loop under
+``stop_gradient`` does. The same function runs eagerly and traced: eagerly
+the host reads the stopping test 0.5 max(r^T Q^-1 r) once per iteration
+(one synchronisation against one K-matvec of device work), and a replay of
+a trace does the same inside the loop's node. The iteration counter lives
+on the host (a CPU tensor), so the restart test reads nothing from the
+device. ``CGLB.cg_iterations`` is the iteration count of the last CG run,
+eager or replayed, a Python int read from that CPU tensor (a replay sets it
+through ``_compile.readout``): reading it waits for nothing on the card.
 
 In the matrix-free mode (``matrix_free_chunk``) no [N, N] matrix is formed:
 every K-matvec builds K(X, X_chunk) one [N, chunk] block at a time (kernel
@@ -19,11 +24,12 @@ package), so the backward builds it again (K1 once more, and K2 for the
 exponential and Matern kernels) instead of keeping it. The last chunk is
 sliced short where the JAX package pads X with zero rows.
 
-Deviation (ROADMAP.md, Queue 3): every evaluation of the objective with a
+As in the JAX package, an eager evaluation of the objective with a
 non-trainable v writes the CG's v back into ``aux_vec`` as the warm start of
-the next one, on the device and under ``no_grad``, keeping the old v where
-the new one is not finite. The JAX package writes it only when it runs
-eagerly, not under ``jit``.
+the next one (on the device and under ``no_grad``, keeping the old v where
+the new one is not finite); a traced one does not
+(``gpflow_tpu/models/cglb.py:166``), so each of its replays starts the CG
+from the same ``aux_vec``.
 """
 from __future__ import annotations
 
@@ -32,7 +38,7 @@ from typing import Any, Callable, Optional, Tuple, Union
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from .._compile import TraceError, is_tracing
+from .. import _compile
 from .._sharding import WHOLE, rows_of, share_blocks
 from ..base import MeanAndVariance, Parameter, input_to_tensor
 from ..config import default_device, default_float
@@ -48,21 +54,46 @@ __all__ = ["CGLB", "NystromPreconditioner", "cglb_conjugate_gradient"]
 KOperator = Union[torch.Tensor, Callable[[torch.Tensor], torch.Tensor]]
 
 
-def _block_matvec(kernel: Kernel, x: torch.Tensor, xc: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def _block_matvec(x: torch.Tensor, xc: torch.Tensor, v: torch.Tensor, kernel: Kernel) -> torch.Tensor:
     return v @ kernel.K(x, xc)  # [R, chunk]
+
+
+class _BlockMatvec:
+    """v [R, n] -> v (K + sigma^2 I) over this rank's columns, K(X, x_block)
+    built in blocks of ``chunk`` columns against every rank's columns of v.
+    An object of its tensors and kernel, so that a CG loop can pass them to
+    its body (``_compile.while_loop``'s ``captured``)."""
+
+    def __init__(self, kernel: Kernel, x_all: torch.Tensor, x: torch.Tensor, sigma_sq: torch.Tensor, chunk: int,
+                 rows: Any) -> None:
+        self.kernel, self.x_all, self.x, self.sigma_sq, self.chunk, self.rows = kernel, x_all, x, sigma_sq, chunk, rows
+
+    def __call__(self, v: torch.Tensor) -> torch.Tensor:
+        v_all = self.rows.gather(v, dim=-1)
+        starts = range(0, self.x.shape[0], self.chunk)
+        if not torch.is_grad_enabled():
+            # no backward (the CG's matvecs): each block built and used, without
+            # the checkpoint's and the kernel's walk's host time at every block
+            parts = [_block_matvec(self.x_all, self.x[s:s + self.chunk], v_all, self.kernel) for s in starts]
+            return torch.cat(parts, dim=-1) + self.sigma_sq * v
+        # the kernel's tensors are the block's inputs: its recomputation in the
+        # backward reads those of the forward, also where they were put in the
+        # parameters' place only for the forward (functionalize)
+        block, kernel_tensors = _compile.over_tensors(_block_matvec, 3, (self.kernel,))
+        parts = []
+        for start in starts:
+            # the backward builds the block again instead of keeping it:
+            # kept, the blocks would add up to the [N, N] matrix
+            parts.append(checkpoint(block, self.x_all, self.x[start:start + self.chunk], v_all, *kernel_tensors,
+                                    use_reentrant=False, preserve_rng_state=False))
+        return torch.cat(parts, dim=-1) + self.sigma_sq * v
 
 
 class CGLB(SGPR):
     """SGPR with a tighter, Jensen-corrected log-determinant bound and a
-    CG-estimated quadratic term (``gpflow_tpu/models/cglb.py:30-263``).
+    CG-estimated quadratic term (``gpflow_tpu/models/cglb.py:30-263``)."""
 
-    Its objective is not traced: the conjugate-gradient loop is driven from
-    the host, one read of the residual per iteration, where the JAX package
-    traces a ``lax.while_loop`` (``gpflow_tpu/models/cglb.py:322-370``).
-    ``Scipy`` and ``training_loss_closure`` run it eagerly."""
-
-    untraced = ("CGLB's conjugate-gradient loop is driven from the host (one read of the residual per "
-                "iteration), so its objective runs eagerly")
+    _readouts = ("_cg_iterations",)  # set by a replay, no part of a trace's key
 
     @check_shapes(
         "data[0]: [N, D]",
@@ -95,8 +126,12 @@ class CGLB(SGPR):
         self._cg_tolerance = cg_tolerance
         self._max_cg_iters = max_cg_iters
         self._restart_cg_iters = restart_cg_iters
-        #: CG iterations of the last CG run (None before the first)
-        self.cg_iterations: Optional[int] = None
+        self._cg_iterations: Optional[torch.Tensor] = None  # a 0-d int64 CPU tensor
+
+    @property
+    def cg_iterations(self) -> Optional[int]:
+        """CG iterations of the last CG run, eager or replayed (None before the first)."""
+        return None if self._cg_iterations is None else int(self._cg_iterations)
 
     @property
     @check_shapes(
@@ -119,22 +154,19 @@ class CGLB(SGPR):
         if self._matrix_free_chunk is None and rows is WHOLE:
             return add_noise_cov(self.kernel.K(x), sigma_sq)
 
-        chunk = self._matrix_free_chunk or x.shape[0]
-        kernel = self.kernel
-        x_all = rows.gather(x)
+        return _BlockMatvec(self.kernel, rows.gather(x), x, sigma_sq, self._matrix_free_chunk or x.shape[0], rows)
 
-        def mv(v: torch.Tensor) -> torch.Tensor:
-            v_all = rows.gather(v, dim=-1)
-            parts = []
-            for start in range(0, x.shape[0], chunk):
-                # the backward builds the block again instead of keeping it:
-                # kept, the blocks would add up to the [N, N] matrix (under
-                # no_grad the checkpoint saves nothing and just calls)
-                parts.append(checkpoint(_block_matvec, kernel, x_all, x[start:start + chunk], v_all,
-                                        use_reentrant=False, preserve_rng_state=False))
-            return torch.cat(parts, dim=-1) + sigma_sq * v
-
-        return mv
+    def _conjugate_gradient(self, K: KOperator, b: torch.Tensor, initial: torch.Tensor,
+                            preconditioner: "NystromPreconditioner", cg_tolerance: float) -> torch.Tensor:
+        """The CG's v; its iteration count into ``cg_iterations`` (through
+        ``_compile.readout`` inside a trace)."""
+        v, iterations = _cglb_conjugate_gradient(K, b, initial, preconditioner, cg_tolerance, self._max_cg_iters,
+                                                 self._restart_cg_iters)
+        if _compile.is_tracing():
+            _compile.readout(self, "_cg_iterations", iterations)
+        else:
+            self._cg_iterations = iterations
+        return v
 
     @check_shapes(
         "return: []",
@@ -175,10 +207,8 @@ class CGLB(SGPR):
 
         v_init = self.aux_vec
         if not v_init.trainable:
-            v, self.cg_iterations = _cglb_conjugate_gradient(
-                K, err_t, rows.local(v_init.value, dim=-1), preconditioner, self._cg_tolerance,
-                self._max_cg_iters, self._restart_cg_iters
-            )
+            v = self._conjugate_gradient(K, err_t, rows.local(v_init.value, dim=-1), preconditioner,
+                                         self._cg_tolerance)
         else:
             v = rows.local(v_init.value, dim=-1)
 
@@ -197,10 +227,11 @@ class CGLB(SGPR):
         lb = rows.sum(torch.sum(v * err_t)) - 0.5 * torch.sum(vKv_kernel + sq * v_norm_sq)
         ub = lb + 0.5 * torch.sum(torch.clamp(error_bound_cols, min=0.0))
 
-        if not v_init.trainable:
+        if not v_init.trainable and not _compile.is_tracing():
             with torch.no_grad():
-                # the warm start of the next CG run; a non-finite v (a NaN
-                # trial point of L-BFGS) keeps the old one, with no host sync
+                # the warm start of the next eager CG run, as the JAX package
+                # writes it only outside jit; a non-finite v (a NaN trial
+                # point of L-BFGS) keeps the old one, with no host sync
                 v = rows.gather(v, dim=-1)
                 v_init._set_unconstrained(torch.where(torch.isfinite(v).all(), v, v_init.unconstrained))
 
@@ -237,9 +268,7 @@ class CGLB(SGPR):
         if cg_tolerance is not None:
             preconditioner = NystromPreconditioner(A, LB, sigma_sq)
             share_blocks(self, preconditioner)
-            v, self.cg_iterations = _cglb_conjugate_gradient(
-                kmat, err.mT, v, preconditioner, cg_tolerance, self._max_cg_iters, self._restart_cg_iters
-            )
+            v = self._conjugate_gradient(kmat, err.mT, v, preconditioner, cg_tolerance)
 
         cg_mean = rows.sum(ksf @ v.mT)
         res = err - (kmat(v).mT if callable(kmat) else kmat @ v.mT)
@@ -320,6 +349,16 @@ class NystromPreconditioner:
         return rv.mT / sigma_sq, vtrv / sigma_sq
 
 
+def _matvec(K: KOperator, p: torch.Tensor) -> torch.Tensor:
+    return K(p) if callable(K) else p @ K
+
+
+def _dense(t: torch.Tensor) -> torch.Tensor:
+    """``t`` with row-major strides, also along a dimension of size 1: the
+    loop's and the branches' values must agree in their strides."""
+    return t.contiguous().view(-1).view(t.shape)
+
+
 def _cglb_conjugate_gradient(
     K: KOperator,
     b: torch.Tensor,
@@ -328,34 +367,42 @@ def _cglb_conjugate_gradient(
     cg_tolerance: float,
     max_steps: int,
     restart_cg_step: int,
-) -> Tuple[torch.Tensor, int]:
-    """``cglb_conjugate_gradient`` and its iteration count."""
-    if is_tracing():
-        raise TraceError(f"jit: {CGLB.untraced}; call it with compile=False")
-    mv = K if callable(K) else (lambda p: p @ K)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``cglb_conjugate_gradient`` and its iteration count, a 0-d int64 CPU
+    tensor: one ``_compile.while_loop`` (``gpflow_tpu/models/cglb.py:322-370``),
+    eager or traced."""
     rows = rows_of(preconditioner)  # where the rows are split, the vectors are this rank's columns
+
+    # run until EVERY column's residual quadratic is below the tolerance; a
+    # NaN compares False and stops the loop, as in the JAX package
+    def keep_going(i, v, r, p, rz, K, b, pre):
+        return (0.5 * torch.max(rz) > cg_tolerance) & (i < max_steps)
+
+    def cg_step(i, v, r, p, rz, K, b, pre):
+        Ap = _matvec(K, p)
+        denom = rows.sum(torch.sum(p * Ap, dim=-1))  # [R]
+        # per-column step size [R, 1]; a converged column (p ~ 0, denom ~ 0)
+        # takes a zero step instead of 0/0
+        gamma = torch.where(denom > 0, rz / denom, torch.zeros_like(denom))[..., None]
+        v = v + gamma * p
+        restart = i % restart_cg_step == restart_cg_step - 1  # on the host: no read of the device
+        r = _compile.cond(restart, lambda v, r, gamma, Ap, K, b: b - _matvec(K, v),
+                          lambda v, r, gamma, Ap, K, b: r - gamma * Ap, (v, r, gamma, Ap), (K, b))
+        z, new_rz = pre(r)
+        z = _dense(z)
+        beta = torch.where(rz > 0, new_rz / rz, torch.zeros_like(rz))[..., None]  # [R, 1]
+        p = _compile.cond(restart, lambda z, p, beta: z.clone(memory_format=torch.contiguous_format),
+                          lambda z, p, beta: z + p * beta, (z, p, beta))
+        return i + 1, v, r, p, new_rz
+
     with torch.no_grad():
-        v = initial.detach().clone()
-        r = b - mv(v)
+        b = _dense(b)
+        v = _dense(initial.detach().clone(memory_format=torch.contiguous_format))
+        r = b - _matvec(K, v)
         z, rz = preconditioner(r)
-        p = z
-        i = 0
-        # run until EVERY column's residual quadratic is below the tolerance;
-        # a NaN compares False and stops the loop, as in the JAX package
-        while i < max_steps and 0.5 * float(torch.max(rz)) > cg_tolerance:
-            Ap = mv(p)
-            denom = rows.sum(torch.sum(p * Ap, dim=-1))  # [R]
-            # per-column step size [R, 1]; a converged column (p ~ 0, denom
-            # ~ 0) takes a zero step instead of 0/0
-            gamma = torch.where(denom > 0, rz / denom, torch.zeros_like(denom))[..., None]
-            v = v + gamma * p
-            restart = i % restart_cg_step == restart_cg_step - 1
-            r = b - mv(v) if restart else r - gamma * Ap
-            z, new_rz = preconditioner(r)
-            beta = torch.where(rz > 0, new_rz / rz, torch.zeros_like(rz))[..., None]  # [R, 1]
-            p = z if restart else z + p * beta
-            rz = new_rz
-            i += 1
+        z = _dense(z)
+        i = torch.zeros((), dtype=torch.int64)
+        i, v, *_ = _compile.while_loop(keep_going, cg_step, (i, v, r, z, rz), (K, b, preconditioner))
     return v, i
 
 

@@ -5,15 +5,14 @@ backed by ``_compile.jit`` over the whole model: its tensors and the
 batch are the trace's inputs and its structure and statics the key, so the
 loss is traced once (for minibatches, once per batch shape) and replayed at
 every later call, its gradient carried back to the model's parameters
-through autograd (``gpflow_tpu/models/training_mixins.py:34-75``). A model
-class that declares ``untraced`` (CGLB) gets the eager loss."""
+through autograd (``gpflow_tpu/models/training_mixins.py:34-75``)."""
 from __future__ import annotations
 
 from typing import Callable, Iterator, Tuple, TypeVar, Union
 
 import torch
 
-from .._compile import jit, untraced_reason
+from .._compile import jit
 from ..base import InputData, OutputData, RegressionData, input_to_tensor
 from ..utilities.shapes import check_shapes
 
@@ -37,7 +36,7 @@ class InternalDataTrainingLossMixin:
     def training_loss_closure(self, *, compile: bool = True) -> LossClosure:
         """A zero-argument loss closure: with ``compile``, the traced loss of
         the model; else the bound ``training_loss``."""
-        if not compile or untraced_reason(self.training_loss) is not None:
+        if not compile:
             return self.training_loss
         loss = jit(_internal_loss)
         closure = lambda: loss(self)  # noqa: E731
@@ -69,7 +68,7 @@ class ExternalDataTrainingLossMixin:
         next. With ``compile`` one trace serves every batch of one shape."""
         training_loss = self.training_loss
         traced = None
-        if compile and untraced_reason(self.training_loss) is None:
+        if compile:
             traced = jit(_external_loss)
             training_loss = lambda batch: traced(self, batch)  # noqa: E731
         # an iterator is a stream of minibatches; any other (X, Y) pair is fixed data

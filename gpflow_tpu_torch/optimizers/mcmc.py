@@ -5,18 +5,21 @@ priors as the chain state, and a pure ``target_log_prob_fn`` of that state:
 the model's log posterior density plus the log-det-Jacobians of the
 parameters' transforms. ``run_hmc`` samples such a target with Hamiltonian
 Monte Carlo, optionally adapting the step size during burn-in by dual
-averaging (Hoffman and Gelman 2014). The chain runs eagerly on the state's
-device: the momenta and the accept draws come from a ``torch.Generator``
-there, and the accept test, the selection of the state and the adaptation
-are device operations, so no step waits for the device.
+averaging (Hoffman and Gelman 2014). The chain runs on the state's device,
+one replay of a traced step (``_compile.jit``) per step: the momenta and
+the accept draws come from a ``torch.Generator`` there, and the accept
+test, the selection of the state and the adaptation are device
+operations, so no step waits for the device.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Any, Callable, Optional, Sequence, Tuple
 
 import torch
 
+from .. import _compile
+from .._compile import jit
 from ..base import Parameter, functionalize
 
 __all__ = ["SamplingHelper", "run_hmc"]
@@ -114,6 +117,54 @@ def _kinetic(p: State) -> torch.Tensor:
     return sum(0.5 * torch.sum(torch.square(pi)) for pi in p)
 
 
+def _hmc_step(
+    target_log_prob_fn: Callable[..., torch.Tensor],
+    generator: torch.Generator,
+    num_leapfrog_steps: int,
+    da_mu: float,
+    target_accept: float,
+    q: State,
+    g: State,
+    logp: torch.Tensor,
+    log_step: torch.Tensor,
+    log_step_avg: torch.Tensor,
+    h_stat: torch.Tensor,
+    da: torch.Tensor,
+) -> Tuple[State, State, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One HMC step from position q with its gradient g and target logp
+    (``gpflow_tpu/optimizers/mcmc.py:137-181``): a standard normal momentum
+    for each part of q, ``num_leapfrog_steps`` leapfrog steps of size
+    exp(log_step), the Metropolis test on the energy (a trajectory whose
+    energy is not finite is rejected) against a uniform draw, and the
+    selection of q, g and logp; then the dual-averaging update of the
+    step-size statistics from ``da`` (1 - eta, eta, sqrt(t) / gamma, w and
+    1 - w of step t, computed on the host), which the caller keeps during an
+    adapting chain's burn-in only, as the JAX package's ``jnp.where(in_burnin,
+    ...)`` does: one signature serves every step. The draws go through
+    ``_compile.randn`` and ``_compile.rand``, so that a replay of a trace of
+    this step draws them afresh from ``generator``, in this order."""
+    device = q[0].device
+
+    def value_and_grad(state: State) -> Tuple[torch.Tensor, State]:
+        return _value_and_grad(target_log_prob_fn, state)
+
+    p0 = tuple(_compile.randn(qi.shape, generator=generator, dtype=qi.dtype, device=device) for qi in q)
+    q_new, p_new, logp_new, g_new = _leapfrog(value_and_grad, q, p0, g, torch.exp(log_step), num_leapfrog_steps)
+    log_accept = (logp_new - _kinetic(p_new)) - (logp - _kinetic(p0))
+    log_accept = torch.where(torch.isfinite(log_accept), log_accept, -math.inf)
+    u = _compile.rand((), generator=generator, dtype=logp.dtype, device=device)
+    accept = torch.log(u) < log_accept
+    q = tuple(torch.where(accept, qn, qo) for qn, qo in zip(q_new, q))
+    g = tuple(torch.where(accept, gn, go) for gn, go in zip(g_new, g))
+    logp = torch.where(accept, logp_new, logp)
+    # dual averaging (Hoffman and Gelman 2014, Algorithm 5)
+    accept_prob = torch.clamp(torch.exp(log_accept), max=1.0)
+    h_stat = da[0] * h_stat + da[1] * (target_accept - accept_prob)
+    log_step = da_mu - da[2] * h_stat
+    log_step_avg = da[3] * log_step + da[4] * log_step_avg
+    return q, g, logp, log_step, log_step_avg, h_stat
+
+
 def run_hmc(
     target_log_prob_fn: Callable[..., torch.Tensor],
     current_state: Sequence[torch.Tensor],
@@ -133,24 +184,28 @@ def run_hmc(
     that follow the ``num_burnin_steps`` steps, and only kept samples are
     stored.
 
-    Each step draws a standard normal momentum, runs ``num_leapfrog_steps``
-    leapfrog steps and accepts by the Metropolis test on the energy; a
-    trajectory whose energy is not finite (a failed Cholesky gives NaN) is
-    rejected. The gradient at the current state is carried from the step
-    before, so a step evaluates the gradient ``num_leapfrog_steps`` times.
-    ``adapt_step_size=True`` tunes the step toward ``target_accept`` during
-    burn-in by dual averaging and freezes the averaged step from the first
-    step after it. The draws come from ``generator``, else from a new
-    generator on the state's device seeded 0."""
+    Each step (``_hmc_step``) draws a standard normal momentum, runs
+    ``num_leapfrog_steps`` leapfrog steps and accepts by the Metropolis test
+    on the energy; a trajectory whose energy is not finite (a failed
+    Cholesky gives NaN) is rejected. The gradient at the current state is
+    carried from the step before, so a step evaluates the gradient
+    ``num_leapfrog_steps`` times. ``adapt_step_size=True`` tunes the step
+    toward ``target_accept`` during burn-in by dual averaging and freezes
+    the averaged step from the first step after it. The draws come from
+    ``generator``, else from a new generator on the state's device seeded 0.
+
+    The step is traced once by ``_compile.jit`` and replayed at every step,
+    as the JAX package jits its scan of ``hmc_step``; the dual-averaging
+    scalars of step t are computed on the host and passed in as a CPU
+    tensor, the host keeps the step-size statistics during burn-in only, and
+    the kept samples are copied outside the trace. A target that cannot be
+    traced raises ``TraceError``."""
     q = tuple(s.detach() for s in current_state)
     device = q[0].device
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
 
-    def value_and_grad(state: State) -> Tuple[torch.Tensor, State]:
-        return _value_and_grad(target_log_prob_fn, state)
-
-    logp, g = value_and_grad(q)
+    logp, g = _value_and_grad(target_log_prob_fn, q)
     f_dtype = logp.dtype
     # dual-averaging constants (Hoffman and Gelman 2014, Algorithm 5)
     da_mu = math.log(10.0 * step_size)
@@ -159,29 +214,28 @@ def run_hmc(
     log_step_avg = log_step.clone()
     h_stat = torch.zeros((), dtype=f_dtype, device=device)
 
+    def hmc_step(q: State, g: State, logp: torch.Tensor, log_step: torch.Tensor, log_step_avg: torch.Tensor,
+                 h_stat: torch.Tensor, da: torch.Tensor) -> Tuple[Any, ...]:
+        return _hmc_step(target_log_prob_fn, generator, num_leapfrog_steps, da_mu, target_accept, q, g, logp,
+                         log_step, log_step_avg, h_stat, da)
+
+    step = jit(hmc_step)
     samples = tuple(torch.empty((num_samples,) + qi.shape, dtype=qi.dtype, device=device) for qi in q)
     log_probs = torch.empty((num_samples,), dtype=f_dtype, device=device)
+    frozen = torch.zeros((5,), dtype=f_dtype)  # the scalars of a step that does not adapt (its update is dropped)
     for i in range(num_burnin_steps + num_samples * thin):
         t = i + 1 if i < num_burnin_steps else 0  # 1-based step of the burn-in, 0 after it
+        adapt = adapt_step_size and t > 0
+        da = frozen
+        if adapt:
+            eta, w = 1.0 / (t + da_t0), t ** (-da_kappa)
+            # on the host, as Python floats rounded once to the chain's type: no device work
+            da = torch.tensor([1.0 - eta, eta, math.sqrt(t) / da_gamma, w, 1.0 - w], dtype=f_dtype)
         # during burn-in the adapted step, after it the frozen average
-        step = torch.exp(log_step_avg if adapt_step_size and t == 0 else log_step)
-        p0 = tuple(torch.randn(qi.shape, generator=generator, dtype=qi.dtype, device=device) for qi in q)
-        q_new, p_new, logp_new, g_new = _leapfrog(value_and_grad, q, p0, g, step, num_leapfrog_steps)
-        log_accept = (logp_new - _kinetic(p_new)) - (logp - _kinetic(p0))
-        log_accept = torch.where(torch.isfinite(log_accept), log_accept, -math.inf)
-        u = torch.rand((), generator=generator, dtype=f_dtype, device=device)
-        accept = torch.log(u) < log_accept
-        q = tuple(torch.where(accept, qn, qo) for qn, qo in zip(q_new, q))
-        g = tuple(torch.where(accept, gn, go) for gn, go in zip(g_new, g))
-        logp = torch.where(accept, logp_new, logp)
-
-        if adapt_step_size and t > 0:
-            accept_prob = torch.clamp(torch.exp(log_accept), max=1.0)
-            eta = 1.0 / (t + da_t0)
-            h_stat = (1.0 - eta) * h_stat + eta * (target_accept - accept_prob)
-            log_step = da_mu - math.sqrt(t) / da_gamma * h_stat
-            w = t ** (-da_kappa)
-            log_step_avg = w * log_step + (1.0 - w) * log_step_avg
+        used = log_step_avg if adapt_step_size and t == 0 else log_step
+        q, g, logp, *statistics = step(q, g, logp, used, log_step_avg, h_stat, da)
+        if adapt:
+            log_step, log_step_avg, h_stat = statistics
 
         kept = i - num_burnin_steps + 1
         if kept > 0 and kept % thin == 0:

@@ -437,7 +437,7 @@ class _CompiledStep:
         what the trace is (its code, the inputs' and constants' signatures,
         the objects it holds, such as a generator) and the transforms it
         converts with; traced over ``vg`` where none is kept."""
-        examples = [torch.empty(shape, dtype=dtype, device=device) for _, shape, dtype, device in vg.draw_specs]
+        examples = [torch.empty(shape, dtype=dtype, device=device) for _, shape, dtype, device, _ in vg.draw_specs]
         meta = tuple(map(_signature, (*inputs, *examples, *constants)))
         held = tuple(getattr(vg, n.target) for n in vg.graph.nodes if n.op == "get_attr")
         key = (vg.code, meta, tuple(map(id, held)), tuple(map(id, self._transforms)), tuple(map(type, self._xis)))

@@ -10,10 +10,10 @@ included, is traced once by ``_compile.jit`` and replayed at every later
 evaluation; ``compile_cache`` keeps such functions across ``minimize``
 calls under the JAX package's key and bound
 (``gpflow_tpu/optimizers/scipy.py:224-454``). Everything the closure reads
-besides ``variables`` is a constant of the trace, by reference. A closure
-of a model class that declares ``untraced`` (CGLB), and ``compile=False``,
-run eagerly: the flat vector is copied into every parameter's
-unconstrained tensor under ``no_grad`` and the closure runs. The gradient
+besides ``variables`` is a constant of the trace, by reference. With
+``compile=False`` the closure runs eagerly: the flat vector is copied into
+every parameter's unconstrained tensor under ``no_grad`` and the closure
+runs. The gradient
 comes from ``torch.autograd.grad`` either way.
 
 A variable that no gradient reaches (autograd returns None for it, as for a
@@ -34,7 +34,7 @@ import numpy as np
 import scipy.optimize
 import torch
 
-from .._compile import jit, untraced_reason
+from .._compile import jit
 from ..base import Parameter, functionalize
 from ..bijectors import TriangularMask
 from ..monitor.base import Monitor
@@ -317,7 +317,7 @@ class Scipy:
             flat_value_and_grad, unused = hit
         else:
             unused = [None]  # filled by the first evaluation (or trace): indices no gradient reaches
-            if compile and untraced_reason(closure) is None:
+            if compile:
                 flat_value_and_grad = _traced_value_and_grad(closure, variables, codec, unused)
             else:
                 flat_value_and_grad = _eager_value_and_grad(closure, variables, codec, unused)

@@ -9,13 +9,15 @@ natural-gradient step instead, and the optimizer handles the rest. The steps
 of ``run_steps`` and ``run_steps_sampled`` are queued without waiting for
 the device: no loss, Cholesky failure or rejected natural-gradient step is
 read on the host inside them, and the losses come back as one device tensor.
-Without a mesh the part of a step before the optimizer's update (the loss,
-the gradients, the natural-gradient step written into q_mu and q_sqrt) is
-traced once per batch signature by ``_compile.jit`` and replayed at every
-step of ``step``, ``run_steps`` and ``run_steps_sampled``
-(``gpflow_tpu/parallel/trainer.py:189-323``); the optimizer updates the
-parameters outside the trace, with ``torch.optim``'s own kernels. On a mesh
-the step runs eagerly.
+Without a mesh a whole step (the loss, the gradients, the natural-gradient
+step written into q_mu and q_sqrt, and the optimizer's update of the
+parameters and of its own state) is traced once per batch signature by
+``_compile.jit`` and replayed at every step of ``step``, ``run_steps`` and
+``run_steps_sampled`` (``gpflow_tpu/parallel/trainer.py:189-323``). The
+update is ``_optim.Update``'s for ``torch.optim.Adam`` and
+``torch.optim.SGD``, over the optimizer's own state; any other optimizer
+class (or option) steps with ``step()`` outside the trace. On a mesh the
+step runs eagerly, through the same update.
 
 With a ``mesh`` (``make_mesh``), every rank of the mesh runs the trainer on
 the same global batches (SPMD). The data axis splits each batch's rows over
@@ -46,6 +48,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from .._compile import jit
+from .._optim import Update
 from .._sharding import Blocks, with_layout
 from ..base import Module, Parameter
 from ..optimizers.natgrad import NaturalGradient
@@ -162,6 +165,7 @@ class DataParallelTrainer:
         self.device = (self._params or [self._leaf(p) for p in self._vparams])[0].device
         self._factory = optimizer if optimizer is not None else adam(1e-2)
         self.optimizer = self._factory(self._params) if self._params else None
+        self._update = Update.of(self.optimizer, self._params)  # None: the optimizer steps outside the trace
         self._rejections = torch.zeros((), dtype=torch.int64, device=self.device)
         self._staged_data: Optional[Tuple[torch.Tensor, ...]] = None
         self._sample_counter = 0
@@ -243,6 +247,10 @@ class DataParallelTrainer:
         return tuple(torch.as_tensor(a).to(self.device) for a in arrays)
 
     def _optimizer_step(self, grads: Sequence[Optional[torch.Tensor]]) -> None:
+        """The update outside a trace: ``_update``'s, else ``step()``."""
+        if self._update is not None:
+            self._update.step(grads)
+            return
         for p, g in zip(self._params, grads):
             p.grad = g
         self.optimizer.step()
@@ -257,18 +265,22 @@ class DataParallelTrainer:
 
     def _train_step(self, batch: Tuple[torch.Tensor, ...]) -> torch.Tensor:
         """One step: without a mesh the traced step replayed (``_traced``),
-        on a mesh the step run eagerly; then the optimizer's update, and a
-        rejected natural-gradient step added to the device count."""
+        the optimizer's update inside it where it has an ``Update``; on a
+        mesh the step run eagerly, then the update. A rejected
+        natural-gradient step is added to the device count."""
         if self.mesh is None:
             gamma = None if self.natgrad_gamma is None else self._natgrad.gamma
-            loss, grads, ok = self._traced(self.model, batch, gamma)
+            update = None if self._update is None else (*self._update.prepare(), self._update.statics())
+            loss, grads, ok, present, buffers = self._traced(self.model, batch, gamma, update)
+            if update is not None:
+                self._update.commit(present, buffers)
         else:
             with self._on_mesh():
                 loss, grads, ok = self._step_on(batch)
-        if ok is not None:
-            self._rejections += (~ok).to(torch.int64)
         if grads is not None:
             self._optimizer_step(grads)
+        if ok is not None:
+            self._rejections += (~ok).to(torch.int64)
         return loss
 
     def _grads(self, loss: torch.Tensor, leaves: Sequence[torch.Tensor]) -> Sequence[Optional[torch.Tensor]]:
@@ -327,14 +339,24 @@ class DataParallelTrainer:
         loss = self.model._training_loss(batch)
         return loss.detach(), self._grads(loss, leaves), ok
 
-    def _model_step(
-        self, model: Module, batch: Tuple[torch.Tensor, ...], gamma: Optional[float]
-    ) -> Tuple[torch.Tensor, Optional[Sequence[Optional[torch.Tensor]]], Optional[torch.Tensor]]:
-        """``_step_on`` as a function of the model (the trace's inputs) and
-        the batch; ``gamma``, the natural-gradient step's size that the body
-        reads, is a static of the key."""
+    def _model_step(self, model: Module, batch: Tuple[torch.Tensor, ...], gamma: Optional[float],
+                    update: Optional[Tuple[Any, Any, Any]]) -> Tuple[Any, ...]:
+        """A step as a function of the model (the trace's inputs) and the
+        batch; ``gamma``, the natural-gradient step's size that the body
+        reads, is a static of the key. ``_step_on``'s loss, gradients and
+        acceptance flag; with ``update`` (the optimizer's state and this
+        step's scalars from ``Update.prepare``, which are inputs, and its
+        hyperparameters, statics) the update too, which takes the gradients
+        (None in their place) and gives which parameters had one and SGD's
+        new momentum buffers for ``Update.commit``."""
         del model, gamma
-        return self._step_on(batch)
+        loss, grads, ok = self._step_on(batch)
+        if update is None:
+            return loss, grads, ok, (), ()
+        state, scalars, _ = update
+        # the leaves as the body sees them: the trace's tensors, updated in place
+        present, buffers = self._update.apply([self._leaf(p) for p in self._train_params], grads, state, scalars)
+        return loss, None, ok, present, buffers
 
     def _row_block(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         if self._rows is None:

@@ -1,11 +1,12 @@
 """Misc utilities (counterpart of ``gpflow_tpu/utilities/misc.py``)."""
 from __future__ import annotations
 
-from typing import Any, Callable, Iterable, Optional, Sequence, Union
+from typing import Any, Callable, Iterable, Optional, Sequence, Tuple, Union
 
 import torch
 
 from .._compile import jit
+from .._optim import Update
 from ..base import Module, Parameter, functionalize
 from ..config import default_device, default_float, default_int
 from .shapes import check_shapes
@@ -118,14 +119,16 @@ def training_loop(
 
     The steps are queued without waiting for the device: no loss is read on
     the host, and the history comes back as one tensor on the loss's device.
-    With ``compile=True`` the loss and its gradient with respect to
-    ``var_list`` are traced once (``_compile.jit``; everything else the
-    closure reads is a constant of the trace, by reference) and replayed at
-    every step; the optimizer's update runs outside the trace, with
-    ``torch.optim``'s own kernels. ``use_scan=True`` keeps the JAX package's
+    A step is the loss, its gradient with respect to ``var_list`` and, for
+    ``torch.optim.Adam`` and ``torch.optim.SGD``, the optimizer's update
+    (``_optim.Update``, over the optimizer's own state). With
+    ``compile=True`` the step is traced once (``_compile.jit``; everything
+    else the closure reads is a constant of the trace, by reference) and
+    replayed at every step. Any other optimizer class (or option) steps with
+    ``step()`` outside the trace. ``use_scan=True`` keeps the JAX package's
     contract (the same history, and a ``ValueError`` together with
     ``compile=True``) and replays that one traced step ``maxiter`` times:
-    torch has no scan to fuse the steps into. Without either the loss runs
+    torch has no scan to fuse the steps into. Without either the step runs
     eagerly.
     """
     if var_list is not None:
@@ -149,15 +152,30 @@ def training_loop(
         optimizer = adam(learning_rate)
     tensors = [p.unconstrained for p in params]
     opt = optimizer(tensors)
+    update = Update.of(opt, tensors)
     value_and_grad = _value_and_grad(closure, params)
+
+    def step(tensors: Sequence[torch.Tensor], update_args: Optional[Tuple[Any, Any, Any]]) -> Tuple[Any, ...]:
+        """The loss and its gradients; with ``update_args`` (``Update.prepare``'s
+        state and scalars, and the hyperparameters, statics of a trace) the
+        update in place instead of the gradients, for ``Update.commit``."""
+        loss, grads = value_and_grad(*tensors)
+        if update_args is None:
+            return loss, grads, (), ()
+        return (loss, None, *update.apply(tensors, grads, *update_args[:2]))
+
     if compile or use_scan:
-        value_and_grad = jit(value_and_grad)
+        step = jit(step)
     losses = []
     for _ in range(maxiter):
-        loss, grads = value_and_grad(*tensors)
-        for t, g in zip(tensors, grads):
-            t.grad = g
-        opt.step()
+        update_args = None if update is None else (*update.prepare(), update.statics())
+        loss, grads, present, buffers = step(tensors, update_args)
+        if update is None:
+            for t, g in zip(tensors, grads):
+                t.grad = g
+            opt.step()
+        else:
+            update.commit(present, buffers)
         losses.append(loss)
     for t in tensors:
         t.grad = None

@@ -204,7 +204,7 @@ def test_import_leaves_jax_out():
         "import gpflow_tpu_torch.models.training_mixins, gpflow_tpu_torch.models.model, gpflow_tpu_torch.models.gpr\n"
         "import gpflow_tpu_torch.models.sgpr, gpflow_tpu_torch.models.cglb, gpflow_tpu_torch.models.gplvm\n"
         "import gpflow_tpu_torch.inducing_variables.inducing_variables, gpflow_tpu_torch.kernels.base\n"
-        "import torch, gpflow_tpu_torch._compile\n"
+        "import torch, gpflow_tpu_torch._compile, gpflow_tpu_torch._optim, gpflow_tpu_torch.optimizers.mcmc\n"
         "from gpflow_tpu_torch._compile import TraceError, jit, lift_constants, trace\n"
         "assert jit(lambda x: x * 2)(torch.ones(2)).tolist() == [2.0, 2.0]\n"
         "assert gpflow_tpu_torch.probability_distributions.Gaussian and gpflow_tpu_torch.expectations.expectation\n"
