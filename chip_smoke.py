@@ -6,6 +6,7 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
     python3 chip_smoke.py                 # every phase
     python3 chip_smoke.py --phases 5-8,21  # phases 1-4, then only these
     python3 chip_smoke.py --k1-host-us ROOT  # K1's host dispatch with ROOT's package
+    python3 chip_smoke.py --mesh-host-ms     # the latent-split step's host time, mesh or not
 
 With ``--phases`` the script runs the build and the kernel checks of phases
 1-4, then each group of phases that holds a selected one (5-8, 9-10, 11-12,
@@ -997,15 +998,20 @@ CT_ORDER = (False, True, True, False)
 CT_STEPS = 10  # training steps of each run
 CT_SEED = SEED + 90  # the steps' batch draws and CGLB's fixed v
 CGLB_AB_CALLS = 20  # --cglb-eager-ms: timed calls of each value and gradient
+MESH_HOST_STEPS, MESH_HOST_ROUNDS = 20, 4  # --mesh-host-ms: steps in a row of each way, rounds
 CT_SPARSE = (("SGPR", "SquaredExponential"), ("CGLB", "Matern52"))
 
 # Phase 26: phase 25's paths (and phase 19's main model, phase 5's requests)
-# through a one-rank mesh and without one, from one state, each pair equal
-# to the bit: every collective of one rank is a copy.
+# through a one-rank mesh and without one, from one state, each run equal
+# to the bit: every collective of one rank is a copy. A trainer's step (and
+# its loss) on the mesh is traced and replayed ("mesh") or run eagerly
+# ("eager mesh", ``jt_eager``); without a mesh it is traced ("no mesh").
 MS_STEPS = 10  # training steps of each run
-MS_ORDER = (True, False, False, True)  # with the mesh or not: each mode twice, interleaved
+MS_MODES = ("mesh", "eager mesh", "no mesh")
+MS_ORDER = ("mesh", "eager mesh", "no mesh", "no mesh", "eager mesh", "mesh")  # each mode twice, interleaved
 MS_PROFILE_STEPS = 3  # steps under torch.profiler each way, on the latent-split path
-MS_AB_STEPS = 12  # steps each way, the two trainers in turn, on the host-bound paths
+MS_AB_STEPS = 12  # steps of each mode, the three trainers in turn, on the host-bound paths
+MS_LATENT_NG_STEPS = 3  # sequential natural-gradient steps on the latent split, each mode
 MS_REQUEST = 8192
 
 # Phase 29: the compile layer (``gpflow_tpu_torch/_compile.py``): each path
@@ -1021,7 +1027,8 @@ JT_CG_RESTART = 2  # CGLB's CG restarts every 2 iterations, so that both branche
 JT_CG_TIMED = 5  # timed CGLB values and gradients each way, in turns
 # The whole run's launches of phases 5-28, each path's count as asserted
 # (PERF.md section 6): phase 29 adds its own, which it asserts path by path.
-LAUNCHES_5_TO_28 = {"K1": 7578, "K2": 4440}
+# Phase 26's share is K1 897 and K2 356 (each run of its three modes counted).
+LAUNCHES_5_TO_28 = {"K1": 8149, "K2": 4616}
 
 # Phase 27: the JAX package's test files that run on the card through the
 # alias, in a process of its own (no JAX there; --noconftest).
@@ -6432,54 +6439,78 @@ def ms_same(what, got, want, how="with a one-rank mesh and without"):
     log(f"mesh {what}: {how}, {len(want)} outputs equal to the bit")
 
 
-def ms_training(what, build, mesh, staged, batch, expected, launches, smi, host_bound=False):
-    """(a), (b) and (e): MS_STEPS steps of a trainer from ``build(mesh)``
-    and from ``build(None)`` in the order MS_ORDER, each as phase 25 runs
-    them (sync debug mode "error", each step's batch drawn by its own
-    seeded generator); every run's losses and trained parameters equal to
-    the bit, the launch counts ``expected`` in each; ms per step both ways
-    by CUDA events (medians of steps 2-MS_STEPS of both runs of a mode).
-    A ``host_bound`` path runs once each way, untimed, and its two trainers
-    are returned: ``ms_in_turn`` times them, their steps in turn."""
-    runs, ms, trainers = [], {True: [], False: []}, {}
-    for use_mesh in (True, False) if host_bound else MS_ORDER:
-        trainer = trainers[use_mesh] = build(mesh if use_mesh else None)
+def ms_build(build, mesh, mode):
+    """A trainer from ``build`` in ``mode`` (MS_MODES)."""
+    trainer = build(None if mode == "no mesh" else mesh)
+    return jt_eager(trainer) if mode == "eager mesh" else trainer
+
+
+def ms_training(what, build, mesh, staged, batch, expected, forward_k1, launches, smi, host_bound=False,
+                steps=MS_STEPS):
+    """(a), (b) and (e): ``steps`` steps of a trainer from ``build(mesh)``,
+    traced and eager (``ms_build``), and from ``build(None)``, in the order
+    MS_ORDER, each as phase 25 runs them (sync debug mode "error", each
+    step's batch drawn by its own seeded generator), then the loss of one
+    batch twice; every run's losses and trained parameters equal to the
+    bit, the launch counts ``expected`` in each (the losses' ``forward_k1``
+    each, one forward's), one trace of the step and one of the loss in each traced
+    run; ms per step each way by CUDA events (medians of steps 2-``steps``
+    of both runs of a mode). A ``host_bound`` path runs once each way,
+    untimed, and its three trainers are returned by mode: ``ms_in_turn``
+    times them, their steps in turn."""
+    runs, ms, trainers = [], {m: [] for m in MS_MODES}, {}
+    order = MS_MODES if host_bound else MS_ORDER
+    X, Y = staged
+    loss_batch = (X[:batch], Y[:batch])
+    for i, mode in enumerate(order):
+        trainer = trainers[mode] = ms_build(build, mesh, mode)
         trainer.stage_data(staged)
-        (losses, step_ms, _), counts = counted(lambda: ct_steps(trainer, MS_STEPS, batch))
-        expect_launches(f"mesh {what} {'with' if use_mesh else 'without'} the mesh", counts, expected, launches)
+        (losses, step_ms, _), counts = counted(lambda: ct_steps(trainer, steps, batch))
+        expect_launches(f"mesh {what} run {i} ({mode})", counts, expected, launches)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            loss, loss_counts = counted(lambda: torch.stack([trainer.loss(loss_batch), trainer.loss(loss_batch)]))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        expect_launches(f"mesh {what} run {i} ({mode}): two losses", loss_counts, {"K1": 2 * forward_k1, "K2": 0},
+                        launches)
+        if mode != "eager mesh":
+            traces = (trainer._traced.trace_count, trainer._loss.trace_count)
+            assert traces == (1, 1), f"mesh {what} {mode}: {traces} traces of the step and the loss"
         assert bool(torch.isfinite(losses).all()), f"mesh {what}: non-finite loss"
         trainer.finalize()
-        runs.append([losses] + [p.unconstrained.detach().clone() for p in trainer.model.trainable_variables])
-        ms[use_mesh] += step_ms[1:]
+        runs.append([losses, loss] + [p.unconstrained.detach().clone() for p in trainer.model.trainable_variables])
+        ms[mode] += step_ms[1:]
     for run in runs[1:]:
-        ms_same(what, run, runs[0], how=f"{len(runs)} runs, with a one-rank mesh and without")
+        ms_same(what, run, runs[0], how=f"{len(runs)} runs ({', '.join(order)})")
     if host_bound:
         return trainers
     ms = {k: float(np.median(v)) for k, v in ms.items()}
-    log(f"time: mesh {what}: {ms[True]:.3f} ms per step with a one-rank mesh, {ms[False]:.3f} ms without "
-        f"({100 * (ms[True] / ms[False] - 1):+.1f}%; CUDA events, medians of steps 2-{MS_STEPS} of two runs each, "
-        f"order {'/'.join('mesh' if m else 'plain' for m in MS_ORDER)}); {smi}")
+    log(f"time: mesh {what}: {ms['mesh']:.3f} ms per step on a one-rank mesh traced, {ms['eager mesh']:.3f} eager, "
+        f"{ms['no mesh']:.3f} without a mesh ({100 * (ms['mesh'] / ms['no mesh'] - 1):+.1f}% traced, "
+        f"{100 * (ms['eager mesh'] / ms['no mesh'] - 1):+.1f}% eager; CUDA events, medians of steps 2-{steps} of two "
+        f"runs each, order {'/'.join(MS_ORDER)}); {smi}")
 
 
 def ms_in_turn(what, trainers, batch, smi):
-    """``trainers``, one with the mesh and one without (by ``True`` and
-    ``False``, from ``ms_training``), on a host-bound path: MS_AB_STEPS
-    steps of each, one of one and one of the other in turn (the host's
-    speed drifts over seconds, and steps taken in turn share its drift),
-    ms per step by CUDA events."""
+    """``trainers`` by mode (from ``ms_training``) on a host-bound path:
+    MS_AB_STEPS steps of each, one of each in turn, the order rotating
+    (the host's speed drifts over seconds, and steps taken in turn share
+    its drift), ms per step by CUDA events."""
     marks = []
     for i in range(MS_AB_STEPS):
-        for use_mesh in (True, False) if i % 2 == 0 else (False, True):
+        for mode in MS_MODES[i % 3:] + MS_MODES[:i % 3]:
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
-            trainers[use_mesh].run_steps_sampled(1, batch, generator=torch.Generator(device="cuda").manual_seed(CT_SEED + i))
+            trainers[mode].run_steps_sampled(1, batch, generator=torch.Generator(device="cuda").manual_seed(CT_SEED + i))
             end.record()
-            marks.append((use_mesh, start, end))
+            marks.append((mode, start, end))
     torch.cuda.synchronize()
-    ab = {m: float(np.median([s.elapsed_time(e) for u, s, e in marks if u == m])) for m in (True, False)}
-    log(f"time in turn: mesh {what}: {ab[True]:.3f} ms per step with a one-rank mesh, {ab[False]:.3f} ms without "
-        f"({100 * (ab[True] / ab[False] - 1):+.1f}%; CUDA events, medians of {MS_AB_STEPS} steps each, "
-        f"the two trainers' steps in turn); {smi}")
+    ab = {m: float(np.median([s.elapsed_time(e) for u, s, e in marks if u == m])) for m in MS_MODES}
+    log(f"time in turn: mesh {what}: {ab['mesh']:.3f} ms per step on a one-rank mesh traced, {ab['eager mesh']:.3f} "
+        f"eager, {ab['no mesh']:.3f} without a mesh ({100 * (ab['mesh'] / ab['no mesh'] - 1):+.1f}% traced, "
+        f"{100 * (ab['eager mesh'] / ab['no mesh'] - 1):+.1f}% eager, traced {100 * (ab['mesh'] / ab['eager mesh'] - 1):+.1f}% "
+        f"against eager; CUDA events, medians of {MS_AB_STEPS} steps each, the three trainers' steps in turn); {smi}")
 
 
 def ms_profile(what, trainers, batch, smi):
@@ -6488,13 +6519,14 @@ def ms_profile(what, trainers, batch, smi):
     kernels and collectives (``record_param_comms``, one a collective) and
     the host time of a collective's record; then what the mesh adds a step:
     the kernels by name, and the host (self CPU) time of the operations
-    that only the mesh runs (the collectives and their autograd nodes). The
-    host times are the profiler's, which it inflates."""
+    that only the mesh runs (the collectives and their autograd nodes): the
+    traced step on the mesh against the traced step without it. The host
+    times are the profiler's, which it inflates."""
     from torch.profiler import ProfilerActivity, profile
 
     kernels_by_name, host_by_op = {}, {}
     for use_mesh in (True, False):
-        trainer = trainers[use_mesh]
+        trainer = trainers["mesh" if use_mesh else "no mesh"]
 
         def run():
             for i in range(MS_PROFILE_STEPS):
@@ -6541,7 +6573,7 @@ def ms_flagship(mesh, launches, smi):
         expected = {"K1": 2 * MS_STEPS, "K2": 2 * MS_STEPS if kernel == "Matern52" else 0}
         ms_training(f"flagship SVGP step {kernel} (M={M}, B={B}, D={D})",
                     lambda m: DataParallelTrainer(training_model(kernel, Z, torch.float32, "cuda"), mesh=m),
-                    mesh, staged, B, expected, launches, smi)
+                    mesh, staged, B, expected, 2, launches, smi)
 
 
 def ms_natgrad(mesh, launches, smi):
@@ -6552,7 +6584,7 @@ def ms_natgrad(mesh, launches, smi):
     what = f"Bernoulli SVGP fused natural-gradient step Matern52 (M={NG_M}, B={NG_B})"
     build = lambda m: DataParallelTrainer(ng_model("Matern52", Z, torch.float32), adam(1e-2), mesh=m,  # noqa: E731
                                           natgrad_gamma=NG_GAMMA, natgrad_fused=True)
-    trainers = ms_training(what, build, mesh, staged, NG_B, {"K1": 2 * MS_STEPS, "K2": 2 * MS_STEPS}, launches,
+    trainers = ms_training(what, build, mesh, staged, NG_B, {"K1": 2 * MS_STEPS, "K2": 2 * MS_STEPS}, 2, launches,
                            smi, host_bound=True)
     ms_in_turn(what, trainers, NG_B, smi)
 
@@ -6590,36 +6622,50 @@ def ms_sparse(mesh, launches):
 
 def ms_serving(mesh, launches):
     """(d) and (f): ``sharded_predict_f`` of MS_REQUEST points of the
-    flagship (phase 5's values) against ``predict_f``, under sync debug mode
-    "error"; then the same points as a numpy array."""
-    from gpflow_tpu_torch.parallel import sharded_predict_f
+    flagship (phase 5's values), twice for each keyword set (the diagonal,
+    which splits the rows, and ``full_cov``, which predicts them whole),
+    against ``predict_f``, under sync debug mode "error": one trace a
+    keyword set (``sharded._PREDICT_JITS``), each call equal to the bit;
+    then the same points as a numpy array."""
+    from gpflow_tpu_torch.parallel import sharded, sharded_predict_f
 
     values, _ = make_values(SEED)
     model = build_model(values, torch.float32)
     Xnp = (np.random.RandomState(SEED + 101).rand(MS_REQUEST, D) * 4.0).astype(np.float32)
     X = torch.from_numpy(Xnp).cuda()
-    outs = {}
     with torch.no_grad():
-        for split in (True, False):
-            torch.cuda.synchronize()
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                out, counts = counted(lambda: sharded_predict_f(model, X, mesh) if split else model.predict_f(X))
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-            expect_launches(f"mesh request of {MS_REQUEST} {'split' if split else 'whole'}", counts,
-                            {"K1": 2, "K2": 0}, launches)
-            outs[split] = list(out)
-        ms_same(f"sharded_predict_f of {MS_REQUEST} points", outs[True], outs[False])
+        for kwargs, k1 in (({}, 2), ({"full_cov": True}, 3)):  # full_cov: K(Xnew, Xnew) too
+            name = "full_cov" if kwargs else "diagonal"
+            outs = []
+            for call in ("sharded_predict_f, call 1", "sharded_predict_f, call 2", "predict_f"):
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    out, counts = counted(lambda: model.predict_f(X, **kwargs) if call == "predict_f"
+                                          else sharded_predict_f(model, X, mesh, **kwargs))
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                expect_launches(f"mesh request of {MS_REQUEST} ({name}), {call}", counts, {"K1": k1, "K2": 0},
+                                launches)
+                outs.append(list(out))
+            traces = sharded._PREDICT_JITS[tuple(sorted(kwargs.items()))].trace_count
+            assert traces == 1, f"sharded_predict_f ({name}): {traces} traces"
+            for out in outs[:2]:
+                ms_same(f"sharded_predict_f of {MS_REQUEST} points ({name})", out, outs[2],
+                        how="traced (one trace, two calls) and predict_f")
+            if not kwargs:
+                whole = outs[2]
         out, counts = counted(lambda: model.predict_f(Xnp))
         expect_launches(f"mesh numpy request of {MS_REQUEST}", counts, {"K1": 2, "K2": 0}, launches)
         assert all(t.device == X.device for t in out), "a numpy request's outputs are not on the model's device"
-        ms_same(f"request of {MS_REQUEST} points (F3)", list(out), outs[False], how="numpy and tensor requests")
+        ms_same(f"request of {MS_REQUEST} points (F3)", list(out), whole, how="numpy and tensor requests")
 
 
 def ms_latent(launches, smi):
     """(e): phase 19's main model with ``latent_axis`` on a
-    {"data": 1, "latent": 1} mesh."""
+    {"data": 1, "latent": 1} mesh: Adam steps, then sequential
+    natural-gradient steps (the latent ranks' acceptance, ``Blocks.all_true``,
+    an all-reduce inside the traced step)."""
     from gpflow_tpu_torch.parallel import DataParallelTrainer, adam, make_mesh
 
     grid = make_mesh(shape={"data": 1, "latent": 1})
@@ -6631,9 +6677,16 @@ def ms_latent(launches, smi):
     build = lambda m: DataParallelTrainer(mo_model("lmc", Zs, W, torch.float32), adam(1e-2), mesh=m,  # noqa: E731
                                           latent_axis="latent" if m is not None else None)
     trainers = ms_training(what, build, grid, staged, MO_B, {k: MS_STEPS * v for k, v in per_step.items()},
-                           launches, smi, host_bound=True)
+                           per_step["K1"], launches, smi, host_bound=True)
     ms_in_turn(what, trainers, MO_B, smi)
     ms_profile(what, trainers, MO_B, smi)
+    # two forward and backward passes a step: the natural gradients' (of q(u) only: no K2), then the optimizer's
+    build = lambda m: DataParallelTrainer(mo_model("lmc", Zs, W, torch.float32), adam(1e-2), mesh=m,  # noqa: E731
+                                          latent_axis="latent" if m is not None else None, natgrad_gamma=MO_NG_GAMMA)
+    ms_training(f"multioutput SVGP sequential natural-gradient step, {MO_L} latent GPs (M={MO_M}, B={MO_B})", build,
+                grid, staged, MO_B, {"K1": 2 * MS_LATENT_NG_STEPS * per_step["K1"],
+                                     "K2": MS_LATENT_NG_STEPS * per_step["K2"]}, per_step["K1"],
+                launches, smi, host_bound=True, steps=MS_LATENT_NG_STEPS)
 
 
 def mesh_phases(launches):
@@ -6929,9 +6982,9 @@ def jt_mode(traced):
 
 
 def jt_eager(trainer):
-    """The trainer with its step run eagerly, as on a mesh: the traced
-    step's own body (the optimizer's update inside) in its place."""
-    trainer._traced = trainer._model_step
+    """The trainer with its step and its loss run eagerly: the bodies that
+    its jits trace (the optimizer's update inside the step) in their place."""
+    trainer._traced, trainer._loss = trainer._model_step, trainer._model_loss
     return trainer
 
 
@@ -7263,6 +7316,9 @@ def parse_args(argv=None):
                         help="only build K1 and K2 from the checkout at ROOT and time, with that checkout's "
                              "package, the matrix-free CGLB's eager value and gradient at phase 25's fixed v, "
                              "with v trainable (no CG) and with the CG from that v")
+    parser.add_argument("--mesh-host-ms", action="store_true",
+                        help="only build K1 and K2 and time phase 26's latent-split LMC step traced and eager, "
+                             "on the one-rank mesh and without it, and the host time of one NCCL collective call")
     args = parser.parse_args(argv)
     if args.phases is None:
         return args
@@ -7359,6 +7415,93 @@ def cglb_eager_ms_of(root):
         log(f"time: cglb value and gradient, {what} (N={SP_N}, M={SP_M}, chunk {SP_CHUNK}, {iters} CG iterations): "
             f"{np.median(ms[what]):.3f} ms (host clock, median of {CGLB_AB_CALLS} in turns; calls {[round(t, 3) for t in ms[what]]}), device busy "
             f"{sum(by.values()):.3f} ms; package {package}; {smi}")
+
+
+def mesh_host_ms():
+    """``--mesh-host-ms``: phase 26's LMC SVGP step on {"data": 1, "latent":
+    1}, traced and eager, on the mesh and without it (``MS_MODES`` and the
+    eager step without a mesh), MESH_HOST_STEPS steps in a row of each way
+    in MESH_HOST_ROUNDS rounds, the order rotating (ms a step: the host
+    clock around them, the card synchronised before and after); then the
+    host time of each NCCL collective call over 5 steps of each mesh mode:
+    ``torch.distributed``'s ``all_reduce`` and ``all_gather`` eagerly, the
+    ``c10d`` ops of the replayed graph traced (the host clock around each
+    call, no synchronisation)."""
+    import torch.distributed as dist
+
+    from gpflow_tpu_torch import config
+    from gpflow_tpu_torch.parallel import DataParallelTrainer, adam, make_mesh
+
+    _, smi = card_check()
+    log(smi)
+    build_kernels()
+    config.set_default_float(torch.float32)
+    with ms_group():
+        grid = make_mesh(shape={"data": 1, "latent": 1})
+        ms_warm(grid)
+        (X, Y), _, Zs, W = make_mo_data()
+        staged = (torch.from_numpy(X).cuda(), torch.from_numpy(Y).cuda())
+        build = lambda m: DataParallelTrainer(mo_model("lmc", Zs, W, torch.float32), adam(1e-2), mesh=m,  # noqa: E731
+                                              latent_axis="latent" if m is not None else None)
+        modes = (*MS_MODES, "eager no mesh")
+        trainers = {}
+        for mode in modes:
+            trainer = trainers[mode] = jt_eager(build(None)) if mode == "eager no mesh" else ms_build(build, grid, mode)
+            trainer.stage_data(staged)
+            ct_steps(trainer, 3, MO_B)  # the trace and the warm-up
+
+        def steps(mode, n, seed):
+            for i in range(n):
+                trainers[mode].run_steps_sampled(1, MO_B, generator=torch.Generator(device="cuda").manual_seed(seed + i))
+
+        ms = {mode: [] for mode in modes}
+        for r in range(MESH_HOST_ROUNDS):
+            for mode in modes[r % len(modes):] + modes[:r % len(modes)]:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                steps(mode, MESH_HOST_STEPS, CT_SEED)
+                torch.cuda.synchronize()
+                ms[mode].append(1e3 * (time.perf_counter() - t0) / MESH_HOST_STEPS)
+        what = f"multioutput SVGP step, {MO_L} latent GPs (M={MO_M}, B={MO_B}, D={MO_D})"
+        log(f"time: mesh host {what}: " + "; ".join(
+            f"{mode} {np.median(v):.3f} ms (rounds {[round(t, 3) for t in v]})" for mode, v in ms.items())
+            + f" (host clock, {MESH_HOST_STEPS} steps in a row a round, the order rotating); {smi}")
+        calls = {}
+
+        def timed(fn, record):
+            def call(*args, **kwargs):
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                record.append(1e6 * (time.perf_counter() - t0))
+                return out
+            return call
+
+        eager = calls["eager mesh"] = []
+        originals = {f: getattr(dist, f) for f in ("all_reduce", "all_gather")}
+        for f, fn in originals.items():
+            setattr(dist, f, timed(fn, eager))
+        try:
+            steps("eager mesh", 5, CT_SEED)
+        finally:
+            for f, fn in originals.items():
+                setattr(dist, f, fn)
+        gm = next(iter(trainers["mesh"]._traced.cache.values())).gm
+        nodes = [n for n in gm.graph.nodes if n.op == "call_function" and getattr(n.target, "namespace", None) == "c10d"]
+        calls["mesh"] = []
+        targets = {n: n.target for n in nodes}
+        for n in nodes:
+            n.target = timed(n.target, calls["mesh"])
+        gm.recompile()
+        try:
+            steps("mesh", 5, CT_SEED)
+        finally:
+            for n, target in targets.items():
+                n.target = target
+            gm.recompile()
+        torch.cuda.synchronize()
+        log("time: mesh host, one NCCL collective call: " + "; ".join(
+            f"{mode} {np.median(v):.1f} µs (median of {len(v)} calls, {len(v) // 5} a step)" for mode, v in calls.items())
+            + f" (host clock around each call); {smi}")
 
 
 def main(phases=None):
@@ -7463,5 +7606,7 @@ if __name__ == "__main__":
         k1_host_us_of(options.k1_host_us)
     elif options.cglb_eager_ms:
         cglb_eager_ms_of(options.cglb_eager_ms)
+    elif options.mesh_host_ms:
+        mesh_host_ms()
     else:
         main(options.phases)

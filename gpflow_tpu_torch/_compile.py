@@ -56,9 +56,19 @@ replay launches exactly what an eager call launches.
   never a constant; a body that reads a trainable Parameter that is not an
   input while its loss is differentiated raises at trace time, as does a
   body that calls ``backward()``.
+* **Collectives.** A ``torch.distributed`` collective in a body (on a
+  mesh of ``parallel/``) stands in the graph as its ``c10d`` op, which a
+  replay runs, each followed by its wait (``_wait_after_collectives``). Its
+  process group is held by the graph; the records that name it
+  (``_sharding.Blocks``, ``ReadHook``) are statics compared by value
+  (group, rank, size), so two meshes or two splits trace apart and one
+  mesh replays step after step. The trace runs the collectives on fake
+  tensors, which communicate nothing: each rank traces at its first call
+  and then replays, in the same order of collectives as every other rank.
 * **No fallback.** A body that cannot be traced (it reads a value on the
-  host: ``.item()``, ``bool`` of a tensor, numpy of a tensor) raises
-  ``TraceError`` with the reason; nothing quietly runs eagerly.
+  host: ``.item()``, ``bool`` of a tensor, numpy of a tensor, a collective
+  of Python objects) raises ``TraceError`` with the reason; nothing
+  quietly runs eagerly.
 
 A call made while a trace is being taken, or inside ``torch.export`` or a
 ``torch.func`` transform, runs ``fun`` inline, as a jitted function called
@@ -473,6 +483,17 @@ def _host_read_errors() -> Tuple[type, ...]:
     return _HOST_READ_ERRORS
 
 
+def _in_frame(exc: BaseException, function: str) -> bool:
+    """True where ``exc`` was raised inside a call of a function so named
+    (``torch.distributed``'s pickling of an object for a collective)."""
+    tb = exc.__traceback__
+    while tb is not None:
+        if tb.tb_frame.f_code.co_name == function:
+            return True
+        tb = tb.tb_next
+    return False
+
+
 @contextlib.contextmanager
 def _taking(name: str) -> Iterator[List[Tuple[torch.Tensor, Tuple[Any, ...]]]]:
     """The block runs a body on fake tensors (``is_tracing``); yields the
@@ -492,6 +513,11 @@ def _taking(name: str) -> Iterator[List[Tuple[torch.Tensor, Tuple[Any, ...]]]]:
         if "tensor subclasses" in str(exc) or "FakeTensor" in str(exc):
             raise TraceError(f"jit: {name} cannot be traced: it reads a tensor's value on the host "
                              f"({exc})") from exc
+        raise
+    except Exception as exc:
+        if _in_frame(exc, "_object_to_tensor"):
+            raise TraceError(f"jit: {name} cannot be traced: a collective of Python objects (all_gather_object, "
+                             f"broadcast_object_list, ...) pickles a traced tensor on the host ({exc})") from exc
         raise
     finally:
         _state.depth -= 1
@@ -599,10 +625,18 @@ def _lift_draws(gm: "torch.fx.GraphModule", markers: List[Tuple[torch.Tensor, Tu
 def _wait_collective(result: Any) -> None:
     """Waits for a ``c10d`` collective's work, as ``torch.distributed``'s
     synchronous calls do after launching it (on a CUDA group the current
-    stream waits; the host does not)."""
+    stream waits; the host does not). The op returns the work boxed, a
+    ``ScriptObject``, unboxed here to ``torch.distributed``'s ``Work``; an
+    NCCL group that ran the collective on the current stream returns none
+    (its boxed ``wait`` crashed the process), and there is nothing to wait
+    for, as ``torch.distributed.all_reduce`` reads it."""
+    from torch._C._distributed_c10d import Work
+
     for item in result if isinstance(result, (tuple, list)) else (result,):
-        if not isinstance(item, (torch.Tensor, list, tuple)) and hasattr(item, "wait"):
-            item.wait()
+        if isinstance(item, torch.ScriptObject):
+            work = Work.unbox(item)
+            if work is not None:
+                work.wait()
 
 
 def _wait_after_collectives(gm: "torch.fx.GraphModule") -> None:
@@ -653,6 +687,12 @@ def lift_constants(gm: "torch.fx.GraphModule") -> List[torch.Tensor]:
         delattr(gm, target)
     gm.recompile()
     return constants
+
+
+def _grad(t: torch.Tensor) -> Optional[torch.Tensor]:
+    """``t.grad``, which only a leaf can hold (a posterior's cache, an input
+    computed with grad, is none; reading its ``grad`` warns)."""
+    return t.grad if t.is_leaf else None
 
 
 class _Entry:
@@ -772,14 +812,14 @@ class jit:
         record: Dict[str, Any] = {}
 
         def body(*fakes: torch.Tensor) -> List[torch.Tensor]:
-            grads_before = [f.grad for f in fakes]
+            grads_before = [_grad(f) for f in fakes]
             new_args, new_kwargs, undo, swapped = _substitute(args, kwargs, fakes)
             try:
                 with capture_parameter_reads() as reads:
                     out = self._fun(*new_args, **new_kwargs)
             finally:
                 _undo(undo)
-            if any(f.grad is not g for f, g in zip(fakes, grads_before)):
+            if any(_grad(f) is not g for f, g in zip(fakes, grads_before)):
                 raise TraceError(f"jit: {self._name} calls backward(); a traced body takes gradients with "
                                  "torch.autograd.grad and returns them")
             tensors: List[torch.Tensor] = []

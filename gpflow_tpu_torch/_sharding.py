@@ -19,6 +19,13 @@ scale is 1, so a one-rank mesh computes the same bits as no mesh.
 
 The order of the collectives must be the same on every rank: every rank
 calls the same entry points with arguments of the same shapes.
+
+Every collective here traces (``_compile.jit``, the trainer's step, its
+loss, ``sharded_predict_f``): the trace holds its ``c10d`` op and its wait,
+in place on the tensors it is given as eagerly (a view, a list of
+outputs), and a replay runs them. ``Blocks`` and ``ReadHook`` are frozen
+records, statics of a trace's key compared by value (the group, the rank,
+the sizes).
 """
 from __future__ import annotations
 

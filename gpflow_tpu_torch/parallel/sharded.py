@@ -18,11 +18,12 @@ rank holds the same objective and the same gradients:
 """
 from __future__ import annotations
 
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch.distributed.device_mesh import DeviceMesh
 
+from .._compile import jit
 from .._sharding import Blocks, ReadHook
 from ..base import Module, Parameter, input_to_tensor
 from .mesh import DEFAULT_AXIS, _holds_this_rank, make_mesh
@@ -84,6 +85,10 @@ def shard_internal_data(
     return model
 
 
+# one traced prediction per keyword set, over the model (or posterior) as an input
+_PREDICT_JITS: Dict[Tuple[Any, ...], jit] = {}
+
+
 def sharded_predict_f(
     model: Any,
     Xnew: Any,
@@ -97,12 +102,26 @@ def sharded_predict_f(
     posterior (anything with ``predict_f(Xnew, **kwargs)``). The number of
     points must divide evenly over the axis. A full covariance couples the
     rows: with ``full_cov`` or ``full_output_cov`` every rank predicts all
-    of them, as does a rank that the mesh leaves out."""
+    of them, as does a rank that the mesh leaves out.
+
+    The prediction is traced (``_compile.jit``) once per keyword set and
+    input signature, and takes the model as an input: repeated calls (a
+    serving loop) replay one trace, for any model of the same structure, at
+    its current parameter values."""
     mesh = mesh if mesh is not None else make_mesh(axis_name=axis_name)
     Xnew = input_to_tensor(model, Xnew)
-    if (predict_kwargs.get("full_cov") or predict_kwargs.get("full_output_cov")
-            or not _holds_this_rank(mesh)):
-        return model.predict_f(Xnew, **predict_kwargs)
-    rows = Blocks.over(mesh.get_group(axis_name), Xnew.shape[0], "the number of points")
-    mean, var = model.predict_f(rows.local(Xnew), **predict_kwargs)
-    return rows.gather(mean), rows.gather(var)
+    key = tuple(sorted(predict_kwargs.items()))
+    fn = _PREDICT_JITS.get(key)
+    if fn is None:
+        kwargs = dict(predict_kwargs)
+
+        def _predict(m: Any, x: torch.Tensor, rows: Optional[Blocks]) -> Tuple[torch.Tensor, torch.Tensor]:
+            if rows is None:
+                return m.predict_f(x, **kwargs)
+            mean, var = m.predict_f(rows.local(x), **kwargs)
+            return rows.gather(mean), rows.gather(var)
+
+        fn = _PREDICT_JITS[key] = jit(_predict)
+    whole = predict_kwargs.get("full_cov") or predict_kwargs.get("full_output_cov") or not _holds_this_rank(mesh)
+    rows = None if whole else Blocks.over(mesh.get_group(axis_name), Xnew.shape[0], "the number of points")
+    return fn(model, Xnew, rows)

@@ -9,15 +9,16 @@ natural-gradient step instead, and the optimizer handles the rest. The steps
 of ``run_steps`` and ``run_steps_sampled`` are queued without waiting for
 the device: no loss, Cholesky failure or rejected natural-gradient step is
 read on the host inside them, and the losses come back as one device tensor.
-Without a mesh a whole step (the loss, the gradients, the natural-gradient
-step written into q_mu and q_sqrt, and the optimizer's update of the
-parameters and of its own state) is traced once per batch signature by
-``_compile.jit`` and replayed at every step of ``step``, ``run_steps`` and
-``run_steps_sampled`` (``gpflow_tpu/parallel/trainer.py:189-323``). The
-update is ``_optim.Update``'s for ``torch.optim.Adam`` and
-``torch.optim.SGD``, over the optimizer's own state; any other optimizer
-class (or option) steps with ``step()`` outside the trace. On a mesh the
-step runs eagerly, through the same update.
+A whole step (the loss, the gradients with their collectives on a mesh, the
+natural-gradient step written into q_mu and q_sqrt, and the optimizer's
+update of the parameters and of its own state) is traced once per batch
+signature by ``_compile.jit`` and replayed at every step of ``step``,
+``run_steps`` and ``run_steps_sampled``, with a mesh or without
+(``gpflow_tpu/parallel/trainer.py:189-323``); ``loss`` is traced once per
+batch signature too (``_eval_loss``, ``:231-235``). The update is
+``_optim.Update``'s for ``torch.optim.Adam`` and ``torch.optim.SGD``, over
+the optimizer's own state; any other optimizer class (or option) steps with
+``step()`` outside the trace.
 
 With a ``mesh`` (``make_mesh``), every rank of the mesh runs the trainer on
 the same global batches (SPMD). The data axis splits each batch's rows over
@@ -160,8 +161,9 @@ class DataParallelTrainer:
 
         self._train_params = tuple(train_params)
         self._params = [self._leaf(p) for p in train_params]
-        # the step without a mesh, traced once per batch signature (and gamma) and replayed
+        # the step and the loss, traced once per batch signature (and gamma) and replayed
         self._traced = jit(self._model_step)
+        self._loss = jit(self._model_loss)
         self.device = (self._params or [self._leaf(p) for p in self._vparams])[0].device
         self._factory = optimizer if optimizer is not None else adam(1e-2)
         self.optimizer = self._factory(self._params) if self._params else None
@@ -204,7 +206,9 @@ class DataParallelTrainer:
 
     def _leaf(self, p: Parameter) -> torch.Tensor:
         """The tensor that this trainer updates for ``p``: this rank's block
-        where the latent GPs are split, else ``p``'s own."""
+        where the latent GPs are split, else ``p``'s own. A step's body reads
+        ``p.unconstrained`` instead, which is this block inside ``_on_mesh``
+        and, in a trace, the trace's input in its place."""
         split = self._split.get(id(p))
         return p.unconstrained if split is None else split[0]
 
@@ -264,27 +268,25 @@ class DataParallelTrainer:
         return self._natgrad._natgrad_apply_gradients(vgrads[0], vgrads[1], q_mu, q_sqrt, agree=agree)
 
     def _train_step(self, batch: Tuple[torch.Tensor, ...]) -> torch.Tensor:
-        """One step: without a mesh the traced step replayed (``_traced``),
-        the optimizer's update inside it where it has an ``Update``; on a
-        mesh the step run eagerly, then the update. A rejected
-        natural-gradient step is added to the device count."""
-        if self.mesh is None:
-            gamma = None if self.natgrad_gamma is None else self._natgrad.gamma
-            update = None if self._update is None else (*self._update.prepare(), self._update.statics())
+        """One step: the traced step replayed (``_traced``), on a mesh inside
+        ``_on_mesh``, the optimizer's update inside it where it has an
+        ``Update``, else after it. A rejected natural-gradient step is added
+        to the device count."""
+        gamma = None if self.natgrad_gamma is None else self._natgrad.gamma
+        update = None if self._update is None else (*self._update.prepare(), self._update.statics())
+        with self._on_mesh():
             loss, grads, ok, present, buffers = self._traced(self.model, batch, gamma, update)
-            if update is not None:
-                self._update.commit(present, buffers)
-        else:
-            with self._on_mesh():
-                loss, grads, ok = self._step_on(batch)
+        if update is not None:
+            self._update.commit(present, buffers)
         if grads is not None:
             self._optimizer_step(grads)
         if ok is not None:
             self._rejections += (~ok).to(torch.int64)
         return loss
 
-    def _grads(self, loss: torch.Tensor, leaves: Sequence[torch.Tensor]) -> Sequence[Optional[torch.Tensor]]:
-        """The gradients of ``leaves``; on a mesh the global ones: this
+    def _grads(self, loss: torch.Tensor, params: Sequence[Parameter]) -> Sequence[Optional[torch.Tensor]]:
+        """The gradients of ``params``' unconstrained tensors (this rank's
+        latent-GP blocks inside ``_on_mesh``); on a mesh the global ones: this
         rank's gradients of the lifted objective (``_sharding``) summed over
         the ranks that hold each leaf and divided by the mesh's size. They
         are summed in one flat tensor, the latent-split leaves first: one
@@ -293,17 +295,17 @@ class DataParallelTrainer:
         the latent axis. A leaf this rank did not read (another latent GP's
         kernel) counts 0; without a mesh such a leaf has no gradient (None),
         and the optimizer leaves it, as after ``backward()``."""
+        leaves = [p.unconstrained for p in params]
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         if self.mesh is None:
             return grads
         grads = [torch.zeros_like(t) if g is None else g for g, t in zip(grads, leaves)]
-        split = {id(local) for local, _ in self._split.values()}
-        order = sorted(range(len(leaves)), key=lambda i: id(leaves[i]) not in split)
+        order = sorted(range(len(params)), key=lambda i: id(params[i]) not in self._split)
         sizes = [grads[i].numel() for i in order]
         flat = torch.cat([grads[i].reshape(-1) for i in order])
         for group in self._groups:
             dist.all_reduce(flat, group=group)
-        n_split = sum(n for i, n in zip(order, sizes) if id(leaves[i]) in split)
+        n_split = sum(n for i, n in zip(order, sizes) if id(params[i]) in self._split)
         if self._latents is not None and n_split < flat.numel():
             dist.all_reduce(flat[n_split:], group=self._latents.group)
         flat = flat / self.mesh.size()
@@ -320,30 +322,31 @@ class DataParallelTrainer:
         natural-gradient step's acceptance flag (None without it), with
         (q_mu, q_sqrt) written in place. It reads every tensor through the
         model's Parameters, so that it traces."""
-        leaves = [self._leaf(p) for p in self._train_params]
+        params = self._train_params
         if not self._vparams:
             loss = self.model._training_loss(batch)
-            return loss.detach(), self._grads(loss, leaves), None
-        vleaves = [p.unconstrained for p in self._vparams]
-        if self.natgrad_fused and leaves:
+            return loss.detach(), self._grads(loss, params), None
+        if self.natgrad_fused and params:
             # one forward and backward pass for both gradient sets
             loss = self.model._training_loss(batch)
-            grads = self._grads(loss, vleaves + leaves)
+            grads = self._grads(loss, self._vparams + params)
             return loss.detach(), grads[2:], self._natgrad_step(grads[:2])
         # the natural-gradient step at the current hyperparameters, then
         # the optimizer's gradient at the new q(u)
-        ok = self._natgrad_step(self._grads(self.model._training_loss(batch), vleaves))
-        if not leaves:
+        ok = self._natgrad_step(self._grads(self.model._training_loss(batch), self._vparams))
+        if not params:
             with torch.no_grad():
                 return self.model._training_loss(batch), None, ok
         loss = self.model._training_loss(batch)
-        return loss.detach(), self._grads(loss, leaves), ok
+        return loss.detach(), self._grads(loss, params), ok
 
     def _model_step(self, model: Module, batch: Tuple[torch.Tensor, ...], gamma: Optional[float],
                     update: Optional[Tuple[Any, Any, Any]]) -> Tuple[Any, ...]:
-        """A step as a function of the model (the trace's inputs) and the
-        batch; ``gamma``, the natural-gradient step's size that the body
-        reads, is a static of the key. ``_step_on``'s loss, gradients and
+        """A step as a function of the model (the trace's inputs, on a mesh
+        with this rank's latent-GP blocks in q_mu's and q_sqrt's place and
+        the ``Blocks`` records among its statics) and the batch; ``gamma``,
+        the natural-gradient step's size that the body reads, is a static of
+        the key. ``_step_on``'s loss, gradients and
         acceptance flag; with ``update`` (the optimizer's state and this
         step's scalars from ``Update.prepare``, which are inputs, and its
         hyperparameters, statics) the update too, which takes the gradients
@@ -355,7 +358,7 @@ class DataParallelTrainer:
             return loss, grads, ok, (), ()
         state, scalars, _ = update
         # the leaves as the body sees them: the trace's tensors, updated in place
-        present, buffers = self._update.apply([self._leaf(p) for p in self._train_params], grads, state, scalars)
+        present, buffers = self._update.apply([p.unconstrained for p in self._train_params], grads, state, scalars)
         return loss, None, ok, present, buffers
 
     def _row_block(self, t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -414,11 +417,17 @@ class DataParallelTrainer:
         idx = self._row_block(idx, 1)
         return torch.stack([self._train_step((X.index_select(0, i), Y.index_select(0, i))) for i in idx])
 
+    def _model_loss(self, model: Module, batch: Tuple[torch.Tensor, ...]) -> torch.Tensor:
+        """The loss as a function of the model (the trace's inputs) and the batch."""
+        del model
+        return self.model._training_loss(batch)
+
     def loss(self, batch: Tuple[Any, ...], presharded: bool = False) -> torch.Tensor:
-        """The loss on one batch, without a step."""
+        """The loss on one batch, without a step: traced once per batch
+        signature (``_loss``) and replayed."""
         batch = batch if presharded else self.shard(batch)
         with torch.no_grad(), self._on_mesh():
-            return self.model._training_loss(batch).detach()
+            return self._loss(self.model, batch)
 
     def finalize(self) -> None:
         """Writes the latent-split variational parameters, gathered, back

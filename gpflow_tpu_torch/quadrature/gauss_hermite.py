@@ -126,6 +126,15 @@ class NDiagGHQuadrature(GaussianQuadrature, DeviceGrid):
         self.Z, self.dZ = ndgh_points_and_weights(dim, n_gh)
         DeviceGrid.__init__(self, self.Z, self.dZ)
 
+    def __eq__(self, other: object) -> bool:
+        """Equal where the dimension and the degree are: the grid is a
+        function of the two, so a trace (``_compile.jit``) keyed by one
+        model's quadrature serves another model of the same structure."""
+        return type(other) is type(self) and (other.dim, other.n_gh) == (self.dim, self.n_gh)
+
+    def __hash__(self) -> int:
+        return hash((type(self), self.dim, self.n_gh))
+
     @inherit_check_shapes
     def _build_X_W(self, mean: torch.Tensor, var: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """mean, var [b1, ..., bN, dim] -> X [n_gh_total, b1, ..., bN, dim]

@@ -1,8 +1,9 @@
 """The bodies that the JAX package traces and the port now traces too, on the
 CPU, in float64, at small sizes and one torch thread: ``run_hmc``'s step,
 the optimizer's update inside ``DataParallelTrainer``'s and
-``training_loop``'s traced step, and CGLB's conjugate-gradient loop as a
-traced ``while_loop`` with a ``cond`` restart.
+``training_loop``'s traced step (the trainer's also on a one-rank mesh),
+and CGLB's conjugate-gradient loop as a traced ``while_loop`` with a
+``cond`` restart.
 
 For each: the Python body runs once per signature; a value change replays
 and a shape or static change traces again; the traced result equals the
@@ -354,6 +355,60 @@ def test_trainer_with_another_optimizer_steps_outside_the_trace(monkeypatch):
                         port_read_values(pm)])
     assert len(calls) == 4
     _equal(results[0], results[1])
+
+
+@pytest.fixture
+def one_rank_mesh():
+    """``make_mesh()`` with no process group: a one-rank gloo group on a
+    ``HashStore``, destroyed after the test."""
+    import torch.distributed as dist
+
+    from gpflow_tpu_torch.parallel import make_mesh
+
+    started = not dist.is_initialized()
+    yield make_mesh()
+    if started:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("kw", [{}, {"natgrad_gamma": 0.1, "natgrad_fused": True}], ids=["plain", "fused natgrad"])
+def test_trainer_on_a_one_rank_mesh_replays_the_bits_without_one(kw, one_rank_mesh):
+    """The step traced on a one-rank mesh (its collectives copies) gives the
+    losses, the parameters and the optimizer's state of the traced step
+    without a mesh, to the bit, each with one trace; so does its loss."""
+    results = []
+    for mesh in (one_rank_mesh, None):
+        _, pm = _svgp("Bernoulli" if kw else "Gaussian")
+        trainer = DataParallelTrainer(pm, OPTIMIZERS["adam"], mesh=mesh, **kw)
+        out = [trainer.run_steps((np.stack([X[:8], X[8:16]]), np.stack([Yb[:8], Yb[8:16]]))),
+               trainer.step((X[4:12], Yb[4:12])), trainer.loss((X[:8], Yb[:8])), trainer.loss((X[8:16], Yb[8:16]))]
+        assert (trainer._traced.trace_count, trainer._loss.trace_count) == (1, 1)
+        results.append(out + [port_read_values(pm), _opt_state(trainer.optimizer)])
+    _equal(results[0], results[1])
+
+
+def _gathered_object(value):
+    import torch.distributed as dist
+
+    out = [None]
+    dist.all_gather_object(out, value)
+    return value
+
+
+@pytest.mark.parametrize("read", [float, _gathered_object], ids=["float", "all_gather_object"])
+def test_a_mesh_step_that_reads_a_value_on_the_host_raises(read, one_rank_mesh, monkeypatch):
+    """A float of a tensor, or a collective of Python objects (which pickles
+    its tensor), in a mesh step: no eager step in its place, the parameters
+    stay as they were."""
+    _, pm = _svgp()
+    loss = SVGP._training_loss
+    monkeypatch.setattr(SVGP, "_training_loss", lambda self, batch: loss(self, batch) * read(self.q_mu.value[0, 0]))
+    trainer = DataParallelTrainer(pm, OPTIMIZERS["adam"], mesh=one_rank_mesh)
+    before = port_read_values(pm)
+    with pytest.raises(TraceError, match="on the host"):
+        trainer.step((X[:8], Y[:8]))
+    _equal(port_read_values(pm), before)
+    assert not hasattr(pm, "_row_blocks")
 
 
 @pytest.mark.parametrize("name", sorted(OPTIMIZERS))

@@ -14,7 +14,10 @@ preserved Parameter, the Bayesian GPLVM's psi sums, a checkpoint saved on
 {"data": 4} and restored on {"data": 2, "latent": 2}, and the validation
 errors. Losses and gradients are held at rtol 1e-10: XLA's all-reduce and
 gloo's sum the ranks' partial sums in their own orders, so the results agree
-to float64 round-off, not to the bit.
+to float64 round-off, not to the bit. Each trainer path's step and loss run
+traced (``_compile.jit``, as the JAX package jits them), and again eagerly
+from the same state, equal to the bit on every rank; ``sharded_predict_f``
+runs traced against its route run eagerly.
 
 The rank processes import this module, which therefore imports no JAX at
 its top: the JAX side is built inside the tests.
@@ -138,22 +141,63 @@ def _trainer_value_and_grads(t, batch):
     params = list(t.model.trainable_parameters)
     with t._on_mesh():
         loss = t.model._training_loss(t.shard(batch))
-        grads = t._grads(loss, [t._leaf(p) for p in params])
+        grads = t._grads(loss, params)
     split = [t._split.get(id(p)) for p in params]
     grads = [g if s is None else t._latents.gather(g, s[1]) for g, s in zip(grads, split)]
     return _value_and_grads(t.model, loss, params, grads)
 
 
 class _Collectives(TorchDispatchMode):
-    """Counts the collectives (``c10d`` operations) run inside it."""
+    """Counts the collectives (``c10d`` operations) run inside it on real
+    tensors: the first call of a traced step runs its body once on fake
+    tensors (``_compile.jit``), whose collectives communicate nothing, then
+    replays the trace, whose collectives count."""
 
     def __init__(self):
         super().__init__()
         self.count = 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        self.count += func.namespace == "c10d"
+        from gpflow_tpu_torch._compile import is_tracing
+
+        self.count += func.namespace == "c10d" and not is_tracing()
         return func(*args, **(kwargs or {}))
+
+
+def _eager(t):
+    """The trainer with its step and its loss run eagerly: the bodies that
+    its jits trace in their place."""
+    t._traced, t._loss = t._model_step, t._model_loss
+    return t
+
+
+def _trained(t, outs):
+    """``outs`` (tensors) and the trainer's parameters after them, gathered."""
+    t.finalize()
+    return [_np(o) for o in outs] + [_np(p.unconstrained) for p in t.model.trainable_parameters]
+
+
+def _twin(out, name, build, run):
+    """``run(trainer, record)`` (a list of tensors) on a trainer from
+    ``build()``, its step and loss traced, then on an eager one from
+    ``build()``, which starts from the same state: both results with the
+    trained parameters, what the traced run puts in ``record`` and its
+    traces of the step and of the loss."""
+    for traced in (True, False):
+        t = build() if traced else _eager(build())
+        outs = run(t, out if traced else {})
+        out["traced" if traced else "eager", name] = _trained(t, outs)
+        if traced:
+            out["traces", name] = (t._traced.trace_count, t._loss.trace_count)
+
+
+def _split_predict(target, Xnew, mesh, **kwargs):
+    """``sharded_predict_f``'s split route run eagerly."""
+    from gpflow_tpu_torch._sharding import Blocks
+
+    rows = Blocks.over(mesh.get_group("data"), Xnew.shape[0])
+    mean, var = target.predict_f(rows.local(torch.from_numpy(Xnew)), **kwargs)
+    return rows.gather(mean), rows.gather(var)
 
 
 def _error(fn):
@@ -179,44 +223,83 @@ def _rank_paths(tmp):
     out["mesh"] = (data4.mesh.tolist(), grid.mesh.tolist(), grid.mesh_dim_names,
                    [repr(p) for p in replicated(grid)], [repr(p) for p in shard_batch(grid, "latent")])
 
-    # the sharded SVGP step
-    t = DataParallelTrainer(_svgp(gt), sgd(LR), mesh=data4)
-    out["svgp"] = _trainer_value_and_grads(t, (X[:B], Y[:B]))
-    with _Collectives() as c:
-        out["svgp_steps"] = _np(t.run_steps((_stack(X), _stack(Y))))
-    out["collectives", "svgp step"] = c.count / STEPS
-    out["svgp_values"] = read_values(t.model)
-    out["svgp_presharded"] = float(t.loss(t.shard((X[:B], Y[:B])), presharded=True))
+    # each trainer path traced (the JAX package's jitted step) and eagerly from the same state
+
+    def svgp(t, rec):
+        rec["svgp"] = _trainer_value_and_grads(t, (X[:B], Y[:B]))
+        with _Collectives() as c:
+            steps = t.run_steps((_stack(X), _stack(Y)))
+        rec["svgp_steps"], rec["collectives", "svgp step"] = _np(steps), c.count / STEPS
+        rec["svgp_values"] = read_values(t.model)
+        loss = t.loss(t.shard((X[:B], Y[:B])), presharded=True)
+        rec["svgp_presharded"] = float(loss)
+        # the three entry points that step, and the loss, at one signature
+        t.stage_data((X, Y))
+        return [steps, loss, t.step((X[B:2 * B], Y[B:2 * B])), t.run_steps((_stack(X[B:]), _stack(Y[B:]))),
+                t.run_steps_sampled(2, B, torch.Generator().manual_seed(5)), t.loss((X[B:2 * B], Y[B:2 * B]))]
+
+    _twin(out, "svgp", lambda: DataParallelTrainer(_svgp(gt), sgd(LR), mesh=data4), svgp)
 
     # the data x latent multioutput step
-    t = DataParallelTrainer(_multioutput(gt), sgd(LR), mesh=grid, latent_axis="latent")
-    out["latent"] = _trainer_value_and_grads(t, (X[:B], Y_MO[:B]))
-    with _Collectives() as c:
-        out["latent_steps"] = _np(t.run_steps((_stack(X), _stack(Y_MO))))
-    out["collectives", "data x latent step"] = c.count / STEPS
-    t.finalize()
-    out["latent_values"] = read_values(t.model)
+    def latent(t, rec):
+        rec["latent"] = _trainer_value_and_grads(t, (X[:B], Y_MO[:B]))
+        with _Collectives() as c:
+            steps = t.run_steps((_stack(X), _stack(Y_MO)))
+        rec["latent_steps"], rec["collectives", "data x latent step"] = _np(steps), c.count / STEPS
+        t.finalize()
+        rec["latent_values"] = read_values(t.model)
+        return [steps]
+
+    _twin(out, "latent", lambda: DataParallelTrainer(_multioutput(gt), sgd(LR), mesh=grid, latent_axis="latent"),
+          latent)
 
     # the fused natural-gradient Bernoulli step
-    t = DataParallelTrainer(_bernoulli(gt), sgd(10 * LR), mesh=data4, natgrad_gamma=0.3, natgrad_fused=True)
-    out["natgrad"] = _trainer_value_and_grads(t, (XC[:B], YC[:B]))
-    with _Collectives() as c:
-        out["natgrad_steps"] = _np(t.run_steps((_stack(XC), _stack(YC))))
-    out["collectives", "fused natural-gradient step"] = c.count / STEPS
-    out["natgrad_values"] = read_values(t.model)
-    out["natgrad_rejections"] = t.natgrad_rejections
+    def natgrad(t, rec):
+        rec["natgrad"] = _trainer_value_and_grads(t, (XC[:B], YC[:B]))
+        with _Collectives() as c:
+            steps = t.run_steps((_stack(XC), _stack(YC)))
+        rec["natgrad_steps"], rec["collectives", "fused natural-gradient step"] = _np(steps), c.count / STEPS
+        rec["natgrad_values"] = read_values(t.model)
+        rec["natgrad_rejections"] = t.natgrad_rejections
+        return [steps]
+
+    _twin(out, "natgrad", lambda: DataParallelTrainer(_bernoulli(gt), sgd(10 * LR), mesh=data4, natgrad_gamma=0.3,
+                                                      natgrad_fused=True), natgrad)
 
     # natural gradients on latent-split q(u): the conversions see L/l latent GPs
-    t = DataParallelTrainer(_multioutput(gt), sgd(LR), mesh=grid, latent_axis="latent", natgrad_gamma=0.1)
-    out["latent_natgrad_steps"] = _np(t.run_steps((_stack(X), _stack(Y_MO))))
-    t.finalize()
-    out["latent_natgrad_values"] = read_values(t.model)
+    def latent_natgrad(t, rec):
+        steps = t.run_steps((_stack(X), _stack(Y_MO)))
+        t.finalize()
+        rec["latent_natgrad_steps"], rec["latent_natgrad_values"] = _np(steps), read_values(t.model)
+        return [steps]
+
+    _twin(out, "latent_natgrad", lambda: DataParallelTrainer(_multioutput(gt), sgd(LR), mesh=grid, latent_axis="latent",
+                                                             natgrad_gamma=0.1), latent_natgrad)
 
     # the hybrid mesh
     hybrid = make_hybrid_mesh(ici={"data": 2}, dcn={"data": 2})
     out["hybrid_mesh"] = hybrid.mesh.tolist()
-    t = DataParallelTrainer(_svgp(gt), sgd(LR), mesh=hybrid)
-    out["hybrid_steps"] = _np(t.run_steps((_stack(X), _stack(Y))))
+
+    def hybrid_steps(t, rec):
+        rec["hybrid_steps"] = _np(t.run_steps((_stack(X), _stack(Y))))
+        return [torch.from_numpy(rec["hybrid_steps"])]
+
+    _twin(out, "hybrid", lambda: DataParallelTrainer(_svgp(gt), sgd(LR), mesh=hybrid), hybrid_steps)
+
+    # a checkpoint saved on {"data": 4}, restored on {"data": 2, "latent": 2}, traced and eagerly
+    for traced in (True, False):
+        mode = (lambda t: t) if traced else _eager
+        t = mode(DataParallelTrainer(_multioutput(gt), sgd(LR, 0.9), mesh=data4))
+        first = t.run_steps((_stack(X), _stack(Y_MO)))
+        path = os.path.join(tmp, f"ckpt_{traced}")
+        t.save_state(path)
+        traces = t._traced.trace_count if traced else None
+        t = mode(DataParallelTrainer(_multioutput(gt), sgd(LR, 0.9), mesh=grid, latent_axis="latent"))
+        t.load_state(path)
+        out["traced" if traced else "eager", "checkpoint"] = _trained(t, [first, t.run_steps((_stack(X), _stack(Y_MO)))])
+        if traced:
+            out["traces", "checkpoint"] = (traces, t._traced.trace_count)
+            out["checkpoint_steps"] = np.concatenate(out["traced", "checkpoint"][:2])
 
     # the internal-data models
     for name, build in INTERNAL.items():
@@ -243,19 +326,28 @@ def _rank_paths(tmp):
     sgpr = shard_internal_data(INTERNAL["sgpr"](gt), data4)
     out["sgpr_predict"] = tuple(_np(t) for t in sgpr.predict_f(XT))
 
-    # serving
-    model = _svgp(gt)
-    out["serving"] = tuple(_np(t) for t in sharded_predict_f(model, XT, data4))
-    out["serving_posterior"] = tuple(_np(t) for t in sharded_predict_f(model.posterior(), XT, data4))
+    # serving, traced once per keyword set and structure, against its split route run eagerly
+    from gpflow_tpu_torch.parallel import sharded
 
-    # a checkpoint saved on {"data": 4}, restored on {"data": 2, "latent": 2}
-    path = os.path.join(tmp, "ckpt")
-    t = DataParallelTrainer(_multioutput(gt), sgd(LR, 0.9), mesh=data4)
-    first = _np(t.run_steps((_stack(X), _stack(Y_MO))))
-    t.save_state(path)
-    t = DataParallelTrainer(_multioutput(gt), sgd(LR, 0.9), mesh=grid, latent_axis="latent")
-    t.load_state(path)
-    out["checkpoint_steps"] = np.concatenate([first, _np(t.run_steps((_stack(X), _stack(Y_MO))))])
+    model, other = _svgp(gt), _svgp(gt)
+    posterior = model.posterior()
+    half = make_mesh(2)  # ranks 2 and 3 are outside it: they predict every row
+    pairs = {
+        "model": (sharded_predict_f(model, XT, data4), _split_predict(model, XT, data4)),
+        "posterior": (sharded_predict_f(posterior, XT, data4), _split_predict(posterior, XT, data4)),
+        "another model": (sharded_predict_f(other, XT, data4), _split_predict(model, XT, data4)),
+    }
+    other.kernel.variance.assign(2.0)
+    pairs["assigned"] = (sharded_predict_f(other, XT, data4), _split_predict(other, XT, data4))
+    for m in (model, other):
+        pairs["full_cov", m is other] = (sharded_predict_f(m, XT, data4, full_cov=True),
+                                         m.predict_f(torch.from_numpy(XT), full_cov=True))
+    pairs["half mesh"] = (sharded_predict_f(model, XT, half),
+                          _split_predict(model, XT, half) if dist.get_rank() < 2 else model.predict_f(torch.from_numpy(XT)))
+    out["serving_pairs"] = {k: ([_np(t) for t in got], [_np(t) for t in want]) for k, (got, want) in pairs.items()}
+    out["serving_traces"] = {k: j.trace_count for k, j in sharded._PREDICT_JITS.items()}
+    out["serving"] = tuple(out["serving_pairs"]["model"][0])
+    out["serving_posterior"] = tuple(out["serving_pairs"]["posterior"][0])
 
     # the validation errors
     out["errors"] = {
@@ -364,6 +456,44 @@ def test_every_rank_holds_the_same(ranks):
             np.testing.assert_array_equal(r[key], ranks[0][key])
         for a, b in zip(r["serving"], ranks[0]["serving"]):
             np.testing.assert_array_equal(a, b)
+
+
+# The traces of each trainer path's traced run: (its step, its loss); the
+# checkpoint's, (the first trainer's step, the restored trainer's). SGD's
+# first step with momentum makes its buffers, a signature of its own.
+TRACES = {"svgp": (1, 1), "latent": (1, 0), "natgrad": (1, 0), "latent_natgrad": (1, 0), "hybrid": (1, 0),
+          "checkpoint": (2, 1)}
+
+
+@pytest.mark.parametrize("path", sorted(TRACES))
+def test_traced_mesh_step_is_the_eager_mesh_step(ranks, path):
+    """Each trainer path with its step (and loss) traced gives the losses
+    and the trained parameters of the same path run eagerly from the same
+    state, to the bit, on every rank, each rank tracing once per signature
+    (every rank reaches its trace at the same call)."""
+    for r in ranks:
+        assert r["traces", path] == TRACES[path]
+        got, want = r["traced", path], r["eager", path]
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+
+
+# sharded_predict_f's traces by keyword set: for its keywords, a model, a
+# posterior, and the mesh of ranks 0 and 1 (another group and split; on
+# ranks 2 and 3, outside it, the whole route); with full_cov, a model.
+SERVING_TRACES = {(): 3, (("full_cov", True),): 1}
+
+
+def test_sharded_predict_f_replays_one_trace_per_keyword_set(ranks):
+    """Another model of the same structure and an ``assign`` between calls
+    replay; every prediction equals its route run eagerly, to the bit."""
+    for r in ranks:
+        assert r["serving_traces"] == SERVING_TRACES
+        for name, (got, want) in r["serving_pairs"].items():
+            for a, b in zip(got, want):
+                np.testing.assert_array_equal(a, b, err_msg=str(name))
+        assert not np.array_equal(r["serving_pairs"]["assigned"][0][1], r["serving_pairs"]["model"][0][1])
 
 
 def test_meshes_and_placements(ranks):

@@ -541,16 +541,20 @@ _HLO_NAMES = {"allreduce_": "all-reduce", "allgather_": "all-gather", "_allgathe
 
 def collective_trace(fun, *args, **kwargs):
     """``jax.jit(fun).lower(*args).compile().as_text()`` as far as a test
-    reads it, the collectives: runs ``fun`` once (eagerly, ROADMAP Queue 3
-    "eager") and returns the names of the collectives it ran, one a line,
-    as XLA names them (``all-reduce``, ``all-gather``, ...)."""
+    reads it, the collectives: runs ``fun`` once and returns the names of
+    the collectives it ran, one a line, as XLA names them (``all-reduce``,
+    ``all-gather``, ...). A trainer's step is traced at its first call and
+    replayed (``_compile.jit``): the names are those of the replay, whose
+    collectives communicate (the trace's run on fake tensors is left out)."""
     from torch.utils._python_dispatch import TorchDispatchMode
+
+    from gpflow_tpu_torch._compile import is_tracing
 
     names = []
 
     class _Trace(TorchDispatchMode):
         def __torch_dispatch__(self, func, types_, args_=(), kwargs_=None):
-            if func.namespace == "c10d":
+            if func.namespace == "c10d" and not is_tracing():
                 op = func._schema.name.split("::")[-1]
                 names.append(_HLO_NAMES.get(op, op))
             return func(*args_, **(kwargs_ or {}))
