@@ -23,6 +23,7 @@ from gpflow_tpu_torch.models import CGLB, NystromPreconditioner, cglb_conjugate_
 from gpflow_tpu_torch.models import cglb as cglb_module
 from gpflow_tpu_torch.optimizers import Scipy
 from gpflow_tpu_torch.utilities import parameter_dict
+from .test_torch_environment import one_thread, reference_jit  # noqa: F401
 
 config.set_default_device("cpu")  # the port builds on the card unless asked for the CPU
 
@@ -84,7 +85,7 @@ def test_quad_term_and_gradient_at_a_fixed_v_match_jax_f64(mode):
         _close(pm.quad_term(pm._common_calculation()), jm.quad_term(jm._common_calculation()))
     paths = sorted(p for p, v in jax_parameter_dict(jm).items() if v.trainable)
     params = [jax_parameter_dict(jm)[p] for p in paths]
-    want_value, want = jax.jit(jax.value_and_grad(functionalize(jm.training_loss, params)))(
+    want_value, want = reference_jit(jax.value_and_grad(functionalize(jm.training_loss, params)))(
         tuple(p.unconstrained_variable for p in params)
     )
     got_value, got = _port_value_and_grads(pm)

@@ -25,6 +25,7 @@ from gpflow_tpu_torch.kernels.categorical import latent_from_labels
 from gpflow_tpu_torch.models import GPR
 from gpflow_tpu_torch.utilities import ShapeError, load_jax_values, parameter_dict, set_enable_check_shapes
 from gpflow_tpu_torch.utilities import read_values as port_read_values
+from .test_torch_environment import one_thread, reference_jit  # noqa: F401
 
 config.set_default_device("cpu")  # the port builds on the card unless asked for the CPU
 
@@ -55,7 +56,7 @@ def _value_and_grads(jm, pm, jfn, pfn):
     parameter's unconstrained value, keyed by path."""
     jparams = {p: v for p, v in jax_parameter_dict(jm).items() if v.trainable}
     paths = sorted(jparams)
-    jv, jg = jax.jit(jax.value_and_grad(functionalize(jfn, [jparams[p] for p in paths])))(
+    jv, jg = reference_jit(jax.value_and_grad(functionalize(jfn, [jparams[p] for p in paths])))(
         tuple(jparams[p].unconstrained_variable for p in paths))
     params = {p: v for p, v in parameter_dict(pm).items() if v.trainable}
     assert sorted(params) == paths
@@ -71,7 +72,7 @@ def _calls(k, X, X2):
 def _check_kernel(jk, pk, X, X2):
     """The three calls and the gradient of a weighted sum of them."""
     t, t2 = torch.from_numpy(X), torch.from_numpy(X2)
-    want = jax.jit(lambda: _calls(jk, X, X2))()
+    want = reference_jit(lambda: _calls(jk, X, X2))()
     got = _calls(pk, t, t2)
     for g, w in zip(got, want):
         _close(g, w)
@@ -275,7 +276,7 @@ def test_gpr_objective_gradient_and_predictions_match_jax(case):
     (jv, jg), (pv, pg) = _value_and_grads(jm, pm, lambda: jm.training_loss(), lambda: pm.training_loss())
     _close(pv, jv)
     _close_grads(pg, jg)
-    want = jax.jit(lambda: (jm.predict_f(Xnew), jm.predict_f(Xnew, full_cov=True), jm.predict_y(Xnew)))()
+    want = reference_jit(lambda: (jm.predict_f(Xnew), jm.predict_f(Xnew, full_cov=True), jm.predict_y(Xnew)))()
     with torch.no_grad():
         t = torch.from_numpy(Xnew)
         got = (pm.predict_f(t), pm.predict_f(t, full_cov=True), pm.predict_y(t))

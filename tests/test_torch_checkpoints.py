@@ -27,6 +27,7 @@ from gpflow_tpu_torch.utilities import (
     reset_cache_bijectors,
     save_checkpoint,
 )
+from .test_torch_environment import one_thread  # noqa: F401
 
 config.set_default_device("cpu")  # the port builds on the card unless asked for the CPU
 

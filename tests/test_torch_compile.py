@@ -29,6 +29,7 @@ from gpflow_tpu_torch.optimizers import NaturalGradient, Scipy, natgrad
 from gpflow_tpu_torch.parallel import DataParallelTrainer
 from gpflow_tpu_torch.utilities import load_jax_values, parameter_dict, training_loop
 from gpflow_tpu_torch.utilities import read_values as port_read_values
+from .test_torch_environment import one_thread, reference_jit  # noqa: F401
 
 config.set_default_device("cpu")  # the port builds on the card unless asked for the CPU
 
@@ -38,14 +39,6 @@ X = _rng.randn(N, D)
 Y = np.sin(X[:, :1]) + 0.1 * _rng.randn(N, 1)
 Yb = (Y > 0).astype(float)
 Z = X[:M].copy()
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _t(a):
@@ -115,7 +108,7 @@ def _paths(jm, pm):
 
 
 def _jax_value_and_grads(params, closure):
-    fn = jax.jit(jax.value_and_grad(jax_functionalize(closure, params)))
+    fn = reference_jit(jax.value_and_grad(jax_functionalize(closure, params)))
     return fn(tuple(p.unconstrained_variable for p in params))
 
 

@@ -36,6 +36,7 @@ from gpflow_tpu_torch.optimizers import SamplingHelper, Scipy, mcmc, run_hmc
 from gpflow_tpu_torch.parallel import DataParallelTrainer
 from gpflow_tpu_torch.utilities import load_jax_values, parameter_dict, training_loop
 from gpflow_tpu_torch.utilities import read_values as port_read_values
+from .test_torch_environment import one_thread, reference_jit  # noqa: F401
 
 config.set_default_device("cpu")  # the port builds on the card unless asked for the CPU
 
@@ -45,14 +46,6 @@ X = _rng.randn(N, D)
 Y = np.sin(X[:, :1]) + 0.1 * _rng.randn(N, 1)
 Yb = (Y > 0).astype(float)
 Z = X[:M].copy()
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _t(a):
@@ -580,7 +573,7 @@ def test_cglb_matches_the_jitted_jax_objective(mode):
     load_jax_values(pm, read_values(jm))
     jp, pp = jax_parameter_dict(jm), parameter_dict(pm)
     paths = sorted(k for k, p in pp.items() if p.trainable)
-    fn = jax.jit(jax.value_and_grad(jax_functionalize(jm.training_loss, [jp[k] for k in paths])))
+    fn = reference_jit(jax.value_and_grad(jax_functionalize(jm.training_loss, [jp[k] for k in paths])))
     want_loss, want_grads = fn(tuple(jp[k].unconstrained_variable for k in paths))
     loss = pm.training_loss_closure()()
     grads = torch.autograd.grad(loss, [pp[k].unconstrained for k in paths])

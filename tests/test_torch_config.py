@@ -27,6 +27,7 @@ from gpflow_tpu_torch import bijectors, ci_utils, config
 from gpflow_tpu_torch.experimental.utils import experimental
 from gpflow_tpu_torch.ops import pallas_distance as pd
 from gpflow_tpu_torch.utilities import to_default_float, to_default_int
+from .test_torch_environment import one_thread  # noqa: F401
 
 config.set_default_device("cpu")  # the port builds on the card unless asked for the CPU
 
@@ -316,8 +317,9 @@ def test_environment_in_one_process():
         "out['jax tiers'] = [jax.config.jax_enable_x64, jax.config.jax_default_matmul_precision, jax_checks()]\n"
         "print(json.dumps(out))\n"
     )
+    # the process imports both packages: 9-14 s in the tier-1 run, so a hang fails this case in about 3x that
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True,
-                          timeout=120)
+                          timeout=45)
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["no_jax"]

@@ -32,6 +32,7 @@ import gpflow_tpu_torch as gt
 from gpflow_tpu.utilities import shapes as jax_shapes
 from gpflow_tpu_torch import config
 from gpflow_tpu_torch.utilities import shapes as port_shapes
+from .test_torch_environment import one_thread, reference_jit  # noqa: F401
 
 config.set_default_device("cpu")  # the port builds on the card unless asked for the CPU
 
@@ -217,7 +218,7 @@ def _both(fn_j, fn_p, ok, bad=None, jit=True):
     """The four calls of a case: each package's function on the valid
     arguments ``ok`` and the malformed ``bad`` (numpy arrays, turned into
     tensors for the port). The JAX function is jitted where ``jit``."""
-    call_j = jax.jit(fn_j) if jit else fn_j
+    call_j = reference_jit(fn_j) if jit else fn_j
     return (lambda: call_j(*ok), (lambda: fn_j(*bad)) if bad is not None else None,
             lambda: fn_p(*_t(*ok)), (lambda: fn_p(*_t(*bad))) if bad is not None else None)
 
@@ -250,14 +251,13 @@ def _svgp(pkg, L=1, q_diag=False, whiten=True, likelihood="Gaussian"):
 
 
 def _method(objs, name, ok, bad=None, jit=True):
-    jm, pm = objs
-    return _both(lambda *a: getattr(jm, name)(*a), lambda *a: getattr(pm, name)(*a), ok, bad, jit=jit)
+    return _both(lambda *a: getattr(objs[0], name)(*a), lambda *a: getattr(objs[1], name)(*a), ok, bad, jit=jit)
 
 
 def _no_args(objs, name, jit=True):
     jm, pm = objs
     fn = (lambda: getattr(jm, name)())
-    return (jax.jit(fn) if jit else fn), None, lambda: getattr(pm, name)(), None
+    return (reference_jit(fn) if jit else fn), None, lambda: getattr(pm, name)(), None
 
 
 def _ops_cases():
@@ -453,7 +453,7 @@ def _model_cases():
     sgpr = _models("SGPR")
     for name in ("elbo", "upper_bound", "compute_qu"):
         cases[f"SGPR.{name}"] = _no_args(sgpr, name)
-    cases["SGPR._common_calculation"] = (jax.jit(lambda: tuple(sgpr[0]._common_calculation())), None,
+    cases["SGPR._common_calculation"] = (reference_jit(lambda: tuple(sgpr[0]._common_calculation())), None,
                                          lambda: tuple(sgpr[1]._common_calculation()), None)
     fitc = _models("GPRFITC")
     cases["GPRFITC.common_terms"] = _no_args(fitc, "common_terms")
@@ -496,6 +496,21 @@ def _cglb_cases():
     }
 
 
+class _Built:
+    """The two packages' objects that ``make(i, *args)`` builds (i = 0 the
+    JAX package's, 1 the port's), built at the first read: a posterior with
+    a precomputed cache computes it at construction, which every worker
+    would otherwise pay while it collects the cases' names."""
+
+    def __init__(self, make, *args):
+        self._make, self._args, self._objs = make, args, None
+
+    def __getitem__(self, i):
+        if self._objs is None:
+            self._objs = [self._make(j, *self._args) for j in (0, 1)]
+        return self._objs[i]
+
+
 def _posterior_cases():
     rng = _rng(8)
     X, Y, Z, Xnew = _data()
@@ -525,7 +540,7 @@ def _posterior_cases():
         ("GPRPosterior.__init__", gpr, ((X, Y),), ((X, Y[:-1]),)),
         ("SGPRPosterior.__init__", sgpr, ((X, Y), Z), ((X, Y), Z[:, :1])),
     ):
-        posts = [make(i, *ok) for i in (0, 1)]
+        posts = _Built(make, *ok)
         cases[name] = (lambda posts=posts: tuple(posts[0].cache), lambda make=make, bad=bad: make(0, *bad),
                        lambda posts=posts: tuple(posts[1].cache), lambda make=make, bad=bad: make(1, *bad))
         stem = name.split(".")[0] + (" diagonal" if "diagonal" in name else "")
@@ -533,7 +548,7 @@ def _posterior_cases():
         cases[f"{stem}.fused_predict_f full_cov"] = _both(
             lambda a: posts[0].fused_predict_f(a, full_cov=True),
             lambda a: posts[1].fused_predict_f(a, full_cov=True), (Xnew,), (Xnew[None, :, :1],))
-    post = (independent(0, q_mu, q_sqrt), independent(1, q_mu, q_sqrt))
+    post = _Built(independent, q_mu, q_sqrt)
     cases["BasePosterior._set_qdist"] = (lambda: None, lambda: post[0]._set_qdist(q_mu, q_sqrt[..., None]),
                                          lambda: None,
                                          lambda: post[1]._set_qdist(*_t(q_mu, q_sqrt[..., None])))
@@ -681,7 +696,7 @@ def test_base_conditional_meets_its_return_specs(R, full_cov, q_kind, white, che
     still meets the return specs for R = 1 and R > 1, and the numbers."""
     Kmn, Kmm, Knn, f, q_sqrt = _conditional_inputs(R, full_cov, q_kind, white)
     kwargs = dict(full_cov=full_cov, white=white)
-    want = jax.jit(lambda a, b, c, d, e: gj.conditionals.util.base_conditional(a, b, c, d, q_sqrt=e, **kwargs))(
+    want = reference_jit(lambda a, b, c, d, e: gj.conditionals.util.base_conditional(a, b, c, d, q_sqrt=e, **kwargs))(
         Kmn, Kmm, Knn, f, q_sqrt)
     got = gt.conditionals.util.base_conditional(*_t(Kmn, Kmm, Knn, f), q_sqrt=None if q_sqrt is None
                                                 else torch.from_numpy(q_sqrt), **kwargs)

@@ -28,6 +28,7 @@ from gpflow_tpu_torch.covariances.kufs import Kuf_conv_patch
 from gpflow_tpu_torch.covariances.kuus import Kuu_conv_patch
 from gpflow_tpu_torch.kernels import stationaries
 from gpflow_tpu_torch.utilities import ShapeError, load_jax_values, parameter_dict, set_enable_check_shapes
+from .test_torch_environment import one_thread, reference_jit  # noqa: F401
 
 config.set_default_device("cpu")  # the port builds on the card unless asked for the CPU
 
@@ -98,7 +99,7 @@ def _calls(k, X, X2):
 def test_kernel_matches_jax(base, channels, batch):
     X, X2 = _images(batch, 3, channels, 2), _images((), 2, channels, 3)
     jk, pk = _conv(gpflow_tpu, base, channels), _conv(gpflow_tpu_torch, base, channels)
-    want = jax.jit(lambda: _calls(jk, X, X2))()
+    want = reference_jit(lambda: _calls(jk, X, X2))()
     got = _calls(pk, torch.from_numpy(X), torch.from_numpy(X2))
     assert got[1].shape == batch + (3, 2)
     for g, w in zip(got, want):
@@ -108,7 +109,7 @@ def test_kernel_matches_jax(base, channels, batch):
 def _jax_grads(jk, fn):
     params = {p: v for p, v in jax_parameter_dict(jk).items() if v.trainable}
     paths = sorted(params)
-    value, grads = jax.jit(jax.value_and_grad(functionalize(fn, [params[p] for p in paths])))(
+    value, grads = reference_jit(jax.value_and_grad(functionalize(fn, [params[p] for p in paths])))(
         tuple(params[p].unconstrained_variable for p in paths))
     return value, dict(zip(paths, grads))
 
@@ -159,9 +160,9 @@ def test_kuu_and_kuf_match_jax_with_gradients(base, channels):
     G = np.random.RandomState(10).randn(7, 4)
     jparams = {**{f".kernel{p}": v for p, v in jax_parameter_dict(jk).items()}, ".Z": jiv.Z}
     paths = sorted(jparams)
-    want = jax.jit(lambda u: (JaxKuu(jiv, jk, jitter=1e-6), JaxKuf(jiv, jk, X),
-                              jax.grad(functionalize(lambda: (JaxKuf(jiv, jk, X) * G).sum(),
-                                                     [jparams[p] for p in paths]))(u)))(
+    want = reference_jit(lambda u: (JaxKuu(jiv, jk, jitter=1e-6), JaxKuf(jiv, jk, X),
+                                    jax.grad(functionalize(lambda: (JaxKuf(jiv, jk, X) * G).sum(),
+                                                           [jparams[p] for p in paths]))(u)))(
         tuple(jparams[p].unconstrained_variable for p in paths))
     _close(Kuu(piv, pk, jitter=1e-6), want[0])
     Kzx = Kuf(piv, pk, torch.from_numpy(X))
@@ -331,7 +332,8 @@ def test_conv_svgp_elbo_and_gradient_match_jax(whiten):
     jm, pm, (X, Y) = _svgp_models(whiten)
     params = {p: v for p, v in jax_parameter_dict(jm).items() if v.trainable}
     paths = sorted(params)
-    want, want_g = jax.jit(jax.value_and_grad(functionalize(lambda: jm.elbo((X, Y)), [params[p] for p in paths])))(
+    want, want_g = reference_jit(jax.value_and_grad(
+        functionalize(lambda: jm.elbo((X, Y)), [params[p] for p in paths])))(
         tuple(params[p].unconstrained_variable for p in paths))
     got, got_g = _port_grads(pm, pm.elbo((torch.from_numpy(X), torch.from_numpy(Y))))
     _close(got, want)
@@ -342,7 +344,7 @@ def test_conv_svgp_elbo_and_gradient_match_jax(whiten):
 def test_conv_svgp_predictions_match_jax():
     jm, pm, _ = _svgp_models(True, seed=22)
     Xnew = _svgp_data()[2]
-    want = jax.jit(lambda: (jm.predict_f(Xnew), jm.predict_f(Xnew, full_cov=True), jm.predict_y(Xnew)))()
+    want = reference_jit(lambda: (jm.predict_f(Xnew), jm.predict_f(Xnew, full_cov=True), jm.predict_y(Xnew)))()
     with torch.no_grad():
         t = torch.from_numpy(Xnew)
         got = (pm.predict_f(t), pm.predict_f(t, full_cov=True), pm.predict_y(t))

@@ -18,6 +18,7 @@ from gpflow_tpu.utilities import parameter_dict as jax_parameter_dict
 from gpflow_tpu.utilities import read_values
 from gpflow_tpu_torch import config, covariances
 from gpflow_tpu_torch.utilities import load_jax_values, parameter_dict
+from .test_torch_environment import one_thread, reference_jit  # noqa: F401
 
 config.set_default_device("cpu")  # the port builds on the card unless asked for the CPU
 
@@ -123,7 +124,8 @@ def test_coregion_switched_svgp_matches_jax_after_load():
     jparams = {p: v for p, v in jax_parameter_dict(jm).items() if v.trainable}
     paths = sorted(jparams)
     params = {p: v for p, v in parameter_dict(pm).items() if v.trainable}
-    jv, jg = jax.value_and_grad(functionalize(lambda: jm.training_loss(data), [jparams[p] for p in paths]))(
+    jv, jg = reference_jit(jax.value_and_grad(
+        functionalize(lambda: jm.training_loss(data), [jparams[p] for p in paths])))(
         tuple(jparams[p].unconstrained_variable for p in paths))
     pdata = tuple(_t(a) for a in data)
     pv = pm.training_loss(pdata)

@@ -21,6 +21,7 @@ from gpflow_tpu_torch import config
 from gpflow_tpu_torch.expectations import dispatch, expectation, quadrature_expectation
 from gpflow_tpu_torch.probability_distributions import DiagonalGaussian, Gaussian, MarkovGaussian
 from gpflow_tpu_torch.utilities import parameter_dict, set_enable_check_shapes
+from .test_torch_environment import one_thread, reference_jit  # noqa: F401
 
 config.set_default_device("cpu")  # the port builds on the card unless asked for the CPU
 
@@ -206,7 +207,7 @@ def _jax_value(kind, build, nghp, quad):
         obj1, obj2 = build(gpflow_tpu)
         f = gpflow_tpu.expectations.quadrature_expectation if quad else gpflow_tpu.expectations.expectation
         return f(_p(gpflow_tpu, kind), obj1, obj2, nghp=nghp)
-    return jax.jit(fn)()
+    return reference_jit(fn)()
 
 
 def _port_value(kind, build, nghp, quad):
@@ -268,7 +269,7 @@ def test_tuple_p_picks_its_distribution_by_cov_ndim(kind, cls):
     by_tuple = expectation((p.mu, p.cov), (k, iv))
     _close(by_tuple, expectation(cls(p.mu, p.cov), (k, iv)), 0.0)
     jp = _p(gpflow_tpu, kind)
-    _close(by_tuple, jax.jit(lambda: gpflow_tpu.expectations.expectation(
+    _close(by_tuple, reference_jit(lambda: gpflow_tpu.expectations.expectation(
         (jp.mu, jp.cov), (_se(gpflow_tpu), _iv(gpflow_tpu))))())
 
 
@@ -315,7 +316,7 @@ def test_gradients_match_jax(which, kind):
             lambda: gpflow_tpu.expectations.expectation(p, jobj1, jobj2), jparams)(unconstrained))
 
     arrays = (XMU, XCOV if kind == "gauss" else XVAR)
-    jg = jax.jit(jax.grad(jfn, argnums=(0, 1, 2)))(tuple(p.unconstrained_variable for p in jparams), *arrays)
+    jg = reference_jit(jax.grad(jfn, argnums=(0, 1, 2)))(tuple(p.unconstrained_variable for p in jparams), *arrays)
 
     pobj1, pobj2, pmods = _grad_case(gpflow_tpu_torch, which)
     pparams = [p for m in pmods for _, p in sorted(parameter_dict(m).items())]
@@ -340,7 +341,7 @@ def test_psi2_gradient_where_kzz_underflows():
                                                         (k, iv), (k, iv)),
             [k.lengthscales])((k.lengthscales.transform.inverse(jax.numpy.exp(log_ls)),)))
 
-    want = jax.jit(jax.grad(jfn))(np.log(0.1))
+    want = reference_jit(jax.grad(jfn))(np.log(0.1))
     k = gpflow_tpu_torch.kernels.SquaredExponential(variance=2.0, lengthscales=1.0)
     iv = gpflow_tpu_torch.inducing_variables.InducingPoints(zfar)
     log_ls = torch.tensor(np.log(0.1), dtype=torch.float64, requires_grad=True)
@@ -381,7 +382,7 @@ def _uncertain_inputs(pkg, mean_function, seed=8):
 @pytest.mark.parametrize("mean_function", [None, "zero", "linear"])
 def test_uncertain_conditional_matches_jax(mean_function, white, full_output_cov):
     Zu, q_mu, q_sqrt, jk, jmf = _uncertain_inputs(gpflow_tpu, mean_function)
-    want = jax.jit(lambda: gpflow_tpu.conditionals.uncertain_conditional(
+    want = reference_jit(lambda: gpflow_tpu.conditionals.uncertain_conditional(
         XMU, XCOV, gpflow_tpu.inducing_variables.InducingPoints(Zu), jk, q_mu, q_sqrt, mean_function=jmf,
         full_output_cov=full_output_cov, white=white))()
     _, _, _, pk, pmf = _uncertain_inputs(gpflow_tpu_torch, mean_function)

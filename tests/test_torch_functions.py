@@ -22,6 +22,7 @@ from gpflow_tpu_torch.utilities import (
     parameter_dict,
     prepare_parameter_or_function,
 )
+from .test_torch_environment import one_thread, reference_jit  # noqa: F401
 
 config.set_default_device("cpu")  # the port builds on the card unless asked for the CPU
 
@@ -40,7 +41,7 @@ def _value_and_grads(jm, pm, jfn, pfn):
     to every trainable parameter, keyed by path."""
     jparams = {p: v for p, v in jax_parameter_dict(jm).items() if v.trainable}
     paths = sorted(jparams)
-    jv, jg = jax.value_and_grad(functionalize(jfn, [jparams[p] for p in paths]))(
+    jv, jg = reference_jit(jax.value_and_grad(functionalize(jfn, [jparams[p] for p in paths])))(
         tuple(jparams[p].unconstrained_variable for p in paths)
     )
     params = {p: v for p, v in parameter_dict(pm).items() if v.trainable}

@@ -23,6 +23,7 @@ from gpflow_tpu_torch.models.gplvm import _psi2_projection
 from gpflow_tpu_torch.optimizers import Scipy
 from gpflow_tpu_torch.utilities import load_jax_values, parameter_dict
 from gpflow_tpu_torch.utilities.ops import pca_reduce
+from .test_torch_environment import one_thread, reference_jit  # noqa: F401
 
 config.set_default_device("cpu")  # the port builds on the card unless asked for the CPU
 
@@ -46,7 +47,7 @@ def _value_and_grads(jm, pm, jfn, pfn):
     parameter's unconstrained value, keyed by path, in both packages."""
     jparams = {p: v for p, v in jax_parameter_dict(jm).items() if v.trainable}
     paths = sorted(jparams)
-    jv, jg = jax.jit(jax.value_and_grad(functionalize(jfn, [jparams[p] for p in paths])))(
+    jv, jg = reference_jit(jax.value_and_grad(functionalize(jfn, [jparams[p] for p in paths])))(
         tuple(jparams[p].unconstrained_variable for p in paths))
     params = {p: v for p, v in parameter_dict(pm).items() if v.trainable}
     assert sorted(params) == paths
@@ -105,14 +106,14 @@ def test_gplvm_objective_and_gradients_match_jax(kernel, mean_function):
     _close(pm.data[0].value, values[".data[0]"], 0.0)
     jg = _check_value_and_grads(jm, pm, lambda: jm.training_loss(), lambda: pm.training_loss())
     assert float(np.max(np.abs(jg[".data[0]"]))) > 0.0  # X is trainable and the loss moves with it
-    _close(pm.log_marginal_likelihood(), jax.jit(lambda: jm.log_marginal_likelihood())())
+    _close(pm.log_marginal_likelihood(), reference_jit(lambda: jm.log_marginal_likelihood())())
 
 
 @pytest.mark.parametrize("full_cov", [False, True])
 def test_gplvm_predictions_match_jax(full_cov):
     jm, pm = _gplvms("SquaredExponential")
     load_jax_values(pm, read_values(jm))
-    want = jax.jit(lambda: jm.predict_f(XNEW, full_cov=full_cov))()
+    want = reference_jit(lambda: jm.predict_f(XNEW, full_cov=full_cov))()
     got = pm.predict_f(torch.from_numpy(XNEW), full_cov=full_cov)
     _close(got[0], want[0])
     _close(got[1], want[1])
@@ -168,13 +169,13 @@ def test_bayesian_gplvm_elbo_and_gradients_match_jax(kernel, inducing):
     jm, pm = _bayesian_gplvms(kernel, inducing)
     assert {".X_data_mean", ".X_data_var", ".inducing_variable.Z", ".likelihood.variance"} <= set(parameter_dict(pm))
     _check_value_and_grads(jm, pm, lambda: jm.training_loss(), lambda: pm.training_loss())
-    _close(pm.elbo(), jax.jit(lambda: jm.elbo())())
+    _close(pm.elbo(), reference_jit(lambda: jm.elbo())())
 
 
 @pytest.mark.parametrize("full_cov", [False, True])
 def test_bayesian_gplvm_predict_f_matches_jax(full_cov):
     jm, pm = _bayesian_gplvms()
-    want = jax.jit(lambda: jm.predict_f(XNEW, full_cov=full_cov))()
+    want = reference_jit(lambda: jm.predict_f(XNEW, full_cov=full_cov))()
     got = pm.predict_f(torch.from_numpy(XNEW), full_cov=full_cov)
     _close(got[0], want[0])
     _close(got[1], want[1])
@@ -241,7 +242,7 @@ def test_psi2_projection_float32_value_and_gradient():
     # and the JAX package's float32 projection agrees within the same limit
     from gpflow_tpu.models.gplvm import _psi2_projection as jax_projection
 
-    jax_got = jax.jit(jax_projection)(L.float().numpy(), psi2.float().numpy())
+    jax_got = reference_jit(jax_projection)(L.float().numpy(), psi2.float().numpy())
     _close(got, np.asarray(jax_got), PROJECTION_F32_RTOL)
 
 

@@ -24,6 +24,7 @@ from gpflow_tpu_torch.models import GPR, GPR_deprecated
 from gpflow_tpu_torch.ops import launch_counts
 from gpflow_tpu_torch.utilities import load_jax_values, parameter_dict
 from gpflow_tpu_torch.utilities import read_values as port_read_values
+from .test_torch_environment import one_thread, reference_jit  # noqa: F401
 
 config.set_default_device("cpu")  # the port builds on the card unless asked for the CPU
 
@@ -62,7 +63,7 @@ def _jax_loss_and_grads(jm, flag):
     paths = sorted(jax_parameter_dict(jm))
     params = [jax_parameter_dict(jm)[p] for p in paths]
     with jax_inv_solve(flag):
-        loss, grads = jax.value_and_grad(functionalize(jm.training_loss, params))(
+        loss, grads = reference_jit(jax.value_and_grad(functionalize(jm.training_loss, params)))(
             tuple(p.unconstrained_variable for p in params)
         )
     return loss, dict(zip(paths, grads))

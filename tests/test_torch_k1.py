@@ -23,6 +23,7 @@ from gpflow_tpu_torch.ops import cuda_build
 from gpflow_tpu_torch.ops import pallas_distance as pd
 
 from chip_smoke import K1_SHAPES
+from .test_torch_environment import one_thread  # noqa: F401
 
 config.set_default_device("cpu")  # the port builds on the card unless asked for the CPU
 
@@ -128,8 +129,10 @@ def test_build_without_nvcc_raises(monkeypatch):
 
 
 def _run_python(code: str, env: dict) -> subprocess.CompletedProcess:
+    # the longest of these processes took 9-14 s in the tier-1 run: a hang
+    # fails its case in about 3x that
     return subprocess.run(
-        [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=120
+        [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=45
     )
 
 

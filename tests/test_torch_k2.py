@@ -28,6 +28,7 @@ from gpflow_tpu_torch.ops import pallas_distance as pd
 
 from chip_smoke import K2_OFFSET_G_SHAPE, K2_SHAPES
 from tests.test_torch_k1 import EDGE_SHAPES, SMS, _resident, check_plan_covers
+from .test_torch_environment import one_thread  # noqa: F401
 
 config.set_default_device("cpu")  # the port builds on the card unless asked for the CPU
 

@@ -19,6 +19,7 @@ from gpflow_tpu.utilities import read_values
 from gpflow_tpu_torch import config, kernels, models
 from gpflow_tpu_torch.kernels import stationaries
 from gpflow_tpu_torch.utilities import load_jax_values, parameter_dict
+from .test_torch_environment import one_thread, reference_jit  # noqa: F401
 
 config.set_default_device("cpu")  # the port builds on the card unless asked for the CPU
 
@@ -100,7 +101,8 @@ def test_kernel_gradients_match_jax_f64(name):
     jparams = {p: v for p, v in jax_parameter_dict(jk).items() if v.trainable}
     paths = sorted(jparams)
     objective = lambda k, x, x2, w, v: (k(x, x2) * w).sum() + (k(x) * v).sum()  # noqa: E731
-    _, jgrads = jax.value_and_grad(functionalize(lambda: objective(jk, X, X2, W, V), [jparams[p] for p in paths]))(
+    _, jgrads = reference_jit(jax.value_and_grad(functionalize(lambda: objective(jk, X, X2, W, V),
+                                                         [jparams[p] for p in paths])))(
         tuple(jparams[p].unconstrained_variable for p in paths)
     )
     params = {p: v for p, v in parameter_dict(pk).items() if v.trainable}

@@ -14,6 +14,7 @@ from gpflow_tpu import logdensities as jax_logdensities
 from gpflow_tpu.ops import linalg as jax_linalg
 from gpflow_tpu_torch import config, logdensities
 from gpflow_tpu_torch.ops import linalg
+from .test_torch_environment import one_thread  # noqa: F401
 
 config.set_default_device("cpu")  # the port builds on the card unless asked for the CPU
 

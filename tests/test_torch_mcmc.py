@@ -27,6 +27,7 @@ from gpflow_tpu_torch.conditionals import multioutput, sample_conditionals, util
 from gpflow_tpu_torch.optimizers import SamplingHelper, run_hmc
 from gpflow_tpu_torch.optimizers import mcmc
 from gpflow_tpu_torch.utilities import load_jax_values, parameter_dict
+from .test_torch_environment import one_thread, reference_jit  # noqa: F401
 
 config.set_default_device("cpu")  # the port builds on the card unless asked for the CPU
 
@@ -85,7 +86,7 @@ CASES = [(cls, lik) for cls in ("GPMC", "SGPMC") for lik in ("Bernoulli", "Gauss
 def _value_and_grads(jm, pm, jfn, pfn):
     jparams = {p: v for p, v in jax_parameter_dict(jm).items() if v.trainable}
     paths = sorted(jparams)
-    jv, jg = jax.jit(jax.value_and_grad(functionalize(jfn, [jparams[p] for p in paths])))(
+    jv, jg = reference_jit(jax.value_and_grad(functionalize(jfn, [jparams[p] for p in paths])))(
         tuple(jparams[p].unconstrained_variable for p in paths)
     )
     params = {p: v for p, v in parameter_dict(pm).items() if v.trainable}
@@ -112,7 +113,7 @@ def test_predictions_match_jax(cls, likelihood, full_cov):
     with torch.no_grad():
         mu, var = pm.predict_f(_t(Xnew), full_cov=full_cov)
         ymu, yvar = pm.predict_y(_t(Xnew))
-    (jmu, jvar), (jymu, jyvar) = jax.jit(lambda: (jm.predict_f(Xnew, full_cov=full_cov), jm.predict_y(Xnew)))()
+    (jmu, jvar), (jymu, jyvar) = reference_jit(lambda: (jm.predict_f(Xnew, full_cov=full_cov), jm.predict_y(Xnew)))()
     for got, want in ((mu, jmu), (var, jvar), (ymu, jymu), (yvar, jyvar)):
         _close(got, want)
 
@@ -153,7 +154,7 @@ def test_target_log_prob_fn_and_gradient_match_jax(cls, likelihood):
         _close(s_now, s, 0.0)
     before = read_values(pm)
     state = _state(jh, 7)
-    jv, jg = jax.jit(jax.value_and_grad(lambda *s: jh.target_log_prob_fn(*s), argnums=tuple(range(len(state)))))(
+    jv, jg = reference_jit(jax.value_and_grad(lambda *s: jh.target_log_prob_fn(*s), argnums=tuple(range(len(state)))))(
         *[jnp.asarray(s) for s in state])
     q = [_t(s).requires_grad_() for s in state]
     pv = ph.target_log_prob_fn(*q)
@@ -167,7 +168,7 @@ def test_target_log_prob_fn_and_gradient_match_jax(cls, likelihood):
         np.testing.assert_array_equal(value, before[path])
     with torch.no_grad():
         at_current = ph.target_log_prob_fn(*ph.current_state)
-    _close(at_current, jax.jit(jh.target_log_prob_fn)(*jh.current_state))
+    _close(at_current, reference_jit(jh.target_log_prob_fn)(*jh.current_state))
 
 
 def test_convert_and_assign_values_match_jax():
@@ -199,7 +200,7 @@ def test_one_leapfrog_trajectory_matches_jax(cls, likelihood):
     q0 = _state(jh, 9, scale=0.1)
     p0 = [np.random.RandomState(10 + i).randn(*np.shape(s)) for i, s in enumerate(q0)]
     step, L = 0.05, 6
-    grad_fn = jax.jit(jax.grad(lambda st: jh.target_log_prob_fn(*st)))
+    grad_fn = reference_jit(jax.grad(lambda st: jh.target_log_prob_fn(*st)))
     q, p = tuple(jnp.asarray(s) for s in q0), tuple(jnp.asarray(s) for s in p0)
     g = grad_fn(q)
     p = tuple(pi + 0.5 * step * gi for pi, gi in zip(p, g))
@@ -210,7 +211,7 @@ def test_one_leapfrog_trajectory_matches_jax(cls, likelihood):
     q = tuple(qi + step * pi for qi, pi in zip(q, p))
     g = grad_fn(q)
     p = tuple(pi + 0.5 * step * gi for pi, gi in zip(p, g))
-    logp = jax.jit(jh.target_log_prob_fn)(*q)
+    logp = reference_jit(jh.target_log_prob_fn)(*q)
 
     def value_and_grad(state):
         return mcmc._value_and_grad(ph.target_log_prob_fn, state)
@@ -295,7 +296,7 @@ def test_run_hmc_rejects_diverged_trajectories():
     assert float(samples[0].min()) < -0.5  # it moved
 
 
-_normal = jax.jit(lambda key, shape: jax.random.normal(key, shape, dtype=jnp.float64), static_argnums=1)
+_normal = reference_jit(lambda key, shape: jax.random.normal(key, shape, dtype=jnp.float64), static_argnums=1)
 
 
 def _jax_draws(key):
@@ -321,8 +322,8 @@ def test_sample_mvn_matches_jax(full_cov, num_samples):
     else:
         cov = rng.rand(2, 4, 3) + 0.1
     key = jax.random.PRNGKey(4)
-    want = jax.jit(lambda k: gpflow_tpu.conditionals.util.sample_mvn(mean, cov, full_cov, num_samples=num_samples,
-                                                                     key=k))(key)
+    want = reference_jit(lambda k: gpflow_tpu.conditionals.util.sample_mvn(mean, cov, full_cov, num_samples=num_samples,
+                                                                           key=k))(key)
     got = _jax_draws(key)(_t(mean), _t(cov), full_cov, num_samples)
     _close(got, want, SAMPLE_RTOL)
     # the public function: a shape of draws from the device's default
@@ -346,8 +347,8 @@ def test_sample_conditional_matches_jax(dense, full_cov, num_samples, monkeypatc
     pz = _t(X) if dense else gpflow_tpu_torch.inducing_variables.InducingPoints(X)
     key = jax.random.PRNGKey(5)
     kwargs = dict(full_cov=full_cov, white=True, num_samples=num_samples)
-    want = jax.jit(lambda k: gpflow_tpu.conditionals.sample_conditional(Xnew, jz, jk, f, q_sqrt=q_sqrt, key=k,
-                                                                        **kwargs))(key)
+    want = reference_jit(lambda k: gpflow_tpu.conditionals.sample_conditional(Xnew, jz, jk, f, q_sqrt=q_sqrt, key=k,
+                                                                              **kwargs))(key)
     monkeypatch.setattr(sample_conditionals, "sample_mvn", _jax_draws(key))
     with torch.no_grad():
         got = gpflow_tpu_torch.conditionals.sample_conditional(_t(Xnew), pz, pk, _t(f), q_sqrt=_t(q_sqrt), **kwargs)
@@ -374,8 +375,8 @@ def test_sample_conditional_coregionalization_matches_jax(full_cov, full_output_
     (jk, jiv), (pk, piv) = parts(gpflow_tpu), parts(gpflow_tpu_torch)
     key = jax.random.PRNGKey(6)
     kwargs = dict(full_cov=full_cov, full_output_cov=full_output_cov, white=True, num_samples=5)
-    want = jax.jit(lambda k: gpflow_tpu.conditionals.sample_conditional(Xnew, jiv, jk, f, q_sqrt=q_sqrt, key=k,
-                                                                        **kwargs))(key)
+    want = reference_jit(lambda k: gpflow_tpu.conditionals.sample_conditional(Xnew, jiv, jk, f, q_sqrt=q_sqrt, key=k,
+                                                                              **kwargs))(key)
     monkeypatch.setattr(multioutput.sample_conditionals, "sample_mvn", _jax_draws(key))
     with torch.no_grad():
         got = gpflow_tpu_torch.conditionals.sample_conditional(_t(Xnew), piv, pk, _t(f), q_sqrt=_t(q_sqrt), **kwargs)
@@ -388,7 +389,7 @@ def test_sample_conditional_coregionalization_matches_jax(full_cov, full_output_
 def test_predict_f_samples_matches_jax(cls, full_cov, monkeypatch):
     jm, pm, Xnew = _models(cls, "Gaussian", seed=6)
     key = jax.random.PRNGKey(7)
-    want = jax.jit(lambda k: jm.predict_f_samples(Xnew, num_samples=4, full_cov=full_cov, key=k))(key)
+    want = reference_jit(lambda k: jm.predict_f_samples(Xnew, num_samples=4, full_cov=full_cov, key=k))(key)
     monkeypatch.setattr(models.model, "sample_mvn", _jax_draws(key))
     with torch.no_grad():
         got = pm.predict_f_samples(_t(Xnew), num_samples=4, full_cov=full_cov)

@@ -16,6 +16,7 @@ from gpflow_tpu.utilities import ops as jax_ops
 from gpflow_tpu_torch import posteriors
 from gpflow_tpu_torch.conditionals import util as cond
 from gpflow_tpu_torch.ops import linalg
+from .test_torch_environment import one_thread  # noqa: F401
 
 gt.config.set_default_device("cpu")  # the port builds on the card unless asked for the CPU
 

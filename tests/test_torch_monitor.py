@@ -26,6 +26,7 @@ from gpflow_tpu_torch.monitor import (
 )
 from gpflow_tpu_torch.optimizers import Scipy
 from gpflow_tpu_torch.utilities import load_jax_values, training_loop
+from .test_torch_environment import one_thread  # noqa: F401
 
 config.set_default_device("cpu")  # the port builds on the card unless asked for the CPU
 

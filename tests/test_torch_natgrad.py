@@ -26,6 +26,7 @@ from gpflow_tpu_torch.optimizers import NaturalGradient, XiNat, natgrad
 from gpflow_tpu_torch.parallel import DataParallelTrainer
 from gpflow_tpu_torch.utilities import load_jax_values, parameter_dict, set_trainable
 from gpflow_tpu_torch.utilities import read_values as port_read_values
+from .test_torch_environment import one_thread, reference_jit  # noqa: F401
 
 config.set_default_device("cpu")  # the port builds on the card unless asked for the CPU
 
@@ -269,7 +270,7 @@ def _jax_elbo_and_grads(jm, data):
     params = jax_parameter_dict(jm)
     paths = [k for k, p in params.items() if p.trainable]
     fn = functionalize(lambda: jm.elbo(data), [params[k] for k in paths])
-    value, grads = jax.value_and_grad(fn)([params[k].unconstrained_variable for k in paths])
+    value, grads = reference_jit(jax.value_and_grad(fn))([params[k].unconstrained_variable for k in paths])
     return value, dict(zip(paths, grads))
 
 

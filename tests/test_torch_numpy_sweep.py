@@ -22,6 +22,7 @@ import torch
 import gpflow_tpu
 import gpflow_tpu_torch
 from gpflow_tpu_torch import config
+from .test_torch_environment import one_thread  # noqa: F401
 
 config.set_default_device("cpu")  # the port builds on the card unless asked for the CPU
 

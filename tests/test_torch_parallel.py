@@ -22,8 +22,10 @@ runs traced against its route run eagerly.
 The rank processes import this module, which therefore imports no JAX at
 its top: the JAX side is built inside the tests.
 """
+import datetime
 import os
 import pickle
+import time
 
 import numpy as np
 import pytest
@@ -33,10 +35,16 @@ import torch.multiprocessing as mp
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from gpflow_tpu_torch import config
+from .test_torch_environment import one_thread, reference_jit  # noqa: F401
 
 config.set_default_device("cpu")  # the port builds on the card unless asked for the CPU
 
 WORLD = 4
+# The ranks' spawn and paths took 23 s alone and 23-46 s in the tier-1 run;
+# a hang fails this file's cases in about 3x that, not the suite's run.
+RANKS_TIMEOUT = 150
+# A collective waits at most this long for a rank that is out of step.
+COLLECTIVE_TIMEOUT = 60
 RTOL = 1e-10
 rng = np.random.RandomState(0)
 N, D, M, B = 256, 3, 8, 64
@@ -380,7 +388,8 @@ _SLICED = [_Device(i, i // 4) for i in range(8)]
 
 def _rank_main(rank, world, store_path, out_dir):
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", store=dist.FileStore(store_path, world), rank=rank, world_size=world)
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world), rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT))
     try:
         result = _rank_paths(out_dir)
     finally:
@@ -392,8 +401,17 @@ def _rank_main(rank, world, store_path, out_dir):
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     tmp = str(tmp_path_factory.mktemp("ranks"))
-    mp.start_processes(_rank_main, args=(WORLD, os.path.join(tmp, "store"), tmp), nprocs=WORLD,
-                       join=True, start_method="spawn")
+    context = mp.start_processes(_rank_main, args=(WORLD, os.path.join(tmp, "store"), tmp), nprocs=WORLD,
+                                 join=False, start_method="spawn")
+    deadline = time.monotonic() + RANKS_TIMEOUT
+    try:
+        while not context.join(timeout=5):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"the {WORLD} ranks did not finish in {RANKS_TIMEOUT} s")
+    finally:
+        for p in context.processes:
+            if p.is_alive():
+                p.kill()
     out = []
     for r in range(WORLD):
         with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
@@ -435,7 +453,7 @@ def _jax_value_and_grads(model, loss_of, *args):
     jax, _, gpflow_tpu, _ = _jax()
     from gpflow_tpu.utilities import parameter_dict
 
-    value, grad_model = jax.jit(jax.value_and_grad(loss_of))(model, *args)
+    value, grad_model = reference_jit(jax.value_and_grad(loss_of))(model, *args)
     trainable = {path for path, p in parameter_dict(model).items() if p.trainable}
     grads = {path: np.asarray(p.unconstrained_variable) for path, p in parameter_dict(grad_model).items()}
     return float(value), {k: v for k, v in grads.items() if k in trainable}

@@ -21,6 +21,7 @@ from torch import nn
 import gpflow_tpu
 from gpflow_tpu_torch import Parameter, config
 from gpflow_tpu_torch.utilities import positive
+from .test_torch_environment import one_thread  # noqa: F401
 
 config.set_default_device("cpu")  # the port builds on the card unless asked for the CPU
 

@@ -17,6 +17,7 @@ from gpflow_tpu.utilities import read_values
 from gpflow_tpu_torch import PriorOn, bijectors, config, priors, set_trainable
 from gpflow_tpu_torch.base import Parameter
 from gpflow_tpu_torch.utilities import load_jax_values, parameter_dict, select_dict_parameters_with_prior
+from .test_torch_environment import one_thread, reference_jit  # noqa: F401
 
 config.set_default_device("cpu")  # the port builds on the card unless asked for the CPU
 
@@ -188,7 +189,8 @@ def test_model_log_prior_density_and_training_loss_match_jax():
     jparams = {p: v for p, v in jax_parameter_dict(jm).items() if v.trainable}
     paths = sorted(jparams)
     data = (X, Y)
-    jv, jg = jax.jit(jax.value_and_grad(functionalize(lambda: jm.training_loss(data), [jparams[p] for p in paths])))(
+    jv, jg = reference_jit(jax.value_and_grad(
+        functionalize(lambda: jm.training_loss(data), [jparams[p] for p in paths])))(
         tuple(jparams[p].unconstrained_variable for p in paths))
     params = {p: v for p, v in parameter_dict(pm).items() if v.trainable}
     assert sorted(params) == paths

@@ -13,6 +13,7 @@ import torch
 
 from gpflow_tpu import quadrature as jax_quadrature
 from gpflow_tpu_torch import config, quadrature
+from .test_torch_environment import one_thread  # noqa: F401
 
 config.set_default_device("cpu")  # the port builds on the card unless asked for the CPU
 

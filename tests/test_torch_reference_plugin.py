@@ -12,6 +12,8 @@ its own, with ``--noconftest`` (``tests/conftest.py`` imports jax), it:
   does for the JAX package;
 * defines the ``rng`` fixture as ``tests/conftest.py`` does;
 * deselects the tests marked ``slow``, as tier-1 does;
+* keeps the ``i``-th of every ``k`` tests it collects where
+  ``GPFLOW_TPU_TORCH_REFERENCE_SHARD`` reads ``i/k`` (``run``'s shards);
 * writes each test's outcome by node id to the JSON file named by
   ``GPFLOW_TPU_TORCH_REFERENCE_REPORT``, where one is named ("xfailed" for
   a test that fails as its strict xfail mark expects);
@@ -31,7 +33,8 @@ as a plugin, so the tier-1 run, which collects this file as a test module,
 keeps the JAX package under its own name.
 
 The conformance files (``tests/test_torch_reference_<area>.py``) each run
-their JAX test files once, in one such process (``run``), and make one case
+their JAX test files once, in one such process or in a few side by side
+(``run``), and make one case
 of each JAX test node (``check``): the case passes where the JAX test passes
 on the port, or where it fails as a row of ``DIFFERENCES`` says it must. The
 table is strict: a listed test that passes, or fails with another error,
@@ -50,6 +53,7 @@ import pathlib
 import re
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -60,6 +64,7 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 DEVICE_VARIABLE = "GPFLOW_TPU_TORCH_REFERENCE_DEVICE"
 REPORT_VARIABLE = "GPFLOW_TPU_TORCH_REFERENCE_REPORT"
 STATE_VARIABLE = "GPFLOW_TPU_TORCH_REFERENCE_STATE"
+SHARD_VARIABLE = "GPFLOW_TPU_TORCH_REFERENCE_SHARD"
 NODES_FILE = pathlib.Path(__file__).with_name("test_torch_reference_nodes.json")
 
 # The JAX package's test files that import neither jax nor optax, but two.
@@ -136,20 +141,37 @@ def command(paths):
 SERIAL = {"OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1", "OPENBLAS_NUM_THREADS": "1"}
 
 
-def run(paths, workdir, timeout=900):
-    """Runs ``paths`` on the port in one pytest process under ``workdir``
-    (its temporary directories and report go there); returns the outcomes
-    by node id."""
+def run(paths, workdir, timeout, shards=1):
+    """Runs ``paths`` on the port under ``workdir`` (the temporary
+    directories, logs and reports go there) in ``shards`` pytest processes
+    side by side, the ``i``-th taking the ``i``-th of every ``shards``
+    collected tests, which together may take ``timeout`` seconds (each
+    area's ``LIMIT``: about 3x its time in the tier-1 run, so that a hang
+    fails the area's cases, not the suite's run); returns the outcomes of
+    all of them by node id."""
     workdir = pathlib.Path(workdir)
-    report = workdir / "outcomes.json"
-    env = {**os.environ, **SERIAL, REPORT_VARIABLE: str(report)}
-    done = subprocess.run(
-        [*command(paths), f"--basetemp={workdir / 'tmp'}"],
-        cwd=REPO, env=env, capture_output=True, text=True, timeout=timeout, stdin=subprocess.DEVNULL,
-    )
-    tail = "\n".join((done.stdout + done.stderr).splitlines()[-30:])
-    assert report.exists(), f"the run wrote no report (exit code {done.returncode}):\n{tail}"
-    return json.loads(report.read_text())
+    processes = []
+    for i in range(shards):
+        report, log = workdir / f"outcomes{i}.json", workdir / f"log{i}.txt"
+        env = {**os.environ, **SERIAL, REPORT_VARIABLE: str(report), SHARD_VARIABLE: f"{i}/{shards}"}
+        with open(log, "w") as out:
+            process = subprocess.Popen([*command(paths), f"--basetemp={workdir / f'tmp{i}'}"], cwd=REPO, env=env,
+                                       stdout=out, stderr=subprocess.STDOUT, stdin=subprocess.DEVNULL)
+        processes.append((process, report, log))
+    deadline = time.monotonic() + timeout
+    outcomes = {}
+    try:
+        for process, report, log in processes:
+            process.wait(timeout=max(deadline - time.monotonic(), 0.0))
+            tail = "\n".join(log.read_text().splitlines()[-30:])
+            assert report.exists(), f"the run wrote no report (exit code {process.returncode}):\n{tail}"
+            outcomes.update(json.loads(report.read_text()))
+    finally:
+        for process, _, _ in processes:
+            if process.poll() is None:
+                process.kill()
+                process.wait()
+    return outcomes
 
 
 def committed_nodes(paths):
@@ -254,6 +276,11 @@ def pytest_collection_modifyitems(config, items):
     if slow:
         config.hook.pytest_deselected(items=slow)
         items[:] = [item for item in items if not item.get_closest_marker("slow")]
+    shard = os.environ.get(SHARD_VARIABLE)
+    if shard:
+        index, count = (int(n) for n in shard.split("/"))
+        config.hook.pytest_deselected(items=[item for i, item in enumerate(items) if i % count != index])
+        items[:] = items[index::count]
     config._reference_collected = [item.nodeid for item in items]
 
 

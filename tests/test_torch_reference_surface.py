@@ -4,6 +4,7 @@ runs the files below once, and each JAX test node is one case here."""
 import pytest
 
 from . import test_torch_reference_plugin as reference
+from .test_torch_environment import one_thread  # noqa: F401
 
 FILES = [
     "tests/gpflow_tpu/test_all.py",
@@ -17,9 +18,13 @@ FILES = [
 ]
 
 
+# Seconds for the process: it took 25-46 s in the tier-1 run.
+LIMIT = 140
+
+
 @pytest.fixture(scope="module")
 def outcomes(tmp_path_factory):
-    return reference.run(FILES, tmp_path_factory.mktemp("reference"))
+    return reference.run(FILES, tmp_path_factory.mktemp("reference"), LIMIT)
 
 
 def test_the_run_holds_the_committed_nodes(outcomes):

@@ -14,6 +14,7 @@ from gpflow_tpu.optimizers import Scipy as JaxScipy
 from gpflow_tpu_torch import Parameter, config, kernels, likelihoods
 from gpflow_tpu_torch.models import GPR, SVGP
 from gpflow_tpu_torch.optimizers import Scipy
+from .test_torch_environment import one_thread  # noqa: F401
 
 config.set_default_device("cpu")  # the port builds on the card unless asked for the CPU
 

@@ -35,6 +35,7 @@ from gpflow_tpu_torch.utilities import (
     pad_to_bucket,
     set_enable_check_shapes,
 )
+from .test_torch_environment import one_thread  # noqa: F401
 
 config.set_default_device("cpu")  # the port builds on the card unless asked for the CPU
 
@@ -400,7 +401,8 @@ def test_a_loader_process_imports_no_model_code(artifacts, tmp_path):
         "assert not bad, bad\n"
         "print('ok')\n"
     )
-    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    # the loader took 7.5-11 s in the tier-1 run: a hang fails this case in about 3x that
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=40)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
     mean, var = served.predict_f(Xt)

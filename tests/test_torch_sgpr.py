@@ -20,6 +20,7 @@ from gpflow_tpu_torch import models as port_models
 from gpflow_tpu_torch.ops import launch_counts
 from gpflow_tpu_torch.utilities import load_jax_values, parameter_dict, to_default_float
 from gpflow_tpu_torch.utilities import read_values as port_read_values
+from .test_torch_environment import one_thread, reference_jit  # noqa: F401
 
 config.set_default_device("cpu")  # the port builds on the card unless asked for the CPU
 
@@ -59,7 +60,7 @@ def _close(got, want, rtol=RTOL):
 def _jax_value_and_grads(jm, objective):
     paths = sorted(p for p, v in jax_parameter_dict(jm).items() if v.trainable)
     params = [jax_parameter_dict(jm)[p] for p in paths]
-    value, grads = jax.value_and_grad(functionalize(lambda: objective(jm), params))(
+    value, grads = reference_jit(jax.value_and_grad(functionalize(lambda: objective(jm), params)))(
         tuple(p.unconstrained_variable for p in params)
     )
     return value, dict(zip(paths, grads))

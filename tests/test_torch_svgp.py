@@ -15,6 +15,7 @@ from gpflow_tpu_torch.models import SVGP
 from gpflow_tpu_torch.ops import launch_counts
 from gpflow_tpu_torch.utilities import load_jax_values
 from gpflow_tpu_torch.utilities import read_values as port_read_values
+from .test_torch_environment import one_thread  # noqa: F401
 
 config.set_default_device("cpu")  # the port builds on the card unless asked for the CPU
 

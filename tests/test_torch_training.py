@@ -31,6 +31,7 @@ from gpflow_tpu_torch.ops import linalg
 from gpflow_tpu_torch.parallel import DataParallelTrainer, adam
 from gpflow_tpu_torch.utilities import load_jax_values, parameter_dict, set_trainable
 from gpflow_tpu_torch.utilities import read_values as port_read_values
+from .test_torch_environment import one_thread, reference_jit  # noqa: F401
 
 config.set_default_device("cpu")  # the port builds on the card unless asked for the CPU
 
@@ -181,7 +182,8 @@ def test_gauss_kl_value_and_gradient_match_jax(q_diag, K_kind, use_cholesky):
     def jax_fn(*a):
         return jax_kl.gauss_kl(a[0], a[1], **({key: a[2]} if len(a) == 3 else {}))
 
-    want, want_grads = jax.value_and_grad(jax_fn, argnums=tuple(range(len(args))))(*map(jnp.asarray, args))
+    want, want_grads = reference_jit(jax.value_and_grad(jax_fn, argnums=tuple(range(len(args)))))(
+        *map(jnp.asarray, args))
     leaves = [_t(a, True) for a in args]
     got = kullback_leiblers.gauss_kl(leaves[0], leaves[1], **({key: leaves[2]} if len(leaves) == 3 else {}))
     got.backward()
@@ -292,7 +294,7 @@ def _jax_elbo_and_grads(jm, data):
     params = jax_parameter_dict(jm)
     paths = [k for k, p in params.items() if p.trainable]
     fn = functionalize(lambda: jm.elbo(data), [params[k] for k in paths])
-    value, grads = jax.value_and_grad(fn)([params[k].unconstrained_variable for k in paths])
+    value, grads = reference_jit(jax.value_and_grad(fn))([params[k].unconstrained_variable for k in paths])
     return value, dict(zip(paths, grads))
 
 

@@ -29,6 +29,7 @@ import pytest
 
 from . import test_torch_translated_support as support
 from .test_torch_reference_plugin import _IMPORTS_JAX, JAX_TEST_DIRS, REPO, SERIAL
+from .test_torch_environment import one_thread  # noqa: F401
 
 MAP_FILE = pathlib.Path(__file__).with_name("test_torch_translated_map.json")
 
@@ -172,7 +173,8 @@ def test_every_translated_row_is_collected(tmp_path):
         [sys.executable, "-m", "pytest", *translated_files(), "--collect-only", "-q", "--noconftest",
          "-p", "tests.test_torch_reference_plugin", "-p", "no:cacheprovider", "-p", "no:randomly",
          "-p", "no:xdist"],
-        cwd=REPO, capture_output=True, text=True, timeout=600, stdin=subprocess.DEVNULL,
+        # the collection took 17-33 s in the tier-1 run: a hang fails this case in about 3x that
+        cwd=REPO, capture_output=True, text=True, timeout=100, stdin=subprocess.DEVNULL,
         env={**os.environ, **SERIAL, "GPFLOW_TPU_TORCH_REFERENCE_REPORT": str(report)},
     )
     assert done.returncode == 0, done.stdout[-3000:] + done.stderr[-3000:]

@@ -44,8 +44,9 @@ holds the replacements:
   the shape checks on, as ``tests/conftest.py`` turns
   them on for the JAX package, and ``np.asarray`` of a tensor read through
   ``.detach().cpu()``, as the conformance plugin does (ROADMAP Queue 3, "the
-  output side of F3"), with one thread of torch's pool: the JAX tests'
-  arrays are small, and the suite's other workers run beside them.
+  output side of F3"), with ``test_torch_environment.THREADS`` threads of
+  torch's pool: the JAX tests' arrays are small, and the suite's other
+  workers run beside them.
 
 A JAX test that the port cannot meet by design carries ``deviation(name)``:
 a strict xfail whose reason names a deviation of ROADMAP Queue 3 (the rows
@@ -75,6 +76,7 @@ from gpflow_tpu_torch.base import Module, Parameter, functionalize
 from gpflow_tpu_torch.utilities.shapes import get_enable_check_shapes, set_enable_check_shapes
 
 from .test_torch_reference_plugin import DEVICE_VARIABLE
+from .test_torch_environment import THREADS
 
 DEVICE = torch.device(os.environ.get(DEVICE_VARIABLE, "cpu"))
 config.set_default_device(DEVICE.type)
@@ -127,7 +129,7 @@ def translated_test_environment():
     array, checks, threads = torch.Tensor.__array__, get_enable_check_shapes(), torch.get_num_threads()
     torch.Tensor.__array__ = _tensor_array
     set_enable_check_shapes(True)
-    torch.set_num_threads(1)
+    torch.set_num_threads(THREADS)
     yield
     torch.set_num_threads(threads)
     set_enable_check_shapes(checks)
@@ -386,8 +388,13 @@ def grad(fun, argnums=None):
 #: The ranks of the group, as many as the JAX package's virtual CPU devices
 #: (``tests/conftest.py``).
 RANKS = 8
-RANK_TIMEOUT = 600  # seconds for a whole file on every rank
-COLLECTIVE_TIMEOUT = 120  # seconds a collective waits: ranks out of step fail their case, not the file
+# Seconds for a whole file on every rank: the 8 ranks of
+# test_torch_translated_parallel.py took 70 s alone and 122-155 s in the tier-1
+# run, so a hang fails that file's cases in about 3x that, not the suite's run.
+RANK_TIMEOUT = 420
+# Seconds a collective waits: ranks out of step fail their case, not the file.
+# The longest case takes 7.8 s alone on each rank.
+COLLECTIVE_TIMEOUT = 60
 _ON_RANKS = {}  # module name -> its cases, in definition order
 
 

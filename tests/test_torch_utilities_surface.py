@@ -48,6 +48,7 @@ from gpflow_tpu_torch.utilities import (
     triangular_size,
 )
 from gpflow_tpu_torch.utilities.shapes import _shape_of
+from .test_torch_environment import one_thread  # noqa: F401
 
 config.set_default_device("cpu")  # the port builds on the card unless asked for the CPU
 

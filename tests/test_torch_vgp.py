@@ -21,6 +21,7 @@ from gpflow_tpu.utilities import read_values
 from gpflow_tpu_torch import config, conditionals, models, posteriors
 from gpflow_tpu_torch.optimizers import NaturalGradient
 from gpflow_tpu_torch.utilities import load_jax_values, parameter_dict
+from .test_torch_environment import one_thread, reference_jit  # noqa: F401
 
 config.set_default_device("cpu")  # the port builds on the card unless asked for the CPU
 
@@ -88,7 +89,7 @@ def _models(cls, kernel="SE + Linear", likelihood="Gaussian", mean="Zero", kind=
 def _value_and_grads(jm, pm, jfn, pfn):
     jparams = {p: v for p, v in jax_parameter_dict(jm).items() if v.trainable}
     paths = sorted(jparams)
-    jv, jg = jax.value_and_grad(functionalize(jfn, [jparams[p] for p in paths]))(
+    jv, jg = reference_jit(jax.value_and_grad(functionalize(jfn, [jparams[p] for p in paths])))(
         tuple(jparams[p].unconstrained_variable for p in paths)
     )
     params = {p: v for p, v in parameter_dict(pm).items() if v.trainable}
@@ -118,22 +119,27 @@ CASES = [
 def test_elbo_and_gradient_match_jax_f64(cls, kernel, likelihood, mean, kind, P):
     jm, pm, *_ = _models(cls, kernel, likelihood, mean, kind, P=P)
     _check_value_and_grads(jm, pm, jm.training_loss, pm.training_loss)
+    elbo, objective = reference_jit(lambda: (jm.elbo(), jm.maximum_log_likelihood_objective()))()
     with torch.no_grad():
-        _close(pm.elbo(), jm.elbo())
-        _close(pm.maximum_log_likelihood_objective(), jm.maximum_log_likelihood_objective())
+        _close(pm.elbo(), elbo)
+        _close(pm.maximum_log_likelihood_objective(), objective)
 
 
 @pytest.mark.parametrize("full_cov", [False, True])
 @pytest.mark.parametrize("cls,kernel,likelihood,mean,kind,P", CASES)
 def test_predictions_match_jax_f64(cls, kernel, likelihood, mean, kind, P, full_cov):
     jm, pm, X, Y, Xnew = _models(cls, kernel, likelihood, mean, kind, seed=1, P=P)
+    want_f, want_y, want_density = reference_jit(lambda: (
+        jm.predict_f(Xnew, full_cov=full_cov),
+        None if full_cov else jm.predict_y(Xnew),
+        None if full_cov else jm.predict_log_density((X[:9], Y[:9]))))()
     with torch.no_grad():
-        for got, want in zip(pm.predict_f(_t(Xnew), full_cov=full_cov), jm.predict_f(Xnew, full_cov=full_cov)):
+        for got, want in zip(pm.predict_f(_t(Xnew), full_cov=full_cov), want_f):
             _close(got, want)
         if not full_cov:
-            for got, want in zip(pm.predict_y(_t(Xnew)), jm.predict_y(Xnew)):
+            for got, want in zip(pm.predict_y(_t(Xnew)), want_y):
                 _close(got, want)
-            _close(pm.predict_log_density((_t(X[:9]), _t(Y[:9]))), jm.predict_log_density((X[:9], Y[:9])))
+            _close(pm.predict_log_density((_t(X[:9]), _t(Y[:9]))), want_density)
 
 
 @pytest.mark.parametrize("cache", ["tensor", "variable", "nocache", None])
